@@ -1,4 +1,4 @@
-"""Llama-3/3.1 decoder, serving half (port of llama_x_tpu/models/llama.py).
+"""Llama-3/3.1 decoder (port of llama_x_tpu/models/llama.py).
 
 GQA attention with RoPE (incl. the Llama-3.1 rescale), SwiGLU MLP, pre-RMSNorm
 blocks, untied or tied LM head, and the static full-length KV cache. The JAX
@@ -7,13 +7,18 @@ of ``nn.Module``s (one ``Block`` per layer) and the functions below mirror the J
 ones (``attention``, ``feed_forward``, ``block``, ``trunk``, ``head``, ``forward``)
 with a module in place of a param dict.
 
-Kernels on this path: the prefill runs the flash forward (ops/flash_attention.py),
-every decode step the decode kernel (ops/decode_attention.py), and with
-``dynamic_int8_act`` every int8 projection the int8 GEMM (ops/int8_mm.py). The
-kernel modules are called through their module attributes.
+Kernels on this path: the prefill and every training forward run the flash forward,
+the training backward the flash backward (ops/flash_attention.py), every decode step
+the decode kernel (ops/decode_attention.py), with ``dynamic_int8_act`` every int8
+projection the NT int8 GEMM and with ``dynamic_int8_bwd`` its input gradient the KN
+int8 GEMM (ops/int8_mm.py); ``int8_head`` puts the fused loss's vocabulary GEMMs on
+both. The kernel modules are called through their module attributes.
 
-Training (losses, remat policies, the int8-residual custom gradients) comes with
-the training slice, and with it the config knobs only training reads.
+Training: ``forward(..., labels=)`` returns the scalar loss (fused into the head
+when ``fused_ce_chunks > 0``), and ``activation_checkpointing`` recomputes each
+block in the backward (``torch.utils.checkpoint``, the JAX package's
+``remat_policy="full"``). The named-save remat policies and the int8-residual
+``feed_forward_q8`` / ``attention_q8`` families are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -23,10 +28,12 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from llama_x_tpu_torch.ops import decode_attention as da
 from llama_x_tpu_torch.ops import flash_attention as fa
 from llama_x_tpu_torch.ops.attention import MaskInfo, dot_product_attention
+from llama_x_tpu_torch.ops.cross_entropy import cross_entropy_loss, fused_linear_cross_entropy
 from llama_x_tpu_torch.ops.linear import Linear, apply_linear, apply_linear_grouped
 from llama_x_tpu_torch.ops.norms import rms_norm
 from llama_x_tpu_torch.ops.rope import apply_rope, build_rope
@@ -35,7 +42,8 @@ from llama_x_tpu_torch.utils.device import resolve_device
 
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
-    """Model hyperparameters, the fields of the JAX ``LlamaConfig`` that serving reads."""
+    """Model hyperparameters: the fields of the JAX ``LlamaConfig`` that serving and
+    text training read."""
 
     embed_dim: int
     num_layers: int
@@ -52,8 +60,20 @@ class LlamaConfig:
     rope_high_freq_factor: float = 4.0
     rope_old_context_len: int = 8192
     tied_embeddings: bool = False
+    activation_checkpointing: bool = False
+    fused_ce_chunks: int = 0  # 0 = plain CE; > 0 = chunked fused-linear CE
+    # LM head frozen (QLoRA): the fused-CE backward then skips the dW product and its
+    # [V, D] fp32 accumulator. Set from the actual requires_grad of the head
+    # (train/cli.py) and it MUST match it: a trainable head with frozen_head=True
+    # silently trains nothing.
+    frozen_head: bool = False
     dynamic_int8_act: bool = False  # int8 x int8 projections (set after quantize_linear)
+    dynamic_int8_bwd: bool = False  # int8 input gradients through the frozen base (ops/int8.py)
+    int8_head: bool = False  # the fused CE's vocabulary GEMMs on the int8 kernels (needs frozen_head)
     norm_eps: float = 1e-5
+    # what activation_checkpointing keeps: "full" recomputes each block. The JAX
+    # package's named-save policies are not ported yet.
+    remat_policy: str = "full"
 
     def replace(self, **kw) -> "LlamaConfig":
         return dataclasses.replace(self, **kw)
@@ -232,7 +252,8 @@ def attention(attn: Attention, config: LlamaConfig, x: torch.Tensor, rope: torch
     CPU tensors and raises on the card. Returns (out, cache)."""
     c = config
     B, S, _ = x.shape
-    q, k, v = apply_linear_grouped(x, (attn.wq, attn.wk, attn.wv), dynamic_int8_act=c.dynamic_int8_act)
+    int8_kw = dict(dynamic_int8_act=c.dynamic_int8_act, dynamic_int8_bwd=c.dynamic_int8_bwd)
+    q, k, v = apply_linear_grouped(x, (attn.wq, attn.wk, attn.wv), **int8_kw)
     q = apply_rope(q.reshape(B, S, c.num_heads, c.head_dim), rope, positions=input_pos)
     k = apply_rope(k.reshape(B, S, c.num_kv_heads, c.head_dim), rope, positions=input_pos)
     v = v.reshape(B, S, c.num_kv_heads, c.head_dim)
@@ -280,14 +301,14 @@ def attention(attn: Attention, config: LlamaConfig, x: torch.Tensor, rope: torch
     else:
         out = fa.flash_attention(q, k, v, mask_info)
     out = out.reshape(B, S, c.num_heads * c.head_dim)
-    return apply_linear(out, attn.wo, dynamic_int8_act=c.dynamic_int8_act), cache
+    return apply_linear(out, attn.wo, **int8_kw), cache
 
 
 def feed_forward(ff: FeedForward, config: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU: w2(silu(w1 x) * w3 x)."""
-    d = config.dynamic_int8_act
-    h1, h3 = apply_linear_grouped(x, (ff.w1, ff.w3), dynamic_int8_act=d)
-    return apply_linear(torch.nn.functional.silu(h1) * h3, ff.w2, dynamic_int8_act=d)
+    int8_kw = dict(dynamic_int8_act=config.dynamic_int8_act, dynamic_int8_bwd=config.dynamic_int8_bwd)
+    h1, h3 = apply_linear_grouped(x, (ff.w1, ff.w3), **int8_kw)
+    return apply_linear(torch.nn.functional.silu(h1) * h3, ff.w2, **int8_kw)
 
 
 def block(blk: Block, config: LlamaConfig, x: torch.Tensor, rope: torch.Tensor, mask_info: MaskInfo,
@@ -304,26 +325,49 @@ def trunk(model: Llama, x: torch.Tensor, mask_info: MaskInfo, kv_cache=None,
           input_pos: torch.Tensor | None = None, prefill: bool = False):
     """Run every layer. x [B, S, D] embeddings. Returns (x, kv_cache); the cache (a
     pair of [L, B, n_kv, S, hd] tensors, or of (int8, scale) pairs) is updated in
-    place and returned."""
+    place and returned. Without a cache and with ``activation_checkpointing``, each
+    block keeps only its input and is recomputed in the backward."""
+    config = model.config
     rope = model.rope if input_pos is not None else model.rope[: x.shape[1]]
+    remat = kv_cache is None and config.activation_checkpointing and torch.is_grad_enabled()
+    if remat and config.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy={config.remat_policy!r}: only 'full' is ported; the named-save and int8-residual "
+            "policies come with slice 2b"
+        )
     for layer, blk in enumerate(model.layers):
+        if remat:
+            x = checkpoint(lambda h, blk=blk: block(blk, config, h, rope, mask_info)[0], x,
+                           use_reentrant=False, preserve_rng_state=False)
+            continue
         cache = None if kv_cache is None else _layer_cache(kv_cache, layer)
-        x, _ = block(blk, model.config, x, rope, mask_info, cache, input_pos, prefill=prefill)
+        x, _ = block(blk, config, x, rope, mask_info, cache, input_pos, prefill=prefill)
     return x, kv_cache
 
 
-def head(model: Llama, x: torch.Tensor) -> torch.Tensor:
-    """Final norm + LM head -> logits. Tied embeddings use the embedding matrix."""
+def head(model: Llama, x: torch.Tensor, labels: torch.Tensor | None = None) -> torch.Tensor:
+    """Final norm + LM head -> logits, or the scalar loss when labels are given (fused
+    into the head when ``fused_ce_chunks > 0``). Tied embeddings use the embedding
+    matrix: one shared weight, one shared gradient."""
+    c = model.config
     x = model.norm(x)
-    weight = model.tok_embeddings if model.config.tied_embeddings else model.output.weight
-    return torch.nn.functional.linear(x, weight.to(x.dtype))
+    weight = model.tok_embeddings if c.tied_embeddings else model.output.weight
+    if labels is not None and c.fused_ce_chunks > 0:
+        n = x.shape[0] * x.shape[1]
+        return fused_linear_cross_entropy(x.reshape(n, -1), weight, labels.reshape(n), c.fused_ce_chunks,
+                                          not c.frozen_head, c.int8_head and c.frozen_head)
+    logits = torch.nn.functional.linear(x, weight.to(x.dtype))
+    if labels is not None:
+        return cross_entropy_loss(logits, labels)
+    return logits
 
 
-def forward(model: Llama, tokens: torch.Tensor, *, segment_ids: torch.Tensor | None = None, kv_cache=None,
+def forward(model: Llama, tokens: torch.Tensor, *, segment_ids: torch.Tensor | None = None,
+            labels: torch.Tensor | None = None, kv_cache=None,
             input_pos: torch.Tensor | None = None, kv_len: torch.Tensor | None = None):
     """Logits [B, S, V] for tokens [B, S] (+ optional segment_ids for packed
-    documents). With kv_cache + input_pos [S] + kv_len [B]: a decode step over the
-    cache; returns (logits, kv_cache)."""
+    documents), or the scalar loss when labels [B, S] are given. With kv_cache +
+    input_pos [S] + kv_len [B]: a decode step over the cache; returns (out, kv_cache)."""
     x = torch.nn.functional.embedding(tokens, model.tok_embeddings)
     if kv_cache is not None:
         q_pos = input_pos[None, :] if input_pos is not None else None
@@ -331,5 +375,5 @@ def forward(model: Llama, tokens: torch.Tensor, *, segment_ids: torch.Tensor | N
     else:
         mask_info = MaskInfo(causal=True, segment_ids=segment_ids)
     x, kv_cache = trunk(model, x, mask_info, kv_cache, input_pos)
-    logits = head(model, x)
-    return (logits, kv_cache) if kv_cache is not None else logits
+    out = head(model, x, labels)
+    return (out, kv_cache) if kv_cache is not None else out

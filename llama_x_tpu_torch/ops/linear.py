@@ -24,7 +24,8 @@ from llama_x_tpu_torch.ops.int8 import int8_linear
 
 class Linear(nn.Module):
     """One projection's tensors (applied by ``apply_linear``). Float tensors are
-    frozen parameters (serving takes no gradient); integer tensors are buffers."""
+    parameters, frozen unless ``set`` is told otherwise (serving takes no gradient;
+    training marks the adapter tensors, adapters/lora.py); integer tensors are buffers."""
 
     _NAMES = ("weight", "int_data", "scale", "bias", "lora_a", "lora_b", "lora_scale", "m")
 
@@ -38,21 +39,21 @@ class Linear(nn.Module):
         for name in self._NAMES:
             self.set(name, tensors.get(name))
 
-    def set(self, name: str, t: torch.Tensor | None) -> None:
+    def set(self, name: str, t: torch.Tensor | None, requires_grad: bool = False) -> None:
         """Attach (or, with None, remove) one of the linear's tensors."""
         for store in (self._parameters, self._buffers, self.__dict__):
             store.pop(name, None)
         if t is None:
             self.__dict__[name] = None
         elif t.is_floating_point():
-            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+            self.register_parameter(name, nn.Parameter(t, requires_grad=requires_grad))
         else:
             self.register_buffer(name, t)
 
 
-def _base_matmul(x: torch.Tensor, lin: Linear, dynamic_int8_act: bool) -> torch.Tensor:
+def _base_matmul(x: torch.Tensor, lin: Linear, dynamic_int8_act: bool, dynamic_int8_bwd: bool) -> torch.Tensor:
     if lin.int_data is not None:
-        return int8_linear(x, lin.int_data, lin.scale, dynamic_int8_act)
+        return int8_linear(x, lin.int_data, lin.scale, dynamic_int8_act, dynamic_int8_bwd)
     return torch.nn.functional.linear(x, lin.weight.to(x.dtype))
 
 
@@ -81,19 +82,21 @@ def _lora_delta(x_a: torch.Tensor, lin: Linear, dtype: torch.dtype) -> torch.Ten
     return (x_a @ lin.lora_b.to(dtype)) * lin.lora_scale.to(dtype)
 
 
-def apply_linear(x: torch.Tensor, lin: Linear, *, dynamic_int8_act: bool = False) -> torch.Tensor:
-    out = _base_matmul(x, lin, dynamic_int8_act)
+def apply_linear(x: torch.Tensor, lin: Linear, *, dynamic_int8_act: bool = False,
+                 dynamic_int8_bwd: bool = False) -> torch.Tensor:
+    out = _base_matmul(x, lin, dynamic_int8_act, dynamic_int8_bwd)
     delta = None
     if lin.lora_a is not None:
         delta = _lora_delta(x @ lin.lora_a.to(x.dtype), lin, x.dtype)
     return _finish_linear(lin, out, delta)
 
 
-def apply_linear_grouped(x: torch.Tensor, lins, *, dynamic_int8_act: bool = False) -> tuple[torch.Tensor, ...]:
+def apply_linear_grouped(x: torch.Tensor, lins, *, dynamic_int8_act: bool = False,
+                         dynamic_int8_bwd: bool = False) -> tuple[torch.Tensor, ...]:
     """Several linears on the SAME input, their LoRA A-projections fused into one
     concatenated GEMM (x is read once); exact, since each output column of a matmul
     reads only its own weight column."""
-    outs = [_base_matmul(x, lin, dynamic_int8_act) for lin in lins]
+    outs = [_base_matmul(x, lin, dynamic_int8_act, dynamic_int8_bwd) for lin in lins]
     lora_is = [i for i, lin in enumerate(lins) if lin.lora_a is not None]
     deltas: dict[int, torch.Tensor] = {}
     if len(lora_is) >= 2:

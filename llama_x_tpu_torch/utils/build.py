@@ -36,7 +36,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the kernels' entry points (csrc/*.cu, extern "C")
 _SIGNATURES = {
     "lxt_int8_mm_dequant_nt": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "lxt_int8_mm_dequant_kn": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "lxt_flash_attention_fwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P], _I),
+    "lxt_flash_attention_bwd": ([_P] * 12 + [_I] * 6 + [_F, _F, _I, _I, _I, _P], _I),
     "lxt_decode_attention": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P], _I),
 }
 
