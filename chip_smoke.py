@@ -28,7 +28,18 @@ no result line):
    rowwise quantizer's calls bracketed so that its device time is read apart;
 6. training kernel path against plain path: loss and adapter gradients of one
    microbatch on a 2-layer cut of the trained weights, through the kernels and through
-   their plain versions.
+   their plain versions;
+7. the probe entry point: ``probe_flash`` at the audio step's attention shape (K2, K2 + K5
+   and the matmul-only K6), which must launch K6;
+8. the audio main path: the headline step of the repository, through
+   ``train_librispeech``'s own functions: Llama-3.1-8B QLoRA (32 layers, int8 base, LoRA
+   r 8, int8 act / dgrad / head, fused CE x8, stem and embeddings frozen) on 40 s of audio
+   (2000 audio tokens prepended to 2096 text tokens), prefix-LM attention,
+   ``remat_policy="flash_q8s"``, microbatch 1, AdamW 1e-4, 4 steps on one repeated batch,
+   the launch counts held to what the policy must give, one profiled step, then the same
+   step under ``full``, ``flash_proj`` and without checkpointing;
+9. audio kernel path against plain path on a 2-layer cut with ``attn_dropout=0.1`` and
+   fixed seeds.
 
 Every shape's numbers are printed as the phases run. The second-to-last line of
 stdout is the kernels' JSON record (primary shape of each kernel, launches on the
@@ -39,6 +50,7 @@ fails without one.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -106,15 +118,20 @@ def check(name: str, err: float, tol: float):
         raise AssertionError(f"{name}: max_abs_err {err} > tol {tol}")
 
 
-def check_close(name: str, got, want, atol: float, rtol: float) -> float:
-    """Per element |got - want| <= atol + rtol |want|; returns the max abs error."""
+def check_close(name: str, got, want, atol, rtol: float) -> float:
+    """Per element |got - want| <= atol + rtol |want|, atol a number or a tensor that
+    broadcasts against want; returns the max abs error. Logs the largest share of atol
+    that any element uses once rtol |want| is taken off (above 1 fails)."""
+    import torch
+
     diff, ref = (got.float() - want.float()).abs(), want.float().abs()
-    excess = float((diff - rtol * ref).max())
+    used = float(((diff - rtol * ref) / torch.as_tensor(atol, device=diff.device).clamp(min=1e-30)).max().clamp(min=0.0))
     err = float(diff.max())
-    status = "ok" if excess <= atol else "FAIL"
-    log(f"    {name}: max_abs_err {err:.3e}, max(|err| - {rtol:.2e}|ref|) {excess:.3e} (atol {atol:.1e}) {status}")
-    if not excess <= atol:
-        raise AssertionError(f"{name}: |err| - {rtol}|ref| reaches {excess} > atol {atol}")
+    status = "ok" if used <= 1.0 else "FAIL"
+    log(f"    {name}: max_abs_err {err:.3e}, max((|err| - {rtol:.2e}|ref|) / atol) {used:.4f} "
+        f"(atol up to {float(torch.as_tensor(atol).max()):.1e}) {status}")
+    if not used <= 1.0:
+        raise AssertionError(f"{name}: |err| - {rtol}|ref| reaches {used} of atol")
     return err
 
 
@@ -152,10 +169,10 @@ def phase_k1():
     # (M, N, K): decode (M = batch), prefill (M = B * S) and a training microbatch of 4096
     # positions through wq / wo, wk / wv, w1 / w3 and w2; then the fused CE head with
     # int8_head (f32 out): the logits of one 512-row chunk against the [V, D] head, and a
-    # contraction over the vocabulary
+    # contraction over the vocabulary; last the audio step's chunk (2096 text rows in 8 chunks)
     return int8_mm_cases(mm.int8_mm_dequant_nt, mm.int8_mm_dequant_nt_plain, True, g, [
         (M, N, K, bf16) for M in (4, 2048, 4096) for N, K in ((4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336))
-    ] + [(512, 128256, 4096, f32), (512, 4096, 128256, f32)])
+    ] + [(512, 128256, 4096, f32), (512, 4096, 128256, f32), (262, 128256, 4096, f32)])
 
 
 def int8_mm_cases(kernel, plain, b_nk: bool, g, cases) -> list[dict]:
@@ -201,10 +218,11 @@ def phase_k4():
     # (M, N, K) with K = out-features, N = in-features: the input gradients of an S 4096
     # step through w2, w1 / w3, wq / wo and wk / wv, a ragged case, then the fused CE head:
     # dH of one 512-row chunk, which contracts over the vocabulary, and the same GEMM the
-    # other way round (the JAX package's [D, V] head reads its logits in this form)
+    # other way round (the JAX package's [D, V] head reads its logits in this form); last the
+    # audio step's dH chunk (262 rows)
     return int8_mm_cases(mm.int8_mm_dequant, mm.int8_mm_dequant_plain, False, g, [
         (4096, 14336, 4096, bf16), (4096, 4096, 14336, bf16), (4096, 4096, 4096, bf16), (4096, 4096, 1024, bf16),
-        (300, 4112, 1040, bf16), (512, 4096, 128256, f32), (512, 128256, 4096, f32)])
+        (300, 4112, 1040, bf16), (512, 4096, 128256, f32), (512, 128256, 4096, f32), (262, 4096, 128256, f32)])
 
 
 def packed_segments(S: int):
@@ -229,8 +247,10 @@ def phase_k2():
     from llama_x_tpu_torch.ops import flash_attention as fa
     from llama_x_tpu_torch.ops.attention import MaskInfo, make_attention_mask
 
-    log("[K2 flash_attention fwd] vs plain; tol: out 3e-2 (bf16 out, P rounded to bf16 "
-        "at other maxima), lse 2e-3 (fp32 sums in another order)")
+    # the tolerance and its argument: ops/flash_attention.py:flash_fwd_tolerance
+    log("[K2 flash_attention fwd] vs plain; tol: out per element 2^-7 |ref| + 2^-5 rms(ref's row) (bf16 out, P "
+        "rounded to bf16 at other maxima), lse 2e-3 (fp32 sums in another order); with dropout the same limits: "
+        "a keep mask wrong on one plan block moves its rows by about 0.2 of their rms")
     g = torch.Generator(device="cuda").manual_seed(2)
     Hq, Hkv, D = 32, 8, 128
     # serving: a prefill of 4 prompts; training: one packed microbatch of 4096 positions
@@ -242,34 +262,65 @@ def phase_k2():
             torch.randint(1, 4, (4, 512), device="cuda", generator=g), dim=1).values.to(torch.int32))),
         ("causal S=4096", 1, 4096, MaskInfo(causal=True)),
         ("packed segments S=4096", 1, 4096, MaskInfo(causal=True, segment_ids=packed_segments(4096))),
+        # the audio step: 2000 audio tokens before 2096 text tokens; without and with dropout
+        ("prefix-LM 2000 S=4096", 1, 4096, prefix_lm_mask()),
+        (f"prefix-LM 2000 S=4096 dropout {DROPOUT_RATE}", 1, 4096, prefix_lm_mask()),
+        (f"ragged causal S=37 dropout {DROPOUT_RATE}", 4, 37, MaskInfo(causal=True)),
     ]
     shapes = []
     for name, B, S, mi in cases:
         q, k, v = _attn_inputs(g, B, S, Hq, Hkv, D)
-        out, lse = fa.flash_fwd_with_lse(q, k, v, mi)
+        kw, dropout = dropout_case(name, fa, S, Hq // Hkv)
+        out, lse = fa.flash_fwd_with_lse(q, k, v, mi, **kw)
         torch.cuda.synchronize()
-        ref, ref_lse = fa.flash_fwd_plain(q, k, v, mi)
-        check(f"{name} out", max_err(out, ref), 3e-2)
+        ref, ref_lse = fa.flash_fwd_plain(q, k, v, mi, dropout=dropout)
+        atol, rtol = fa.flash_fwd_tolerance(ref)
+        err = check_close(f"{name} out", out, ref, atol, rtol)
         check(f"{name} lse", max_err(lse, ref_lse), 2e-3)
-        ms = time_ms(lambda: fa.flash_fwd_with_lse(q, k, v, mi))
-        plain_ms = time_ms(lambda: fa.flash_fwd_plain(q, k, v, mi), reps=3, warmup=1)
+        ms = time_ms(lambda: fa.flash_fwd_with_lse(q, k, v, mi, **kw))
+        plain_ms = time_ms(lambda: fa.flash_fwd_plain(q, k, v, mi, dropout=dropout), reps=3, warmup=1)
         mask = make_attention_mask(mi, S, S, B, device=q.device)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        rate = dropout.rate if dropout else 0.0
         if mi.prefix_len is None and mi.segment_ids is None:
-            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True, dropout_p=rate)
         else:
-            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True, dropout_p=rate)
         lib_ms = maybe_ms(lib)
         visible = float(mask.expand(B, 1, S, S).sum())
         n_bytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D) + 4 * B * Hq * S
         bms, by = bound_ms(n_bytes, 4 * D * Hq * visible, "bf16")
         log(f"      {ms:.4f} ms (plain {plain_ms:.3f}, sdpa {lib_ms}, bound {bms:.4f} by {by})")
-        shapes.append(dict(case=name, B=B, S=S, Hq=Hq, Hkv=Hkv, D=D, max_abs_err=max_err(out, ref),
-                           lse_max_abs_err=max_err(lse, ref_lse), tol=3e-2, ms=ms, plain_ms=plain_ms,
-                           library_ms=lib_ms, bound_ms=bms, bound_by=by))
-        del q, k, v, out, lse, ref, ref_lse, mask, qt, kt, vt
+        shapes.append(dict(case=name, B=B, S=S, Hq=Hq, Hkv=Hkv, D=D, max_abs_err=err,
+                           lse_max_abs_err=max_err(lse, ref_lse), tol=float(atol.max()), rtol=rtol, ms=ms,
+                           plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by))
+        del q, k, v, out, lse, ref, ref_lse, mask, qt, kt, vt, atol
         torch.cuda.empty_cache()
     return shapes
+
+
+DROPOUT_RATE = 0.1
+DROPOUT_SEED = 0x7FFFFFF1  # the block keys wrap around 2^32
+
+
+def prefix_lm_mask():
+    import torch
+
+    from llama_x_tpu_torch.ops.attention import MaskInfo
+
+    return MaskInfo(causal=True, prefix_len=torch.full((1,), 2000, dtype=torch.int32, device="cuda"))
+
+
+def dropout_case(name: str, fa, S: int, group: int):
+    """(wrapper keywords, Dropout) of a case whose name says "dropout", else ({}, None);
+    prints the plan and the dropped share of the mask beside the rate."""
+    if "dropout" not in name:
+        return {}, None
+    dropout = fa.make_dropout(DROPOUT_RATE, DROPOUT_SEED, S, S, group)
+    keep = fa.dropout_keep(dropout, 1, 1, group, S, S, device="cuda")
+    log(f"    {name}: plan bq {dropout.bq}, bk {dropout.bk}; dropped share of the mask "
+        f"{1.0 - float(keep.float().mean()):.6f} at rate {dropout.rate}")
+    return dict(dropout_rate=DROPOUT_RATE, dropout_seed=DROPOUT_SEED), dropout
 
 
 def phase_k5():
@@ -292,27 +343,30 @@ def phase_k5():
          MaskInfo(causal=True, prefix_len=torch.full((1,), 2000, dtype=torch.int32, device="cuda"))),
         ("ragged causal S=37", 37, 32, 8, 128, MaskInfo(causal=True)),
         ("causal S=2048 D=64", 2048, 32, 8, 64, MaskInfo(causal=True)),
+        (f"prefix-LM 2000 S=4096 dropout {DROPOUT_RATE}", S, 32, 8, 128, prefix_lm_mask()),
+        (f"ragged causal S=37 dropout {DROPOUT_RATE}", 37, 32, 8, 128, MaskInfo(causal=True)),
     ]
     shapes = []
     for name, S, Hq, Hkv, D, mi in cases:
         B = 1
         q, k, v = _attn_inputs(g, B, S, Hq, Hkv, D)
         do = torch.randn(B, S, Hq, D, device="cuda", generator=g).to(torch.bfloat16)
-        out, lse = fa.flash_fwd_with_lse(q, k, v, mi)
-        got = fa.flash_bwd_from_res(q, k, v, out, lse, do, mi)
+        kw, dropout = dropout_case(name, fa, S, Hq // Hkv)
+        out, lse = fa.flash_fwd_with_lse(q, k, v, mi, **kw)
+        got = fa.flash_bwd_from_res(q, k, v, out, lse, do, mi, dropout=dropout)
         torch.cuda.synchronize()
-        want = fa.flash_bwd_plain(q, k, v, out, lse, do, mi)
+        want = fa.flash_bwd_plain(q, k, v, out, lse, do, mi, dropout=dropout)
         errs, atols = {}, {}
         for n, a, b in zip(("dq", "dk", "dv"), got, want):
             atols[n], rtol = fa.flash_bwd_tolerance(b)
             errs[n] = check_close(f"{name} {n}", a, b, atols[n], rtol)
         del want
-        ms = time_ms(lambda: fa.flash_bwd_from_res(q, k, v, out, lse, do, mi), reps=5, warmup=1)
-        plain_ms = time_ms(lambda: fa.flash_bwd_plain(q, k, v, out, lse, do, mi), reps=2, warmup=1)
+        ms = time_ms(lambda: fa.flash_bwd_from_res(q, k, v, out, lse, do, mi, dropout=dropout), reps=5, warmup=1)
+        plain_ms = time_ms(lambda: fa.flash_bwd_plain(q, k, v, out, lse, do, mi, dropout=dropout), reps=2, warmup=1)
         mask = make_attention_mask(mi, S, S, B, device=q.device)
         visible = float(mask.expand(B, 1, S, S).sum())
         del mask
-        lib_ms = sdpa_backward_ms(F, q, k, v, do, mi)
+        lib_ms = sdpa_backward_ms(F, q, k, v, do, mi, dropout.rate if dropout else 0.0)
         # inputs q, k, v, out, dO, lse read once; dq, dk, dv written once
         n_bytes = 2 * (4 * B * S * Hq * D + 4 * B * S * Hkv * D) + 4 * B * Hq * S
         bms, by = bound_ms(n_bytes, 10 * D * Hq * visible, "bf16")
@@ -325,7 +379,7 @@ def phase_k5():
     return shapes
 
 
-def sdpa_backward_ms(F, q, k, v, do, mi):
+def sdpa_backward_ms(F, q, k, v, do, mi, rate: float = 0.0):
     """The yardstick of K5: the backward of one scaled_dot_product_attention call on the
     same inputs (timed here, never called by the port), or None where it is not offered."""
     import torch
@@ -336,10 +390,10 @@ def sdpa_backward_ms(F, q, k, v, do, mi):
     leaves = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
     try:
         if mi.prefix_len is None and mi.segment_ids is None:
-            out = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
+            out = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True, dropout_p=rate)
         else:
             mask = make_attention_mask(mi, S, S, B, device=q.device)
-            out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, enable_gqa=True)
+            out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, enable_gqa=True, dropout_p=rate)
         grad = do.transpose(1, 2)
         run = lambda: torch.autograd.grad(out, leaves, grad, retain_graph=True)
         run()
@@ -408,10 +462,41 @@ def phase_k3():
     return shapes
 
 
+def phase_k6():
+    import torch
+
+    from llama_x_tpu_torch import probe_flash as entry
+    from llama_x_tpu_torch.ops import flash_probe as fp
+
+    # the tolerance and its argument: ops/flash_probe.py:probe_tolerance
+    log("[K6 flash_probe] vs plain; tol per element 2^-7 |ref| + 2^-8 rms(ref) (bf16 logits and bf16 out on both "
+        "sides, f32 sums in another order)")
+    B, S, Hq, Hkv, D, prefix = 1, 4096, entry.HEADS, entry.KV_HEADS, entry.HEAD_DIM, 2000
+    q, k, v, _ = entry.make_inputs(S, torch.device("cuda"))
+    shapes = []
+    for bq, bk in ((256, 1024), (128, 512)):
+        out = fp.flash_probe(q, k, v, bq, bk, prefix)
+        torch.cuda.synchronize()
+        ref = fp.flash_probe_plain(q, k, v, bq, bk, prefix)
+        atol, rtol = fp.probe_tolerance(ref)
+        err = check_close(f"bq={bq} bk={bk} prefix={prefix}", out, ref, atol, rtol)
+        ms = time_ms(lambda: fp.flash_probe(q, k, v, bq, bk, prefix))
+        plain_ms = time_ms(lambda: fp.flash_probe_plain(q, k, v, bq, bk, prefix), reps=3, warmup=1)
+        pairs = float(fp.needed_blocks(S, bq, bk, prefix).sum()) * bq * bk  # (q, kv) pairs of the needed blocks
+        n_bytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
+        bms, by = bound_ms(n_bytes, 4 * B * Hq * D * pairs, "bf16")
+        log(f"      {ms:.4f} ms (plain {plain_ms:.3f}, library none: no PyTorch call skips whole blocks, "
+            f"bound {bms:.4f} by {by}; {pairs / S / S:.4f} of the pairs needed)")
+        shapes.append(dict(bq=bq, bk=bk, prefix=prefix, B=B, S=S, Hq=Hq, Hkv=Hkv, D=D, max_abs_err=err, tol=atol,
+                           rtol=rtol, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bms, bound_by=by))
+        del out, ref
+    return shapes
+
+
 def phase_kernels():
     """Returns {kernel name: per-shape records}."""
     return {"int8_mm_dequant_nt": phase_k1(), "int8_mm_dequant": phase_k4(), "flash_attention": phase_k2(),
-            "flash_attention_bwd": phase_k5(), **{
+            "flash_attention_bwd": phase_k5(), "flash_probe": phase_k6(), **{
         ("decode_attention" if kind == "bf16" else "decode_attention_int8"): recs
         for kind, recs in phase_k3().items()
     }}
@@ -425,10 +510,12 @@ def phase_kernels():
 def counted():
     from llama_x_tpu_torch.ops import decode_attention as da
     from llama_x_tpu_torch.ops import flash_attention as fa
+    from llama_x_tpu_torch.ops import flash_probe as fp
     from llama_x_tpu_torch.ops import int8_mm as mm
 
     return {"int8_mm_dequant_nt": mm.int8_mm_dequant_nt, "int8_mm_dequant": mm.int8_mm_dequant,
             "flash_attention": fa.flash_fwd_with_lse, "flash_attention_bwd": fa.flash_bwd_from_res,
+            "flash_probe": fp.flash_probe,
             "decode_attention": da.decode_attention, "decode_attention_int8": da.decode_attention_int8}
 
 
@@ -562,6 +649,7 @@ def labelled_quantizers():
     autograd Functions, outside any graph, so the range holds all of its device work."""
     from torch.profiler import record_function
 
+    from llama_x_tpu_torch.models import llama as lm
     from llama_x_tpu_torch.ops import cross_entropy as ce
     from llama_x_tpu_torch.ops import int8 as i8
 
@@ -572,10 +660,10 @@ def labelled_quantizers():
             return inner(x)
 
     try:
-        i8.quantize_int8_rowwise = ce.quantize_int8_rowwise = labelled
+        i8.quantize_int8_rowwise = ce.quantize_int8_rowwise = lm.quantize_int8_rowwise = labelled
         yield
     finally:
-        i8.quantize_int8_rowwise = ce.quantize_int8_rowwise = inner
+        i8.quantize_int8_rowwise = ce.quantize_int8_rowwise = lm.quantize_int8_rowwise = inner
 
 
 def label_device_ms(prof, label: str) -> tuple[float | None, int]:
@@ -793,15 +881,7 @@ def phase_train() -> dict:
 def compare_train_paths(model, batch) -> dict:
     """Loss and adapter gradients of one microbatch on a 2-layer cut of the trained
     weights (lora_b is no longer zero, so every adapter gradient is live), through the
-    kernels and through their plain versions.
-
-    K1 and K4 equal their plain versions bit for bit, so the two paths part only at
-    the flash kernels, whose bf16 outputs lie an ulp apart here and there; downstream a
-    few activations and gradients then round to the neighbouring int8 code (1/127 of a
-    row's largest entry). Loss within 2^-10 of its size (a quarter of a bf16 ulp of the
-    bf16 hidden states it is computed from); each adapter gradient tensor within 2^-6 of
-    its norm in the L2 sense (the flash backward's own per-element tolerance is 2^-7),
-    which a wrong mask, a lost ln2 or a dropped group member would miss by a factor."""
+    kernels and through their plain versions."""
     import torch
 
     from llama_x_tpu_torch import train_metamathqa as entry
@@ -810,11 +890,27 @@ def compare_train_paths(model, batch) -> dict:
     c = model.config.replace(num_layers=2)
     cut = llama.Llama(c, model.tok_embeddings, list(model.layers[:2]), model.norm, model.output)
     mb = {k: torch.as_tensor(v[0]).cuda() for k, v in batch.items()}
+    return compare_grad_paths(cut, lambda m: entry.loss_fn(m, mb)[0], "training")
+
+
+def compare_grad_paths(cut, loss_of, tag: str) -> dict:
+    """Kernel path against plain path for ``loss_of(cut)`` and its adapter gradients.
+
+    K1 and K4 equal their plain versions bit for bit, so the two paths part only at
+    the flash kernels, whose bf16 outputs lie an ulp apart here and there; downstream a
+    few activations and gradients then round to the neighbouring int8 code (1/127 of a
+    row's largest entry). Loss within 2^-10 of its size (a quarter of a bf16 ulp of the
+    bf16 hidden states it is computed from); each adapter gradient tensor within 2^-6 of
+    its norm in the L2 sense (the flash backward's own per-element tolerance is 2^-7),
+    which a wrong mask, a lost ln2, a dropped group member or a dropout mask that differs
+    between the two paths would miss by a factor."""
+    import torch
+
     named = [(n, p) for n, p in cut.named_parameters() if p.requires_grad and "lora_" in n]
     params = [p for _, p in named]
 
     def run():
-        loss, _ = entry.loss_fn(cut, mb)
+        loss = loss_of(cut)
         return float(loss.detach()), torch.autograd.grad(loss, params)
 
     reset_counts()
@@ -827,15 +923,207 @@ def compare_train_paths(model, batch) -> dict:
     if any(read_counts().values()):
         raise AssertionError(f"the plain path launched kernels: {read_counts()}")
     tol = 2**-10 * abs(loss_p)
-    check(f"training 2-layer loss, kernels {loss_k:.5f} vs plain {loss_p:.5f}", abs(loss_k - loss_p), tol)
+    check(f"{tag} 2-layer loss, kernels {loss_k:.5f} vs plain {loss_p:.5f}", abs(loss_k - loss_p), tol)
     worst, worst_name = 0.0, ""
     for (name, _), a, b in zip(named, grads_k, grads_p):
         rel = float((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30))
         if rel > worst:
             worst, worst_name = rel, name
-    check(f"training 2-layer adapter gradients ({len(named)} tensors), worst relative L2 error ({worst_name})",
+    check(f"{tag} 2-layer adapter gradients ({len(named)} tensors), worst relative L2 error ({worst_name})",
           worst, 2**-6)
     return dict(loss_kernels=loss_k, loss_plain=loss_p, loss_tol=tol, grad_rel_l2_worst=worst, grad_rel_l2_tol=2**-6)
+
+
+# ---------------------------------------------------------------------------
+# phases 7 to 9: the probe entry point, the audio main path (the repository's headline
+# step) and its kernel path against the plain path with dropout
+# ---------------------------------------------------------------------------
+
+
+def phase_probe() -> dict:
+    """``python -m llama_x_tpu_torch.probe_flash`` as a user runs it: K2, K2 + K5 and K6
+    at the audio step's attention shape."""
+    from llama_x_tpu_torch import probe_flash as entry
+
+    log("[probe entry point] B 1, S 4096, 32/8 heads, D 128, prefix-LM 2000, plan bq 256 bk 1024")
+    reset_counts()
+    res = entry.run(entry.parse_args([]))
+    counts = read_counts()
+    for name in ("flash_probe", "flash_attention", "flash_attention_bwd"):
+        if counts[name] == 0:
+            raise AssertionError(f"the probe entry point never launched {name}: {counts}")
+    res["launches"] = counts
+    return res
+
+
+AUDIO_FLAGS = [
+    "--synthetic", "8", "--geometry", "8b", "--quantize", "int8",
+    "--quantize_kwargs", '{"dynamic_int8_act": true, "dynamic_int8_bwd": true, "int8_head": true}',
+    "--adapter", "lora", "--adapter_kwargs", '{"rank": 8}',
+    "--freeze_prefixes", "tok_embeddings", "output", "norm", "audio_embed",
+    "--activation_checkpointing", "--remat_policy", "flash_q8s", "--fused_ce_chunks", "8", "--prefix_lm",
+    "--audio_duration", "40", "--seq_len_multiple", "2096", "--batch_size", "1", "--gradient_accumulation", "1",
+    "--optim", "AdamW", "--lr", "1e-4", "--n_steps", "4", "--seed", "0",
+]
+
+
+def expected_launches(policy: str, layers: int, ce_chunks: int) -> dict:
+    """Launches of one microbatch of the QLoRA step (every projection int8 with int8
+    activations and input gradients, int8 head) under a remat policy.
+
+    K1 (NT GEMM): the forward runs the 7 projections of every layer and the fused CE one
+    logits GEMM per chunk, and the CE backward recomputes each chunk's logits: 7 L + 2 C
+    under every policy. Then the recompute: "full" runs all 7 again (7 L); "flash_proj"
+    keeps q/k/v, wo and w2 and reruns w1 and w3 (2 L); "flash_q8s" reruns the attention
+    half's wq, wk, wv and wo (only the flash output is kept there: 4 L), and its MLP,
+    outside the checkpoint, reruns nothing but one w3 GEMM for the h3 it did not keep
+    (1 L): 5 L, fewer than "full" by the w1 and w2 recomputes (2 L); without checkpointing
+    ("none") nothing runs again.
+    K4 (KN GEMM): one input gradient per projection and one dH per CE chunk: 7 L + C.
+    K2: one forward per layer, and a second one in the recompute only under "full".
+    K5: one backward per layer."""
+    recompute = {"full": 7, "flash_proj": 2, "flash_q8s": 5, "none": 0}[policy]
+    return {"int8_mm_dequant_nt": (7 + recompute) * layers + 2 * ce_chunks,
+            "int8_mm_dequant": 7 * layers + ce_chunks,
+            "flash_attention": (2 if policy == "full" else 1) * layers,
+            "flash_attention_bwd": layers}
+
+
+def timed_steps(train_step, state, batch, n: int, positions: int, expect: dict | None) -> list[dict]:
+    """n optimizer steps, each timed on the host clock around a synchronize, the launch
+    counts of each held to ``expect``."""
+    import torch
+
+    steps = []
+    for i in range(n):
+        reset_counts()
+        t0 = time.perf_counter()
+        m = train_step(state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+        rec = dict(step=i, loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), n_tokens=int(m["n_tokens"]),
+                   seconds=dt, positions_per_s=positions / dt, launches=counts)
+        steps.append(rec)
+        log(f"    step {i}: loss {rec['loss']:.4f}, grad norm {rec['grad_norm']:.4f}, {dt:.3f} s, "
+            f"{rec['positions_per_s']:.0f} positions/s")
+        if expect is not None:
+            wrong = {k: (counts[k], v) for k, v in expect.items() if counts[k] != v}
+            if wrong:
+                raise AssertionError(f"launches of step {i} (got, expected): {wrong}")
+        if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])):
+            raise AssertionError(f"non-finite loss or grad norm: {rec}")
+    return steps
+
+
+def phase_audio() -> dict:
+    """The repository's headline step, put together from ``train_librispeech``'s own
+    functions as its ``main`` puts them; one batch is repeated so that the loss must fall."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from llama_x_tpu_torch import train_librispeech as entry
+    from llama_x_tpu_torch.models.audio import AudioConfig
+    from llama_x_tpu_torch.train import cli
+    from llama_x_tpu_torch.train.trainer import TrainState, make_train_step
+
+    log("[audio main path] Llama-3.1-8B width, 32 layers, int8 base + LoRA r 8, int8 act / dgrad / head, fused CE x8, "
+        "40 s of audio -> 2000 audio tokens + 2096 text tokens, prefix-LM, remat flash_q8s, microbatch 1, AdamW 1e-4")
+    args = entry.parse_args(AUDIO_FLAGS)
+    audio_config = AudioConfig()
+    t0 = time.perf_counter()
+    model = cli.build_model_params(args, max_seq_len=entry.MAX_SEQ_LEN, audio_config=audio_config)
+    torch.cuda.synchronize()
+    log(f"    weights built on the card from seed 0 in {time.perf_counter() - t0:.1f} s; config {model.config}")
+    optimizer, _ = cli.setup_optimizer(args, model)
+    state = TrainState(model, optimizer)
+    train_step = make_train_step(entry.make_loss_fn(args.prefix_lm))
+    data_iter = entry.synthetic_audio_batches(np.random.default_rng(args.seed), audio_config, 1, args.audio_duration,
+                                              args.seq_len_multiple, model.config.vocab_size)
+    batch = cli.assemble_step_batch([next(data_iter)], pad_values={"labels": -100})
+    n_audio = audio_config.num_audio_tokens(batch["audio"].shape[-1])
+    positions = n_audio + batch["tokens"].shape[-1]
+    log(f"    step batch: audio {tuple(batch['audio'].shape)} -> {n_audio} audio tokens, text "
+        f"{tuple(batch['tokens'].shape)}, {positions} positions")
+    if (n_audio, positions) != (2000, 4096):
+        raise AssertionError(f"the headline shape is 2000 + 2096 positions, got {n_audio} + {positions - n_audio}")
+
+    L, C = model.config.num_layers, model.config.fused_ce_chunks
+    sums = base_checksums(model)
+    first = model.layers[0].feed_forward.w1
+    lora_b0 = first.lora_b.detach().clone()
+    stem0 = model.audio_embed.conv2.weight.detach().clone()
+    runs = {}
+    torch.cuda.reset_peak_memory_stats()
+    steps = timed_steps(train_step, state, batch, args.n_steps, positions, expected_launches("flash_q8s", L, C))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"    flash_q8s: launches per step {steps[-1]['launches']}; peak memory {peak:.2f} GB")
+    if not steps[-1]["loss"] < steps[0]["loss"]:
+        raise AssertionError(f"the loss did not fall: {[r['loss'] for r in steps]}")
+    if base_checksums(model) != sums or not torch.equal(model.audio_embed.conv2.weight, stem0):
+        raise AssertionError("the frozen int8 base or the frozen stem changed during training")
+    if torch.equal(first.lora_b, lora_b0):
+        raise AssertionError("the adapter tensors did not move")
+    launches = {k: sum(r["launches"][k] for r in steps) for k in steps[0]["launches"]}
+    runs["flash_q8s"] = dict(steps=steps, peak_mem_gb=peak)
+
+    with labelled_quantizers(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof_rec = summarize_profile(prof, wall_ms, 1, "audio training (flash_q8s)", "step")
+    q_ms, q_calls = label_device_ms(prof, QUANTIZE_LABEL)
+    prof_rec["quantize_int8_rowwise_ms_per_step"], prof_rec["quantize_int8_rowwise_calls_per_step"] = q_ms, q_calls
+    log(f"      rowwise quantizer: {q_calls} calls/step, device "
+        + ("not measured (the trace ties no device time to its ranges)" if q_ms is None else f"{q_ms:.3f} ms/step"))
+    del prof
+
+    # the same step under the policy the text slice used, under the named-save policy that
+    # keeps every D-wide projection output, and without checkpointing at all: one line each
+    # (the schedule has run out, so the weights stand still and every step does the same work)
+    for policy in ("full", "flash_proj", "none", "flash_q8s"):
+        model.config = model.config.replace(activation_checkpointing=policy != "none",
+                                            remat_policy="full" if policy == "none" else policy)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        log(f"    remat_policy={policy}:")
+        psteps = timed_steps(train_step, state, batch, 3, positions, expected_launches(policy, L, C))
+        ppeak = torch.cuda.max_memory_allocated() / 1e9
+        best = min(r["seconds"] for r in psteps[1:])
+        runs[f"{policy} (second pass)" if policy == "flash_q8s" else policy] = dict(steps=psteps, peak_mem_gb=ppeak)
+        log(f"    POLICY {policy}: step {best:.3f} s (best of 2 after one), {positions / best:.0f} positions/s, "
+            f"peak memory {ppeak:.2f} GB, launches per step {psteps[-1]['launches']}")
+    two_path = compare_audio_paths(model, batch)
+    return dict(flags=AUDIO_FLAGS, launches=launches, runs=runs, profile=prof_rec, two_path=two_path)
+
+
+def compare_audio_paths(model, batch) -> dict:
+    """Kernel path against plain path on a 2-layer cut of the audio step, with attention
+    dropout 0.1 and fixed per-layer seeds: both paths must build the same keep mask."""
+    import torch
+
+    from llama_x_tpu_torch.models import audio as audio_mod
+
+    c = model.config.replace(num_layers=2, attn_dropout=DROPOUT_RATE, remat_policy="flash_q8s")
+    cut = audio_mod.LlamaAudio(c, model.tok_embeddings.data, list(model.layers[:2]), model.norm, model.output,
+                               model.audio_embed, model.audio_config)
+    mb = {k: torch.as_tensor(v[0]).cuda() for k, v in batch.items()}
+    seeds = [DROPOUT_SEED, 12345]
+
+    def loss_of(m, dropout_seeds=seeds):
+        return audio_mod.forward(m, mb["audio"], mb["tokens"].long(), labels=mb["labels"], prefix_lm=True,
+                                 dropout_seeds=dropout_seeds)
+
+    res = compare_grad_paths(cut, loss_of, f"audio (prefix-LM, dropout {DROPOUT_RATE})")
+    with torch.no_grad():
+        no_drop = float(loss_of(cut, None))
+    log(f"    the same cut without dropout seeds: loss {no_drop:.5f}")
+    if no_drop == res["loss_kernels"]:
+        raise AssertionError("dropout changed nothing")
+    res["loss_without_dropout"] = no_drop
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -852,6 +1140,7 @@ KERNELS = {
     "decode_attention": ("llama_x_tpu_torch/csrc/decode_attention.cu", "llama_x_tpu/ops/decode_attention.py:44", 0),
     "decode_attention_int8": ("llama_x_tpu_torch/csrc/decode_attention.cu",
                               "llama_x_tpu/ops/decode_attention.py:44", 0),
+    "flash_probe": ("llama_x_tpu_torch/csrc/flash_probe.cu", "tools/probe_flash.py:94", 0),
 }
 
 
@@ -887,6 +1176,10 @@ def main() -> int:
     kern = phase_kernels()
     runs = phase_main_path()
     runs["train"] = phase_train()
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["probe"] = phase_probe()
+    runs["audio"] = phase_audio()
     rec = record(kern, runs)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     log(smi)

@@ -63,4 +63,41 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// Attention dropout: the counter-based keep mask of the JAX flash kernels
+// (llama_x_tpu/ops/flash_attention.py:_fmix32 / _keep_for), bit for bit. All uint32
+// with wrap. For element (b, kv head h, q block i, kv block j, row r, column c) of the
+// JAX plan's stacked-group block [group * bq, bk]:
+//   key  = seed + b*0x9E3779B9 + h*0x85EBCA6B + i*0xC2B2AE35 + j*0x27D4EB2F
+//   bits = fmix32(fmix32(key) + r*bk + c),  r = g*bq + qpos % bq,  c = kpos % bk
+//   keep iff bits >= threshold; kept probabilities are multiplied by keep_scale.
+// threshold = min(int(rate * 2^32), 2^32 - 1) and keep_scale = f32(1 / (1 - rate)) come
+// from the host, computed in double as the JAX package computes them.
+struct Dropout {
+  int on;
+  uint32_t threshold;
+  float keep_scale;
+  uint32_t seed;
+  int bq, bk;
+};
+
+__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x;
+}
+
+// fmix32 of the block key: hoisted out of the per-element hash wherever (i, j) is fixed
+__device__ __forceinline__ uint32_t dropout_block_key(const Dropout& d, int b, int h, int i, int j) {
+  return fmix32(d.seed + (uint32_t)b * 0x9E3779B9u + (uint32_t)h * 0x85EBCA6Bu + (uint32_t)i * 0xC2B2AE35u +
+                (uint32_t)j * 0x27D4EB2Fu);
+}
+
+// keep / (1 - rate) or 0 for the element at stacked row offset row_bk = r * bk and column c
+__device__ __forceinline__ float dropout_keep(const Dropout& d, uint32_t block_key, uint32_t row_bk, uint32_t c) {
+  return fmix32(block_key + row_bk + c) >= d.threshold ? d.keep_scale : 0.f;
+}
+
 }  // namespace lxt

@@ -3,8 +3,14 @@
 //
 // Replaces the Pallas TPU kernel llama_x_tpu/ops/flash_attention.py:_fwd_kernel
 // (through _fwd, flash_fwd_with_lse and flash_attention), which the JAX model runs
-// for the prefill (llama_x_tpu/models/llama.py:302-309). Dropout and the ring
-// position offsets of that kernel are not ported yet.
+// for the prefill and every training forward (llama_x_tpu/models/llama.py:302-309),
+// dropout on the probabilities included: the keep mask is that kernel's hash, bit for
+// bit (common.cuh), keyed on the JAX plan's blocks (bq, bk) and not on this kernel's
+// tiles; f32 p is multiplied by keep / (1 - rate) and then rounded to bf16 for the PV
+// product, and l sums the undropped p. A row's q block is fixed, and a 64-position kv
+// tile lies inside one kv block (bk is a multiple of 64, or spans the sequence), so the
+// inner fmix32 of the block key is hoisted to once per row and tile. The ring position
+// offsets of that kernel are not ported yet.
 //
 // What bounds it on an H100: at the serving prefill (S = 512, head_dim 128) the
 // bf16 tensor-core rate, 4*B*Hq*S*S*D/2 operations for the causal half at 989 TFLOP/s;
@@ -41,9 +47,11 @@ struct Params {
   float* lse;
   int B, S, Hq, Hkv, causal;
   float qscale;  // scale * log2(e)
+  lxt::Dropout drop;
 };
 
-template <int D>
+// DROP is a template argument so that the kernel without dropout stays as it was
+template <int D, bool DROP>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
   constexpr int LD = D + 8;  // padded smem row, elements
   __shared__ __align__(16) __nv_bfloat16 Ks[BKV][LD];
@@ -63,6 +71,18 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
   for (int r = 0; r < 2; ++r) {
     qpos[r] = q0 + warp * 16 + g + r * 8;
     qseg[r] = (p.qseg && qpos[r] < S) ? p.qseg[(size_t)b * S + qpos[r]] : 0;
+  }
+
+  // dropout: this lane's rows in the JAX plan (q block, stacked-group row offset r * bk)
+  const int gidx = h % (p.Hq / p.Hkv);
+  int drop_i[2] = {0, 0};
+  uint32_t drop_row[2] = {0, 0};
+  if (DROP) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      drop_i[r] = qpos[r] / p.drop.bq;
+      drop_row[r] = (uint32_t)(gidx * p.drop.bq + qpos[r] % p.drop.bq) * (uint32_t)p.drop.bk;
+    }
   }
 
   // q fragments, pre-scaled by scale*log2e and rounded to bf16 (the JAX fold)
@@ -178,6 +198,22 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
       }
     }
 
+    // dropout on f32 p, after l took the undropped sum
+    if (DROP) {
+      const int j = kv0 / p.drop.bk;
+      const uint32_t c0 = (uint32_t)(kv0 - j * p.drop.bk);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const uint32_t key = lxt::dropout_block_key(p.drop, b, hk, drop_i[r], j);
+#pragma unroll
+        for (int n = 0; n < BKV / 8; ++n) {
+          const uint32_t c = c0 + n * 8 + t * 2;
+          sf[n][2 * r] *= lxt::dropout_keep(p.drop, key, drop_row[r], c);
+          sf[n][2 * r + 1] *= lxt::dropout_keep(p.drop, key, drop_row[r], c + 1);
+        }
+      }
+    }
+
     // O += P V: P (bf16) re-used from the S accumulators as the A operand
 #pragma unroll
     for (int kk = 0; kk < BKV / 16; ++kk) {
@@ -218,7 +254,9 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
 
 extern "C" int lxt_flash_attention_fwd(const void* q, const void* k, const void* v, const void* qseg,
                                        const void* kseg, const void* prefix, void* out, void* lse, int B, int S,
-                                       int Hq, int Hkv, int D, int causal, float qscale, void* stream) {
+                                       int Hq, int Hkv, int D, int causal, float qscale, int dropout,
+                                       unsigned int threshold, float keep_scale, unsigned int seed, int bq, int bk,
+                                       void* stream) {
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -234,12 +272,17 @@ extern "C" int lxt_flash_attention_fwd(const void* q, const void* k, const void*
   p.Hkv = Hkv;
   p.causal = causal;
   p.qscale = qscale;
+  p.drop = lxt::Dropout{dropout, threshold, keep_scale, seed, bq > 0 ? bq : 1, bk > 0 ? bk : 1};
   const dim3 grid((S + BQ - 1) / BQ, Hq, B);
   auto st = static_cast<cudaStream_t>(stream);
-  if (D == 128)
-    flash_fwd_kernel<128><<<grid, THREADS, 0, st>>>(p);
+  if (D == 128 && dropout)
+    flash_fwd_kernel<128, true><<<grid, THREADS, 0, st>>>(p);
+  else if (D == 128)
+    flash_fwd_kernel<128, false><<<grid, THREADS, 0, st>>>(p);
+  else if (D == 64 && dropout)
+    flash_fwd_kernel<64, true><<<grid, THREADS, 0, st>>>(p);
   else if (D == 64)
-    flash_fwd_kernel<64><<<grid, THREADS, 0, st>>>(p);
+    flash_fwd_kernel<64, false><<<grid, THREADS, 0, st>>>(p);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -10,9 +10,14 @@
 // the stored lse: p = exp2(s - lse*log2e)), masked logits -1e30, p rounded to bf16
 // before the dV product, ds = p * (dp - delta) * ln2 rounded to bf16 before the dk and
 // dq products, dk = ds^T (q*scale*log2e), dq = (ds k) * scale*log2e applied once at the
-// end, dk and dv summed over the GQA group inside the kernel. Dropout (the hash keyed
-// on the TPU plan's block indices, hence bq/bk in the signature) and the ring position
-// offsets are not ported yet: dropout_rate != 0 is refused.
+// end, dk and dv summed over the GQA group inside the kernel. With dropout the forward's
+// keep mask is rebuilt from the same hash (common.cuh), keyed on the JAX plan's blocks
+// (bq, bk) and indexed by (q position, kv position), never by a tile's own row and
+// column (the dkv kernel walks S^T): dV += bf16(p * keep)^T dO, dp = (dO V^T) * keep,
+// ds = p (dp - delta) ln2 with the undropped p, delta unchanged. A 64-position kv tile
+// lies inside one kv block of the plan (bk is a multiple of 64, or spans the sequence);
+// the q block may change inside a q tile (bq 32), so the dkv kernel keeps fmix32(key)
+// and r * bk per q column in shared memory. The ring position offsets are not ported yet.
 //
 // What bounds it on an H100: the bf16 tensor-core rate; the five products that the
 // algorithm needs are 10*B*Hq*S*S*D operations (half of that under a causal mask) at
@@ -56,11 +61,12 @@ struct Params {
   __nv_bfloat16 *dq, *dk, *dv;
   int B, S, Hq, Hkv, causal;
   float qscale;  // scale * log2(e)
+  lxt::Dropout drop;
 };
 
 template <int D>
 constexpr int smem_bytes() {
-  return 4 * 64 * (D + 8) * 2 + 3 * 64 * 4;
+  return 4 * 64 * (D + 8) * 2 + 5 * 64 * 4;
 }
 
 // 64 rows x D of one head from a [B, S, H, D] tensor into a padded shared tile,
@@ -134,7 +140,8 @@ __device__ __forceinline__ void mma_acc_by_tile(float (&acc)[D / 8][4], const fl
   }
 }
 
-template <int D>
+// DROP is a template argument so that the kernels without dropout stay as they were
+template <int D, bool DROP>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
   constexpr int LD = D + 8;
   typedef __nv_bfloat16(*Tile)[LD];
@@ -144,6 +151,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
   float* lse_s = reinterpret_cast<float*>(dOs + 64);  // lse * log2e of the q tile's rows
   float* delta_s = lse_s + 64;
   int* qseg_s = reinterpret_cast<int*>(delta_s + 64);
+  uint32_t* dkey_s = reinterpret_cast<uint32_t*>(qseg_s + 64);  // dropout: fmix32(block key) per q column
+  uint32_t* drow_s = dkey_s + 64;                               // dropout: r * bk per q column
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -163,6 +172,12 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
     kpos[r] = kv0 + warp * 16 + g + r * 8;
     kseg[r] = (p.kseg && kpos[r] < S) ? p.kseg[(size_t)b * S + kpos[r]] : 0;
   }
+
+  // dropout: this CTA's kv block of the plan and this lane's two columns in it
+  const int drop_j = DROP ? kv0 / p.drop.bk : 0;
+  uint32_t drop_c[2] = {0, 0};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) drop_c[r] = (uint32_t)(kpos[r] - drop_j * p.drop.bk);
 
   float dk_acc[D / 8][4], dv_acc[D / 8][4];
 #pragma unroll
@@ -189,6 +204,10 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
         lse_s[tid] = in ? p.lse[stat + qp] * LOG2E : 0.f;
         delta_s[tid] = in ? p.delta[stat + qp] : 0.f;
         qseg_s[tid] = (p.qseg && in) ? p.qseg[(size_t)b * S + qp] : 0;
+        if (DROP) {
+          dkey_s[tid] = lxt::dropout_block_key(p.drop, b, hk, qp / p.drop.bq, drop_j);
+          drow_s[tid] = (uint32_t)(hq * p.drop.bq + qp % p.drop.bq) * (uint32_t)p.drop.bk;
+        }
       }
       __syncthreads();
 
@@ -208,8 +227,10 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
           if (p.prefix) keep = keep || (qp < prefix && kpos[r] < prefix);
           if (qp >= S || kpos[r] >= S) keep = false;
           const float pv = keep ? exp2f(st[n][e] - lse_s[qi]) : 0.f;
-          st[n][e] = pv;
-          dpt[n][e] = pv * (dpt[n][e] - delta_s[qi]) * LN2;
+          const float kf = DROP ? lxt::dropout_keep(p.drop, dkey_s[qi], drow_s[qi], drop_c[r]) : 1.f;
+          st[n][e] = DROP ? pv * kf : pv;
+          const float dp = DROP ? dpt[n][e] * kf : dpt[n][e];
+          dpt[n][e] = pv * (dp - delta_s[qi]) * LN2;
         }
       }
       mma_acc_by_tile<D>(dv_acc, st, dOs, g, t);  // dV += P^T dO
@@ -230,7 +251,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
   }
 }
 
-template <int D>
+template <int D, bool DROP>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Params p) {
   constexpr int LD = D + 8;
   typedef __nv_bfloat16(*Tile)[LD];
@@ -263,6 +284,18 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Params p) {
     dl[r] = in ? p.delta[stat] : 0.f;
   }
 
+  // dropout: this lane's rows in the JAX plan (q block, stacked-group row offset r * bk)
+  const int gidx = h % (p.Hq / p.Hkv);
+  int drop_i[2] = {0, 0};
+  uint32_t drop_row[2] = {0, 0};
+  if (DROP) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      drop_i[r] = qpos[r] / p.drop.bq;
+      drop_row[r] = (uint32_t)(gidx * p.drop.bq + qpos[r] % p.drop.bq) * (uint32_t)p.drop.bk;
+    }
+  }
+
   // last kv position any row of this CTA may see (the forward's bound)
   int kv_end = S;
   if (p.causal) {
@@ -290,6 +323,13 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Params p) {
     float sf[8][4], dpf[8][4];  // S then P; dP then dS: 16 q rows x 64 kv columns
     mma_rows_by_rows<D>(sf, Qs, warp * 16, Ks, g, t);
     mma_rows_by_rows<D>(dpf, dOs, warp * 16, Vs, g, t);
+    uint32_t drop_key[2] = {0, 0}, drop_c0 = 0;
+    if (DROP) {
+      const int j = kv0 / p.drop.bk;
+      drop_c0 = (uint32_t)(kv0 - j * p.drop.bk);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) drop_key[r] = lxt::dropout_block_key(p.drop, b, hk, drop_i[r], j);
+    }
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
 #pragma unroll
@@ -303,7 +343,9 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Params p) {
         if (p.prefix) keep = keep || (qpos[r] < prefix && kp < prefix);
         if (kp >= S || qpos[r] >= S) keep = false;
         const float pv = keep ? exp2f(sf[n][e] - lse2[r]) : 0.f;
-        dpf[n][e] = pv * (dpf[n][e] - dl[r]) * LN2;
+        const float dp = DROP ? dpf[n][e] * lxt::dropout_keep(p.drop, drop_key[r], drop_row[r], drop_c0 + ki)
+                                   : dpf[n][e];
+        dpf[n][e] = pv * (dp - dl[r]) * LN2;
       }
     }
     mma_acc_by_tile<D>(dq_acc, dpf, Ks, g, t);  // dQ += dS K
@@ -322,34 +364,30 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Params p) {
   }
 }
 
-template <int D>
+template <int D, bool DROP>
 int launch(const Params& p, cudaStream_t st) {
   constexpr int bytes = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (p.S + 63) / 64;
-  flash_bwd_dkv_kernel<D><<<dim3(tiles, p.Hkv, p.B), THREADS, bytes, st>>>(p);
+  flash_bwd_dkv_kernel<D, DROP><<<dim3(tiles, p.Hkv, p.B), THREADS, bytes, st>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq_kernel<D><<<dim3(tiles, p.Hq, p.B), THREADS, bytes, st>>>(p);
+  flash_bwd_dq_kernel<D, DROP><<<dim3(tiles, p.Hq, p.B), THREADS, bytes, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dropout_rate, seed, bq, bk: the queued dropout mask is keyed on the TPU plan's block
-// indices (bq, bk), not on this kernel's tiles; until it is ported a rate other than 0
-// is refused.
+// dropout, threshold, keep_scale, seed, bq, bk: the forward's dropout (common.cuh), with
+// the JAX plan's blocks that key the mask.
 extern "C" int lxt_flash_attention_bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                                        const void* delta, const void* qseg, const void* kseg, const void* prefix,
                                        void* dq, void* dk, void* dv, int B, int S, int Hq, int Hkv, int D, int causal,
-                                       float qscale, float dropout_rate, int seed, int bq, int bk, void* stream) {
-  if (dropout_rate != 0.f) return static_cast<int>(cudaErrorNotSupported);
-  (void)seed;
-  (void)bq;
-  (void)bk;
+                                       float qscale, int dropout, unsigned int threshold, float keep_scale,
+                                       unsigned int seed, int bq, int bk, void* stream) {
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -369,8 +407,9 @@ extern "C" int lxt_flash_attention_bwd(const void* q, const void* k, const void*
   p.Hkv = Hkv;
   p.causal = causal;
   p.qscale = qscale;
+  p.drop = lxt::Dropout{dropout, threshold, keep_scale, seed, bq > 0 ? bq : 1, bk > 0 ? bk : 1};
   auto st = static_cast<cudaStream_t>(stream);
-  if (D == 128) return launch<128>(p, st);
-  if (D == 64) return launch<64>(p, st);
+  if (D == 128) return dropout ? launch<128, true>(p, st) : launch<128, false>(p, st);
+  if (D == 64) return dropout ? launch<64, true>(p, st) : launch<64, false>(p, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

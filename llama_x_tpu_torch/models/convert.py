@@ -9,6 +9,10 @@ function, so both sides can be held against each other on the same weights
 ``freeze_prefixes`` (a tuple, possibly empty) the parameters also get the
 ``requires_grad`` that the JAX package's ``trainable_mask`` would give them.
 
+A tree with an ``audio_embed`` stem (conv kernels [W, C_in, C_out], permuted to
+PyTorch's [C_out, C_in, W]) gives a ``LlamaAudio``; ``freeze_prefixes=("audio_embed",
+...)`` freezes it as the JAX mask does.
+
 ``named_tensors(model)`` is the way back: the model's tensors (or their gradients)
 as numpy arrays under the JAX tree's path names, layers stacked again.
 """
@@ -47,8 +51,17 @@ def _linear(p: dict, layer: int | None, device) -> Linear:
     return Linear(**tensors)
 
 
+def _stem(p: dict, device):
+    from llama_x_tpu_torch.models.audio import stem_from_tensors
+
+    def conv(c):
+        return to_tensor(c["kernel"], device).permute(2, 1, 0).contiguous(), to_tensor(c["bias"], device)
+
+    return stem_from_tensors(*conv(p["conv1"]), *conv(p["conv2"]))
+
+
 def params_from_jax(tree: dict, config: LlamaConfig, device=None,
-                    freeze_prefixes: tuple[str, ...] | None = None) -> Llama:
+                    freeze_prefixes: tuple[str, ...] | None = None, audio_config=None) -> Llama:
     dev = resolve_device(device)
     lp = tree["layers"]
 
@@ -65,8 +78,13 @@ def params_from_jax(tree: dict, config: LlamaConfig, device=None,
             FeedForward(*(_linear(f[n], i, dev) for n in ("w1", "w2", "w3"))),
         ))
     output = None if config.tied_embeddings else _linear(tree["output"], None, dev)
-    model = Llama(config, to_tensor(tree["tok_embeddings"]["weight"], dev), layers,
-                  norm(tree["norm"]["scale"]), output)
+    parts = (config, to_tensor(tree["tok_embeddings"]["weight"], dev), layers, norm(tree["norm"]["scale"]), output)
+    if "audio_embed" in tree:
+        from llama_x_tpu_torch.models.audio import AudioConfig, LlamaAudio
+
+        model = LlamaAudio(*parts, _stem(tree["audio_embed"], dev), audio_config or AudioConfig())
+    else:
+        model = Llama(*parts)
     if freeze_prefixes is not None:
         set_trainable(model, tuple(freeze_prefixes))
     return model
@@ -89,7 +107,7 @@ def named_tensors(model: Llama, grads: bool = False) -> dict[str, np.ndarray]:
         value = t.grad if grads else t
         path = tree_path(name)
         if value is not None and path.endswith("/kernel"):
-            value = value.T
+            value = value.permute(2, 1, 0) if value.ndim == 3 else value.T  # conv [W, C_in, C_out]; linear [in, out]
         groups.setdefault(path, []).append(value)
     out = {}
     for path, values in groups.items():

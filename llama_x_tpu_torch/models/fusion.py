@@ -1,0 +1,47 @@
+"""Early-fusion core shared by every multimodal variant (port of
+llama_x_tpu/models/fusion.py).
+
+Modality tokens are PREPENDED to the text embeddings, one rope spans the concatenated
+sequence, and after the trunk the modality positions are sliced off so that the loss
+covers text only. With ``prefix_lm`` attention is bidirectional over all modality
+tokens and causal over text (``MaskInfo.prefix_len``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from llama_x_tpu_torch.models import llama
+from llama_x_tpu_torch.ops.attention import MaskInfo
+
+
+def fuse_forward(model: llama.Llama, prefix_embeds: list[torch.Tensor], tokens: torch.Tensor, *,
+                 labels: torch.Tensor | None = None, prefix_lm: bool = False, kv_cache=None, input_pos=None,
+                 kv_len=None, dropout_seeds=None):
+    """prefix_embeds: list of [B, T_i, D] modality token embeddings, prepended in order
+    before the text tokens [B, S]. Returns loss/logits (+ the cache when one is given)."""
+    x = torch.nn.functional.embedding(tokens, model.tok_embeddings)
+    n_prefix = sum(int(p.shape[1]) for p in prefix_embeds)
+    if prefix_embeds:
+        x = torch.cat([*[p.to(x.dtype) for p in prefix_embeds], x], dim=1)
+
+    def prefix_len():
+        return torch.full((x.shape[0],), n_prefix, dtype=torch.int32, device=x.device)
+
+    if kv_cache is not None:
+        q_pos = input_pos[None, :] if input_pos is not None else None
+        # the bidirectional modality prefix must survive into cache prefill, or the
+        # cached K/V mismatch prefix-LM training semantics
+        pl = prefix_len() if (prefix_lm and n_prefix > 0) else None
+        mask_info = MaskInfo(causal=True, q_positions=q_pos, kv_len=kv_len, prefix_len=pl)
+    elif prefix_lm and n_prefix > 0:
+        mask_info = MaskInfo(causal=True, prefix_len=prefix_len())
+    else:
+        mask_info = MaskInfo(causal=True)
+
+    x, kv_cache = llama.trunk(model, x, mask_info, kv_cache, input_pos, dropout_seeds=dropout_seeds)
+
+    if n_prefix > 0:
+        x = x[:, n_prefix:]  # strip modality positions before the head
+    out = llama.head(model, x, labels)
+    return (out, kv_cache) if kv_cache is not None else out

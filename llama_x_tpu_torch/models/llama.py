@@ -16,9 +16,19 @@ both. The kernel modules are called through their module attributes.
 
 Training: ``forward(..., labels=)`` returns the scalar loss (fused into the head
 when ``fused_ce_chunks > 0``), and ``activation_checkpointing`` recomputes each
-block in the backward (``torch.utils.checkpoint``, the JAX package's
-``remat_policy="full"``). The named-save remat policies and the int8-residual
-``feed_forward_q8`` / ``attention_q8`` families are not ported yet and raise.
+block in the backward (``torch.utils.checkpoint``) under ``remat_policy``: "full"
+keeps the block's input only; the named-save policies ("dots", "dots_flash", "flash",
+"flash_qkv", "flash_proj") also keep the named results through a per-block
+``SaveStore`` (ops/remat.py), so that the recompute launches no kernel for them; the
+q8 policies ("flash_q8", ... "flash_proj_q8s") checkpoint the attention half only and
+run the MLP outside as ``feed_forward_q8``, an ``autograd.Function`` whose residuals
+are the block's hidden state and h1 (and h3) as rowwise int8. ``attn_q8`` /
+``attn_q8s`` (the int8-residual attention) are not ported yet and raise.
+
+Attention dropout: ``LlamaConfig.attn_dropout`` with ``forward(dropout_seeds=)``, one
+32-bit seed per layer (or a CPU ``torch.Generator`` to draw them from); the JAX
+package splits a ``dropout_rng`` per layer and draws each kernel's seed from it, which
+the port does not reproduce. Without seeds no dropout applies, whatever the config.
 """
 
 from __future__ import annotations
@@ -32,9 +42,11 @@ from torch.utils.checkpoint import checkpoint
 
 from llama_x_tpu_torch.ops import decode_attention as da
 from llama_x_tpu_torch.ops import flash_attention as fa
+from llama_x_tpu_torch.ops import remat as rm
 from llama_x_tpu_torch.ops.attention import MaskInfo, dot_product_attention
 from llama_x_tpu_torch.ops.cross_entropy import cross_entropy_loss, fused_linear_cross_entropy
-from llama_x_tpu_torch.ops.linear import Linear, apply_linear, apply_linear_grouped
+from llama_x_tpu_torch.ops.int8 import quantize_int8_rowwise
+from llama_x_tpu_torch.ops.linear import Linear, apply_linear, apply_linear_grouped, linear_vjp
 from llama_x_tpu_torch.ops.norms import rms_norm
 from llama_x_tpu_torch.ops.rope import apply_rope, build_rope
 from llama_x_tpu_torch.utils.device import resolve_device
@@ -53,6 +65,7 @@ class LlamaConfig:
     intermediate_dim: int
     max_seq_len: int = 2048
     vocab_size: int = 128_256  # Llama3
+    attn_dropout: float = 0.0  # on the attention probabilities, only where forward() is given dropout_seeds
     rope_base: float = 50_000.0
     is_llama3_1: bool = False
     rope_scale_factor: float = 8.0
@@ -71,8 +84,11 @@ class LlamaConfig:
     dynamic_int8_bwd: bool = False  # int8 input gradients through the frozen base (ops/int8.py)
     int8_head: bool = False  # the fused CE's vocabulary GEMMs on the int8 kernels (needs frozen_head)
     norm_eps: float = 1e-5
-    # what activation_checkpointing keeps: "full" recomputes each block. The JAX
-    # package's named-save policies are not ported yet.
+    # what activation_checkpointing keeps: "full" recomputes each block; "dots" keeps
+    # the projections' outputs, "dots_flash" those and the flash output + lse, "flash"
+    # only the latter, "flash_qkv" also the q/k/v projections, "flash_proj" also the wo
+    # and w2 outputs; "<base>_q8" / "<base>_q8s" keep <base> for the attention half and
+    # run the MLP as feed_forward_q8 (h1 and h3, or h1 alone, kept as rowwise int8)
     remat_policy: str = "full"
 
     def replace(self, **kw) -> "LlamaConfig":
@@ -242,18 +258,25 @@ def _decode_kernel_fits(mi: MaskInfo, Sq: int) -> bool:
     )
 
 
+def _named(saves: rm.SaveStore | None, name: str):
+    return None if saves is None else (saves, name)
+
+
 def attention(attn: Attention, config: LlamaConfig, x: torch.Tensor, rope: torch.Tensor, mask_info: MaskInfo,
-              cache=None, input_pos: torch.Tensor | None = None, prefill: bool = False):
+              cache=None, input_pos: torch.Tensor | None = None, prefill: bool = False,
+              saves: rm.SaveStore | None = None, dropout_seed=None):
     """GQA attention. x [B, S, D]. With ``cache`` (this layer's (k, v) views), the
     fresh k/v are written into the cache IN PLACE at ``input_pos`` ([S], or [B, S]
     per row) and, unless ``prefill``, attention reads the cache (decode). ``prefill``
     attends over the fresh k/v (the cache starts empty at position 0: same result).
     A decode whose mask the decode kernel cannot take runs the plain attention on
-    CPU tensors and raises on the card. Returns (out, cache)."""
+    CPU tensors and raises on the card. ``saves``: the checkpointed region's named
+    saves (q/k/v, the flash output + lse, the wo output). ``dropout_seed`` turns on
+    ``config.attn_dropout`` in the flash kernels. Returns (out, cache)."""
     c = config
     B, S, _ = x.shape
     int8_kw = dict(dynamic_int8_act=c.dynamic_int8_act, dynamic_int8_bwd=c.dynamic_int8_bwd)
-    q, k, v = apply_linear_grouped(x, (attn.wq, attn.wk, attn.wv), **int8_kw)
+    q, k, v = apply_linear_grouped(x, (attn.wq, attn.wk, attn.wv), save=_named(saves, rm.QKV), **int8_kw)
     q = apply_rope(q.reshape(B, S, c.num_heads, c.head_dim), rope, positions=input_pos)
     k = apply_rope(k.reshape(B, S, c.num_kv_heads, c.head_dim), rope, positions=input_pos)
     v = v.reshape(B, S, c.num_kv_heads, c.head_dim)
@@ -299,49 +322,179 @@ def attention(attn: Attention, config: LlamaConfig, x: torch.Tensor, rope: torch
             vd = dequant_kv(v_cache) if quantized else v_cache
             out = dot_product_attention(q, kd.transpose(1, 2), vd.transpose(1, 2), mask_info)
     else:
-        out = fa.flash_attention(q, k, v, mask_info)
+        rate = c.attn_dropout if dropout_seed is not None else 0.0
+        out, _ = rm.run_saved(_named(saves, rm.FLASH), lambda kept: fa.flash_fwd_with_lse(
+            q, k, v, mask_info, dropout_rate=rate, dropout_seed=dropout_seed, preset=kept))
     out = out.reshape(B, S, c.num_heads * c.head_dim)
-    return apply_linear(out, attn.wo, **int8_kw), cache
+    return apply_linear(out, attn.wo, save=_named(saves, rm.O_PROJ), **int8_kw), cache
 
 
-def feed_forward(ff: FeedForward, config: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
+def feed_forward(ff: FeedForward, config: LlamaConfig, x: torch.Tensor,
+                 saves: rm.SaveStore | None = None) -> torch.Tensor:
     """SwiGLU: w2(silu(w1 x) * w3 x)."""
     int8_kw = dict(dynamic_int8_act=config.dynamic_int8_act, dynamic_int8_bwd=config.dynamic_int8_bwd)
-    h1, h3 = apply_linear_grouped(x, (ff.w1, ff.w3), **int8_kw)
-    return apply_linear(torch.nn.functional.silu(h1) * h3, ff.w2, **int8_kw)
+    h1, h3 = apply_linear_grouped(x, (ff.w1, ff.w3), save=_named(saves, rm.MLP_IN), **int8_kw)
+    return apply_linear(torch.nn.functional.silu(h1) * h3, ff.w2, save=_named(saves, rm.MLP_OUT), **int8_kw)
+
+
+# ---------------------------------------------------------------------------
+# int8-residual feed-forward (the "*_q8" remat policies)
+#
+# Under "flash_proj" the backward still re-runs the w1 / w3 F-wide GEMMs of every
+# layer: their outputs feed the SwiGLU derivative and are too wide to keep in bf16.
+# Kept as rowwise int8 they are a quarter of that, and the backward computes the SwiGLU
+# derivative from the dequantized values. The int8 round trip perturbs only the
+# backward's view of h1 (and h3): the forward output comes from the exact values. "_q8"
+# keeps h1 and h3; "_q8s" keeps h1 and recomputes h3 with one w3 GEMM. No checkpoint
+# policy can re-encode what it keeps, so the MLP is an autograd.Function of its own,
+# placed outside the checkpointed attention half by trunk().
+# ---------------------------------------------------------------------------
+
+
+class _FeedForwardQ8(torch.autograd.Function):
+    """ffn_norm + SwiGLU of one block with int8 residuals. ``params`` are the trainable
+    tensors of the norm and the three linears, passed so that autograd routes their
+    gradients; ``keys`` names them as (owner, tensor name)."""
+
+    @staticmethod
+    def forward(ctx, blk, config, keys, h, *params):
+        ff = blk.feed_forward
+        kw = dict(dynamic_int8_act=config.dynamic_int8_act, dynamic_int8_bwd=config.dynamic_int8_bwd)
+        x = blk.ffn_norm(h)
+        h1, h3 = apply_linear_grouped(x, (ff.w1, ff.w3), **kw)
+        out = apply_linear(torch.nn.functional.silu(h1) * h3, ff.w2, **kw)
+        F = h1.shape[-1]
+        kept = [h, *quantize_int8_rowwise(h1.reshape(-1, F))]
+        if not config.remat_policy.endswith("_q8s"):
+            kept += quantize_int8_rowwise(h3.reshape(-1, F))
+        ctx.save_for_backward(*kept)
+        ctx.blk, ctx.kw, ctx.keys = blk, kw, keys
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        h, q1, s1, *third = ctx.saved_tensors
+        blk, kw = ctx.blk, ctx.kw
+        ff, norm = blk.feed_forward, blk.ffn_norm
+        lead, F = h.shape[:-1], q1.shape[-1]
+
+        def deq(q, s):
+            return (q.float() * s.float()[:, None]).to(h.dtype).reshape(*lead, F)
+
+        with torch.enable_grad():
+            hg = h.detach().requires_grad_(True)
+            x_graph = norm(hg)
+        x_ = x_graph.detach()
+        h1 = deq(q1, s1)
+        # q8s: h3 was not kept; one w3 GEMM gives its exact forward value again
+        h3 = deq(*third) if third else apply_linear(x_, ff.w3, **kw)
+        sig = torch.sigmoid(h1)
+        silu_h1 = h1 * sig
+        dprod, grads2 = linear_vjp(ff.w2, silu_h1 * h3, g, **kw)
+        dh1 = dprod * h3 * (sig * (1 + h1 * (1 - sig)))  # d/dh [h sigmoid(h)] = sig (1 + h (1 - sig))
+        dh3 = dprod * silu_h1
+        dx1, grads1 = linear_vjp(ff.w1, x_, dh1, **kw)
+        dx3, grads3 = linear_vjp(ff.w3, x_, dh3, **kw)
+        norm_params = [norm.scale] if norm.scale.requires_grad else []
+        dh, *dscale = torch.autograd.grad(x_graph, [hg] + norm_params, dx1 + dx3)
+        by_key = {("w1", n): t for n, t in grads1.items()}
+        by_key.update({("w2", n): t for n, t in grads2.items()})
+        by_key.update({("w3", n): t for n, t in grads3.items()})
+        if dscale:
+            by_key[("ffn_norm", "scale")] = dscale[0]
+        return (None, None, None, dh, *(by_key.get(key) for key in ctx.keys))
+
+
+def feed_forward_q8(blk: Block, config: LlamaConfig, h: torch.Tensor) -> torch.Tensor:
+    """ffn_norm + SwiGLU on the pre-norm hidden state ``h``, with int8 backward
+    residuals (``config.remat_policy`` ends in "_q8" or "_q8s"). The norm is folded in so
+    that the only full-width residual is h itself; it is recomputed in the backward."""
+    ff = blk.feed_forward
+    named = [("ffn_norm", "scale", blk.ffn_norm.scale)]
+    named += [(owner, n, p) for owner in ("w1", "w2", "w3") for n, p in getattr(ff, owner).named_parameters()]
+    named = [(owner, n, p) for owner, n, p in named if p.requires_grad]
+    keys = tuple((owner, n) for owner, n, _ in named)
+    return _FeedForwardQ8.apply(blk, config, keys, h, *(p for _, _, p in named))
+
+
+# q8 policies: the attention half keeps the mapped policy's saves; the MLP runs outside
+# the checkpoint as feed_forward_q8
+_Q8_POLICIES = {
+    "flash_q8": "flash", "flash_qkv_q8": "flash_qkv", "flash_proj_q8": "flash_proj",
+    "flash_q8s": "flash", "flash_qkv_q8s": "flash_qkv", "flash_proj_q8s": "flash_proj",
+}
+_ATTN_Q8_POLICIES = ("attn_q8", "attn_q8s")
+REMAT_POLICIES = (*rm.POLICY_SAVES, *_Q8_POLICIES, *_ATTN_Q8_POLICIES)
+
+
+def check_remat_policy(policy: str) -> None:
+    """Raise for a policy the port does not know or has not ported yet."""
+    if policy in _ATTN_Q8_POLICIES:
+        raise NotImplementedError(
+            f"remat_policy={policy!r}: the int8-residual attention (attention_q8) is not ported yet (slice 2c)")
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {policy!r}; one of {REMAT_POLICIES}")
 
 
 def block(blk: Block, config: LlamaConfig, x: torch.Tensor, rope: torch.Tensor, mask_info: MaskInfo,
-          cache=None, input_pos=None, prefill: bool = False):
+          cache=None, input_pos=None, prefill: bool = False, saves: rm.SaveStore | None = None, dropout_seed=None):
     """Pre-norm transformer layer."""
     attn_out, cache = attention(blk.attention, config, blk.attention_norm(x), rope, mask_info, cache,
-                                input_pos, prefill=prefill)
+                                input_pos, prefill=prefill, saves=saves, dropout_seed=dropout_seed)
     x = x + attn_out
-    x = x + feed_forward(blk.feed_forward, config, blk.ffn_norm(x))
+    x = x + feed_forward(blk.feed_forward, config, blk.ffn_norm(x), saves)
     return x, cache
 
 
+def layer_seeds(dropout_seeds, num_layers: int) -> list:
+    """One 32-bit dropout seed per layer from ``forward``'s ``dropout_seeds``: None (no
+    dropout), a sequence or tensor of ``num_layers`` integers, or a CPU
+    ``torch.Generator`` from which they are drawn."""
+    if dropout_seeds is None:
+        return [None] * num_layers
+    if isinstance(dropout_seeds, torch.Generator):
+        dropout_seeds = torch.randint(0, 2**31 - 1, (num_layers,), generator=dropout_seeds)
+    seeds = [int(s) for s in dropout_seeds]
+    if len(seeds) != num_layers:
+        raise ValueError(f"{len(seeds)} dropout seeds for {num_layers} layers")
+    return seeds
+
+
 def trunk(model: Llama, x: torch.Tensor, mask_info: MaskInfo, kv_cache=None,
-          input_pos: torch.Tensor | None = None, prefill: bool = False):
+          input_pos: torch.Tensor | None = None, prefill: bool = False, dropout_seeds=None):
     """Run every layer. x [B, S, D] embeddings. Returns (x, kv_cache); the cache (a
     pair of [L, B, n_kv, S, hd] tensors, or of (int8, scale) pairs) is updated in
     place and returned. Without a cache and with ``activation_checkpointing``, each
-    block keeps only its input and is recomputed in the backward."""
+    block (under a q8 policy: its attention half) keeps its input and what
+    ``remat_policy`` names, and the rest is recomputed in the backward."""
     config = model.config
     rope = model.rope if input_pos is not None else model.rope[: x.shape[1]]
+    seeds = layer_seeds(dropout_seeds, config.num_layers)
     remat = kv_cache is None and config.activation_checkpointing and torch.is_grad_enabled()
-    if remat and config.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={config.remat_policy!r}: only 'full' is ported; the named-save and int8-residual "
-            "policies come with slice 2b"
-        )
+    policy = config.remat_policy
+    if remat:
+        check_remat_policy(policy)
+    q8 = policy in _Q8_POLICIES
+    keep = rm.POLICY_SAVES[_Q8_POLICIES[policy] if q8 else policy] if remat else ()
+
+    def region(h, blk, saves, seed):
+        # the checkpointed function: the first pass records the named saves, the recompute takes them
+        saves.enter()
+        if not q8:
+            return block(blk, config, h, rope, mask_info, saves=saves, dropout_seed=seed)[0]
+        out, _ = attention(blk.attention, config, blk.attention_norm(h), rope, mask_info, saves=saves,
+                           dropout_seed=seed)
+        return h + out
+
     for layer, blk in enumerate(model.layers):
         if remat:
-            x = checkpoint(lambda h, blk=blk: block(blk, config, h, rope, mask_info)[0], x,
-                           use_reentrant=False, preserve_rng_state=False)
+            x = checkpoint(region, x, blk, rm.SaveStore(keep), seeds[layer], use_reentrant=False,
+                           preserve_rng_state=False)
+            if q8:
+                x = x + feed_forward_q8(blk, config, x)
             continue
         cache = None if kv_cache is None else _layer_cache(kv_cache, layer)
-        x, _ = block(blk, config, x, rope, mask_info, cache, input_pos, prefill=prefill)
+        x, _ = block(blk, config, x, rope, mask_info, cache, input_pos, prefill=prefill, dropout_seed=seeds[layer])
     return x, kv_cache
 
 
@@ -364,16 +517,17 @@ def head(model: Llama, x: torch.Tensor, labels: torch.Tensor | None = None) -> t
 
 def forward(model: Llama, tokens: torch.Tensor, *, segment_ids: torch.Tensor | None = None,
             labels: torch.Tensor | None = None, kv_cache=None,
-            input_pos: torch.Tensor | None = None, kv_len: torch.Tensor | None = None):
+            input_pos: torch.Tensor | None = None, kv_len: torch.Tensor | None = None, dropout_seeds=None):
     """Logits [B, S, V] for tokens [B, S] (+ optional segment_ids for packed
     documents), or the scalar loss when labels [B, S] are given. With kv_cache +
-    input_pos [S] + kv_len [B]: a decode step over the cache; returns (out, kv_cache)."""
+    input_pos [S] + kv_len [B]: a decode step over the cache; returns (out, kv_cache).
+    ``dropout_seeds`` (``layer_seeds``) turns on ``config.attn_dropout``."""
     x = torch.nn.functional.embedding(tokens, model.tok_embeddings)
     if kv_cache is not None:
         q_pos = input_pos[None, :] if input_pos is not None else None
         mask_info = MaskInfo(causal=True, q_positions=q_pos, kv_len=kv_len)
     else:
         mask_info = MaskInfo(causal=True, segment_ids=segment_ids)
-    x, kv_cache = trunk(model, x, mask_info, kv_cache, input_pos)
+    x, kv_cache = trunk(model, x, mask_info, kv_cache, input_pos, dropout_seeds=dropout_seeds)
     out = head(model, x, labels)
     return (out, kv_cache) if kv_cache is not None else out

@@ -11,8 +11,24 @@ the dV product, ds = p * (dp - delta) * ln2 rounded before the dk and dq product
 f32 accumulation, dq scaled once at the end, dk / dv summed over the GQA group. The
 mask is built in the kernels from ``causal``, ``segment_ids`` / ``kv_segment_ids``
 and ``prefix_len`` and equals ops/attention.py's ``make_attention_mask``. The TPU's
-block-alignment gate is not copied: the kernels mask a ragged S themselves. Dropout
-and the ring offsets come later; ``dropout_rate > 0`` raises.
+block-alignment gate is not copied: the kernels mask a ragged S themselves. The ring
+offsets come later.
+
+Attention dropout (``dropout_rate`` > 0 with a ``dropout_seed``) is the JAX kernels'
+counter-based hash, reproduced bit for bit in the kernels and in the plain versions
+(``dropout_keep``): element (b, q head, q position, kv position) is kept iff
+fmix32(fmix32(key) + r * bk + c) >= min(int(rate * 2**32), 2**32 - 1) in uint32, with
+the key folding (seed, b, kv head, q block, kv block) and (r, c) the element's place in
+the stacked-group block of the JAX plan (bq, bk). f32 p is multiplied by keep / (1 - rate)
+and then rounded for the PV product; l sums the undropped p. The backward rebuilds the
+same mask: dV += bf16(p * keep)^T dO, dp = (dO V^T) * keep, ds = p (dp - delta) ln2
+with the undropped p. The plan is ``dropout_plan``: the JAX package's block choice
+(512 / 1024 by default, group * bq <= 1024) without its TPU gate. Where the JAX package
+has no plan (an S that no block divides) it leaves the kernel for ``jax.random.bernoulli``,
+which cannot be reproduced; the port then keys the hash on ONE block spanning the whole
+sequence, so such shapes share the keep rate and the forward/backward consistency with
+the JAX package, not its bits. ``jax.random`` seeds are not reproduced either: the
+caller hands over one 32-bit seed per call.
 
 ``flash_attention`` and ``flash_fwd_with_lse`` are differentiable: a
 ``torch.autograd.Function`` saves q, k, v, out, lse and its backward is
@@ -24,6 +40,7 @@ and the ring offsets come later; ``dropout_rate > 0`` raises.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -33,6 +50,89 @@ from llama_x_tpu_torch.utils import build
 _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
+_M32 = 0xFFFFFFFF
+_TILE = 64  # the kernels' kv tile: a dropout plan's bk must be a multiple of it, or span the sequence
+
+
+class Dropout(NamedTuple):
+    """One call's attention dropout: the rate, the 32-bit seed and the JAX plan's
+    blocks (bq, bk) that key the hash."""
+
+    rate: float
+    seed: int
+    bq: int
+    bk: int
+
+    @property
+    def threshold(self) -> int:
+        """keep iff bits >= threshold; computed in double on the host, as the JAX kernel does."""
+        return min(int(self.rate * 2**32), 2**32 - 1)
+
+    @property
+    def keep_scale(self) -> float:
+        """1 / (1 - rate) in double, rounded to f32 (the value p is multiplied by)."""
+        return float(torch.tensor(1.0 / (1.0 - self.rate), dtype=torch.float32))
+
+
+def _pick_block(s: int, target: int, candidates: tuple = (512, 256, 128)) -> int | None:
+    for b in (target, *candidates):
+        if b <= s and s % b == 0:
+            return b
+    return None
+
+
+def dropout_plan(sq: int, skv: int, group: int, block_q: int = 512, block_kv: int = 1024) -> tuple[int, int]:
+    """(bq, bk) of the JAX package's flash plan for these shapes (``_pick_bq`` with the
+    group * bq <= 1024 cap, ``_pick_block``), which key the dropout hash. Where that
+    package has no plan, one block spans the whole sequence: (sq, skv)."""
+    cap = max(32, 1024 // max(group, 1))
+    bq = _pick_block(sq, min(block_q, cap), candidates=(512, 256, 128, 64, 32))
+    bk = _pick_block(skv, block_kv)
+    return (sq, skv) if bq is None or bk is None else (bq, bk)
+
+
+def make_dropout(rate: float, seed, sq: int, skv: int, group: int, block_q: int = 512,
+                 block_kv: int = 1024) -> Dropout | None:
+    """The call's ``Dropout``, or None when no dropout applies (rate 0 or no seed, as
+    the JAX package treats a missing ``dropout_rng``)."""
+    if rate <= 0.0 or seed is None:
+        return None
+    if not rate < 1.0:
+        raise ValueError(f"dropout_rate must lie in [0, 1), got {rate}")
+    return Dropout(float(rate), int(seed) & _M32, *dropout_plan(sq, skv, group, block_q, block_kv))
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 x in [0, 2^32), without leaving int64's range."""
+    return ((x & 0xFFFF) * c + ((((x >> 16) * c) & 0xFFFF) << 16)) & _M32
+
+
+def _fmix32(x: torch.Tensor) -> torch.Tensor:
+    """murmur3's 32-bit finalizer on int64 tensors that hold uint32 values."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def dropout_keep(dropout: Dropout, B: int, Hkv: int, group: int, sq: int, skv: int, device=None) -> torch.Tensor:
+    """The keep mask of the JAX kernels' ``_keep_for``, bit for bit, as bool
+    [B, Hkv, group, sq, skv] (True = kept)."""
+    seed, bq, bk = dropout.seed, dropout.bq, dropout.bk
+    qpos = torch.arange(sq, dtype=torch.int64, device=device)
+    kpos = torch.arange(skv, dtype=torch.int64, device=device)
+    g = torch.arange(group, dtype=torch.int64, device=device)
+    row = ((g[:, None] * bq + (qpos % bq)[None, :]) * bk)[:, :, None]  # r * bk, [group, sq, 1]
+    col = (kpos % bk)[None, None, :]
+    block = ((qpos // bq) * 0xC2B2AE35)[:, None] + ((kpos // bk) * 0x27D4EB2F)[None, :]  # [sq, skv]
+    out = torch.empty((B, Hkv, group, sq, skv), dtype=torch.bool, device=device)
+    for b in range(B):
+        for h in range(Hkv):
+            key = (block + ((seed + b * 0x9E3779B9 + h * 0x85EBCA6B) & _M32)) & _M32
+            bits = _fmix32((_fmix32(key)[None] + row + col) & _M32)
+            out[b, h] = bits >= dropout.threshold
+    return out
 
 
 def _check_mask(mi: MaskInfo) -> None:
@@ -40,7 +140,8 @@ def _check_mask(mi: MaskInfo) -> None:
         raise ValueError("flash attention takes causal/segment/prefix masks only (no positions or kv_len)")
 
 
-def flash_fwd_plain(q, k, v, mask_info: MaskInfo | None = None, scale: float | None = None):
+def flash_fwd_plain(q, k, v, mask_info: MaskInfo | None = None, scale: float | None = None,
+                    dropout: Dropout | None = None):
     """Plain version of the kernel's arithmetic: q [B, S, Hq, D], k/v [B, S, Hkv, D]
     (model layout) -> (out [B, S, Hq, D] in q's dtype, lse [B, Hq, S, 1] f32)."""
     mi = mask_info or MaskInfo(causal=False)
@@ -58,12 +159,37 @@ def flash_fwd_plain(q, k, v, mask_info: MaskInfo | None = None, scale: float | N
         s = torch.where(mask[:, :, None], s, torch.full_like(s, _NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp2(s - m)
-    l = p.sum(dim=-1, keepdim=True)
+    l = p.sum(dim=-1, keepdim=True)  # the undropped p
+    if dropout is not None:
+        keep = dropout_keep(dropout, B, Hkv, group, Sq, Skv, q.device)
+        p = torch.where(keep, p * dropout.keep_scale, torch.zeros_like(p))
     pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype).float(), v.float())
     out = pv / torch.where(l == 0.0, torch.ones_like(l), l)
     lse = (m + torch.log2(torch.clamp(l, min=1e-30))) * _LN2
     out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(q.dtype)
     return out, lse.reshape(B, Hq, Sq, 1)
+
+
+def flash_fwd_tolerance(ref: torch.Tensor) -> tuple[torch.Tensor, float]:
+    """(atol, rtol) that holds the forward kernel's out to its plain version, per element:
+    |got - ref| <= atol + rtol |ref| with rtol = 2^-7 and atol = 2^-5 of the rms of the
+    element's own row of ref (over head_dim; atol is [B, S, Hq, 1]).
+
+    Both sides round p to bf16 before the PV product, the kernel at its running row max
+    and the plain version at the final one, and their logits are f32 sums in another
+    order; the two final casts to bf16 can land one ulp apart (2^-7 |ref|). A p on the
+    other side of its rounding moves its row by 2^-8 p |v|, and a row's rms over head_dim
+    is at least the largest p times rms(v), whether the row sees one key or thousands; a
+    global rms would not cover the first rows of a causal or packed sequence. Readings of
+    chip_smoke.py on one H100 (32/8 heads, D 128), as the largest share of atol that any
+    element uses beyond 2^-7 |ref|: prefix-LM 2000 at S 4096 0.3409 without dropout and
+    0.3404 at rate 0.1, causal S 4096 0.3357, 8 packed documents 0.3463, S 512 0.2547 to
+    0.3365, S 37 0.0154 and 0.0318 with dropout. A keep mask that is wrong on one block of
+    the dropout plan moves that block's rows by about 0.2 of their rms at the audio step's
+    proportions, six times the limit, and a missing keep scale moves every element by
+    about rate |ref|; tests/test_torch_dropout.py plants both."""
+    rms = ref.float().pow(2).mean(dim=-1, keepdim=True).sqrt()
+    return 2**-5 * rms, 2**-7
 
 
 def _check_qkv(q, k, v):
@@ -103,13 +229,25 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(q, k, v, mi: MaskInfo, scale: float):
+def _dropout_args(dropout: Dropout | None, skv: int) -> tuple:
+    """The kernels' dropout arguments (on, threshold, keep scale, seed, bq, bk). The
+    kernels hoist the block key per 64-position kv tile, so a tile must not straddle
+    two kv blocks of the plan."""
+    if dropout is None:
+        return 0, 0, 1.0, 0, 1, 1
+    if dropout.bk % _TILE and dropout.bk != skv:
+        raise ValueError(f"the dropout plan's kv block {dropout.bk} must be a multiple of {_TILE} or span the sequence")
+    return 1, dropout.threshold, dropout.keep_scale, dropout.seed, dropout.bq, dropout.bk
+
+
+def _launch(q, k, v, mi: MaskInfo, scale: float, dropout: Dropout | None = None):
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     q, k, v = _check_qkv(q, k, v)
     _check_mask(mi)
     dev = q.device
     qseg, kseg, prefix = _mask_operands(mi, B, S, dev)
+    drop = _dropout_args(dropout, S)
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq, S, 1), dtype=torch.float32, device=dev)
     if B == 0 or S == 0:
@@ -121,23 +259,25 @@ def _launch(q, k, v, mi: MaskInfo, scale: float):
         lib.lxt_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(qseg), _ptr(kseg), _ptr(prefix),
             out.data_ptr(), lse.data_ptr(),
-            B, S, Hq, Hkv, D, int(bool(mi.causal)), float(scale * _LOG2E), stream,
+            B, S, Hq, Hkv, D, int(bool(mi.causal)), float(scale * _LOG2E), *drop, stream,
         ),
         "flash_attention",
     )
     return out, lse
 
 
-def _forward_impl(q, k, v, mask_info: MaskInfo | None = None, scale: float | None = None):
+def _forward_impl(q, k, v, mask_info: MaskInfo | None = None, scale: float | None = None,
+                  dropout: Dropout | None = None):
     """(out, lse) without autograd: the kernel on CUDA tensors, its plain version on
     CPU tensors."""
     if q.device.type == "cpu":
-        return flash_fwd_plain(q, k, v, mask_info, scale)
+        return flash_fwd_plain(q, k, v, mask_info, scale, dropout)
     mi = mask_info or MaskInfo(causal=False)
-    return _launch(q, k, v, mi, 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale)
+    return _launch(q, k, v, mi, 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale, dropout)
 
 
-def flash_bwd_plain(q, k, v, out, lse, do, mask_info: MaskInfo | None = None, scale: float | None = None):
+def flash_bwd_plain(q, k, v, out, lse, do, mask_info: MaskInfo | None = None, scale: float | None = None,
+                    dropout: Dropout | None = None):
     """Plain version of the backward kernel's arithmetic, rounding points included:
     model-layout q/out/do [B, S, Hq, D], k/v [B, S, Hkv, D], lse [B, Hq, S, 1] f32 ->
     (dq, dk, dv) in the inputs' layouts and dtypes."""
@@ -159,8 +299,13 @@ def flash_bwd_plain(q, k, v, out, lse, do, mask_info: MaskInfo | None = None, sc
         p = torch.where(mask[:, :, None], p, torch.zeros_like(p))
     delta = (do.float() * out.float()).sum(dim=-1)  # [B, Sq, Hq]
     delta = delta.reshape(B, Sq, Hkv, group).permute(0, 2, 3, 1)[..., None]
-    dv = torch.einsum("bhgqk,bqhgd->bkhd", p.to(do.dtype).float(), dof)
     dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, v.float())
+    p_v = p
+    if dropout is not None:  # the forward's mask, rebuilt: dV sees p * keep, dp is masked, ds keeps the undropped p
+        keep = dropout_keep(dropout, B, Hkv, group, Sq, Skv, q.device)
+        p_v = torch.where(keep, p * dropout.keep_scale, torch.zeros_like(p))
+        dp = torch.where(keep, dp * dropout.keep_scale, torch.zeros_like(dp))
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p_v.to(do.dtype).float(), dof)
     ds = (p * (dp - delta) * _LN2).to(q.dtype).float()
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf)
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()) * fold
@@ -184,7 +329,7 @@ def flash_bwd_tolerance(ref: torch.Tensor) -> tuple[float, float]:
     return 2**-5 * float(ref.float().pow(2).mean().sqrt()), 2**-7
 
 
-def _launch_bwd(q, k, v, out, lse, do, mi: MaskInfo, scale: float):
+def _launch_bwd(q, k, v, out, lse, do, mi: MaskInfo, scale: float, dropout: Dropout | None = None):
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     q, k, v = _check_qkv(q, k, v)
@@ -201,6 +346,7 @@ def _launch_bwd(q, k, v, out, lse, do, mi: MaskInfo, scale: float):
     # as it is outside the TPU kernel too
     delta = (do.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
     qseg, kseg, prefix = _mask_operands(mi, B, S, dev)
+    drop = _dropout_args(dropout, S)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if B == 0 or S == 0:
         return dq, dk, dv
@@ -211,9 +357,7 @@ def _launch_bwd(q, k, v, out, lse, do, mi: MaskInfo, scale: float):
         lib.lxt_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             _ptr(qseg), _ptr(kseg), _ptr(prefix), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, S, Hq, Hkv, D, int(bool(mi.causal)), float(scale * _LOG2E),
-            0.0, 0, 0, 0,  # dropout_rate, seed and the TPU plan's (bq, bk) that would key it: not ported yet
-            stream,
+            B, S, Hq, Hkv, D, int(bool(mi.causal)), float(scale * _LOG2E), *drop, stream,
         ),
         "flash_attention_bwd",
     )
@@ -221,15 +365,14 @@ def _launch_bwd(q, k, v, out, lse, do, mi: MaskInfo, scale: float):
 
 
 def flash_bwd_from_res(q, k, v, out, lse, do, mask_info: MaskInfo | None = None, scale: float | None = None,
-                       dropout_rate: float = 0.0):
+                       dropout: Dropout | None = None):
     """(dq, dk, dv) from the forward's saved (out, lse): the kernel on CUDA tensors,
-    its plain version on CPU tensors. The counterpart of ``flash_fwd_with_lse``."""
-    if dropout_rate > 0.0:
-        raise NotImplementedError("attention dropout in the flash kernels is not ported yet (slice 2b)")
+    its plain version on CPU tensors. The counterpart of ``flash_fwd_with_lse``;
+    ``dropout`` is the forward's (``make_dropout``)."""
     if q.device.type == "cpu":
-        return flash_bwd_plain(q, k, v, out, lse, do, mask_info, scale)
+        return flash_bwd_plain(q, k, v, out, lse, do, mask_info, scale, dropout)
     mi = mask_info or MaskInfo(causal=False)
-    return _launch_bwd(q, k, v, out, lse, do, mi, 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale)
+    return _launch_bwd(q, k, v, out, lse, do, mi, 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale, dropout)
 
 
 flash_bwd_from_res.launches = 0
@@ -237,37 +380,46 @@ flash_bwd_from_res.launches = 0
 
 class _FlashAttention(torch.autograd.Function):
     """out, lse = flash forward; the backward runs from the saved q, k, v, out, lse.
-    lse carries no gradient (as in the JAX custom_vjp, which returns out alone)."""
+    lse carries no gradient (as in the JAX custom_vjp, which returns out alone).
+    ``preset``: an (out, lse) pair kept from an earlier forward on the same inputs (a
+    remat policy's saved flash residuals); the forward then returns it and launches
+    nothing, and the backward is the same."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask_info, scale):
-        out, lse = _forward_impl(q, k, v, mask_info, scale)
+    def forward(ctx, q, k, v, mask_info, scale, dropout, preset):
+        if preset is None:
+            out, lse = _forward_impl(q, k, v, mask_info, scale, dropout)
+        else:
+            out, lse = (t.detach() for t in preset)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.mask_info, ctx.scale = mask_info, scale
+        ctx.mask_info, ctx.scale, ctx.dropout = mask_info, scale, dropout
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, do, _dlse):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_bwd_from_res(q, k, v, out, lse, do, ctx.mask_info, ctx.scale)
-        return dq, dk, dv, None, None
+        dq, dk, dv = flash_bwd_from_res(q, k, v, out, lse, do, ctx.mask_info, ctx.scale, ctx.dropout)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_fwd_with_lse(q, k, v, mask_info: MaskInfo | None = None, scale: float | None = None,
-                       dropout_rate: float = 0.0):
+                       dropout_rate: float = 0.0, dropout_seed=None, block_q: int = 512, block_kv: int = 1024,
+                       preset=None):
     """Model-layout [B, S, H, D] in and out, plus the fp32 natural-log lse
     [B, Hq, S, 1]; differentiable in q, k, v. The kernels on CUDA tensors, their plain
-    versions on CPU tensors."""
-    if dropout_rate > 0.0:
-        raise NotImplementedError("attention dropout in the flash kernels is not ported yet (slice 2b)")
-    return _FlashAttention.apply(q, k, v, mask_info, scale)
+    versions on CPU tensors. Dropout applies when ``dropout_rate`` > 0 and a
+    ``dropout_seed`` (32 bits) is given; ``block_q`` / ``block_kv`` are the JAX plan's
+    targets, which only key the dropout hash here."""
+    dropout = make_dropout(dropout_rate, dropout_seed, q.shape[1], k.shape[1], q.shape[2] // max(k.shape[2], 1),
+                           block_q, block_kv)
+    return _FlashAttention.apply(q, k, v, mask_info, scale, dropout, preset)
 
 
 flash_fwd_with_lse.launches = 0
 
 
 def flash_attention(q, k, v, mask_info: MaskInfo | None = None, scale: float | None = None,
-                    dropout_rate: float = 0.0):
+                    dropout_rate: float = 0.0, dropout_seed=None, block_q: int = 512, block_kv: int = 1024):
     """Flash attention over the model's [B, S, H, D] layout (output only)."""
-    return flash_fwd_with_lse(q, k, v, mask_info, scale, dropout_rate)[0]
+    return flash_fwd_with_lse(q, k, v, mask_info, scale, dropout_rate, dropout_seed, block_q, block_kv)[0]

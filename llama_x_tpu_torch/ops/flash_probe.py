@@ -1,0 +1,90 @@
+"""The flash probe (kernel K6, ``csrc/flash_probe.cu``): a matmul-only attention that
+bounds what the flash forward's two products cost without its softmax.
+
+Port of the probe kernel of tools/probe_flash.py (``probe_kernel``): for the plan
+(bq, bk) and a prefix length,
+
+    out = sum over the needed (i, j) blocks of bf16(Q_i K_j^T) V_j     (f32 accumulator)
+    need(i, j) = (i*bq + bq - 1 >= j*bk) | ((i*bq < prefix) & (j*bk < prefix))
+
+q is not scaled, the logits are rounded to the inputs' dtype before the second product,
+and inside a needed block nothing is masked: the skip is whole-block, as the TPU
+kernel's. The port keeps the model's [B, S, H, D] layout (the TPU tool transposes to
+head-major around its kernel). On CPU tensors ``flash_probe`` runs ``flash_probe_plain``;
+on CUDA tensors it launches the kernel or raises (bf16, head_dim 64 or 128, bq and bk
+multiples of 64 that divide S).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from llama_x_tpu_torch.ops.flash_attention import _check_qkv
+from llama_x_tpu_torch.utils import build
+
+_TILE = 64
+
+
+def needed_blocks(S: int, bq: int, bk: int, prefix: int, device=None) -> torch.Tensor:
+    """bool [S // bq, S // bk]: the (q block, kv block) pairs the probe computes."""
+    q_start = torch.arange(S // bq, device=device)[:, None] * bq
+    kv_start = torch.arange(S // bk, device=device)[None, :] * bk
+    return (q_start + bq - 1 >= kv_start) | ((q_start < prefix) & (kv_start < prefix))
+
+
+def _check_plan(S: int, bq: int, bk: int) -> None:
+    if bq <= 0 or bk <= 0 or S % bq or S % bk:
+        raise ValueError(f"bq={bq} and bk={bk} must divide S={S}")
+
+
+def flash_probe_plain(q, k, v, bq: int, bk: int, prefix: int = 0):
+    """Plain version of the kernel's arithmetic: q [B, S, Hq, D], k/v [B, S, Hkv, D] ->
+    out [B, S, Hq, D] in q's dtype."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    group = Hq // Hkv
+    _check_plan(S, bq, bk)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q.reshape(B, S, Hkv, group, D).float(), k.float())
+    s = s.to(q.dtype).float()  # the logits' rounding before the second product
+    need = needed_blocks(S, bq, bk, prefix, q.device)
+    need = need.repeat_interleave(bq, dim=0).repeat_interleave(bk, dim=1)  # [S, S]
+    s = torch.where(need, s, torch.zeros_like(s))
+    out = torch.einsum("bhgqk,bkhd->bqhgd", s, v.float())
+    return out.reshape(B, S, Hq, D).to(q.dtype)
+
+
+def flash_probe(q, k, v, bq: int = 256, bk: int = 1024, prefix: int = 0):
+    """K6 on CUDA tensors, its plain version on CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_probe_plain(q, k, v, bq, bk, prefix)
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    _check_plan(S, bq, bk)
+    if bq % _TILE or bk % _TILE:
+        raise ValueError(f"the probe kernel takes bq and bk that are multiples of {_TILE}, got {bq}, {bk}")
+    q, k, v = _check_qkv(q, k, v)
+    out = torch.empty_like(q)
+    if B == 0 or S == 0:
+        return out
+    lib = build.load_library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    flash_probe.launches += 1
+    build.check(
+        lib.lxt_flash_probe(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, Hq, Hkv, D,
+                            int(bq), int(bk), int(prefix), stream),
+        "flash_probe",
+    )
+    return out
+
+
+flash_probe.launches = 0
+
+
+def probe_tolerance(ref: torch.Tensor) -> tuple[float, float]:
+    """(atol, rtol) per element that holds the kernel to its plain version:
+    |got - ref| <= 2^-8 rms(ref) + 2^-7 |ref|. Both sides round the logits to bf16 and the
+    output to bf16; their f32 sums run in another order, so the two outputs can land one
+    bf16 ulp apart (2^-7 |ref|), and a logit that falls on the other side of its rounding
+    moves its row by 2^-8 |s v|, far below the rms of a sum over thousands of such terms.
+    A skipped or an extra block moves a row by about rms(ref)."""
+    return 2**-8 * float(ref.float().pow(2).mean().sqrt()), 2**-7

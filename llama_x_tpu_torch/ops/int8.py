@@ -7,6 +7,9 @@ Port of llama_x_tpu/ops/int8.py:
   [out]}. Weight-only by default; with ``dynamic_int8_act`` the activations are
   quantized rowwise too and the product runs through the NT int8 GEMM kernel
   (ops/int8_mm.py) with the weight in its stored layout;
+- ``preset``: the product's output kept from an earlier forward on the same input (a
+  remat policy's named save) or a placeholder (``ops/linear.py:linear_vjp``); the
+  forward then returns it and launches nothing, and the backward is the same;
 - its gradient (a ``torch.autograd.Function``, the JAX custom_vjp): never a weight
   or scale gradient, the int8 base is frozen by construction; grad_x = (g * scale) @
   int_data in g's dtype, or with ``dynamic_int8_bwd`` the weight scale is folded
@@ -52,10 +55,10 @@ def _forward(x: torch.Tensor, int_data: torch.Tensor, scale: torch.Tensor, dynam
 
 class _Int8Linear(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, int_data, scale, dynamic_int8_act, dynamic_int8_bwd):
+    def forward(ctx, x, int_data, scale, dynamic_int8_act, dynamic_int8_bwd, preset):
         ctx.save_for_backward(int_data, scale)
         ctx.x_dtype, ctx.dynamic_int8_bwd = x.dtype, dynamic_int8_bwd
-        return _forward(x, int_data, scale, dynamic_int8_act)
+        return _forward(x, int_data, scale, dynamic_int8_act) if preset is None else preset[0].detach()
 
     @staticmethod
     def backward(ctx, g):
@@ -69,11 +72,13 @@ class _Int8Linear(torch.autograd.Function):
             gx = gx.reshape(*lead, int_data.shape[1])
         else:
             gx = ((g * scale.to(g.dtype)) @ int_data.to(g.dtype)).to(ctx.x_dtype)
-        return gx, None, None, None, None
+        return gx, None, None, None, None, None
 
 
 def int8_linear(x: torch.Tensor, int_data: torch.Tensor, scale: torch.Tensor, dynamic_int8_act: bool = False,
-                dynamic_int8_bwd: bool = False):
+                dynamic_int8_bwd: bool = False, preset: torch.Tensor | None = None):
     """x [..., in] -> [..., out] through the int8 base, in x's dtype; differentiable
-    in x only."""
-    return _Int8Linear.apply(x, int_data, scale, dynamic_int8_act, dynamic_int8_bwd)
+    in x only. With ``preset`` (the output, known already) no product runs."""
+    # the preset crosses into the Function inside a tuple: autograd then leaves it alone
+    return _Int8Linear.apply(x, int_data, scale, dynamic_int8_act, dynamic_int8_bwd,
+                             None if preset is None else (preset,))

@@ -12,6 +12,15 @@ a ``Linear`` module holding the same tensors, each optional:
 ``apply_linear`` keeps the JAX order: base, + LoRA delta, DoRA rescale by
 m / ||W + B A s|| (a column norm taken without gradient), + bias. So a QLoRA
 fine-tune (int8 base + LoRA leaves) serves as it is.
+
+Two things exist for the remat policies (models/llama.py). ``save=(store, name)``
+makes the base product a named point of a checkpointed region (ops/remat.py): its
+output is kept on the first pass and handed back on the recompute, so the GEMM runs
+once. ``linear_vjp`` is the direct backward of ``apply_linear``: dx and the gradients of
+the linear's trainable tensors from (x, g) without the base forward product. The JAX
+package calls ``jax.vjp`` on the linear there and lets XLA drop the replayed forward;
+PyTorch drops nothing, so the replay gets the base output handed in as a placeholder
+that no gradient reads.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ import torch
 from torch import nn
 
 from llama_x_tpu_torch.ops.int8 import int8_linear
+from llama_x_tpu_torch.ops.remat import run_saved
 
 
 class Linear(nn.Module):
@@ -51,10 +61,40 @@ class Linear(nn.Module):
             self.register_buffer(name, t)
 
 
-def _base_matmul(x: torch.Tensor, lin: Linear, dynamic_int8_act: bool, dynamic_int8_bwd: bool) -> torch.Tensor:
-    if lin.int_data is not None:
-        return int8_linear(x, lin.int_data, lin.scale, dynamic_int8_act, dynamic_int8_bwd)
-    return torch.nn.functional.linear(x, lin.weight.to(x.dtype))
+class _FloatLinear(torch.autograd.Function):
+    """x @ w.T for a float base at a named point of a checkpointed region, or where the
+    output is known already: with ``preset`` the forward returns it and no product runs;
+    the backward is the linear's own (dx = g w, dw = g^T x). Both passes of a region go
+    through this Function, so that they save the same tensors in the same order."""
+
+    @staticmethod
+    def forward(ctx, x, w, preset):
+        ctx.save_for_backward(x, w)
+        return torch.nn.functional.linear(x, w) if preset is None else preset[0].detach()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = g.matmul(w) if ctx.needs_input_grad[0] else None
+        gw = g.reshape(-1, g.shape[-1]).t().mm(x.reshape(-1, x.shape[-1])) if ctx.needs_input_grad[1] else None
+        return gx, gw, None
+
+
+def _base_matmul(x: torch.Tensor, lin: Linear, dynamic_int8_act: bool, dynamic_int8_bwd: bool,
+                 save=None, preset: torch.Tensor | None = None) -> torch.Tensor:
+    """The base product. ``save=(store, name)``: a named point of a checkpointed region;
+    ``preset``: the output, handed in (no product runs)."""
+
+    named = save is not None and save[1] in save[0].names
+
+    def base(kept):
+        if lin.int_data is not None:
+            return int8_linear(x, lin.int_data, lin.scale, dynamic_int8_act, dynamic_int8_bwd, kept)
+        if named or kept is not None:
+            return _FloatLinear.apply(x, lin.weight.to(x.dtype), None if kept is None else (kept,))
+        return torch.nn.functional.linear(x, lin.weight.to(x.dtype))
+
+    return base(preset) if preset is not None else run_saved(save, base)
 
 
 def _dequant_kernel(lin: Linear) -> torch.Tensor:
@@ -83,8 +123,8 @@ def _lora_delta(x_a: torch.Tensor, lin: Linear, dtype: torch.dtype) -> torch.Ten
 
 
 def apply_linear(x: torch.Tensor, lin: Linear, *, dynamic_int8_act: bool = False,
-                 dynamic_int8_bwd: bool = False) -> torch.Tensor:
-    out = _base_matmul(x, lin, dynamic_int8_act, dynamic_int8_bwd)
+                 dynamic_int8_bwd: bool = False, save=None, base_out: torch.Tensor | None = None) -> torch.Tensor:
+    out = _base_matmul(x, lin, dynamic_int8_act, dynamic_int8_bwd, save, base_out)
     delta = None
     if lin.lora_a is not None:
         delta = _lora_delta(x @ lin.lora_a.to(x.dtype), lin, x.dtype)
@@ -92,11 +132,11 @@ def apply_linear(x: torch.Tensor, lin: Linear, *, dynamic_int8_act: bool = False
 
 
 def apply_linear_grouped(x: torch.Tensor, lins, *, dynamic_int8_act: bool = False,
-                         dynamic_int8_bwd: bool = False) -> tuple[torch.Tensor, ...]:
+                         dynamic_int8_bwd: bool = False, save=None) -> tuple[torch.Tensor, ...]:
     """Several linears on the SAME input, their LoRA A-projections fused into one
     concatenated GEMM (x is read once); exact, since each output column of a matmul
-    reads only its own weight column."""
-    outs = [_base_matmul(x, lin, dynamic_int8_act, dynamic_int8_bwd) for lin in lins]
+    reads only its own weight column. ``save`` names every base product of the group."""
+    outs = [_base_matmul(x, lin, dynamic_int8_act, dynamic_int8_bwd, save) for lin in lins]
     lora_is = [i for i, lin in enumerate(lins) if lin.lora_a is not None]
     deltas: dict[int, torch.Tensor] = {}
     if len(lora_is) >= 2:
@@ -110,3 +150,22 @@ def apply_linear_grouped(x: torch.Tensor, lins, *, dynamic_int8_act: bool = Fals
         i = lora_is[0]
         deltas[i] = _lora_delta(x @ lins[i].lora_a.to(x.dtype), lins[i], x.dtype)
     return tuple(_finish_linear(lin, out, deltas.get(i)) for i, (lin, out) in enumerate(zip(lins, outs)))
+
+
+def linear_vjp(lin: Linear, x: torch.Tensor, g: torch.Tensor, *, dynamic_int8_act: bool = False,
+               dynamic_int8_bwd: bool = False) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """The backward of ``apply_linear(x, lin)`` against the cotangent ``g``, without the
+    base forward product: (dx, {tensor name: gradient} for the linear's trainable
+    tensors). The adapter path is replayed (rank-r products) and the base product's
+    output is a zero placeholder: the int8 and float bases' backwards read g and the
+    weights only, and the additions after it read nothing. DoRA's rescale does read the
+    output, so a linear with ``m`` runs its base product again."""
+    named = [(n, p) for n, p in lin.named_parameters() if p.requires_grad]
+    base = lin.int_data if lin.int_data is not None else lin.weight
+    placeholder = None if lin.m is not None else x.new_zeros(*x.shape[:-1], base.shape[0])
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(True)
+        out = apply_linear(xg, lin, dynamic_int8_act=dynamic_int8_act, dynamic_int8_bwd=dynamic_int8_bwd,
+                           base_out=placeholder)
+        grads = torch.autograd.grad(out, [xg] + [p for _, p in named], g, allow_unused=True)
+    return grads[0], {n: gp for (n, _), gp in zip(named, grads[1:]) if gp is not None}

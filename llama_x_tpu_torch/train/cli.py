@@ -1,13 +1,13 @@
-"""Shared trainer plumbing for the command-line entry point (port of
-llama_x_tpu/train/cli.py, the part the text trainer reads): the common flags, model
-construction with the quantize -> adapt -> freeze composition, optimizer set-up and
-step-batch assembly.
+"""Shared trainer plumbing for the command-line entry points (port of
+llama_x_tpu/train/cli.py, the part the text and audio trainers read): the common
+flags, model construction with the quantize -> adapt -> freeze composition (with an
+audio stem for the audio trainer), optimizer set-up and step-batch assembly.
 
 Flags of the JAX trainer that belong to later slices of the port are accepted by the
 parser and refused with the slice's name, never ignored: ``--mesh``,
 ``--pp_microbatches`` and ``--attn_impl ring|ulysses`` (sharding and context
 parallelism), ``--model`` / ``--tokenizer`` / ``--resume`` from a HF checkpoint (HF
-import), remat policies other than ``full`` (slice 2b).
+import), the ``attn_q8`` / ``attn_q8s`` remat policies (slice 2c).
 """
 
 from __future__ import annotations
@@ -27,10 +27,7 @@ from llama_x_tpu_torch.train.optim import get_optimizer, trapezoid_schedule
 from llama_x_tpu_torch.train.trainer import trainable_parameters
 from llama_x_tpu_torch.utils.device import resolve_device
 
-REMAT_POLICIES = [
-    "full", "dots", "dots_flash", "flash", "flash_qkv", "flash_proj", "flash_q8", "flash_q8s", "flash_qkv_q8",
-    "flash_qkv_q8s", "flash_proj_q8", "flash_proj_q8s", "attn_q8", "attn_q8s",
-]
+REMAT_POLICIES = list(llama.REMAT_POLICIES)
 
 
 def add_common_args(parser: argparse.ArgumentParser):
@@ -80,8 +77,9 @@ def add_common_args(parser: argparse.ArgumentParser):
                              "default: the small --synthetic model")
 
 
-def check_supported(args) -> None:
-    """Refuse, by name, what later slices of the port bring."""
+def check_supported(args, real_data: str = "MetaMathQA data (slice 2b)") -> None:
+    """Refuse, by name, what later slices of the port bring. ``real_data``: the trainer's
+    real dataset and the slice that brings it; it needs files the repository does not hold."""
     later = []
     if args.mesh or args.pp_microbatches:
         later.append("--mesh / --pp_microbatches (sharded training: slice 5)")
@@ -91,10 +89,10 @@ def check_supported(args) -> None:
         later.append("--model (HF import: slice 3)")
     if args.tokenizer != "byte":
         later.append(f"--tokenizer {args.tokenizer} (needs its model file: slice 2b)")
-    if args.remat_policy != "full":
-        later.append(f"--remat_policy {args.remat_policy} (named-save and int8-residual policies: slice 2b)")
+    if args.remat_policy in ("attn_q8", "attn_q8s"):
+        later.append(f"--remat_policy {args.remat_policy} (the int8-residual attention: slice 2c)")
     if not args.synthetic:
-        later.append("real MetaMathQA data (tokenization needs files the repository does not hold: slice 2b); "
+        later.append(f"real {real_data}: needs dataset and tokenizer files the repository does not hold; "
                      "pass --synthetic N")
     if later:
         raise NotImplementedError("not ported yet: " + "; ".join(later))
@@ -107,18 +105,23 @@ def make_save_dir(task: str, run_name: str | None) -> Path:
     return d
 
 
-def save_model_config(save_dir: Path, config) -> None:
+def save_model_config(save_dir: Path, config, audio_config=None) -> None:
     """The model hyperparameters beside the checkpoints, so that a later reader can
     rebuild the architecture."""
     import dataclasses
 
-    (Path(save_dir) / "model_config.json").write_text(json.dumps({"llama": dataclasses.asdict(config)}, indent=2))
+    record = {"llama": dataclasses.asdict(config)}
+    if audio_config is not None:
+        record["audio"] = dataclasses.asdict(audio_config)
+    (Path(save_dir) / "model_config.json").write_text(json.dumps(record, indent=2))
 
 
-def build_model_params(args, max_seq_len: int = 2048):
+def build_model_params(args, max_seq_len: int = 2048, audio_config=None):
     """Random init -> quantize -> adapt -> freeze, in the JAX trainer's order, and
-    ``frozen_head`` read off the head's actual ``requires_grad``. Returns the model;
-    prints the trainable / frozen counts."""
+    ``frozen_head`` read off the head's actual ``requires_grad``. With ``audio_config``
+    the model is a ``LlamaAudio``: a freshly drawn stem beside the decoder (never
+    quantized, never adapted; ``--freeze_prefixes audio_embed`` freezes it). Returns the
+    model; prints the trainable / frozen counts."""
     from llama_x_tpu_torch.generate_cli import GEOMETRIES, build_model
 
     device = resolve_device(args.device)
@@ -148,6 +151,12 @@ def build_model_params(args, max_seq_len: int = 2048):
     if args.adapter:
         gen = torch.Generator(device=device).manual_seed(args.seed + 1)
         apply_linear_adapter(model.layers, args.adapter, gen, dtype=dtype, **args.adapter_kwargs)
+    if audio_config is not None:
+        from llama_x_tpu_torch.models.audio import LlamaAudio, init_audio_stem
+
+        gen = torch.Generator(device=device).manual_seed(args.seed + 2)
+        stem = init_audio_stem(model.config, audio_config, gen, torch.bfloat16 if args.geometry else dtype)
+        model = LlamaAudio.from_llama(model, stem, audio_config)
     n_train, n_frozen = set_trainable(model, tuple(args.freeze_prefixes))
     # frozen_head from the ACTUAL requires_grad, so that the fused-CE backward skips the
     # head's gradient exactly when the optimizer would never see it

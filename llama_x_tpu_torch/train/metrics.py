@@ -32,19 +32,24 @@ class RunLogger:
 
 
 class Throughput:
-    """Tokens per second between two reads of ``rates``."""
+    """Tokens (and seconds of audio) per second between two reads of ``rates``."""
 
     def __init__(self):
         self.n_tokens = 0
+        self.audio_secs = 0.0
         self.t0 = time.perf_counter()
 
-    def update(self, n_tokens: int):
+    def update(self, n_tokens: int, audio_secs: float = 0.0):
         self.n_tokens += int(n_tokens)
+        self.audio_secs += audio_secs
 
     def rates(self) -> dict:
         t1 = time.perf_counter()
-        out = {"toks_per_second": self.n_tokens / max(t1 - self.t0, 1e-9)}
-        self.n_tokens, self.t0 = 0, t1
+        dt = max(t1 - self.t0, 1e-9)
+        out = {"toks_per_second": self.n_tokens / dt}
+        if self.audio_secs:
+            out["audio_secs_per_second"] = self.audio_secs / dt
+        self.n_tokens, self.audio_secs, self.t0 = 0, 0.0, t1
         return out
 
 

@@ -12,7 +12,7 @@
         --n_steps 4 --log_interval 1
 
 Runs on the card unless ``--device cpu``. Real data, HF weights, meshes and the
-remat policies beyond ``full`` belong to later slices and raise by name.
+``attn_q8`` remat policies belong to later slices and raise by name.
 """
 
 from __future__ import annotations

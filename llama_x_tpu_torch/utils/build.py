@@ -32,13 +32,15 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
+_DROPOUT = [_I, _U, _F, _U, _I, _I]  # on, threshold, keep scale, seed, bq, bk (csrc/common.cuh: Dropout)
 # C signatures of the kernels' entry points (csrc/*.cu, extern "C")
 _SIGNATURES = {
     "lxt_int8_mm_dequant_nt": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "lxt_int8_mm_dequant_kn": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-    "lxt_flash_attention_fwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P], _I),
-    "lxt_flash_attention_bwd": ([_P] * 12 + [_I] * 6 + [_F, _F, _I, _I, _I, _P], _I),
+    "lxt_flash_attention_fwd": ([_P] * 8 + [_I] * 6 + [_F] + _DROPOUT + [_P], _I),
+    "lxt_flash_attention_bwd": ([_P] * 12 + [_I] * 6 + [_F] + _DROPOUT + [_P], _I),
+    "lxt_flash_probe": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "lxt_decode_attention": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P], _I),
 }
 

@@ -135,11 +135,15 @@ def test_flash_bwd_keeps_the_rounding_points_in_bf16():
 
 
 def test_flash_dropout_is_refused():
-    q = torch.zeros(1, 8, 1, 16)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tfa.flash_attention(q, q, q, MaskInfo(causal=True), dropout_rate=0.1)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tfa.flash_bwd_from_res(q, q, q, q, torch.zeros(1, 1, 8, 1), q, MaskInfo(causal=True), dropout_rate=0.1)
+    """Dropout is ported (tests/test_torch_dropout.py); what is still refused is a rate
+    outside [0, 1). A rate without a seed is no dropout, as in the JAX package."""
+    q = torch.randn(1, 8, 1, 16, generator=torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="dropout"):
+        tfa.flash_attention(q, q, q, MaskInfo(causal=True), dropout_rate=1.0, dropout_seed=1)
+    with pytest.raises(ValueError, match="dropout"):
+        tfa.make_dropout(1.5, 0, 8, 8, 1)
+    plain = tfa.flash_attention(q, q, q, MaskInfo(causal=True))
+    assert torch.equal(tfa.flash_attention(q, q, q, MaskInfo(causal=True), dropout_rate=0.5), plain)
 
 
 @pytest.mark.parametrize("fault", ["mask one position off", "missing ln2", "lost group member"])

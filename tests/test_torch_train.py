@@ -150,12 +150,17 @@ def test_activation_checkpointing_gives_the_same_gradients(mode):
         np.testing.assert_array_equal(grads0[name], grads1[name], err_msg=name)
 
 
-@pytest.mark.parametrize("policy", ["dots", "flash", "flash_q8s", "attn_q8"])
-def test_other_remat_policies_are_refused_by_name(policy):
+@pytest.mark.parametrize("policy,exc,match", [
+    ("attn_q8", NotImplementedError, "slice 2c"), ("attn_q8s", NotImplementedError, "slice 2c"),
+    ("flash_q9", ValueError, "unknown remat_policy"), ("dots_proj", ValueError, "unknown remat_policy"),
+])
+def test_other_remat_policies_are_refused_by_name(policy, exc, match):
+    """The named-save and q8 policies are ported (tests/test_torch_remat.py); the
+    int8-residual attention raises naming its slice, and an unknown name raises too."""
     _, _, _, model = _pair("full")
     model.config = model.config.replace(activation_checkpointing=True, remat_policy=policy)
     tokens, labels, seg = _batch(2)
-    with pytest.raises(NotImplementedError, match="slice 2b"):
+    with pytest.raises(exc, match=match):
         tllama.forward(model, torch.from_numpy(tokens).long(), labels=torch.from_numpy(labels))
 
 

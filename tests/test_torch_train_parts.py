@@ -176,7 +176,7 @@ def _args(*argv):
     (["--attn_impl", "ring"], "slice 5"),
     (["--model", "meta-llama/Llama-3.1-8B"], "slice 3"),
     (["--tokenizer", "llama3"], "slice 2b"),
-    (["--remat_policy", "flash_q8s"], "slice 2b"),
+    (["--remat_policy", "attn_q8s"], "slice 2c"),
     ([], "slice 2b"),  # no --synthetic: real data
 ])
 def test_cli_refuses_later_slices_by_name(flags, slice_name):
