@@ -97,6 +97,30 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_split_ms(fn, keys: tuple[str, ...], reps: int = 10) -> dict:
+    """Device ms per call of each kernel whose name holds one of ``keys``, from
+    torch.profiler over ``reps`` calls, and the host's ms per call to issue ``fn`` (the
+    wrapper's Python, ctypes and launch; a reading of ``time_ms`` below the device time is
+    the kernel's, one at the host time is the wrapper's)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {k: sum(getattr(e, "device_time_total", 0) for e in prof.key_averages() if k in e.key) / reps / 1e3
+           for k in keys}
+    return {**out, "host_ms": host}
+
+
 def maybe_ms(fn) -> float | None:
     """A yardstick's time, or None where PyTorch offers no such call for the shape."""
     try:
@@ -240,6 +264,32 @@ def _attn_inputs(g, B, S, Hq, Hkv, D):
     return mk(B, S, Hq, D), mk(B, S, Hkv, D), mk(B, S, Hkv, D)
 
 
+def tile_census(fa, mi, B: int, S: int, bq: int, bk: int) -> dict:
+    """The tiles of one head at a kernel's tiling (bq query rows x bk kv positions), summed
+    over the batch rows, by the predicate the kernels mirror (ops/flash_attention.py:
+    tile_class): computed (partial + full), of them full (no mask code), and skipped."""
+    seg = None if mi.segment_ids is None else mi.segment_ids.expand(B, S).cpu()
+    kseg = seg if mi.kv_segment_ids is None else mi.kv_segment_ids.expand(B, S).cpu()
+    prefix = None if mi.prefix_len is None else mi.prefix_len.reshape(-1).expand(B).tolist()
+
+    def ranges(ids, b, n):
+        return [None if ids is None else (int(ids[b, x:x + n].min()), int(ids[b, x:x + n].max()))
+                for x in range(0, S, n)]
+
+    n = {"skip": 0, "partial": 0, "full": 0}
+    for b in range(B):
+        kr = ranges(kseg, b, bk)
+        for i, qr in enumerate(ranges(seg, b, bq)):
+            for j in range(len(kr)):
+                n[fa.tile_class(i * bq, j * bk, bq, bk, S, bool(mi.causal), None if prefix is None else prefix[b],
+                                qr, kr[j])] += 1
+    return dict(computed=n["partial"] + n["full"], full=n["full"], skipped=n["skip"])
+
+
+def census_text(c: dict) -> str:
+    return f"computed {c['computed']} (full {c['full']}), skipped {c['skipped']}"
+
+
 def phase_k2():
     import torch
     import torch.nn.functional as F
@@ -290,10 +340,16 @@ def phase_k2():
         visible = float(mask.expand(B, 1, S, S).sum())
         n_bytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D) + 4 * B * Hq * S
         bms, by = bound_ms(n_bytes, 4 * D * Hq * visible, "bf16")
-        log(f"      {ms:.4f} ms (plain {plain_ms:.3f}, sdpa {lib_ms}, bound {bms:.4f} by {by})")
+        tflops = 4 * D * Hq * visible / (ms * 1e-3) / 1e12
+        tiles = tile_census(fa, mi, B, S, 128, 128)
+        split = device_split_ms(lambda: fa.flash_fwd_with_lse(q, k, v, mi, **kw), ("flash_fwd_kernel",))
+        log(f"      {ms:.4f} ms (plain {plain_ms:.3f}, sdpa {lib_ms}, bound {bms:.4f} by {by}); {tflops:.1f} TFLOP/s "
+            f"of needed work, {bms / ms:.3f} of bound; 128 x 128 tiles of a head: {census_text(tiles)}; device "
+            f"{split['flash_fwd_kernel']:.4f} ms (profiler), host {split['host_ms']:.4f} ms a call")
         shapes.append(dict(case=name, B=B, S=S, Hq=Hq, Hkv=Hkv, D=D, max_abs_err=err,
                            lse_max_abs_err=max_err(lse, ref_lse), tol=float(atol.max()), rtol=rtol, ms=ms,
-                           plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by))
+                           plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by, tflops=tflops,
+                           tiles=tiles, split=split))
         del q, k, v, out, lse, ref, ref_lse, mask, qt, kt, vt, atol
         torch.cuda.empty_cache()
     return shapes
@@ -370,10 +426,18 @@ def phase_k5():
         # inputs q, k, v, out, dO, lse read once; dq, dk, dv written once
         n_bytes = 2 * (4 * B * S * Hq * D + 4 * B * S * Hkv * D) + 4 * B * Hq * S
         bms, by = bound_ms(n_bytes, 10 * D * Hq * visible, "bf16")
-        log(f"      {ms:.4f} ms (plain {plain_ms:.3f}, sdpa backward {lib_ms}, bound {bms:.4f} by {by})")
+        tflops = 10 * D * Hq * visible / (ms * 1e-3) / 1e12
+        tiles = {"dkv": tile_census(fa, mi, B, S, 64, 128), "dq": tile_census(fa, mi, B, S, 128, 64)}
+        split = device_split_ms(lambda: fa.flash_bwd_from_res(q, k, v, out, lse, do, mi, dropout=dropout),
+                                ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))
+        log(f"      {ms:.4f} ms (plain {plain_ms:.3f}, sdpa backward {lib_ms}, bound {bms:.4f} by {by}); {tflops:.1f} "
+            f"TFLOP/s of needed work, {bms / ms:.3f} of bound; tiles of a head: dkv 64 q x 128 kv "
+            f"{census_text(tiles['dkv'])}; dq 128 q x 64 kv {census_text(tiles['dq'])}; device dq "
+            f"{split['flash_bwd_dq_kernel']:.4f} + dkv {split['flash_bwd_dkv_kernel']:.4f} ms (profiler), host "
+            f"{split['host_ms']:.4f} ms a call")
         shapes.append(dict(case=name, B=B, S=S, Hq=Hq, Hkv=Hkv, D=D, max_abs_err=max(errs.values()), errs=errs,
                            tol=max(atols.values()), rtol=rtol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                           bound_ms=bms, bound_by=by))
+                           bound_ms=bms, bound_by=by, tflops=tflops, tiles=tiles, split=split))
         del q, k, v, do, out, lse, got
         torch.cuda.empty_cache()
     return shapes
@@ -1155,7 +1219,8 @@ def record(kern: dict, runs: dict) -> dict:
             launches_per_run=per_run, max_abs_err=p["max_abs_err"], tol=p["tol"], rtol=p.get("rtol", 0.0), ms=p["ms"],
             plain_ms=p["plain_ms"], bound_ms=p["bound_ms"], bound_by=p["bound_by"], library_ms=p["library_ms"],
             shape={k: v for k, v in p.items() if k not in ("max_abs_err", "tol", "rtol", "ms", "plain_ms",
-                                                            "bound_ms", "bound_by", "library_ms", "errs")},
+                                                            "bound_ms", "bound_by", "library_ms", "errs",
+                                                            "tflops", "tiles", "split")},
         ))
     return {"kernels": out}
 

@@ -1,8 +1,9 @@
 // Helpers shared by the port's hand-written Hopper kernels (sm_90a).
 //
 // Warp-level tensor-core products through `mma.sync` (the Ampere-style synchronous
-// MMA, which Hopper still runs at a fraction of the `wgmma` rate): simple and right
-// first; the `wgmma`/TMA forms are later work. Fragment layouts follow the PTX ISA
+// MMA, which Hopper still runs at a fraction of the `wgmma` rate) for K1, K3, K4 and
+// K6; the flash kernels K2 and K5 run on `wgmma` and TMA (hopper.cuh) and share the
+// dropout hash and the mask's tile classes below. Fragment layouts follow the PTX ISA
 // ("Matrix fragments for mma.m16n8k16 / mma.m16n8k32"): lane = 4 * groupID + tid,
 //   A (row-major 16 x K):  reg0 row g, reg1 row g+8, reg2 row g (upper K half), reg3 row g+8 (upper half)
 //   B (K x 8, "col"):      reg0 lower K half of column g, reg1 upper half
@@ -98,6 +99,73 @@ __device__ __forceinline__ uint32_t dropout_block_key(const Dropout& d, int b, i
 // keep / (1 - rate) or 0 for the element at stacked row offset row_bk = r * bk and column c
 __device__ __forceinline__ float dropout_keep(const Dropout& d, uint32_t block_key, uint32_t row_bk, uint32_t c) {
   return fmix32(block_key + row_bk + c) >= d.threshold ? d.keep_scale : 0.f;
+}
+
+// The flash kernels' mask (ops/attention.py:make_attention_mask): visible = base |
+// in_prefix, base = (q >= k if causal) & (qseg == kseg if segments) (with neither, base
+// is all True without a prefix and all False with one), in_prefix = q < prefix & k <
+// prefix; nothing at or past S is visible. `prefix` is the batch row's length or -1;
+// qrange / krange hold the batch row's min and max segment id of every SEG_CHUNK
+// positions ([ceil(S / SEG_CHUNK)][2], from the wrapper) and are null without segments.
+constexpr int SEG_CHUNK = 64;
+enum TileClass { TILE_SKIP = 0, TILE_PARTIAL = 1, TILE_FULL = 2 };
+
+struct Mask {
+  int S, causal, prefix;
+  const int *qrange, *krange;
+};
+
+// the Mask of batch row b from the kernels' arguments (prefix [B] and the [B, chunks, 2]
+// ranges, each null when absent)
+__device__ __forceinline__ Mask batch_mask(int S, int causal, const int* prefix, const int* qrange, const int* krange,
+                                           int b) {
+  const size_t row = (size_t)b * ((S + SEG_CHUNK - 1) / SEG_CHUNK) * 2;
+  return Mask{S, causal, prefix ? prefix[b] : -1, qrange ? qrange + row : nullptr, krange ? krange + row : nullptr};
+}
+
+__device__ __forceinline__ int2 seg_range(const int* r, int x0, int n, int S) {
+  const int lo = x0 / SEG_CHUNK, hi = (min(x0 + n, S) - 1) / SEG_CHUNK;
+  int2 out = make_int2(r[2 * lo], r[2 * lo + 1]);
+  for (int c = lo + 1; c <= hi; ++c) {
+    out.x = min(out.x, r[2 * c]);
+    out.y = max(out.y, r[2 * c + 1]);
+  }
+  return out;
+}
+
+// The class of the tile [q0, q0 + bq) x [kv0, kv0 + bk): TILE_SKIP when no element is
+// visible, TILE_FULL when every element is (the tile then runs with no mask code),
+// TILE_PARTIAL otherwise. qr / kr: the tile's segment id ranges (seg_range; unread
+// without segments). Mirrors ops/flash_attention.py:tile_class (and the JAX kernels'
+// _needed and _all_true, with the segment test widened to id ranges).
+__device__ __forceinline__ int tile_class(const Mask& m, int q0, int bq, int kv0, int bk, int2 qr, int2 kr) {
+  if (q0 >= m.S || kv0 >= m.S) return TILE_SKIP;
+  const bool has_base = m.causal || m.qrange, has_prefix = m.prefix >= 0;
+  bool base_skip = (m.causal && q0 + bq - 1 < kv0) || (!has_base && has_prefix);
+  bool base_full = (!m.causal || q0 >= kv0 + bk - 1) && (has_base || !has_prefix);
+  if (m.qrange && !base_skip) {
+    base_skip = qr.y < kr.x || kr.y < qr.x;
+    base_full = base_full && qr.x == qr.y && kr.x == kr.y && qr.x == kr.x;
+  }
+  const bool pre_any = has_prefix && q0 < m.prefix && kv0 < m.prefix;
+  const bool pre_full = has_prefix && q0 + bq <= m.prefix && kv0 + bk <= m.prefix;
+  if (base_skip && !pre_any) return TILE_SKIP;
+  if ((base_full || pre_full) && q0 + bq <= m.S && kv0 + bk <= m.S) return TILE_FULL;
+  return TILE_PARTIAL;
+}
+
+// a tile's segment id range, or (0, 0) without segments
+__device__ __forceinline__ int2 q_range(const Mask& m, int q0, int bq) {
+  return m.qrange && q0 < m.S ? seg_range(m.qrange, q0, bq, m.S) : make_int2(0, 0);
+}
+__device__ __forceinline__ int2 kv_range(const Mask& m, int kv0, int bk) {
+  return m.krange && kv0 >= 0 && kv0 < m.S ? seg_range(m.krange, kv0, bk, m.S) : make_int2(0, 0);
+}
+
+// one element of a TILE_PARTIAL tile; qs / ks are the two positions' segment ids
+__device__ __forceinline__ bool visible(const Mask& m, int q, int k, int qs, int ks) {
+  const bool base = (!m.causal || q >= k) && (!m.qrange || qs == ks) && (m.causal || m.qrange || m.prefix < 0);
+  return (base || (q < m.prefix && k < m.prefix)) && q < m.S && k < m.S;
 }
 
 }  // namespace lxt

@@ -2,47 +2,66 @@
 // with the MaskInfo mask built in the kernel: (causal & same segment) | in-prefix.
 //
 // Replaces the Pallas TPU kernel llama_x_tpu/ops/flash_attention.py:_fwd_kernel
-// (through _fwd, flash_fwd_with_lse and flash_attention), which the JAX model runs
-// for the prefill and every training forward (llama_x_tpu/models/llama.py:302-309),
-// dropout on the probabilities included: the keep mask is that kernel's hash, bit for
-// bit (common.cuh), keyed on the JAX plan's blocks (bq, bk) and not on this kernel's
-// tiles; f32 p is multiplied by keep / (1 - rate) and then rounded to bf16 for the PV
-// product, and l sums the undropped p. A row's q block is fixed, and a 64-position kv
-// tile lies inside one kv block (bk is a multiple of 64, or spans the sequence), so the
-// inner fmix32 of the block key is hoisted to once per row and tile. The ring position
-// offsets of that kernel are not ported yet.
+// (pallas_call in _fwd, through flash_fwd_with_lse and flash_attention), which the JAX
+// model runs for the prefill and every training forward (llama_x_tpu/models/llama.py:
+// 302-309), dropout on the probabilities included: the keep mask is that kernel's hash,
+// bit for bit (common.cuh), keyed on the JAX plan's blocks (bq, bk) and not on this
+// kernel's tiles; f32 p is multiplied by keep / (1 - rate) and then rounded to bf16 for
+// the PV product, and l sums the undropped p. A row's q block is fixed, and a
+// 128-position kv tile lies inside one kv block (bk is a multiple of 128, or spans the
+// sequence; the wrapper raises otherwise), so the inner fmix32 of the block key is
+// hoisted to once per row and tile. The ring position offsets are not ported yet.
 //
-// What bounds it on an H100: at the serving prefill (S = 512, head_dim 128) the
-// bf16 tensor-core rate, 4*B*Hq*S*S*D/2 operations for the causal half at 989 TFLOP/s;
-// the bytes (q, k, v, out once) are a few MB.
+// What computes: q folded by one f32 multiply with scale*log2e and one rounding to bf16,
+// base-2 online softmax in f32, masked logits -1e30, the l == 0 guard, natural-log lse
+// beside the output. q/k/v/out stay in the model's [B, S, H, D] layout.
 //
-// Design: one CTA of 4 warps per (64 query rows, q head, batch row); each warp owns
-// 16 query rows and keeps their q fragments in registers for the whole loop. The CTA
-// walks 64-position kv tiles staged in shared memory (rows padded by 8 bf16 so the
-// fragment reads are bank-conflict free), S = q k^T and O += P V run as mma.sync
-// m16n8k16 bf16 products with fp32 accumulators, and the online softmax stays in
-// fp32 registers in the base-2 domain: scale*log2e is folded into q (one f32 multiply,
-// one rounding to bf16, as the JAX wrapper does) and exp2 is the hardware's ex2.
-// The kv loop ends at the last tile any row of the CTA can see (causal diagonal,
-// extended through the bidirectional prefix) in place of the TPU kernel's
-// whole-block skip. Masked logits are -1e30, the epilogue guards l == 0, and the
-// natural-log lse comes out beside the output. q/k/v/out are read and written in the
-// model's [B, S, H, D] layout, so no transposes exist around the kernel. Ragged S is
-// masked in the kernel (zero-filled tiles, -1e30 beyond S, no store past S).
-// Not yet done (later work): wgmma + TMA, sharing one K/V tile read across the GQA
-// group, and skipping the mask on tiles that are provably all visible.
+// What bounds it on an H100: the bf16 tensor-core rate. The two products of the visible
+// pairs are 4 * D * Hq * (visible pairs) operations, 0.139 ms at B 1, S 4096, 32/8 heads,
+// D 128, causal at 989 TFLOP/s, against 67 MB of q, k, v, out (0.020 ms at 3.35 TB/s).
+// With 8 packed documents 1/8 of the pairs are visible and the bytes bound (0.025 ms).
+//
+// Design (Hopper): one CTA of three warpgroups per (128 query rows, q head, batch row).
+// Warpgroups 0 and 1 each own 64 query rows; warpgroup 2 is the producer, of which one
+// warp issues the TMA loads (setmaxnreg: 24 registers for it, 240 for the consumers).
+// Q arrives once by TMA; each consumer warpgroup folds its 64 rows in shared memory (one
+// pass: read, multiply by scale*log2e, round to bf16, write; then fence.proxy.async) so
+// that wgmma reads Qs as the K-major A operand. K and V tiles of 128 positions stream
+// through a two-stage ring (4-D tensor maps over [B, S, Hkv, D] as they lie, 128-byte
+// swizzle, rows past S zero-filled; full / empty mbarriers): tile j+1 lands while tile j
+// is multiplied. S = Qs K^T is wgmma m64n128k16 with both operands K-major in shared
+// memory; P leaves the S accumulator rounded to bf16 as the register A operand of
+// O += P V, where V is the MN-major B operand read in place (the transpose wgmma allows
+// for 16-bit types): no 2-byte shared loads, no transposed copy. One CTA per q head: the
+// K/V tiles of a GQA group are read by its four CTAs and meet in L2.
+// Tile classes (tile_class, common.cuh; the same predicate as ops/flash_attention.py):
+// the producer walks the kv tiles from the last to the first, never loads a tile that is
+// all masked (above the causal diagonal and outside the prefix, or segment id ranges that
+// do not meet), and puts each loaded tile's position and its class for each consumer
+// warpgroup in the ring beside K, V and the tile's kv segment ids, so that the consumers
+// compute no class and read no range; a tile that is all visible to a warpgroup runs
+// with no mask code, a partial one builds the mask per element from registers (q
+// positions and segment ids) and the ring's kv segment ids. q tiles are scheduled longest
+// first (blockIdx.z reversed, heads fastest).
+//
+// The design before this one (mma.sync m16n8k16 from padded shared tiles, V
+// fragments packed from 2-byte loads, no asynchronous copies, the mask on every element)
+// took, in chip_smoke.py on NVIDIA H100 80GB HBM3, 700.00 W: 1.4358 ms at B 1, S 4096,
+// 32/8 heads, D 128, causal; 1.8738 ms with 8 packed documents; 1.7341 ms at prefix-LM
+// 2000 (2.0788 ms with dropout 0.1); 0.146693 ms at B 4, S 512, causal.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BQ = 64, BKV = 64, THREADS = 128;
+constexpr int BQ = 128, BK = 128, STAGES = 2, THREADS = 384;
 constexpr float NEG_INF = -1e30f;
 constexpr float LN2 = 0.6931471805599453f;
 
 struct Params {
-  const __nv_bfloat16 *q, *k, *v;
   const int *qseg, *kseg, *prefix;  // null when absent
+  const int *qrange, *krange;       // [B, ceil(S / SEG_CHUNK), 2] segment id ranges; null without segments
   __nv_bfloat16* out;
   float* lse;
   int B, S, Hq, Hkv, causal;
@@ -50,26 +69,98 @@ struct Params {
   lxt::Dropout drop;
 };
 
-// DROP is a template argument so that the kernel without dropout stays as it was
+template <int D>
+struct Smem {  // every tile 1024-aligned (the 128-byte swizzle's period)
+  __nv_bfloat16 q[BQ * D];
+  __nv_bfloat16 k[STAGES][BK * D];
+  __nv_bfloat16 v[STAGES][BK * D];
+  int kseg[STAGES][BK];
+  int info[STAGES][3];  // the tile's kv0 (-1: no more tiles) and its class for each consumer warpgroup
+  uint64_t q_full, full[STAGES], empty[STAGES];
+};
+
+template <int D>
+constexpr int smem_bytes() {
+  return sizeof(Smem<D>) + 1024;  // + the alignment of the dynamic base
+}
+
+// DROP is a template argument so that the kernel without dropout carries none of it
 template <int D, bool DROP>
-__global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
-  constexpr int LD = D + 8;  // padded smem row, elements
-  __shared__ __align__(16) __nv_bfloat16 Ks[BKV][LD];
-  __shared__ __align__(16) __nv_bfloat16 Vs[BKV][LD];
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, const Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  Smem<D>& sm = *reinterpret_cast<Smem<D>*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (p.Hq / p.Hkv);
   const int S = p.S;
-  const size_t q_row = (size_t)p.Hq * D, kv_row = (size_t)p.Hkv * D;
-  const int prefix = p.prefix ? p.prefix[b] : 0;
+  const int n_q = (S + BQ - 1) / BQ, n_kv = (S + BK - 1) / BK;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (n_q - 1 - (int)blockIdx.z) * BQ;  // the q tiles that see the most kv tiles first
+  const int hk = h / (p.Hq / p.Hkv);
+  const lxt::Mask mask = lxt::batch_mask(S, p.causal, p.prefix, p.qrange, p.krange, b);
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
 
-  // this lane's two query rows (g and g+8 of the warp's 16)
+  if (threadIdx.x == 0) {
+    lxt::mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      lxt::mbar_init(&sm.full[s], 33);  // the TMA bytes' arrival + the producer warp's 32 (segment ids)
+      lxt::mbar_init(&sm.empty[s], 8);  // one per consumer warp
+    }
+    lxt::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---------------- producer ----------------
+    lxt::setmaxnreg_dec<24>();
+    if (tid >= 32) return;
+    const int lane = tid;
+    if (lane == 0) {
+      lxt::tma_prefetch_map(&tk);
+      lxt::tma_prefetch_map(&tv);
+      lxt::mbar_arrive_expect_tx(&sm.q_full, BQ * D * 2);
+      lxt::tma_load_tile<D, BQ>(sm.q, &tq, &sm.q_full, h, q0, b);
+    }
+    // the producer alone sorts the tiles (last to first) and hands each loaded tile's
+    // classes to the consumers in the ring; a kv0 of -1 ends their loop
+    const int2 qr = lxt::q_range(mask, q0, BQ), qr0 = lxt::q_range(mask, q0, 64), qr1 = lxt::q_range(mask, q0 + 64, 64);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int j = n_kv - 1; j >= -1; --j) {
+      const int kv0 = j * BK;
+      const int2 kr = lxt::kv_range(mask, kv0, BK);
+      if (j >= 0 && lxt::tile_class(mask, q0, BQ, kv0, BK, qr, kr) == lxt::TILE_SKIP) continue;
+      lxt::mbar_wait(&sm.empty[stage], phase ^ 1);
+      if (lane == 0) {
+        if (j >= 0) {
+          lxt::mbar_arrive_expect_tx(&sm.full[stage], 2 * BK * D * 2);
+          lxt::tma_load_tile<D, BK>(sm.k[stage], &tk, &sm.full[stage], hk, kv0, b);
+          lxt::tma_load_tile<D, BK>(sm.v[stage], &tv, &sm.full[stage], hk, kv0, b);
+          sm.info[stage][1] = lxt::tile_class(mask, q0, 64, kv0, BK, qr0, kr);
+          sm.info[stage][2] = lxt::tile_class(mask, q0 + 64, 64, kv0, BK, qr1, kr);
+        } else {
+          lxt::mbar_arrive(&sm.full[stage]);
+        }
+        sm.info[stage][0] = j >= 0 ? kv0 : -1;
+      }
+      if (p.kseg && j >= 0) {
+#pragma unroll
+        for (int i = lane; i < BK; i += 32) sm.kseg[stage][i] = kv0 + i < S ? p.kseg[(size_t)b * S + kv0 + i] : 0;
+      }
+      lxt::mbar_arrive(&sm.full[stage]);
+      if (++stage == STAGES) stage = 0, phase ^= 1;
+    }
+    return;
+  }
+
+  // ---------------- consumers: warpgroup wg owns CTA rows [64 wg, 64 wg + 64) ----------------
+  lxt::setmaxnreg_inc<240>();
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, c = lane % 4;
+  const int wq0 = q0 + wg * 64;
   int qpos[2], qseg[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    qpos[r] = q0 + warp * 16 + g + r * 8;
+    qpos[r] = wq0 + warp * 16 + g + r * 8;
     qseg[r] = (p.qseg && qpos[r] < S) ? p.qseg[(size_t)b * S + qpos[r]] : 0;
   }
 
@@ -85,185 +176,156 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
     }
   }
 
-  // q fragments, pre-scaled by scale*log2e and rounded to bf16 (the JAX fold)
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = qpos[r & 1];
-      const int col = kk * 16 + t * 2 + (r >> 1) * 8;
-      float x0 = 0.f, x1 = 0.f;
-      if (row < S) {
-        const __nv_bfloat16* src = p.q + ((size_t)b * S + row) * q_row + (size_t)h * D + col;
-        x0 = __bfloat162float(src[0]) * p.qscale;
-        x1 = __bfloat162float(src[1]) * p.qscale;
-      }
-      qf[kk][r] = lxt::pack_bf16(x0, x1);
-    }
-  }
+  // fold this warpgroup's 64 rows of Q in place: Qs = bf16(q * scale * log2e)
+  lxt::mbar_wait(&sm.q_full, 0);
+  lxt::fold_rows<D, BQ>(sm.q, wg * 64, p.qscale, tid);
+  lxt::fence_proxy_async();
+  lxt::named_sync(1 + wg, 128);
+  const __nv_bfloat16* qa = sm.q + wg * 64 * 64;  // this warpgroup's A rows
 
-  // last kv position any row of this CTA may see
-  int kv_end = S;
-  if (p.causal) {
-    kv_end = min(S, q0 + BQ);
-    if (p.prefix && q0 < prefix) kv_end = max(kv_end, min(S, prefix));
-  }
-  const int n_tiles = (kv_end + BKV - 1) / BKV;
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m_i[2] = {NEG_INF, NEG_INF}, l_i[2] = {0.f, 0.f};  // l_i: this thread's share of the row sum
 
-  float of[D / 8][4];
+  int stage = 0;
+  uint32_t phase = 0;
+  for (;;) {
+    lxt::mbar_wait(&sm.full[stage], phase);
+    const int kv0 = sm.info[stage][0];
+    if (kv0 < 0) break;
+    const int cls = sm.info[stage][1 + wg];  // the class of this warpgroup's 64 rows
+    if (cls != lxt::TILE_SKIP) {
+      // S = Qs K^T: 64 rows x 128 kv positions
+      float s[BK / 2];
+      lxt::wgmma_fence();
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) of[n][r] = 0.f;
-  float m_i[2] = {NEG_INF, NEG_INF}, l_i[2] = {0.f, 0.f};
+      for (int kk = 0; kk < D / 16; ++kk)
+        lxt::wgmma_ss<BK>(s, lxt::desc_k_major<BQ>(qa, kk * 16), lxt::desc_k_major<BK>(sm.k[stage], kk * 16), kk > 0);
+      lxt::wgmma_commit();
+      lxt::wgmma_wait<0>();
+      lxt::fence_regs(s);
 
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int kv0 = tile * BKV;
-    __syncthreads();  // previous tile's readers are done
-    constexpr int CHUNKS = BKV * D / 8;  // 16-byte chunks per tile
+      if (cls == lxt::TILE_PARTIAL) {
+        const int* ks = sm.kseg[stage];
 #pragma unroll
-    for (int i = 0; i < CHUNKS / THREADS; ++i) {
-      const int c = tid + i * THREADS;
-      const int row = c / (D / 8), col = (c % (D / 8)) * 8;
-      const int pos = kv0 + row;
-      uint4 kx = make_uint4(0, 0, 0, 0), vx = make_uint4(0, 0, 0, 0);
-      if (pos < S) {
-        const size_t off = ((size_t)b * S + pos) * kv_row + (size_t)hk * D + col;
-        kx = *reinterpret_cast<const uint4*>(p.k + off);
-        vx = *reinterpret_cast<const uint4*>(p.v + off);
-      }
-      *reinterpret_cast<uint4*>(&Ks[row][col]) = kx;
-      *reinterpret_cast<uint4*>(&Vs[row][col]) = vx;
-    }
-    __syncthreads();
-
-    // S = q k^T for this warp's 16 rows x 64 kv positions
-    float sf[BKV / 8][4];
+        for (int i = 0; i < BK / 8; ++i) {
 #pragma unroll
-    for (int n = 0; n < BKV / 8; ++n)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) sf[n][r] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int n = 0; n < BKV / 8; ++n) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(&Ks[n * 8 + g][kk * 16 + t * 2]);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(&Ks[n * 8 + g][kk * 16 + 8 + t * 2]);
-        lxt::mma_bf16_16816(sf[n], qf[kk], b0, b1);
-      }
-    }
-
-    // mask: (causal & same segment) | in-prefix, and nothing at or past S
-#pragma unroll
-    for (int n = 0; n < BKV / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int kp = kv0 + n * 8 + t * 2 + (e & 1);
-        bool keep = true;
-        if (p.causal) keep = qpos[r] >= kp;
-        if (p.qseg) keep = keep && (kp < S) && qseg[r] == p.kseg[(size_t)b * S + kp];
-        if (p.prefix) keep = keep || (qpos[r] < prefix && kp < prefix);
-        if (kp >= S) keep = false;
-        if (!keep) sf[n][e] = NEG_INF;
-      }
-    }
-
-    // online softmax (base 2), rows g and g+8 of the warp; a row's 4 lanes share it
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = NEG_INF;
-#pragma unroll
-      for (int n = 0; n < BKV / 8; ++n) mx = fmaxf(mx, fmaxf(sf[n][2 * r], sf[n][2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_i[r], mx);
-      const float alpha = exp2f(m_i[r] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int n = 0; n < BKV / 8; ++n) {
-        sf[n][2 * r] = exp2f(sf[n][2 * r] - m_new);
-        sf[n][2 * r + 1] = exp2f(sf[n][2 * r + 1] - m_new);
-        sum += sf[n][2 * r] + sf[n][2 * r + 1];
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l_i[r] = l_i[r] * alpha + sum;
-      m_i[r] = m_new;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        of[n][2 * r] *= alpha;
-        of[n][2 * r + 1] *= alpha;
-      }
-    }
-
-    // dropout on f32 p, after l took the undropped sum
-    if (DROP) {
-      const int j = kv0 / p.drop.bk;
-      const uint32_t c0 = (uint32_t)(kv0 - j * p.drop.bk);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const uint32_t key = lxt::dropout_block_key(p.drop, b, hk, drop_i[r], j);
-#pragma unroll
-        for (int n = 0; n < BKV / 8; ++n) {
-          const uint32_t c = c0 + n * 8 + t * 2;
-          sf[n][2 * r] *= lxt::dropout_keep(p.drop, key, drop_row[r], c);
-          sf[n][2 * r + 1] *= lxt::dropout_keep(p.drop, key, drop_row[r], c + 1);
+          for (int e = 0; e < 4; ++e) {
+            const int col = i * 8 + c * 2 + (e & 1);
+            if (!lxt::visible(mask, qpos[e >> 1], kv0 + col, qseg[e >> 1], p.kseg ? ks[col] : 0)) s[4 * i + e] = NEG_INF;
+          }
         }
       }
-    }
 
-    // O += P V: P (bf16) re-used from the S accumulators as the A operand
+      // online softmax (base 2); a row lives in the 4 lanes of a quad
 #pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = lxt::pack_bf16(sf[2 * kk][0], sf[2 * kk][1]);
-      pa[1] = lxt::pack_bf16(sf[2 * kk][2], sf[2 * kk][3]);
-      pa[2] = lxt::pack_bf16(sf[2 * kk + 1][0], sf[2 * kk + 1][1]);
-      pa[3] = lxt::pack_bf16(sf[2 * kk + 1][2], sf[2 * kk + 1][3]);
-      const int k0 = kk * 16 + t * 2;
+      for (int r = 0; r < 2; ++r) {
+        float mx = NEG_INF;
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const int col = n * 8 + g;
-        const uint32_t b0 = lxt::pack_bf16(Vs[k0][col], Vs[k0 + 1][col]);
-        const uint32_t b1 = lxt::pack_bf16(Vs[k0 + 8][col], Vs[k0 + 9][col]);
-        lxt::mma_bf16_16816(of[n], pa, b0, b1);
+        for (int i = 0; i < BK / 8; ++i) mx = fmaxf(mx, fmaxf(s[4 * i + 2 * r], s[4 * i + 2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_i[r], mx);
+        const float alpha = exp2f(m_i[r] - m_new);
+        float sum = 0.f;
+#pragma unroll
+        for (int i = 0; i < BK / 8; ++i) {
+          s[4 * i + 2 * r] = exp2f(s[4 * i + 2 * r] - m_new);
+          s[4 * i + 2 * r + 1] = exp2f(s[4 * i + 2 * r + 1] - m_new);
+          sum += s[4 * i + 2 * r] + s[4 * i + 2 * r + 1];
+        }
+        l_i[r] = l_i[r] * alpha + sum;
+        m_i[r] = m_new;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          o[4 * n + 2 * r] *= alpha;
+          o[4 * n + 2 * r + 1] *= alpha;
+        }
       }
+
+      // dropout on f32 p, after l took the undropped sum
+      if (DROP) {
+        const int jb = kv0 / p.drop.bk;
+        const uint32_t c0 = (uint32_t)(kv0 - jb * p.drop.bk);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const uint32_t key = lxt::dropout_block_key(p.drop, b, hk, drop_i[r], jb);
+#pragma unroll
+          for (int i = 0; i < BK / 8; ++i) {
+            const uint32_t col = c0 + i * 8 + c * 2;
+            s[4 * i + 2 * r] *= lxt::dropout_keep(p.drop, key, drop_row[r], col);
+            s[4 * i + 2 * r + 1] *= lxt::dropout_keep(p.drop, key, drop_row[r], col + 1);
+          }
+        }
+      }
+
+      // O += P V: P rounded to bf16 as the register A operand, V MN-major from the ring
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) lxt::acc_to_a(pa[kk], s, kk);
+      lxt::fence_regs(pa);
+      lxt::fence_regs(o);
+      lxt::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) lxt::wgmma_rs<D>(o, pa[kk], lxt::desc_mn_major<BK>(sm.v[stage], kk * 16), 1);
+      lxt::wgmma_commit();
+      lxt::wgmma_wait<0>();
+      lxt::fence_regs(o);
     }
+    __syncwarp();
+    if (lane == 0) lxt::mbar_arrive(&sm.empty[stage]);
+    if (++stage == STAGES) stage = 0, phase ^= 1;
   }
 
   // epilogue: out = acc / l (l == 0 guarded), lse natural-log
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
+    float l = l_i[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
     const int row = qpos[r];
     if (row >= S) continue;
-    const float l = l_i[r];
-    const float denom = l == 0.f ? 1.f : l;
-    __nv_bfloat16* dst = p.out + ((size_t)b * S + row) * q_row + (size_t)h * D;
+    const float inv = 1.f / (l == 0.f ? 1.f : l);
+    __nv_bfloat16* dst = p.out + ((size_t)b * S + row) * ((size_t)p.Hq * D) + (size_t)h * D;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const int col = n * 8 + t * 2;
-      *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(of[n][2 * r] / denom, of[n][2 * r + 1] / denom);
-    }
-    if (t == 0) p.lse[((size_t)b * p.Hq + h) * S + row] = (m_i[r] + log2f(fmaxf(l, 1e-30f))) * LN2;
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dst + n * 8 + c * 2) =
+          __floats2bfloat162_rn(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
+    if (c == 0) p.lse[((size_t)b * p.Hq + h) * S + row] = (m_i[r] + log2f(fmaxf(l, 1e-30f))) * LN2;
   }
+}
+
+template <int D, bool DROP>
+int launch(const Params& p, const void* q, const void* k, const void* v, cudaStream_t st) {
+  CUtensorMap tq, tk, tv;
+  if (!lxt::make_bshd_map(&tq, q, p.B, p.S, p.Hq, D, BQ) || !lxt::make_bshd_map(&tk, k, p.B, p.S, p.Hkv, D, BK) ||
+      !lxt::make_bshd_map(&tv, v, p.B, p.S, p.Hkv, D, BK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int bytes = smem_bytes<D>();
+  static const cudaError_t attr =  // once per instantiation and process (one card a process)
+      cudaFuncSetAttribute(flash_fwd_kernel<D, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(p.Hq, p.B, (p.S + BQ - 1) / BQ);
+  flash_fwd_kernel<D, DROP><<<grid, THREADS, bytes, st>>>(tq, tk, tv, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// qrange / krange: per batch row the min and max segment id of every 64 positions
+// ([B, ceil(S / 64), 2] int32; null without segments), which decide the tile classes
 extern "C" int lxt_flash_attention_fwd(const void* q, const void* k, const void* v, const void* qseg,
-                                       const void* kseg, const void* prefix, void* out, void* lse, int B, int S,
-                                       int Hq, int Hkv, int D, int causal, float qscale, int dropout,
-                                       unsigned int threshold, float keep_scale, unsigned int seed, int bq, int bk,
-                                       void* stream) {
+                                       const void* kseg, const void* qrange, const void* krange, const void* prefix,
+                                       void* out, void* lse, int B, int S, int Hq, int Hkv, int D, int causal,
+                                       float qscale, int dropout, unsigned int threshold, float keep_scale,
+                                       unsigned int seed, int bq, int bk, void* stream) {
   Params p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
   p.qseg = static_cast<const int*>(qseg);
   p.kseg = static_cast<const int*>(kseg);
   p.prefix = static_cast<const int*>(prefix);
+  p.qrange = static_cast<const int*>(qrange);
+  p.krange = static_cast<const int*>(krange);
   p.out = static_cast<__nv_bfloat16*>(out);
   p.lse = static_cast<float*>(lse);
   p.B = B;
@@ -273,17 +335,9 @@ extern "C" int lxt_flash_attention_fwd(const void* q, const void* k, const void*
   p.causal = causal;
   p.qscale = qscale;
   p.drop = lxt::Dropout{dropout, threshold, keep_scale, seed, bq > 0 ? bq : 1, bk > 0 ? bk : 1};
-  const dim3 grid((S + BQ - 1) / BQ, Hq, B);
+  if ((qseg == nullptr) != (qrange == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
-  if (D == 128 && dropout)
-    flash_fwd_kernel<128, true><<<grid, THREADS, 0, st>>>(p);
-  else if (D == 128)
-    flash_fwd_kernel<128, false><<<grid, THREADS, 0, st>>>(p);
-  else if (D == 64 && dropout)
-    flash_fwd_kernel<64, true><<<grid, THREADS, 0, st>>>(p);
-  else if (D == 64)
-    flash_fwd_kernel<64, false><<<grid, THREADS, 0, st>>>(p);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  if (D == 128) return dropout ? launch<128, true>(p, q, k, v, st) : launch<128, false>(p, q, k, v, st);
+  if (D == 64) return dropout ? launch<64, true>(p, q, k, v, st) : launch<64, false>(p, q, k, v, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -5,14 +5,15 @@
 //
 // Replaces the Pallas TPU kernel tools/probe_flash.py:probe_kernel (pallas_call at :125),
 // which bounds what the two products of the flash forward cost without its softmax
-// chain; the gap between this kernel and K2 at the same shape is what K2's online
-// softmax, masking and rescaling cost on this card.
+// chain. Built on the mma.sync loop that K2 had until K2 moved to wgmma, a TMA ring and
+// tile classes: the gap between this kernel and K2 now compares two designs and no
+// longer isolates what K2's online softmax, masking and rescaling cost.
 //
 // What bounds it on an H100: the bf16 tensor-core rate, 4*B*Hq*D operations for every
 // (q, kv) pair of a needed block at 989 TFLOP/s, against q, k, v, out once (a few tens
 // of MB at S 4096).
 //
-// Design: K2's loop without the softmax, so that the two are compared like with like:
+// Design: the earlier K2 loop without the softmax:
 // one CTA of 4 warps per (64 query rows, q head, batch row), q fragments in registers
 // (raw bf16, not scaled), 64-position kv tiles staged in padded shared memory, S = q k^T
 // and O += bf16(S) V as mma.sync m16n8k16 products with f32 accumulators, the S

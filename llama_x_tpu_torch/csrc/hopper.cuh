@@ -1,0 +1,280 @@
+// Hopper (sm_90a) building blocks of the flash kernels K2 and K5: mbarriers, TMA
+// tile loads through 4-D tensor maps over the model's [B, S, H, D] tensors, wgmma
+// with shared-memory descriptors in the 128-byte swizzle, register reallocation, and
+// the host-side encoding of the tensor maps.
+//
+// Shared layout of every bf16 tile: D / 64 column blocks, each [rows][64] (128 bytes a
+// row), the block base 1024-aligned, written by TMA with CU_TENSOR_MAP_SWIZZLE_128B (the
+// 16-byte chunk c of row r lands at chunk c ^ (r % 8)). The wgmma descriptors read that
+// layout two ways (PTX ISA, "Matrix Descriptor Format"; CUTLASS make_gmma_desc):
+//   K-major (the tile's columns are the product's k): leading byte offset unused (1),
+//     stride byte offset 1024 (8 rows of 128 bytes); the k-th 16-column step of a
+//     column block starts 32 * k bytes in (the swizzle is applied to the address bits).
+//   MN-major (the tile's rows are the product's k; 16-bit types only): leading byte
+//     offset = the distance between column blocks (rows * 128), stride byte offset
+//     1024 (8 rows); the k-th 16-row step starts 2048 * k bytes in.
+// wgmma accumulator of m64nNk16 for thread t of the warpgroup (warp w = t / 32, lane
+// l = 4g + c): d[4i + 0..1] = row 16w + g, columns 8i + 2c + 0..1; d[4i + 2..3] = row
+// 16w + g + 8, the same columns. The register A operand of a 16-wide k step has the
+// mma.m16n8k16 A layout on the same rows, so columns 16k..16k+15 of an accumulator
+// repack as A = {d[8k], d[8k+1]}, {d[8k+2], d[8k+3]}, {d[8k+4], d[8k+5]}, {d[8k+6], d[8k+7]}.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and the driver's enums (header only: no -lcuda)
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "common.cuh"  // pack_bf16
+
+namespace lxt {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) { return static_cast<uint32_t>(__cvta_generic_to_shared(p)); }
+
+// ---- mbarriers ------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() { asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory"); }
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// one arrival that also announces the bytes the TMA copies of this phase will bring
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// returns once the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// ---- TMA --------------------------------------------------------------------------
+
+// one box of a 4-D tensor map (coordinates innermost first) into shared memory,
+// completion reported to `bar` in bytes
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
+      "[%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// rows x D of head h at sequence position s0 of batch row b, as D / 64 column blocks of
+// [rows][64] (each rows * 128 bytes), all reported to one barrier
+template <int D, int ROWS>
+__device__ __forceinline__ void tma_load_tile(__nv_bfloat16* dst, const CUtensorMap* map, uint64_t* bar, int h, int s0,
+                                              int b) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c) tma_load_4d(dst + c * ROWS * 64, map, bar, c * 64, h, s0, b);
+}
+
+// one box from shared memory into a 4-D tensor map (rows past the tensor's end are
+// dropped); completion tracked by the issuing thread's bulk groups
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0, int c1, int c2, int c3) {
+  asm volatile("cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+               : "memory");
+}
+
+__device__ __forceinline__ void tma_store_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// waits until this thread's bulk stores have read their shared memory
+__device__ __forceinline__ void tma_store_wait_read() { asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory"); }
+
+// The q fold of the flash kernels, in place: rows [row0, row0 + 64) of a [ROWS][D] tile
+// (column blocks of [ROWS][64]) become bf16(x * scale), one f32 multiply and one rounding
+// each; the 128 threads of a warpgroup, `tid` its thread. An elementwise pass, so the
+// swizzle does not matter. The caller fences (fence_proxy_async) and syncs the warpgroup.
+template <int D, int ROWS>
+__device__ __forceinline__ void fold_rows(__nv_bfloat16* tile, int row0, float scale, int tid) {
+#pragma unroll
+  for (int cb = 0; cb < D / 64; ++cb) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      uint4* ptr = reinterpret_cast<uint4*>(tile + cb * ROWS * 64 + row0 * 64) + tid + i * 128;
+      uint4 x = *ptr;
+      __nv_bfloat162* hx = reinterpret_cast<__nv_bfloat162*>(&x);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(hx[e]);
+        hx[e] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+      }
+      *ptr = x;
+    }
+  }
+}
+
+// generic-proxy writes to shared memory (a fold in place) made visible to wgmma and TMA
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// ---- warpgroups -----------------------------------------------------------------
+
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS));
+}
+
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(REGS));
+}
+
+// named barrier `id` (1..15) over `threads` threads (a multiple of 32)
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---- wgmma --------------------------------------------------------------------------
+
+__device__ __forceinline__ uint64_t desc_sw128(const void* smem, uint32_t lbo_bytes, uint32_t sbo_bytes) {
+  const uint64_t addr = smem_u32(smem);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16 |
+         (uint64_t)((sbo_bytes >> 4) & 0x3FFF) << 32 | (uint64_t)1 << 62;
+}
+
+// K-major operand: the 16 columns k0..k0+15 (k0 a multiple of 16) of a [ROWS][D] tile
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_k_major(const __nv_bfloat16* tile, int k0) {
+  return desc_sw128(tile + (k0 / 64) * ROWS * 64 + (k0 % 64), 16, 1024);
+}
+
+// MN-major operand: the 16 rows r0..r0+15 (r0 a multiple of 16) of a [ROWS][D] tile, all D columns
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_mn_major(const __nv_bfloat16* tile, int r0) {
+  return desc_sw128(tile + r0 * 64, ROWS * 128, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accesses of accumulator registers across the async product
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N, int M>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// D[64 x N] (+)= A[64 x 16] * B[16 x N]: A and B from shared memory, both K-major; f32
+// accumulate, bf16 inputs; scale_d == 0 overwrites D
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  static_assert(N == 64 || N == 128, "m64n64 or m64n128");
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
+  if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
+}
+
+
+// D[64 x N] (+)= A[64 x 16] * B[16 x N]: A from registers (the layout above), B from
+// shared memory MN-major (the transpose that wgmma allows for 16-bit types)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  static_assert(N == 64 || N == 128, "m64n64 or m64n128");
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  }
+  if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  }
+}
+
+// A warpgroup's accumulator columns 16k..16k+15, rounded to bf16, as the register A operand
+template <int NREG>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[NREG], int k) {
+  a[0] = pack_bf16(d[8 * k + 0], d[8 * k + 1]);
+  a[1] = pack_bf16(d[8 * k + 2], d[8 * k + 3]);
+  a[2] = pack_bf16(d[8 * k + 4], d[8 * k + 5]);
+  a[3] = pack_bf16(d[8 * k + 6], d[8 * k + 7]);
+}
+
+// ---- host: tensor maps ---------------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so that the library
+// needs no -lcuda
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// 4-D map over a contiguous bf16 [B, S, H, D] tensor as it lies; box {64, 1, rows, 1}
+// (one 128-byte column block of `rows` positions of one head), 128-byte swizzle, rows
+// past S zero-filled. Returns false if the driver refuses it.
+inline bool make_bshd_map(CUtensorMap* map, const void* base, int B, int S, int H, int D, int rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2, (cuuint64_t)S * H * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace lxt

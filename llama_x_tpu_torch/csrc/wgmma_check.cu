@@ -1,0 +1,91 @@
+// One bare wgmma product through the building blocks of hopper.cuh, so that a card test
+// can hold the tensor maps, the 128-byte swizzle, both descriptor forms and the register
+// layouts against torch.matmul before they meet in the flash kernels (K2, K5):
+//   K-major:  C[64, N] = A[64, 64] B[N, 64]^T, A and B from shared memory (wgmma_ss);
+//   MN-major: C[64, N] = A[64, 64] B[64, N], A from registers in the layout that an
+//             accumulator repacks into, B read MN-major from shared memory (wgmma_rs).
+// One CTA of one warpgroup; A and B arrive by TMA; N is 64 or 128.
+
+#include "hopper.cuh"
+
+namespace {
+
+template <int N>
+__global__ void __launch_bounds__(128)
+    wgmma_check_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+                       const __nv_bfloat16* a, float* c, int b_mn_major) {
+  extern __shared__ unsigned char smem_raw[];
+  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  __nv_bfloat16* bs = as + 64 * 64;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(bs + 64 * N);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, q = lane % 4;
+
+  if (tid == 0) {
+    lxt::mbar_init(bar, 1);
+    lxt::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    lxt::mbar_arrive_expect_tx(bar, (64 * 64 + N * 64) * 2);
+    lxt::tma_load_tile<64, 64>(as, &ta, bar, 0, 0, 0);
+    if (b_mn_major)
+      lxt::tma_load_tile<N, 64>(bs, &tb, bar, 0, 0, 0);
+    else
+      lxt::tma_load_tile<64, N>(bs, &tb, bar, 0, 0, 0);
+  }
+  lxt::mbar_wait(bar, 0);
+
+  // A in registers (rows 16 warp + g and + 8), for the MN-major form
+  uint32_t af[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const __nv_bfloat16* src = a + (warp * 16 + g + (r & 1) * 8) * 64 + kk * 16 + (r >> 1) * 8 + q * 2;
+      af[kk][r] = lxt::pack_bf16(src[0], src[1]);
+    }
+  }
+  float d[N / 2];
+  lxt::fence_regs(af);
+  lxt::wgmma_fence();
+  if (b_mn_major) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) lxt::wgmma_rs<N>(d, af[kk], lxt::desc_mn_major<64>(bs, kk * 16), kk > 0);
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      lxt::wgmma_ss<N>(d, lxt::desc_k_major<64>(as, kk * 16), lxt::desc_k_major<N>(bs, kk * 16), kk > 0);
+  }
+  lxt::wgmma_commit();
+  lxt::wgmma_wait<0>();
+  lxt::fence_regs(d);
+#pragma unroll
+  for (int i = 0; i < N / 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[(warp * 16 + g + (e >> 1) * 8) * N + i * 8 + q * 2 + (e & 1)] = d[4 * i + e];
+  }
+}
+
+template <int N>
+int launch(const void* a, const void* b, void* c, int b_mn_major, cudaStream_t st) {
+  CUtensorMap ta, tb;
+  const bool ok = lxt::make_bshd_map(&ta, a, 1, 64, 1, 64, 64) &&
+                  (b_mn_major ? lxt::make_bshd_map(&tb, b, 1, 64, 1, N, 64) : lxt::make_bshd_map(&tb, b, 1, N, 1, 64, N));
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int bytes = (64 * 64 + 64 * N) * 2 + 8 + 1024;
+  cudaError_t err = cudaFuncSetAttribute(wgmma_check_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  wgmma_check_kernel<N><<<1, 128, bytes, st>>>(ta, tb, static_cast<const __nv_bfloat16*>(a), static_cast<float*>(c),
+                                               b_mn_major);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// a: bf16 [64, 64]; b: bf16 [n, 64] (K-major) or [64, n] (MN-major); c: f32 [64, n]; n 64 or 128
+extern "C" int lxt_wgmma_check(const void* a, const void* b, void* c, int n, int b_mn_major, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (n == 64) return launch<64>(a, b, c, b_mn_major, st);
+  if (n == 128) return launch<128>(a, b, c, b_mn_major, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -12,7 +12,10 @@ f32 accumulation, dq scaled once at the end, dk / dv summed over the GQA group. 
 mask is built in the kernels from ``causal``, ``segment_ids`` / ``kv_segment_ids``
 and ``prefix_len`` and equals ops/attention.py's ``make_attention_mask``. The TPU's
 block-alignment gate is not copied: the kernels mask a ragged S themselves. The ring
-offsets come later.
+offsets come later. The kernels sort their tiles with ``tile_class`` (all masked: never
+loaded; all visible: no mask code; partial: masked per element), the JAX kernels'
+``_needed`` and ``_all_true`` with the segment test widened to the ranges of segment ids
+that ``segment_ranges`` gives them.
 
 Attention dropout (``dropout_rate`` > 0 with a ``dropout_seed``) is the JAX kernels'
 counter-based hash, reproduced bit for bit in the kernels and in the plain versions
@@ -51,7 +54,8 @@ _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
 _M32 = 0xFFFFFFFF
-_TILE = 64  # the kernels' kv tile: a dropout plan's bk must be a multiple of it, or span the sequence
+_TILE = 128  # the kernels' largest kv tile: a dropout plan's bk must be a multiple of it, or span the sequence
+SEG_CHUNK = 64  # the granularity of the segment-id ranges the kernels read (csrc/common.cuh)
 
 
 class Dropout(NamedTuple):
@@ -192,6 +196,51 @@ def flash_fwd_tolerance(ref: torch.Tensor) -> tuple[torch.Tensor, float]:
     return 2**-5 * rms, 2**-7
 
 
+def tile_class(q0: int, kv0: int, bq: int, bk: int, S: int, causal: bool, prefix: int | None,
+               qseg_range: tuple[int, int] | None, kseg_range: tuple[int, int] | None) -> str:
+    """The class of the tile [q0, q0 + bq) x [kv0, kv0 + bk) under the flash kernels' mask
+    (``make_attention_mask``: base = (q >= k if causal) & (same segment), visible = base |
+    in-prefix, where base is all True with neither causal nor segments and no prefix and
+    all False with a prefix; nothing at or past S): "skip" when no element can be visible,
+    "full" when every element is, "partial" otherwise. ``prefix`` is the batch row's
+    prefix length or None; ``qseg_range`` / ``kseg_range`` the (min, max) of the tile's
+    segment ids below S, or None without segments. The kernels mirror it
+    (csrc/common.cuh: tile_class): skip tiles are never loaded, full ones run with no mask
+    code. It is the JAX kernels' ``_needed`` and ``_all_true`` with the segment test
+    widened to id ranges: two ranges that do not meet share no id."""
+    if q0 >= S or kv0 >= S:
+        return "skip"
+    segs = qseg_range is not None
+    has_base, has_prefix = causal or segs, prefix is not None
+    base_skip = (causal and q0 + bq - 1 < kv0) or (not has_base and has_prefix)
+    base_full = (not causal or q0 >= kv0 + bk - 1) and (has_base or not has_prefix)
+    if segs and not base_skip:
+        (qlo, qhi), (klo, khi) = qseg_range, kseg_range
+        base_skip = qhi < klo or khi < qlo
+        base_full = base_full and qlo == qhi == klo == khi
+    pre_any = has_prefix and q0 < prefix and kv0 < prefix
+    pre_full = has_prefix and q0 + bq <= prefix and kv0 + bk <= prefix
+    if base_skip and not pre_any:
+        return "skip"
+    if (base_full or pre_full) and q0 + bq <= S and kv0 + bk <= S:
+        return "full"
+    return "partial"
+
+
+def segment_ranges(seg: torch.Tensor | None) -> torch.Tensor | None:
+    """[B, ceil(S / SEG_CHUNK), 2] int32: the min and max id of every SEG_CHUNK positions of
+    each row of ``seg`` [B, S] (the last chunk over the positions below S), from which the
+    kernels take a tile's id range; None without segments."""
+    if seg is None:
+        return None
+    B, S = seg.shape
+    n = -(-S // SEG_CHUNK)
+    pad = n * SEG_CHUNK - S
+    x = seg if pad == 0 else torch.cat([seg, seg[:, -1:].expand(B, pad)], dim=1)
+    x = x.reshape(B, n, SEG_CHUNK)
+    return torch.stack([x.amin(dim=-1), x.amax(dim=-1)], dim=-1).to(torch.int32).contiguous()
+
+
 def _check_qkv(q, k, v):
     """What both kernels take: bf16 self-attention operands on one card, head_dim 64 or
     128, Hq a multiple of Hkv. Returns them contiguous."""
@@ -215,14 +264,17 @@ def _check_qkv(q, k, v):
 
 
 def _mask_operands(mi: MaskInfo, B: int, S: int, dev):
-    """(qseg [B, S], kseg [B, S], prefix [B]) as int32 on ``dev``, None where absent."""
+    """(qseg [B, S], kseg [B, S], their ``segment_ranges``, prefix [B]) as int32 on
+    ``dev``, None where absent."""
     def ids(x):
         return None if x is None else x.to(device=dev, dtype=torch.int32).expand(B, S).contiguous()
 
     qseg = ids(mi.segment_ids)
-    kseg = ids(mi.kv_segment_ids if mi.kv_segment_ids is not None else mi.segment_ids)
+    kseg = qseg if mi.kv_segment_ids is None else ids(mi.kv_segment_ids)
+    qrange = segment_ranges(qseg)
+    krange = qrange if kseg is qseg else segment_ranges(kseg)
     prefix = None if mi.prefix_len is None else mi.prefix_len.to(device=dev, dtype=torch.int32).reshape(B).contiguous()
-    return qseg, kseg, prefix
+    return qseg, kseg, qrange, krange, prefix
 
 
 def _ptr(t):
@@ -231,8 +283,8 @@ def _ptr(t):
 
 def _dropout_args(dropout: Dropout | None, skv: int) -> tuple:
     """The kernels' dropout arguments (on, threshold, keep scale, seed, bq, bk). The
-    kernels hoist the block key per 64-position kv tile, so a tile must not straddle
-    two kv blocks of the plan."""
+    kernels hoist the block key per kv tile (128 positions in K2 and K5's dkv kernel, 64
+    in its dq kernel), so a tile must not straddle two kv blocks of the plan."""
     if dropout is None:
         return 0, 0, 1.0, 0, 1, 1
     if dropout.bk % _TILE and dropout.bk != skv:
@@ -246,7 +298,7 @@ def _launch(q, k, v, mi: MaskInfo, scale: float, dropout: Dropout | None = None)
     q, k, v = _check_qkv(q, k, v)
     _check_mask(mi)
     dev = q.device
-    qseg, kseg, prefix = _mask_operands(mi, B, S, dev)
+    qseg, kseg, qrange, krange, prefix = _mask_operands(mi, B, S, dev)
     drop = _dropout_args(dropout, S)
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq, S, 1), dtype=torch.float32, device=dev)
@@ -257,8 +309,8 @@ def _launch(q, k, v, mi: MaskInfo, scale: float, dropout: Dropout | None = None)
     flash_fwd_with_lse.launches += 1
     build.check(
         lib.lxt_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(qseg), _ptr(kseg), _ptr(prefix),
-            out.data_ptr(), lse.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(qseg), _ptr(kseg), _ptr(qrange), _ptr(krange),
+            _ptr(prefix), out.data_ptr(), lse.data_ptr(),
             B, S, Hq, Hkv, D, int(bool(mi.causal)), float(scale * _LOG2E), *drop, stream,
         ),
         "flash_attention",
@@ -339,15 +391,16 @@ def _launch_bwd(q, k, v, out, lse, do, mi: MaskInfo, scale: float, dropout: Drop
     if out.dtype != torch.bfloat16 or do.dtype != torch.bfloat16 or lse.dtype != torch.float32:
         raise TypeError(f"the flash backward takes bfloat16 out/do and float32 lse, got {out.dtype}/{do.dtype}/{lse.dtype}")
     dev = q.device
-    do, lse = do.contiguous(), lse.contiguous()
-    if do.data_ptr() % 16:
-        raise ValueError("do must be 16-byte aligned")
-    # delta = rowsum(dO * O) in f32, laid out like lse ([B, Hq, S]); plain tensor code,
-    # as it is outside the TPU kernel too
-    delta = (do.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
-    qseg, kseg, prefix = _mask_operands(mi, B, S, dev)
+    out, do, lse = out.contiguous(), do.contiguous(), lse.contiguous()
+    if out.data_ptr() % 16 or do.data_ptr() % 16:
+        raise ValueError("out and do must be 16-byte aligned")
+    qseg, kseg, qrange, krange, prefix = _mask_operands(mi, B, S, dev)
     drop = _dropout_args(dropout, S)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    # written by the dq kernel for the dkv kernel: the folded q and delta = rowsum(dO * O)
+    # in f32, laid out like lse
+    qs = torch.empty_like(q)
+    delta = torch.empty((B, Hq, S), dtype=torch.float32, device=dev)
     if B == 0 or S == 0:
         return dq, dk, dv
     lib = build.load_library()
@@ -355,8 +408,9 @@ def _launch_bwd(q, k, v, out, lse, do, mi: MaskInfo, scale: float, dropout: Drop
     flash_bwd_from_res.launches += 1
     build.check(
         lib.lxt_flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            _ptr(qseg), _ptr(kseg), _ptr(prefix), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            _ptr(qseg), _ptr(kseg), _ptr(qrange), _ptr(krange), _ptr(prefix), qs.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             B, S, Hq, Hkv, D, int(bool(mi.causal)), float(scale * _LOG2E), *drop, stream,
         ),
         "flash_attention_bwd",
@@ -423,3 +477,21 @@ def flash_attention(q, k, v, mask_info: MaskInfo | None = None, scale: float | N
                     dropout_rate: float = 0.0, dropout_seed=None, block_q: int = 512, block_kv: int = 1024):
     """Flash attention over the model's [B, S, H, D] layout (output only)."""
     return flash_fwd_with_lse(q, k, v, mask_info, scale, dropout_rate, dropout_seed, block_q, block_kv)[0]
+
+
+def wgmma_check(a: torch.Tensor, b: torch.Tensor, b_mn_major: bool) -> torch.Tensor:
+    """One bare wgmma product through the flash kernels' building blocks
+    (csrc/wgmma_check.cu), for the card tests: a bf16 [64, 64] times b, where b is [N, 64]
+    read K-major (a @ b.T, both operands from shared memory) or [64, N] read MN-major
+    (a @ b, a from registers); N is 64 or 128. Returns f32 [64, N]. CUDA tensors only."""
+    n = b.shape[1] if b_mn_major else b.shape[0]
+    if a.shape != (64, 64) or b.shape != ((64, n) if b_mn_major else (n, 64)) or n not in (64, 128):
+        raise ValueError(f"a must be [64, 64] and b [N, 64] or [64, N] with N 64 or 128, got {tuple(a.shape)}, {tuple(b.shape)}")
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16 or not (a.is_cuda and b.is_cuda):
+        raise TypeError("wgmma_check takes bfloat16 CUDA tensors")
+    a, b = a.contiguous(), b.contiguous()
+    c = torch.empty((64, n), dtype=torch.float32, device=a.device)
+    lib = build.load_library()
+    build.check(lib.lxt_wgmma_check(a.data_ptr(), b.data_ptr(), c.data_ptr(), n, int(b_mn_major),
+                                    torch.cuda.current_stream(a.device).cuda_stream), "wgmma_check")
+    return c

@@ -1,5 +1,7 @@
 """The flash probe (kernel K6, ``csrc/flash_probe.cu``): a matmul-only attention that
-bounds what the flash forward's two products cost without its softmax.
+bounds what the flash forward's two products cost without its softmax. It keeps the
+mma.sync loop of the earlier K2, so beside today's K2 (wgmma, TMA ring) the gap between
+the two compares designs, not the softmax alone.
 
 Port of the probe kernel of tools/probe_flash.py (``probe_kernel``): for the plan
 (bq, bk) and a prefix length,

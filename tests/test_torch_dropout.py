@@ -196,10 +196,11 @@ def test_bf16_plain_versions_round_where_the_kernels_round():
     assert float((out.float() - ref).abs().max()) <= 2**-6 * float(ref.abs().max())
 
 
-def _tiled_dropout_forward(q, k, v, mask, dropout, keep_fn=None, tile=64):
-    """The forward as the CUDA kernel walks it: kv tiles of 64 under a running row max,
-    f32 p times keep / (1 - rate) rounded to bf16 per tile, the accumulator rescaled in
-    f32. ``keep_fn`` edits the keep mask (to plant a fault)."""
+def _tiled_dropout_forward(q, k, v, mask, dropout, keep_fn=None, tile=64, descending=False):
+    """The forward as the CUDA kernel walks it: kv tiles of ``tile`` under a running row
+    max (first to last, or last to first as the wgmma kernel walks them), f32 p times
+    keep / (1 - rate) rounded to bf16 per tile, the accumulator rescaled in f32.
+    ``keep_fn`` edits the keep mask (to plant a fault)."""
     B, Sq, Hq, D = q.shape
     Hkv = k.shape[2]
     group = Hq // Hkv
@@ -211,7 +212,8 @@ def _tiled_dropout_forward(q, k, v, mask, dropout, keep_fn=None, tile=64):
     m = torch.full_like(s[..., :1], -1e30)
     l = torch.zeros_like(m)
     acc = torch.zeros(B, Hkv, group, Sq, D)
-    for j in range(0, k.shape[1], tile):
+    starts = range(0, k.shape[1], tile)
+    for j in reversed(starts) if descending else starts:
         st = s[..., j:j + tile]
         m_new = torch.maximum(m, st.amax(dim=-1, keepdim=True))
         alpha = torch.exp2(m - m_new)
@@ -228,14 +230,16 @@ def _over_the_forward_limit(got, ref):
     return (got.float() - ref.float()).abs() - rtol * ref.float().abs() - atol > 0.0
 
 
+@pytest.mark.parametrize("tile,descending", [(64, False), (128, True)])
 @pytest.mark.parametrize("rate", [0.1, 0.5])
 @pytest.mark.parametrize("fault", ["none", "one plan block", "keep scale"])
-def test_forward_tolerance_passes_tiled_arithmetic_and_rejects_dropout_faults(fault, rate):
+def test_forward_tolerance_passes_tiled_arithmetic_and_rejects_dropout_faults(fault, rate, tile, descending):
     """``flash_fwd_tolerance`` (the limit that holds K2 to its plain version on the card)
     at the audio step's proportions, a quarter of its size: S 1024, prefix-LM 500, plan
     bq 64, bk 256, so a plan block holds a quarter to a half of the keys its rows see. A
-    forward that rounds p per 64-key tile at the running max, as the kernel does, stays
-    inside the limit. The same forward with the keep mask of another seed on ONE plan
+    forward that rounds p per kv tile at the running max, as the kernels do (64-key tiles
+    first to last in the mma.sync design, 128-key tiles last to first in the wgmma one),
+    stays inside the limit. The same forward with the keep mask of another seed on ONE plan
     block (the last q block, whose rows see the most keys, so the block weighs least)
     breaks it on more than a fifth of that block's elements and nowhere else; one that
     leaves out the keep scale breaks it on most elements."""
@@ -261,9 +265,10 @@ def test_forward_tolerance_passes_tiled_arithmetic_and_rejects_dropout_faults(fa
         class Unscaled(tfa.Dropout):
             keep_scale = 1.0
 
-        got = _tiled_dropout_forward(q, k, v, mask, Unscaled(*dropout))
+        got = _tiled_dropout_forward(q, k, v, mask, Unscaled(*dropout), tile=tile, descending=descending)
     else:
-        got = _tiled_dropout_forward(q, k, v, mask, dropout, other_seed_on_one_block if fault != "none" else None)
+        got = _tiled_dropout_forward(q, k, v, mask, dropout, other_seed_on_one_block if fault != "none" else None,
+                                     tile=tile, descending=descending)
     over = _over_the_forward_limit(got, ref)
     if fault == "none":
         assert not over.any()

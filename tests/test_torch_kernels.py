@@ -59,22 +59,42 @@ def test_int8_mm_kernel_matches_plain(cuda, M, N, K):
         mm.int8_mm_dequant_nt(a[:, :8].contiguous(), b[:, :8].contiguous(), rs, cs)  # K % 16 != 0
 
 
+# document boundaries of the packed case: on the kernels' 128-position tiles (128, 1024,
+# 2048, 3968) and inside them (300, 1100, 3000, 4000)
+PACKED_BOUNDS = (128, 300, 1024, 1100, 2048, 3000, 3968, 4000)
+
+
 def _mask(case: str, B: int, S: int, dev):
     g = torch.Generator(device=dev).manual_seed(S)
     segs = torch.sort(torch.randint(1, 4, (B, S), device=dev, generator=g), dim=1).values.to(torch.int32)
     prefix = torch.randint(1, max(S // 2, 2), (B,), device=dev, generator=g).to(torch.int32)
+    pos = torch.arange(S, device=dev)
+    packed = (pos[:, None] >= torch.tensor(PACKED_BOUNDS, device=dev)[None, :]).sum(dim=1).to(torch.int32) + 1
     return {
-        "causal": MaskInfo(causal=True),
-        "noncausal": MaskInfo(causal=False),
-        "prefix": MaskInfo(causal=True, prefix_len=prefix),
-        "segment+prefix": MaskInfo(causal=True, segment_ids=segs, prefix_len=prefix),
-    }[case]
+        "causal": lambda: MaskInfo(causal=True),
+        "noncausal": lambda: MaskInfo(causal=False),
+        "prefix": lambda: MaskInfo(causal=True, prefix_len=prefix),
+        "segment+prefix": lambda: MaskInfo(causal=True, segment_ids=segs, prefix_len=prefix),
+        "packed": lambda: MaskInfo(causal=True, segment_ids=packed.expand(B, S)),
+        "prefix2000": lambda: MaskInfo(causal=True, prefix_len=torch.full((B,), 2000, dtype=torch.int32, device=dev)),
+    }[case]()
 
 
-@pytest.mark.parametrize("case,S,D", [("causal", 512, 128), ("prefix", 37, 64), ("segment+prefix", 200, 128),
-                                      ("noncausal", 64, 64)])
-def test_flash_kernel_matches_plain(cuda, case, S, D):
-    B, Hq, Hkv = 2, 8, 2
+# (mask, S, D, GQA group, B): ragged S on both sides of the 128-position tiles, D 64 and
+# 128, groups 1, 4 and 8, packed documents with boundaries on and inside tiles, the
+# prefix-LM 2000 of the audio step, and an unmasked S 256 whose tiles are all "full"
+FLASH_CASES = [
+    ("causal", 512, 128, 4, 2), ("prefix", 37, 64, 4, 2), ("segment+prefix", 200, 128, 4, 2),
+    ("noncausal", 64, 64, 4, 2), ("causal", 130, 64, 4, 2), ("causal", 129, 128, 1, 2), ("causal", 255, 64, 8, 2),
+    ("segment+prefix", 255, 128, 8, 2), ("noncausal", 256, 128, 2, 2), ("packed", 4096, 128, 4, 1),
+    ("prefix2000", 4096, 128, 4, 1), ("prefix2000", 4096, 64, 8, 1),
+]
+
+
+@pytest.mark.parametrize("case,S,D,group,B", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda, case, S, D, group, B):
+    Hkv = 2
+    Hq = Hkv * group
     mi = _mask(case, B, S, cuda)
     g = torch.Generator(device=cuda).manual_seed(S + D)
     q, k, v = (torch.randn(B, S, h, D, device=cuda, generator=g).to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
@@ -211,11 +231,12 @@ def _assert_k5_close(name, got, ref):
     assert excess <= atol, f"{name}: |err| - {rtol} |ref| reaches {excess} > {atol}"
 
 
-@pytest.mark.parametrize("case,S,D", [("causal", 256, 128), ("prefix", 37, 64), ("segment+prefix", 200, 128),
-                                      ("noncausal", 64, 64), ("causal", 130, 64)])
-def test_flash_bwd_kernel_matches_plain(cuda, case, S, D):
-    """K5: dq, dk, dv from the forward kernel's (out, lse), GQA group 4, ragged S."""
-    B, Hq, Hkv = 2, 8, 2
+@pytest.mark.parametrize("case,S,D,group,B", [("causal", 256, 128, 4, 2)] + FLASH_CASES[1:])
+def test_flash_bwd_kernel_matches_plain(cuda, case, S, D, group, B):
+    """K5: dq, dk, dv from the forward kernel's (out, lse): ragged S, D 64 and 128, GQA
+    groups 1 to 8, packed documents, prefix-LM, all-full tiles."""
+    Hkv = 2
+    Hq = Hkv * group
     mi = _mask(case, B, S, cuda)
     g = torch.Generator(device=cuda).manual_seed(S + D)
     q, k, v, do = (torch.randn(B, S, h, D, device=cuda, generator=g).to(torch.bfloat16) for h in (Hq, Hkv, Hkv, Hq))
@@ -243,7 +264,7 @@ def test_flash_bwd_raises(cuda, case):
         q = q.float()
     elif case == "float16 do":
         do = do.half()
-    elif case == "dropout":  # a plan whose kv block would split a 64-position tile
+    elif case == "dropout":  # a plan whose kv block would split a 128-position tile
         kw, exc = dict(dropout=fa.Dropout(0.1, 1, 32, 32)), ValueError
     elif case == "head_dim 32":
         exc = ValueError
@@ -254,6 +275,39 @@ def test_flash_bwd_raises(cuda, case):
     if case == "dropout":
         with pytest.raises(ValueError):
             fa.flash_attention(q, k, v, mi, dropout_rate=1.0, dropout_seed=1)
+
+
+def test_flash_bwd_kernel_gives_the_same_bits_twice(cuda):
+    """K5 is deterministic: no atomics, a fixed order of every sum, so two calls on the
+    same inputs give equal dq, dk, dv (at the audio step's heads, with 8 packed documents
+    and dropout, where many CTAs run at once)."""
+    B, S, Hq, Hkv, D = 1, 2048, 32, 8, 128
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q, k, v, do = (torch.randn(B, S, h, D, device=cuda, generator=g).to(torch.bfloat16) for h in (Hq, Hkv, Hkv, Hq))
+    mi = _mask("packed", B, S, cuda)
+    dropout = fa.make_dropout(0.1, 3, S, S, Hq // Hkv, 32, 128)
+    out, lse = fa.flash_fwd_with_lse(q, k, v, mi, dropout_rate=0.1, dropout_seed=3, block_q=32, block_kv=128)
+    first = fa.flash_bwd_from_res(q, k, v, out, lse, do, mi, dropout=dropout)
+    second = fa.flash_bwd_from_res(q, k, v, out, lse, do, mi, dropout=dropout)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("n", [64, 128])
+@pytest.mark.parametrize("b_mn_major", [False, True])
+def test_wgmma_product_matches_matmul(cuda, n, b_mn_major):
+    """The bare wgmma helpers (csrc/hopper.cuh through csrc/wgmma_check.cu): TMA tiles in
+    the 128-byte swizzle, K-major descriptors (both operands from shared memory) and the
+    MN-major B with A from registers, against torch.matmul in f32 on bf16 inputs. Small
+    integers make every product and sum exact, so any misplaced element shows."""
+    g = torch.Generator(device=cuda).manual_seed(n + int(b_mn_major))
+    a = torch.randint(-4, 5, (64, 64), device=cuda, generator=g).to(torch.bfloat16)
+    b = torch.randint(-4, 5, (64, n) if b_mn_major else (n, 64), device=cuda, generator=g).to(torch.bfloat16)
+    got = fa.wgmma_check(a, b, b_mn_major)
+    torch.cuda.synchronize()
+    want = a.float() @ (b.float() if b_mn_major else b.float().T)
+    assert torch.equal(got, want)
 
 
 def test_flash_function_gradients_match_plain_on_the_card(cuda, monkeypatch):
@@ -375,7 +429,8 @@ def test_train_entry_point_runs_on_the_card(cuda, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("case,S,D,blocks", [
     ("causal", 512, 128, (128, 128)),      # a 4 x 4 grid of plan blocks
-    ("prefix", 256, 64, (32, 128)),        # bq below the kernels' 64-row tile
+    ("prefix", 256, 64, (32, 128)),        # the smallest plan blocks: bq 32, bk 128
+    ("segment+prefix", 512, 128, (32, 128)),
     ("segment+prefix", 200, 128, None),    # no plan: one block spans the sequence
     ("causal", 37, 64, None),
     ("audio step", 4096, 128, (256, 1024)),  # prefix-LM 2000, 32/8 heads: 16 x 4 plan blocks
