@@ -10,7 +10,9 @@ no result line):
 2. kernels: each hand-written kernel against its plain PyTorch version on the card,
    at the serving and training paths' shapes, with the tolerance stated beside it,
    timed with CUDA events beside the plain version, a PyTorch yardstick (never called
-   by the port) and the least time the card could take (bound);
+   by the port) and the least time the card could take (bound); K1 and K3 also with
+   their plan (path, splits), rate, share of bound and profiler device time (theirs
+   and the yardstick's: below about 0.05 ms a call the event times are the host's);
 3. serving main path: ``generate`` at Llama-3.1-8B width (32 layers) from seeded
    on-device weights, B 4, ragged byte-tokenized prompts padded to 512, 64 new
    tokens: bf16 weights with a bf16 cache, then int8 weights with dynamic int8
@@ -121,6 +123,12 @@ def device_split_ms(fn, keys: tuple[str, ...], reps: int = 10) -> dict:
     return {**out, "host_ms": host}
 
 
+def library_device_ms(fn) -> float:
+    """Device ms per call of every kernel a yardstick call launches (profiler): beside a
+    kernel's own device time where the event times of both are paced by the host."""
+    return device_split_ms(fn, ("",))[""]
+
+
 def maybe_ms(fn) -> float | None:
     """A yardstick's time, or None where PyTorch offers no such call for the shape."""
     try:
@@ -193,16 +201,59 @@ def phase_k1():
     # (M, N, K): decode (M = batch), prefill (M = B * S) and a training microbatch of 4096
     # positions through wq / wo, wk / wv, w1 / w3 and w2; then the fused CE head with
     # int8_head (f32 out): the logits of one 512-row chunk against the [V, D] head, and a
-    # contraction over the vocabulary; last the audio step's chunk (2096 text rows in 8 chunks)
+    # contraction over the vocabulary; then the audio step's chunk (2096 text rows in 8
+    # chunks); last M 17 (the stream path past one 16-row tile of a), 64 and 65 (the wgmma
+    # path on either side of a warpgroup's 64 rows); phase_k1_plans places the threshold
     return int8_mm_cases(mm.int8_mm_dequant_nt, mm.int8_mm_dequant_nt_plain, True, g, [
         (M, N, K, bf16) for M in (4, 2048, 4096) for N, K in ((4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336))
-    ] + [(512, 128256, 4096, f32), (512, 4096, 128256, f32), (262, 128256, 4096, f32)])
+    ] + [(512, 128256, 4096, f32), (512, 4096, 128256, f32), (262, 128256, 4096, f32)]
+      + [(M, 14336, 4096, bf16) for M in (17, 64, 65)])
+
+
+def phase_k1_plans() -> list[dict]:
+    """K1's plan against its alternatives (ops/int8_mm.py:int8_mm_plan), device ms from the
+    profiler (the event times of these calls are the host's): the stream / wgmma threshold
+    at N 14336, K 4096 (the w1 / w3 decode and prefill shape), split-K on the stream path,
+    and split-K against a narrower tile on the wgmma path. Every forced plan bit for bit."""
+    import torch
+
+    from llama_x_tpu_torch.ops import int8_mm as mm
+
+    log("[K1 plans] device ms of the plan int8_mm_plan picks and of its alternatives")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    cases = [((M, 14336, 4096), [("stream", 64, 1), ("wgmma", 128, 1)]) for M in (4, 16, 32, 48, 49, 64)] + [
+        ((4, 4096, 14336), [("stream", 64, 1), ("stream", 64, 3), ("stream", 64, 7)]),
+        ((2048, 1024, 4096), [("wgmma", 256, 1), ("wgmma", 256, 2), ("wgmma", 128, 1)]),
+        ((512, 4096, 128256), [("wgmma", 256, 1), ("wgmma", 256, 2), ("wgmma", 128, 1)]),
+        ((128, 4096, 128256), [("wgmma", 256, 1), ("wgmma", 256, 8), ("wgmma", 128, 4)]),
+    ]
+    recs = []
+    for (M, N, K), plans in cases:
+        a = torch.randint(-127, 128, (M, K), dtype=torch.int8, device="cuda", generator=g)
+        b = torch.randint(-127, 128, (N, K), dtype=torch.int8, device="cuda", generator=g)
+        rs, cs = torch.rand(M, device="cuda", generator=g), torch.rand(N, device="cuda", generator=g)
+        want = mm.int8_mm_dequant_nt_plain(a, b, rs, cs)
+        times = {}
+        for plan in plans:
+            if not torch.equal(mm.int8_mm_dequant_nt(a, b, rs, cs, plan=plan), want):
+                raise AssertionError(f"M={M} N={N} K={K} plan {plan}: not bit-identical to the plain version")
+            times["/".join(map(str, plan))] = device_split_ms(lambda: mm.int8_mm_dequant_nt(a, b, rs, cs, plan=plan),
+                                                              ("int8_mm_",))["int8_mm_"]
+        chosen = mm.int8_mm_plan(M, N, K)
+        log(f"    M={M} N={N} K={K}: plan {'/'.join(map(str, chosen))}; device ms "
+            + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+        recs.append(dict(M=M, N=N, K=K, plan=list(chosen), device_ms=times))
+        del a, b, want
+    return recs
 
 
 def int8_mm_cases(kernel, plain, b_nk: bool, g, cases) -> list[dict]:
     """One int8 GEMM form at (M, N, K, out dtype) cases: bit for bit against its plain
-    version (tol 0), timed beside bound, plain and torch._int_mm."""
+    version (tol 0), timed beside bound, plain and torch._int_mm; K1's cases with the
+    plan (path, tile width, splits) they ran."""
     import torch
+
+    from llama_x_tpu_torch.ops import int8_mm as mm
 
     shapes = []
     for M, N, K, out_dtype in cases:
@@ -224,9 +275,17 @@ def int8_mm_cases(kernel, plain, b_nk: bool, g, cases) -> list[dict]:
         lib_ms = maybe_ms(lambda: torch._int_mm(a, b.T if b_nk else b))
         out_bytes = 4 if out_dtype == torch.float32 else 2
         bms, by = bound_ms(M * K + N * K + 4 * (M + N) + out_bytes * M * N, 2 * M * N * K, "int8")
-        log(f"      {ms:.4f} ms (plain {plain_ms:.3f}, _int_mm {lib_ms}, bound {bms:.4f} by {by})")
+        split = device_split_ms(lambda: kernel(a, b, rs, cs, out_dtype=out_dtype), ("int8_mm_",))
+        dev = split["int8_mm_"]
+        lib_dev = library_device_ms(lambda: torch._int_mm(a, b.T if b_nk else b)) if lib_ms is not None else None
+        plan = dict(zip(("path", "tile", "splits"), mm.int8_mm_plan(M, N, K))) if b_nk else {}
+        tops = 2 * M * N * K / (ms * 1e-3) / 1e12
+        log(f"      {ms:.4f} ms (plain {plain_ms:.3f}, _int_mm {lib_ms}, bound {bms:.4f} by {by}); {tops:.1f} TOP/s, "
+            f"{bms / ms:.3f} of bound; device {dev:.4f} ms (profiler, {bms / dev if dev else 0:.3f} of bound; _int_mm "
+            f"{lib_dev}), host {split['host_ms']:.4f} ms a call" + (f"; {plan}" if plan else ""))
         shapes.append(dict(M=M, N=N, K=K, out=str(out_dtype).split(".")[1], max_abs_err=err, tol=0.0, ms=ms,
-                           plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by))
+                           plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by, tops=tops,
+                           device_ms=dev, library_device_ms=lib_dev, host_ms=split["host_ms"], **plan))
         del a, b
     return shapes
 
@@ -489,8 +548,12 @@ def phase_k3():
     k8, ks = quantize_kv_rows(k)
     v8, vs = quantize_kv_rows(v)
     shapes = {"bf16": [], "int8": []}
-    # lens 63/64/65 straddle the kernel's 64-position tile
-    for Sq, last in ((1, [1, 513, 2048, 4096]), (5, [1, 513, 2048, 4096]), (5, [63, 64, 65, 4096])):
+    splits, split_len = da.decode_split_plan(S_max, B, Hkv)
+    log(f"    split plan at B {B}, {Hkv} kv heads, S_max {S_max}: {splits} splits of {split_len} positions")
+    # lens 63/64/65 straddle the kernel's 64-position tile; the last case is the serving
+    # request's own windows (prompts padded to 512, then 64 new tokens: 513 to 576)
+    for Sq, last in ((1, [1, 513, 2048, 4096]), (5, [1, 513, 2048, 4096]), (5, [63, 64, 65, 4096]),
+                     (1, [513, 531, 554, 576])):
         lens1 = torch.tensor(last, dtype=torch.int32, device="cuda")
         q = torch.randn(B, Sq, Hq, D, device="cuda", generator=g).to(torch.bfloat16)
         # per-query staircase: query i of row b sees min(len_b, len_b - Sq + 1 + i) positions
@@ -511,18 +574,26 @@ def phase_k3():
             err = check_close(f"{kind} Sq={Sq} lens={last}", out, plain(), K3_ATOL, K3_RTOL)
             ms = time_ms(run)
             plain_ms = time_ms(plain, reps=3, warmup=1)
-            lib_ms = None
+            lib_ms = lib_dev = None
             if kind == "bf16":
                 pos = torch.arange(S_max, device="cuda")
                 mask = (pos[None, None, :] < lens[:, :, None])[:, None]  # [B, 1, Sq, S]
-                lib_ms = maybe_ms(lambda: F.scaled_dot_product_attention(
-                    q.transpose(1, 2), k, v, attn_mask=mask, enable_gqa=True))
+                lib = lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k, v, attn_mask=mask, enable_gqa=True)
+                lib_ms = maybe_ms(lib)
+                lib_dev = library_device_ms(lib) if lib_ms is not None else None
             n_bytes += 2 * 2 * B * Sq * Hq * D + 4 * B * Sq
             bms, by = bound_ms(n_bytes, 4 * D * window, "bf16")
-            log(f"      {ms:.4f} ms (plain {plain_ms:.3f}, sdpa {lib_ms}, bound {bms:.4f} by {by})")
+            split = device_split_ms(run, ("decode_kernel", "decode_merge_kernel"))
+            dev = split["decode_kernel"] + split["decode_merge_kernel"]
+            tflops = 4 * D * window / (ms * 1e-3) / 1e12
+            log(f"      {ms:.4f} ms (plain {plain_ms:.3f}, sdpa {lib_ms}, bound {bms:.4f} by {by}); {tflops:.2f} TFLOP/s, "
+                f"{bms / ms:.3f} of bound; device {split['decode_kernel']:.4f} + merge {split['decode_merge_kernel']:.4f} "
+                f"ms (profiler, {bms / dev if dev else 0:.3f} of bound; sdpa {lib_dev}), host {split['host_ms']:.4f} "
+                f"ms a call; {splits} splits")
             shapes[kind].append(dict(Sq=Sq, lens=lens.tolist(), B=B, S_max=S_max, max_abs_err=err, tol=K3_ATOL,
                                      rtol=K3_RTOL, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-                                     bound_by=by))
+                                     bound_by=by, tflops=tflops, device_ms=dev, library_device_ms=lib_dev,
+                                     host_ms=split["host_ms"], splits=splits, split_len=split_len))
     return shapes
 
 
@@ -559,7 +630,8 @@ def phase_k6():
 
 def phase_kernels():
     """Returns {kernel name: per-shape records}."""
-    return {"int8_mm_dequant_nt": phase_k1(), "int8_mm_dequant": phase_k4(), "flash_attention": phase_k2(),
+    return {"int8_mm_dequant_nt": phase_k1(), "int8_mm_plans": phase_k1_plans(), "int8_mm_dequant": phase_k4(),
+            "flash_attention": phase_k2(),
             "flash_attention_bwd": phase_k5(), "flash_probe": phase_k6(), **{
         ("decode_attention" if kind == "bf16" else "decode_attention_int8"): recs
         for kind, recs in phase_k3().items()
@@ -694,8 +766,9 @@ def profile_decode(model, prompt, lens, cache_dtype, steps: int = 4) -> dict:
 
 # device items of a trace by the substring of their name: the port's kernels, then PyTorch's own
 DEVICE_ITEM_GROUPS = [
-    ("int8_mm_nt_kernel", "K1"), ("int8_mm_kn_kernel", "K4"), ("flash_fwd_kernel", "K2"),
+    ("int8_mm_nt_", "K1"), ("int8_mm_kn_kernel", "K4"), ("flash_fwd_kernel", "K2"),
     ("flash_bwd_dkv_kernel", "K5 dkv"), ("flash_bwd_dq_kernel", "K5 dq"), ("decode_kernel", "K3"),
+    ("decode_merge_kernel", "K3"),
     ("nvjet", "library GEMMs"), ("gemm", "library GEMMs"), ("cublas", "library GEMMs"), ("cutlass", "library GEMMs"),
     ("reduce_kernel", "reductions"), ("copy_kernel", "copies and casts"), ("elementwise", "elementwise"),
     ("Memcpy", "memcpy"), ("Memset", "memset"),
@@ -1220,7 +1293,8 @@ def record(kern: dict, runs: dict) -> dict:
             plain_ms=p["plain_ms"], bound_ms=p["bound_ms"], bound_by=p["bound_by"], library_ms=p["library_ms"],
             shape={k: v for k, v in p.items() if k not in ("max_abs_err", "tol", "rtol", "ms", "plain_ms",
                                                             "bound_ms", "bound_by", "library_ms", "errs",
-                                                            "tflops", "tiles", "split")},
+                                                            "tflops", "tops", "tiles", "split", "device_ms",
+                                                            "library_device_ms", "host_ms")},
         ))
     return {"kernels": out}
 

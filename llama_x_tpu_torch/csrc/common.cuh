@@ -1,9 +1,10 @@
 // Helpers shared by the port's hand-written Hopper kernels (sm_90a).
 //
 // Warp-level tensor-core products through `mma.sync` (the Ampere-style synchronous
-// MMA, which Hopper still runs at a fraction of the `wgmma` rate) for K1, K3, K4 and
-// K6; the flash kernels K2 and K5 run on `wgmma` and TMA (hopper.cuh) and share the
-// dropout hash and the mask's tile classes below. Fragment layouts follow the PTX ISA
+// MMA, which Hopper still runs at a fraction of the `wgmma` rate) for K1's decode path,
+// K3, K4 and K6; the flash kernels K2 and K5 and K1's large-M path run on `wgmma` and
+// TMA (hopper.cuh). The flash kernels share the dropout hash and the mask's tile classes
+// below. Fragment layouts follow the PTX ISA
 // ("Matrix fragments for mma.m16n8k16 / mma.m16n8k32"): lane = 4 * groupID + tid,
 //   A (row-major 16 x K):  reg0 row g, reg1 row g+8, reg2 row g (upper K half), reg3 row g+8 (upper half)
 //   B (K x 8, "col"):      reg0 lower K half of column g, reg1 upper half
@@ -47,8 +48,6 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ float round_bf16(float x) { return __bfloat162float(__float2bfloat16(x)); }
-
 // 16-byte global -> shared copy that bypasses registers; src_bytes == 0 zero-fills
 // the destination (the ragged edge of a tile) without touching global memory.
 __device__ __forceinline__ void cp_async_16(void* smem, const void* gmem, bool valid) {
@@ -57,12 +56,43 @@ __device__ __forceinline__ void cp_async_16(void* smem, const void* gmem, bool v
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
 }
 
+// 4-byte copy (one f32 scale); src_bytes == 0 zero-fills
+__device__ __forceinline__ void cp_async_4(void* smem, const void* gmem, bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+}
+
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
+
+// Four 8x8 matrices of 16-bit elements (or 8 x 16 bytes) from shared memory: lanes
+// 8i..8i+7 give the row addresses of matrix i, and r[i] is that matrix's fragment (lane
+// l holds row l / 4, elements 2 (l % 4) and 2 (l % 4) + 1: the mma.m16n8k16 A / B layout,
+// or bytes 4 (l % 4)..+3 of a row: the m16n8k32 s8 layout). The .trans form hands lane l
+// column l / 4, rows 2 (l % 4) and 2 (l % 4) + 1: a B operand stored k-major.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// Byte offset of 16-byte chunk c of row r in a tile whose rows are `row_bytes` long,
+// XOR-swizzled so that the same chunk of 8 consecutive rows lies in 8 different bank
+// groups (ldmatrix and row-wise cp.async both conflict-free); row_bytes >= 128.
+__device__ __forceinline__ int swz(int r, int c, int row_bytes) { return r * row_bytes + ((c ^ (r & 7)) << 4); }
 
 // Attention dropout: the counter-based keep mask of the JAX flash kernels
 // (llama_x_tpu/ops/flash_attention.py:_fmix32 / _keep_for), bit for bit. All uint32

@@ -5,33 +5,44 @@
 // (through _decode_call, decode_attention and decode_attention_int8), which every
 // decode step of the JAX model runs (llama_x_tpu/models/llama.py:248-264).
 //
-// What bounds it on an H100: the cache bytes that the windows cover, read once
-// (at B 4, kv_len 4096, 8 kv heads, head_dim 128, bf16: 67 MB per layer, 20 us at
-// 3.35 TB/s; half that for the int8 cache plus its scales). The arithmetic is
-// 4 * rows * D operations per cached position, far below the tensor cores.
+// What it computes, as that kernel: the Sq queries x the GQA group of one kv head are
+// packed query-major into rows (row r is query r / group, head r % group), each row
+// masked at its own window (the staircase of speculative verify), scores in f32 times
+// scale, a natural-exp online softmax in f32, P rounded to bf16 before P V, l == 0
+// guarded; the int8 side dequantized as bf16(bf16(x) * bf16(scale)).
 //
-// Design: one CTA of 8 warps per (kv head, batch row) carries every query row that
-// reads that head: the Sq queries x the GQA group, packed query-major (row r is
-// query r / group, head r % group) as in the Pallas body, so each K/V tile is read
-// from device memory once for all of them. The loop runs over 64-position tiles only
-// up to the longest window of the row (ceil(max window / 64) tiles), which takes the
-// place of the TPU kernel's clamp-to-last-block DMA skip: traffic is O(kv_len), not
-// O(S_max). Tiles are read with 16-byte loads into registers one tile ahead of the
-// arithmetic (a two-deep software pipeline), so a CTA keeps a whole tile of loads in
-// flight instead of waiting on each. Each query row masks at its own window (the
-// causal staircase of speculative verify). The int8 side is dequantized as
-// data x scale in the query's dtype (bf16 rounding, as the Pallas kernel does), and
-// the tile lives in shared memory as fp32; scores, the natural-exp online softmax
-// and P V run in fp32 FMA, P rounded to the value dtype before the product, l == 0
-// guarded in the epilogue.
-// Not yet done (later work): split-KV across CTAs (B x Hkv CTAs fill only a part of
-// the 132 SMs at serving batch sizes), tensor-core products.
+// What bounds it on an H100: the cache bytes that the windows cover, read once (B 4,
+// 8 kv heads, D 128, windows up to 4096: 2 x 27 MB for bf16, 8.2 us at 3.35 TB/s; half
+// that for the int8 cache plus its scales). The products are 4 * rows * D operations a
+// position, far below the tensor cores.
+//
+// Design: split-KV on tensor cores. The grid is (splits, Hkv, B); the wrapper picks the
+// splits from S_max and B * Hkv alone (ops/decode_attention.py:decode_split_plan, about
+// four CTAs per SM) and never reads the windows on the host, so a launch needs no sync.
+// A CTA takes one kv range, a multiple of 64 positions; one whose range starts at or
+// past its batch row's longest window writes an empty partial (m -1e30, l 0) and exits.
+// The rows are padded to RT 16-row tiles (RT 1, 2 or 4) and the 4 warps split as RT
+// row tiles x 4 / RT kv slices of every 64-position tile; each warp holds its rows of Q
+// as mma.m16n8k16 A fragments for the whole loop, computes S = Q K^T with K read by
+// ldmatrix, and O += P V with P repacked from the S accumulator and V read by
+// ldmatrix.trans. K and V tiles arrive by 16-byte cp.async through a ring of 3 stages
+// (bf16) or 4 (int8), rows XOR-swizzled against bank conflicts; an int8 stage and its
+// scales are dequantized once per CTA into a bf16 staging tile in the same layout. At
+// the end the warps of a row tile merge their (m, l, acc) in shared memory; with one
+// split the CTA writes bf16 out, else f32 partials that the merge kernel combines in
+// split order: out = sum acc_i e^(m_i - M) / sum l_i e^(m_i - M), empty splits skipped,
+// the l == 0 guard last. No atomics: the bits do not depend on the schedule.
+//
+// The design before this one (one CTA of 8 warps per (kv head, batch row), 32 CTAs on
+// 132 SMs, f32 FMA products from shared memory) took, in chip_smoke.py on NVIDIA H100
+// 80GB HBM3, 700.00 W, at B 4, 32/8 heads, D 128, lens 1/513/2048/4096: 0.316198 ms at
+// Sq 1 (int8 cache 0.369821) and 1.037123 ms at Sq 5.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int BKV = 64, THREADS = 256;
+constexpr int BKV = 64, THREADS = 128, WARPS = 4;
 constexpr float NEG_INF = -1e30f;
 
 struct Params {
@@ -39,196 +50,336 @@ struct Params {
   const void *k, *v;
   const float *k_scale, *v_scale;  // int8 cache only
   const int* lens;                 // [B, Sq] per-query window lengths
-  __nv_bfloat16* out;
-  int Sq, Hq, Hkv, S_max, rows;
+  __nv_bfloat16* out;              // [B, Sq, Hq, D]
+  float* part_acc;                 // [B, Hkv, splits, rows, D] (splits > 1)
+  float* part_ml;                  // [B, Hkv, splits, rows, 2]
+  int Sq, Hq, Hkv, S_max, rows, splits, split_len;
   float scale;
 };
 
-// One tile side (BKV x D) as 16-byte chunks: 8 bf16 or 16 int8 elements each.
 template <bool QUANT, int D>
-struct Tile {
-  static constexpr int PER_CHUNK = QUANT ? 16 : 8;
-  static constexpr int CHUNKS = BKV * D / PER_CHUNK;
-  static constexpr int PER_THREAD = (CHUNKS + THREADS - 1) / THREADS;
-  uint4 k[PER_THREAD], v[PER_THREAD];
-  float ks[PER_THREAD], vs[PER_THREAD];
-
-  __device__ void load(const Params& p, size_t head_row0, int kv0, int tid) {
-#pragma unroll
-    for (int i = 0; i < PER_THREAD; ++i) {
-      const int c = tid + i * THREADS;
-      const int j = c / (D / PER_CHUNK), col = (c % (D / PER_CHUNK)) * PER_CHUNK;
-      k[i] = v[i] = make_uint4(0, 0, 0, 0);
-      ks[i] = vs[i] = 0.f;
-      if (c < CHUNKS && kv0 + j < p.S_max) {
-        const size_t row = head_row0 + kv0 + j;
-        const size_t off = (row * D + col) * (QUANT ? 1 : 2);  // bytes
-        k[i] = *reinterpret_cast<const uint4*>(static_cast<const char*>(p.k) + off);
-        v[i] = *reinterpret_cast<const uint4*>(static_cast<const char*>(p.v) + off);
-        if (QUANT) {
-          ks[i] = p.k_scale[row];
-          vs[i] = p.v_scale[row];
-        }
-      }
-    }
-  }
-
-  // dequantize (in the query dtype, bf16) and write fp32 into the smem tiles
-  __device__ void store(float* k_s, float* v_s, int tid) const {
-#pragma unroll
-    for (int i = 0; i < PER_THREAD; ++i) {
-      const int c = tid + i * THREADS;
-      if (c >= CHUNKS) continue;
-      const int j = c / (D / PER_CHUNK), col = (c % (D / PER_CHUNK)) * PER_CHUNK;
-      float* kd = k_s + j * (D + 1) + col;
-      float* vd = v_s + j * D + col;
-      if (QUANT) {
-        const int8_t* kb = reinterpret_cast<const int8_t*>(&k[i]);
-        const int8_t* vb = reinterpret_cast<const int8_t*>(&v[i]);
-        const float ksb = lxt::round_bf16(ks[i]), vsb = lxt::round_bf16(vs[i]);
-#pragma unroll
-        for (int e = 0; e < 16; ++e) {
-          kd[e] = lxt::round_bf16(static_cast<float>(kb[e]) * ksb);
-          vd[e] = lxt::round_bf16(static_cast<float>(vb[e]) * vsb);
-        }
-      } else {
-        const __nv_bfloat16* kb = reinterpret_cast<const __nv_bfloat16*>(&k[i]);
-        const __nv_bfloat16* vb = reinterpret_cast<const __nv_bfloat16*>(&v[i]);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          kd[e] = __bfloat162float(kb[e]);
-          vd[e] = __bfloat162float(vb[e]);
-        }
-      }
-    }
-  }
+struct Cfg {
+  static constexpr int ROW = QUANT ? D : 2 * D;  // bytes of one cache row in the ring
+  static constexpr int SIDE = BKV * ROW;
+  static constexpr int STAGES = QUANT ? 4 : 3;
+  static constexpr int STAGE = 2 * SIDE + (QUANT ? 2 * BKV * 4 : 0);  // K, V (+ their scales)
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int TILE = BKV * D * 2;  // one bf16 tile, swizzled rows of 2D bytes
+  static constexpr int STAGING = QUANT ? 2 * TILE : 0;
+  static constexpr int MERGE = WARPS * 16 * (D + 2) * 4;  // each warp's (m, l, acc) of its 16 rows
+  static constexpr int SMEM = (RING + STAGING > MERGE ? RING + STAGING : MERGE);
 };
 
+// the ring stage of tile `kt`: 16-byte copies, positions past S_max zero-filled
 template <bool QUANT, int D>
-__global__ void __launch_bounds__(THREADS) decode_kernel(Params p) {
-  extern __shared__ float smem[];
-  const int rows = p.rows, group = p.Hq / p.Hkv;
-  float* qs = smem;                          // [rows][D]
-  float* acc = qs + rows * D;                // [rows][D]
-  float* ks = acc + rows * D;                // [BKV][D + 1]
-  float* vs = ks + BKV * (D + 1);            // [BKV][D]
-  float* ps = vs + BKV * D;                  // [rows][BKV]
-  float* m_s = ps + rows * BKV;              // [rows]
-  float* l_s = m_s + rows;                   // [rows]
-  float* a_s = l_s + rows;                   // [rows] per-tile rescale
-  int* lens = reinterpret_cast<int*>(a_s + rows);  // [Sq]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int hk = blockIdx.x, b = blockIdx.y;
-  const size_t head_row0 = ((size_t)b * p.Hkv + hk) * p.S_max;  // first cache row of this head
-
-  for (int i = tid; i < p.Sq; i += THREADS) lens[i] = p.lens[b * p.Sq + i];
-  for (int idx = tid; idx < rows * D; idx += THREADS) {
-    const int r = idx / D, d = idx % D;
-    const int qi = r / group, h = hk * group + r % group;
-    qs[idx] = __bfloat162float(p.q[(((size_t)b * p.Sq + qi) * p.Hq + h) * D + d]);
-    acc[idx] = 0.f;
-  }
-  for (int r = tid; r < rows; r += THREADS) {
-    m_s[r] = NEG_INF;
-    l_s[r] = 0.f;
-  }
-  __syncthreads();
-  int max_len = 0;
-  for (int i = 0; i < p.Sq; ++i) max_len = max(max_len, lens[i]);
-  const int n_tiles = (min(max_len, p.S_max) + BKV - 1) / BKV;
-
-  Tile<QUANT, D> tile_regs;
-  if (n_tiles > 0) tile_regs.load(p, head_row0, 0, tid);
-
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int kv0 = tile * BKV;
-    __syncthreads();  // the previous tile's readers are done
-    tile_regs.store(ks, vs, tid);
-    __syncthreads();
-    if (tile + 1 < n_tiles) tile_regs.load(p, head_row0, kv0 + BKV, tid);  // in flight during the math
-
-    // scores, masked at each query's own window
-    for (int idx = tid; idx < rows * BKV; idx += THREADS) {
-      const int r = idx / BKV, j = idx % BKV;
-      const float* qr = qs + r * D;
-      const float* kr = ks + j * (D + 1);
-      float s = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) s += qr[d] * kr[d];
-      s *= p.scale;
-      if (kv0 + j >= lens[r / group]) s = NEG_INF;
-      ps[idx] = s;
-    }
-    __syncthreads();
-
-    // online softmax, one warp per row
-    for (int r = warp; r < rows; r += THREADS / 32) {
-      float* pr = ps + r * BKV;
-      float mx = NEG_INF;
-      for (int j = lane; j < BKV; j += 32) mx = fmaxf(mx, pr[j]);
+__device__ __forceinline__ void load_stage(const Params& p, unsigned char* st, size_t head_row0, int p0, int tid) {
+  using C = Cfg<QUANT, D>;
+  constexpr int CH = C::ROW / 16;  // 16-byte chunks per cache row
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int j = lane; j < BKV; j += 32) {
-        const float e = expf(pr[j] - m_new);
-        sum += e;
-        pr[j] = lxt::round_bf16(e);  // P in the value dtype for the product
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        a_s[r] = alpha;
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + P V
-    for (int idx = tid; idx < rows * D; idx += THREADS) {
-      const int r = idx / D, d = idx % D;
-      const float* pr = ps + r * BKV;
-      float pv = 0.f;
-#pragma unroll 16
-      for (int j = 0; j < BKV; ++j) pv += pr[j] * vs[j * D + d];
-      acc[idx] = acc[idx] * a_s[r] + pv;
-    }
+  for (int i = 0; i < BKV * CH / THREADS; ++i) {
+    const int c = tid + i * THREADS, r = c / CH, ch = c % CH;
+    const bool ok = p0 + r < p.S_max;
+    const size_t off = (head_row0 + p0 + r) * C::ROW + ch * 16;
+    // bf16 rows land swizzled (ldmatrix reads them); int8 rows land as they are (the
+    // dequant pass reads them row-wise)
+    const int dst = QUANT ? r * C::ROW + ch * 16 : lxt::swz(r, ch, C::ROW);
+    lxt::cp_async_16(st + dst, ok ? static_cast<const char*>(p.k) + off : p.k, ok);
+    lxt::cp_async_16(st + C::SIDE + dst, ok ? static_cast<const char*>(p.v) + off : p.v, ok);
   }
-  __syncthreads();
-
-  for (int idx = tid; idx < rows * D; idx += THREADS) {
-    const int r = idx / D, d = idx % D;
-    const int qi = r / group, h = hk * group + r % group;
-    const float l = l_s[r];
-    p.out[(((size_t)b * p.Sq + qi) * p.Hq + h) * D + d] = __float2bfloat16(acc[idx] / (l == 0.f ? 1.f : l));
+  if (QUANT) {  // one scale per thread: K for threads 0..63, V for 64..127
+    const int r = tid % BKV;
+    const bool ok = p0 + r < p.S_max;
+    const float* src = (tid < BKV ? p.k_scale : p.v_scale) + head_row0 + p0 + r;
+    lxt::cp_async_4(st + 2 * C::SIDE + (tid / BKV) * BKV * 4 + r * 4, ok ? src : p.k_scale, ok);
   }
 }
 
-size_t smem_bytes(int rows, int D, int Sq) {
-  return sizeof(float) * ((size_t)2 * rows * D + (size_t)BKV * (D + 1) + (size_t)BKV * D + (size_t)rows * BKV +
-                          3 * (size_t)rows) +
-         sizeof(int) * Sq;
+// int8 stage -> bf16 staging tiles (K then V), bf16(bf16(x) * bf16(scale)) per element
+template <int D>
+__device__ __forceinline__ void dequant_stage(const unsigned char* st, unsigned char* staging, int tid) {
+  constexpr int CH8 = D / 16;  // 16-byte int8 chunks per row
+  const float* scales = reinterpret_cast<const float*>(st + 2 * BKV * D);
+#pragma unroll
+  for (int side = 0; side < 2; ++side) {
+#pragma unroll
+    for (int i = 0; i < BKV * CH8 / THREADS; ++i) {
+      const int c = tid + i * THREADS, r = c / CH8, ch = c % CH8;
+      const uint4 raw = *reinterpret_cast<const uint4*>(st + side * BKV * D + r * D + ch * 16);
+      const int8_t* x = reinterpret_cast<const int8_t*>(&raw);
+      // bf16(x) is exact for |x| <= 127 and the bf16 product rounds once: bf16(bf16(x) * bf16(scale))
+      const __nv_bfloat162 sc = __float2bfloat162_rn(scales[side * BKV + r]);
+      uint4 lo, hi;
+      __nv_bfloat162* l2 = reinterpret_cast<__nv_bfloat162*>(&lo);
+      __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&hi);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        l2[e] = __hmul2(__floats2bfloat162_rn(static_cast<float>(x[2 * e]), static_cast<float>(x[2 * e + 1])), sc);
+        h2[e] = __hmul2(__floats2bfloat162_rn(static_cast<float>(x[8 + 2 * e]), static_cast<float>(x[9 + 2 * e])), sc);
+      }
+      unsigned char* tile = staging + side * Cfg<true, D>::TILE;
+      *reinterpret_cast<uint4*>(tile + lxt::swz(r, 2 * ch, 2 * D)) = lo;
+      *reinterpret_cast<uint4*>(tile + lxt::swz(r, 2 * ch + 1, 2 * D)) = hi;
+    }
+  }
+}
+
+template <bool QUANT, int D, int RT>
+__global__ void __launch_bounds__(THREADS) decode_kernel(Params p) {
+  using C = Cfg<QUANT, D>;
+  constexpr int KS = WARPS / RT, SL = BKV / KS;  // kv slices per row tile, positions per slice
+  extern __shared__ __align__(128) unsigned char smem[];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int rt = warp / KS, ks = warp % KS;
+  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int group = p.Hq / p.Hkv, rows = p.rows;
+  const size_t head_row0 = ((size_t)b * p.Hkv + hk) * p.S_max;  // first cache row of this head
+  const size_t part_row0 = (((size_t)b * p.Hkv + hk) * p.splits + split) * rows;
+
+  int max_len = 0;
+  for (int i = 0; i < p.Sq; ++i) max_len = max(max_len, p.lens[b * p.Sq + i]);
+  max_len = min(max_len, p.S_max);
+  const int kv_start = split * p.split_len;
+  const int live_end = min(kv_start + p.split_len, max_len);
+  const int n_tiles = live_end > kv_start ? (live_end - kv_start + BKV - 1) / BKV : 0;
+
+  if (n_tiles == 0) {
+    if (p.splits > 1) {
+      for (int r = tid; r < rows; r += THREADS) {
+        p.part_ml[(part_row0 + r) * 2] = NEG_INF;
+        p.part_ml[(part_row0 + r) * 2 + 1] = 0.f;
+      }
+    } else {
+      for (int idx = tid; idx < rows * D; idx += THREADS) {
+        const int r = idx / D, d = idx % D;
+        p.out[(((size_t)b * p.Sq + r / group) * p.Hq + hk * group + r % group) * D + d] = __float2bfloat16(0.f);
+      }
+    }
+    return;
+  }
+
+  // this thread's two rows (g and g + 8 of the warp's row tile): window and Q fragments
+  int lim[2];
+  uint32_t qf[D / 16][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int R = rt * 16 + g + 8 * h;
+    lim[h] = R < rows ? min(p.lens[b * p.Sq + R / group], p.S_max) : 0;
+    const __nv_bfloat16* qrow =
+        p.q + (((size_t)b * p.Sq + (R < rows ? R / group : 0)) * p.Hq + hk * group + R % group) * D;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      qf[kk][h] = R < rows ? *reinterpret_cast<const uint32_t*>(qrow + 16 * kk + 2 * t) : 0u;
+      qf[kk][2 + h] = R < rows ? *reinterpret_cast<const uint32_t*>(qrow + 16 * kk + 8 + 2 * t) : 0u;
+    }
+  }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  float m_i[2] = {NEG_INF, NEG_INF}, l_i[2] = {0.f, 0.f};  // l_i: this thread's share of the row sum
+
+  unsigned char* staging = smem + C::RING;
+#pragma unroll
+  for (int s = 0; s < C::STAGES - 1; ++s) {
+    if (s < n_tiles) load_stage<QUANT, D>(p, smem + s * C::STAGE, head_row0, kv_start + s * BKV, tid);
+    lxt::cp_async_commit();
+  }
+  for (int it = 0; it < n_tiles; ++it) {
+    lxt::cp_async_wait<C::STAGES - 2>();
+    __syncthreads();  // tile it landed for every thread; the stage of tile it - 1 is free
+    const int nxt = it + C::STAGES - 1;
+    if (nxt < n_tiles) load_stage<QUANT, D>(p, smem + (nxt % C::STAGES) * C::STAGE, head_row0, kv_start + nxt * BKV, tid);
+    lxt::cp_async_commit();
+    const unsigned char* st = smem + (it % C::STAGES) * C::STAGE;
+    const unsigned char *kt = st, *vt = st + C::SIDE;
+    if (QUANT) {
+      dequant_stage<D>(st, staging, tid);
+      __syncthreads();
+      kt = staging;
+      vt = staging + C::TILE;
+    }
+    const int p0 = kv_start + it * BKV + ks * SL;  // first position of this warp's slice
+
+    // S = Q K^T over the slice: 16 rows x SL positions
+    float s[SL / 8][4];
+#pragma unroll
+    for (int i = 0; i < SL / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+      for (int np = 0; np < SL / 16; ++np) {
+        uint32_t bf[4];
+        lxt::ldmatrix_x4(bf, kt + lxt::swz(ks * SL + np * 16 + (lane >> 4) * 8 + (lane & 7), 2 * kk + ((lane >> 3) & 1), 2 * D));
+        lxt::mma_bf16_16816(s[2 * np], qf[kk], bf[0], bf[1]);
+        lxt::mma_bf16_16816(s[2 * np + 1], qf[kk], bf[2], bf[3]);
+      }
+    }
+
+    // scale, the per-row window, the online softmax (a row lives in the 4 lanes of a quad)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int i = 0; i < SL / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int pos = p0 + i * 8 + 2 * t + e;
+          float& x = s[i][2 * h + e];
+          x = pos < lim[h] ? x * p.scale : NEG_INF;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_i[h], mx);
+      const float alpha = expf(m_i[h] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < SL / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[i][2 * h + e];
+          x = expf(x - m_new);
+          sum += x;
+        }
+      l_i[h] = l_i[h] * alpha + sum;
+      m_i[h] = m_new;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        acc[i][2 * h] *= alpha;
+        acc[i][2 * h + 1] *= alpha;
+      }
+    }
+
+    // O += P V: P rounded to bf16 as the A operand, V through ldmatrix.trans
+#pragma unroll
+    for (int j = 0; j < SL / 16; ++j) {
+      uint32_t pa[4];
+      pa[0] = lxt::pack_bf16(s[2 * j][0], s[2 * j][1]);
+      pa[1] = lxt::pack_bf16(s[2 * j][2], s[2 * j][3]);
+      pa[2] = lxt::pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
+      pa[3] = lxt::pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t bf[4];
+        const int i4 = lane >> 3;
+        lxt::ldmatrix_x4_trans(bf, vt + lxt::swz(ks * SL + 16 * j + (i4 & 1) * 8 + (lane & 7), 2 * dp + (i4 >> 1), 2 * D));
+        lxt::mma_bf16_16816(acc[2 * dp], pa, bf[0], bf[1]);
+        lxt::mma_bf16_16816(acc[2 * dp + 1], pa, bf[2], bf[3]);
+      }
+    }
+  }
+  lxt::cp_async_wait<0>();
+  __syncthreads();  // the ring is idle: its bytes now hold each warp's (m, l, acc)
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l_i[h] += __shfl_xor_sync(0xffffffffu, l_i[h], 1);
+    l_i[h] += __shfl_xor_sync(0xffffffffu, l_i[h], 2);
+  }
+  float* wm = reinterpret_cast<float*>(smem);  // [WARPS][16] m, then l, then acc [WARPS][16][D]
+  float* wl = wm + WARPS * 16;
+  float* wacc = wl + WARPS * 16;
+  if (t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      wm[warp * 16 + g + 8 * h] = m_i[h];
+      wl[warp * 16 + g + 8 * h] = l_i[h];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) wacc[(warp * 16 + g + 8 * (e >> 1)) * D + i * 8 + 2 * t + (e & 1)] = acc[i][e];
+  __syncthreads();
+
+  // merge the kv slices of each row tile in slice order, then out or the split's partial
+  for (int idx = tid; idx < rows * D; idx += THREADS) {
+    const int R = idx / D, d = idx % D, rr = R % 16, w0 = (R / 16) * KS;
+    float M = NEG_INF;
+#pragma unroll
+    for (int k = 0; k < KS; ++k) M = fmaxf(M, wm[(w0 + k) * 16 + rr]);
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int k = 0; k < KS; ++k) {
+      const float w = expf(wm[(w0 + k) * 16 + rr] - M);
+      L += wl[(w0 + k) * 16 + rr] * w;
+      A += wacc[((w0 + k) * 16 + rr) * D + d] * w;
+    }
+    if (p.splits == 1) {
+      p.out[(((size_t)b * p.Sq + R / group) * p.Hq + hk * group + R % group) * D + d] =
+          __float2bfloat16(A / (L == 0.f ? 1.f : L));
+    } else {
+      p.part_acc[(part_row0 + R) * D + d] = A;
+      if (d == 0) {
+        p.part_ml[(part_row0 + R) * 2] = M;
+        p.part_ml[(part_row0 + R) * 2 + 1] = L;
+      }
+    }
+  }
+}
+
+// grid (rows, Hkv, B), D threads: the splits of one row in split order. The splits' (m, l)
+// are staged in shared memory first, so the acc loads of all splits are in flight at once.
+__global__ void decode_merge_kernel(Params p, int D) {
+  extern __shared__ float ml_s[];  // [splits][2]
+  const int R = blockIdx.x, hk = blockIdx.y, b = blockIdx.z, d = threadIdx.x;
+  const int group = p.Hq / p.Hkv, rows = p.rows;
+  const size_t row0 = ((size_t)b * p.Hkv + hk) * p.splits * rows + R;
+  for (int s = d; s < p.splits; s += blockDim.x) {
+    ml_s[2 * s] = p.part_ml[(row0 + (size_t)s * rows) * 2];
+    ml_s[2 * s + 1] = p.part_ml[(row0 + (size_t)s * rows) * 2 + 1];
+  }
+  __syncthreads();
+  float M = NEG_INF;
+  for (int s = 0; s < p.splits; ++s) M = fmaxf(M, ml_s[2 * s]);
+  float L = 0.f, A = 0.f;
+#pragma unroll 8
+  for (int s = 0; s < p.splits; ++s) {
+    const float l = ml_s[2 * s + 1];
+    if (l == 0.f) continue;  // an empty split (its range starts past every window)
+    const float w = expf(ml_s[2 * s] - M);
+    L += l * w;
+    A += p.part_acc[(row0 + (size_t)s * rows) * D + d] * w;
+  }
+  p.out[(((size_t)b * p.Sq + R / group) * p.Hq + hk * group + R % group) * D + d] =
+      __float2bfloat16(A / (L == 0.f ? 1.f : L));
+}
+
+template <bool QUANT, int D, int RT>
+int launch_rt(const Params& p, int B, cudaStream_t st) {
+  constexpr int bytes = Cfg<QUANT, D>::SMEM;
+  static const cudaError_t attr =  // once per instantiation and process (one card a process)
+      cudaFuncSetAttribute(decode_kernel<QUANT, D, RT>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  decode_kernel<QUANT, D, RT><<<dim3(p.splits, p.Hkv, B), THREADS, bytes, st>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || p.splits == 1) return static_cast<int>(err);
+  decode_merge_kernel<<<dim3(p.rows, p.Hkv, B), D, 2 * p.splits * sizeof(float), st>>>(p, D);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool QUANT, int D>
 int launch(const Params& p, int B, cudaStream_t st) {
-  const size_t smem = smem_bytes(p.rows, D, p.Sq);
-  const cudaError_t err =
-      cudaFuncSetAttribute(decode_kernel<QUANT, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  decode_kernel<QUANT, D><<<dim3(p.Hkv, B), THREADS, smem, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  const int rt = (p.rows + 15) / 16;
+  if (rt == 1) return launch_rt<QUANT, D, 1>(p, B, st);
+  if (rt == 2) return launch_rt<QUANT, D, 2>(p, B, st);
+  if (rt <= 4) return launch_rt<QUANT, D, 4>(p, B, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
+// splits and split_len: ops/decode_attention.py:decode_split_plan (split_len a multiple
+// of 64, splits * split_len >= S_max); part_acc / part_ml: f32 scratch, unused with one split
 extern "C" int lxt_decode_attention(const void* q, const void* k, const void* v, const void* k_scale,
-                                    const void* v_scale, const void* lens, void* out, int B, int Sq, int Hq, int Hkv,
-                                    int S_max, int D, float scale, int quantized, void* stream) {
+                                    const void* v_scale, const void* lens, void* out, void* part_acc, void* part_ml,
+                                    int B, int Sq, int Hq, int Hkv, int S_max, int D, float scale, int quantized,
+                                    int splits, int split_len, void* stream) {
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = k;
@@ -237,12 +388,18 @@ extern "C" int lxt_decode_attention(const void* q, const void* k, const void* v,
   p.v_scale = static_cast<const float*>(v_scale);
   p.lens = static_cast<const int*>(lens);
   p.out = static_cast<__nv_bfloat16*>(out);
+  p.part_acc = static_cast<float*>(part_acc);
+  p.part_ml = static_cast<float*>(part_ml);
   p.Sq = Sq;
   p.Hq = Hq;
   p.Hkv = Hkv;
   p.S_max = S_max;
   p.rows = Sq * (Hq / Hkv);
+  p.splits = splits;
+  p.split_len = split_len;
   p.scale = scale;
+  if (splits < 1 || split_len % BKV || (long long)splits * split_len < S_max || (splits > 1 && (!part_acc || !part_ml)))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   if (D == 128) return quantized ? launch<true, 128>(p, B, st) : launch<false, 128>(p, B, st);
   if (D == 64) return quantized ? launch<true, 64>(p, B, st) : launch<false, 64>(p, B, st);

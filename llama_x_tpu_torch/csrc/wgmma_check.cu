@@ -1,10 +1,12 @@
 // One bare wgmma product through the building blocks of hopper.cuh, so that a card test
 // can hold the tensor maps, the 128-byte swizzle, both descriptor forms and the register
-// layouts against torch.matmul before they meet in the flash kernels (K2, K5):
+// layouts against torch.matmul before they meet in the flash kernels (K2, K5) and K1:
 //   K-major:  C[64, N] = A[64, 64] B[N, 64]^T, A and B from shared memory (wgmma_ss);
 //   MN-major: C[64, N] = A[64, 64] B[64, N], A from registers in the layout that an
-//             accumulator repacks into, B read MN-major from shared memory (wgmma_rs).
-// One CTA of one warpgroup; A and B arrive by TMA; N is 64 or 128.
+//             accumulator repacks into, B read MN-major from shared memory (wgmma_rs);
+//   int8:     C[64, N] = A[64, 128] B[N, 128]^T in s32, both K-major from shared memory
+//             through 2-D tensor maps (wgmma_ss_s8, K1's product), N 128 or 256.
+// One CTA of one warpgroup; A and B arrive by TMA; N is 64 or 128 for bf16.
 
 #include "hopper.cuh"
 
@@ -80,6 +82,52 @@ int launch(const void* a, const void* b, void* c, int b_mn_major, cudaStream_t s
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int N>
+__global__ void __launch_bounds__(128)
+    wgmma_check_s8_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb, int* c) {
+  extern __shared__ unsigned char smem_raw[];
+  int8_t* as = reinterpret_cast<int8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  int8_t* bs = as + 64 * 128;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(bs + N * 128);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, q = lane % 4;
+  if (tid == 0) {
+    lxt::mbar_init(bar, 1);
+    lxt::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    lxt::mbar_arrive_expect_tx(bar, (64 + N) * 128);
+    lxt::tma_load_2d(as, &ta, bar, 0, 0);
+    lxt::tma_load_2d(bs, &tb, bar, 0, 0);
+  }
+  lxt::mbar_wait(bar, 0);
+  int d[N / 2];
+  lxt::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    lxt::wgmma_ss_s8<N>(d, lxt::desc_sw128(as + 32 * kk, 16, 1024), lxt::desc_sw128(bs + 32 * kk, 16, 1024), kk > 0);
+  lxt::wgmma_commit();
+  lxt::wgmma_wait<0>();
+  lxt::fence_regs(d);
+#pragma unroll
+  for (int i = 0; i < N / 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[(warp * 16 + g + (e >> 1) * 8) * N + i * 8 + q * 2 + (e & 1)] = d[4 * i + e];
+  }
+}
+
+template <int N>
+int launch_s8(const void* a, const void* b, void* c, cudaStream_t st) {
+  CUtensorMap ta, tb;
+  if (!lxt::make_u8_2d_map(&ta, a, 64, 128, 64) || !lxt::make_u8_2d_map(&tb, b, N, 128, N))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int bytes = (64 + N) * 128 + 8 + 1024;
+  cudaError_t err = cudaFuncSetAttribute(wgmma_check_s8_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  wgmma_check_s8_kernel<N><<<1, 128, bytes, st>>>(ta, tb, static_cast<int*>(c));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // a: bf16 [64, 64]; b: bf16 [n, 64] (K-major) or [64, n] (MN-major); c: f32 [64, n]; n 64 or 128
@@ -87,5 +135,13 @@ extern "C" int lxt_wgmma_check(const void* a, const void* b, void* c, int n, int
   auto st = static_cast<cudaStream_t>(stream);
   if (n == 64) return launch<64>(a, b, c, b_mn_major, st);
   if (n == 128) return launch<128>(a, b, c, b_mn_major, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// a: int8 [64, 128]; b: int8 [n, 128]; c: int32 [64, n] = a b^T; n 128 or 256
+extern "C" int lxt_wgmma_check_s8(const void* a, const void* b, void* c, int n, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (n == 128) return launch_s8<128>(a, b, c, st);
+  if (n == 256) return launch_s8<256>(a, b, c, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -14,9 +14,17 @@ multiples runs them (K % 16 for a and for an NT b; N % 16 for a KN b).
 Both sum exactly in int32 and multiply ``float(acc) * row_scale[m] * col_scale[n]``
 in that order, so kernel and plain version agree bit for bit. On a CPU tensor a
 wrapper runs its plain version; on a CUDA tensor it launches the kernel or raises.
+
+K1 has two paths (``int8_mm_plan``): decode shapes (M up to ``STREAM_MAX_M``) stream
+the weight through ``mma.sync`` in strips of 64 rows, larger M runs a persistent
+``wgmma`` kernel over 128 x 256 (or 128 x 128) tiles; either splits K where the card
+would otherwise sit idle. A split-K launch sums exact int32 partials, so the bits do
+not depend on the plan (``int8_mm_dequant_nt_split_plain`` writes that arithmetic out).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -25,6 +33,85 @@ from llama_x_tpu_torch.utils import build
 # the int32 sum of K products of int8 values in [-127, 127] cannot overflow up to here;
 # the Llama-3 vocabulary (128256, the contraction of the CE head's dH product) fits
 MAX_K = (2**31 - 1) // (127 * 127)
+
+# K1's plan. Up to STREAM_MAX_M rows (decode: M is the batch) the weight streams through
+# mma.sync in strips of STREAM_BN rows; above it the wgmma tiles run. On the H100 the two
+# cross between 48 and 64 rows at N 14336, K 4096 (chip_smoke.py:phase_k1_plans, PERF.md
+# §6): the stream path's mma.sync work grows with the 16-row tiles of a, while a 128-row
+# wgmma tile costs the same at any M. K is cut in blocks of BLOCK_K bytes (a ring stage
+# on both paths) and split in whole blocks.
+STREAM_MAX_M = 48
+STREAM_BN = 64
+WGMMA_BM = 128
+BLOCK_K = 128
+GROUP_M = 8  # row tiles that sweep the column tiles together (L2 reuse of the weight strips)
+WGMMA_MIN_SPLIT_BLOCKS = 64
+H100_SMS = 132
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _split_k(k_blocks: int, want: int) -> tuple[int, int]:
+    """(splits, blocks per split) for about ``want`` splits, none of them empty."""
+    per = _cdiv(k_blocks, max(1, min(want, k_blocks)))
+    return _cdiv(k_blocks, per), per
+
+
+@functools.lru_cache(maxsize=4096)
+def int8_mm_plan(M: int, N: int, K: int, sms: int = H100_SMS) -> tuple[str, int, int]:
+    """K1's (path, tile width, splits) for an [M, K] x [N, K] product on a card of
+    ``sms`` SMs. The C entry point takes these three as they are.
+
+    "stream" (M <= STREAM_MAX_M): strips of 64 weight rows, K split only where the strips
+    are fewer than the SMs, into about one CTA per SM (more splits add partials and a
+    fix-up, measured slower). "wgmma": 128-row tiles 256 or 128 wide, whichever
+    finishes in fewer tile-widths of work (a 128-wide tile counted at 0.95 of the
+    256-wide one's rate, a split plan at 1 / 1.1 for its partials and fix-up); K split
+    only where the tiles would fill fewer than half of the SMs, into at most sms / tiles
+    splits of at least WGMMA_MIN_SPLIT_BLOCKS blocks (a split-K fix-up costs about as
+    much as a short split's products)."""
+    k_blocks = _cdiv(K, BLOCK_K)
+    if M <= STREAM_MAX_M:
+        splits, _ = _split_k(k_blocks, _cdiv(sms, _cdiv(N, STREAM_BN)))
+        return "stream", STREAM_BN, splits
+    best = None
+    for bn, rate in ((256, 1.0), (128, 0.95)):
+        tiles = _cdiv(M, WGMMA_BM) * _cdiv(N, bn)
+        splits, per = _split_k(k_blocks, 1 if 2 * tiles >= sms else min(sms // tiles, k_blocks // WGMMA_MIN_SPLIT_BLOCKS))
+        cost = _cdiv(tiles * splits, sms) * bn * per / rate * (1.1 if splits > 1 else 1.0)
+        if best is None or cost < best[0]:
+            best = (cost, bn, splits)
+    return "wgmma", best[1], best[2]
+
+
+def split_k_ranges(K: int, splits: int) -> list[tuple[int, int]]:
+    """The [k0, k1) slice of each split, in whole BLOCK_K blocks (the kernel's split)."""
+    k_blocks = _cdiv(K, BLOCK_K)
+    per = _cdiv(k_blocks, splits)
+    if _cdiv(k_blocks, per) != splits:
+        raise ValueError(f"{splits} splits of K={K} would leave one empty")
+    return [(s * per * BLOCK_K, min((s + 1) * per * BLOCK_K, K)) for s in range(splits)]
+
+
+def tile_order(M: int, N: int, bn: int) -> list[tuple[int, int]]:
+    """(row tile, column tile) of each output tile in the wgmma path's walk
+    (csrc/int8_mm.cu:unit_coords): groups of GROUP_M row tiles sweep the column tiles."""
+    mtn, ntn = _cdiv(M, WGMMA_BM), _cdiv(N, bn)
+    order = []
+    for tile in range(mtn * ntn):
+        width = GROUP_M * ntn
+        first = tile // width * GROUP_M
+        gsize, r = min(mtn - first, GROUP_M), tile % width
+        order.append((first + r % gsize, r // gsize))
+    return order
+
+
+def persistent_units(units: int, sms: int = H100_SMS) -> list[list[int]]:
+    """The work units each persistent CTA takes: CTA c runs c, c + grid, c + 2 grid, ..."""
+    grid = min(units, sms)
+    return [list(range(c, units, grid)) for c in range(grid)]
 
 
 def int8_mm_dequant_nt_plain(a_i8, b_nk_i8, row_scale, col_scale, out_dtype=torch.bfloat16):
@@ -39,8 +126,45 @@ def int8_mm_dequant_nt_plain(a_i8, b_nk_i8, row_scale, col_scale, out_dtype=torc
     return out.to(out_dtype)
 
 
-def _launch(wrapper, entry: str, a_i8, b_i8, b_nk: bool, row_scale, col_scale, out_dtype):
-    """Checks shared by K1 and K4, then the launch of ``entry`` counted on ``wrapper``."""
+def int8_mm_dequant_nt_split_plain(a_i8, b_nk_i8, row_scale, col_scale, out_dtype=torch.bfloat16, splits=1):
+    """K1's split-K arithmetic written plainly: one exact integer partial per K slice
+    (``split_k_ranges``), the partials summed, then the epilogue of the plain version."""
+    acc_dtype = torch.int32 if a_i8.device.type == "cpu" else torch.float64
+    acc = sum(torch.matmul(a_i8[:, k0:k1].to(acc_dtype), b_nk_i8[:, k0:k1].to(acc_dtype).T)
+              for k0, k1 in split_k_ranges(a_i8.shape[1], splits))
+    out = acc.to(torch.float32) * row_scale.reshape(-1, 1).float() * col_scale.reshape(1, -1).float()
+    return out.to(out_dtype)
+
+
+_counters: dict = {}
+_sms: dict = {}
+
+
+def _sm_count(device) -> int:
+    if device not in _sms:
+        _sms[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _sms[device]
+
+
+def _tile_counters(device, n: int) -> torch.Tensor:
+    """K1's split-K arrival counters on ``device``: zeros, and every launch leaves them
+    at zero (the last split of a tile resets its own). One launch at a time uses them:
+    the port runs its kernels on one stream."""
+    buf = _counters.get(device)
+    if buf is None or buf.numel() < n:
+        buf = _counters[device] = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+    return buf
+
+
+def _f32_vector(x, device):
+    if x.dtype == torch.float32 and x.device == device and x.is_contiguous():
+        return x.reshape(-1)
+    return x.reshape(-1).to(device=device, dtype=torch.float32).contiguous()
+
+
+def _launch(wrapper, entry: str, a_i8, b_i8, b_nk: bool, row_scale, col_scale, out_dtype, plan=None):
+    """Checks shared by K1 and K4, then the launch of ``entry`` counted on ``wrapper``.
+    K1 (b_nk) launches ``plan`` (path, tile width, splits), by default ``int8_mm_plan``'s."""
     M, K = a_i8.shape
     N, b_k = (b_i8.shape[0], b_i8.shape[1]) if b_nk else (b_i8.shape[1], b_i8.shape[0])
     if a_i8.dtype != torch.int8 or b_i8.dtype != torch.int8:
@@ -58,8 +182,7 @@ def _launch(wrapper, entry: str, a_i8, b_i8, b_nk: bool, row_scale, col_scale, o
     b = b_i8.contiguous()
     if a.data_ptr() % 16 or b.data_ptr() % 16:
         raise ValueError("int8 operands must be 16-byte aligned")
-    rs = row_scale.reshape(-1).to(device=a.device, dtype=torch.float32).contiguous()
-    cs = col_scale.reshape(-1).to(device=a.device, dtype=torch.float32).contiguous()
+    rs, cs = _f32_vector(row_scale, a.device), _f32_vector(col_scale, a.device)
     if rs.numel() != M or cs.numel() != N:
         raise ValueError(f"scales {rs.numel()}/{cs.numel()} do not match M={M}, N={N}")
     out = torch.empty((M, N), dtype=out_dtype, device=a.device)
@@ -67,22 +190,28 @@ def _launch(wrapper, entry: str, a_i8, b_i8, b_nk: bool, row_scale, col_scale, o
         return out
     lib = build.load_library()
     stream = torch.cuda.current_stream(a.device).cuda_stream
+    args = [a.data_ptr(), b.data_ptr(), rs.data_ptr(), cs.data_ptr(), out.data_ptr(), M, N, K,
+            int(out_dtype == torch.float32)]
+    if b_nk:
+        path, bn, splits = plan or int8_mm_plan(M, N, K, _sm_count(a.device))
+        part = counters = None
+        if splits > 1:
+            part = torch.empty((splits, M, N), dtype=torch.int32, device=a.device)
+            counters = _tile_counters(a.device, _cdiv(M, WGMMA_BM) * _cdiv(N, bn) if path == "wgmma" else _cdiv(N, bn))
+        args += [{"stream": 0, "wgmma": 1}[path], bn, splits, part.data_ptr() if part is not None else None,
+                 counters.data_ptr() if counters is not None else None]
     wrapper.launches += 1
-    build.check(
-        getattr(lib, entry)(
-            a.data_ptr(), b.data_ptr(), rs.data_ptr(), cs.data_ptr(), out.data_ptr(),
-            M, N, K, int(out_dtype == torch.float32), stream,
-        ),
-        wrapper.__name__,
-    )
+    build.check(getattr(lib, entry)(*args, stream), wrapper.__name__)
     return out
 
 
-def int8_mm_dequant_nt(a_i8, b_nk_i8, row_scale, col_scale, out_dtype=torch.bfloat16):
-    """K1 on CUDA tensors, its plain version on CPU tensors."""
+def int8_mm_dequant_nt(a_i8, b_nk_i8, row_scale, col_scale, out_dtype=torch.bfloat16, plan=None):
+    """K1 on CUDA tensors, its plain version on CPU tensors. ``plan``: (path, tile
+    width, splits) to launch instead of ``int8_mm_plan``'s (the card tests use it)."""
     if a_i8.device.type == "cpu":
         return int8_mm_dequant_nt_plain(a_i8, b_nk_i8, row_scale, col_scale, out_dtype)
-    return _launch(int8_mm_dequant_nt, "lxt_int8_mm_dequant_nt", a_i8, b_nk_i8, True, row_scale, col_scale, out_dtype)
+    return _launch(int8_mm_dequant_nt, "lxt_int8_mm_dequant_nt", a_i8, b_nk_i8, True, row_scale, col_scale, out_dtype,
+                   plan)
 
 
 int8_mm_dequant_nt.launches = 0
@@ -102,3 +231,20 @@ def int8_mm_dequant(a_i8, b_kn_i8, row_scale, col_scale, out_dtype=torch.bfloat1
 
 
 int8_mm_dequant.launches = 0
+
+
+def wgmma_check_s8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One bare int8 wgmma product through K1's building blocks (csrc/wgmma_check.cu), for
+    the card tests: a int8 [64, 128] times b int8 [N, 128] transposed, both K-major from
+    shared memory through 2-D tensor maps; N is 128 or 256. Returns int32 [64, N]."""
+    n = b.shape[0]
+    if a.shape != (64, 128) or b.shape != (n, 128) or n not in (128, 256):
+        raise ValueError(f"a must be [64, 128] and b [N, 128] with N 128 or 256, got {tuple(a.shape)}, {tuple(b.shape)}")
+    if a.dtype != torch.int8 or b.dtype != torch.int8 or not (a.is_cuda and b.is_cuda):
+        raise TypeError("wgmma_check_s8 takes int8 CUDA tensors")
+    a, b = a.contiguous(), b.contiguous()
+    c = torch.empty((64, n), dtype=torch.int32, device=a.device)
+    lib = build.load_library()
+    build.check(lib.lxt_wgmma_check_s8(a.data_ptr(), b.data_ptr(), c.data_ptr(), n,
+                                       torch.cuda.current_stream(a.device).cuda_stream), "wgmma_check_s8")
+    return c

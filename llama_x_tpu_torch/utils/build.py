@@ -36,13 +36,14 @@ _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
 _DROPOUT = [_I, _U, _F, _U, _I, _I]  # on, threshold, keep scale, seed, bq, bk (csrc/common.cuh: Dropout)
 # C signatures of the kernels' entry points (csrc/*.cu, extern "C")
 _SIGNATURES = {
-    "lxt_int8_mm_dequant_nt": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "lxt_int8_mm_dequant_nt": ([_P] * 5 + [_I] * 7 + [_P] * 3, _I),
     "lxt_int8_mm_dequant_kn": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "lxt_flash_attention_fwd": ([_P] * 10 + [_I] * 6 + [_F] + _DROPOUT + [_P], _I),
     "lxt_flash_attention_bwd": ([_P] * 16 + [_I] * 6 + [_F] + _DROPOUT + [_P], _I),
     "lxt_wgmma_check": ([_P, _P, _P, _I, _I, _P], _I),
+    "lxt_wgmma_check_s8": ([_P, _P, _P, _I, _P], _I),
     "lxt_flash_probe": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
-    "lxt_decode_attention": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P], _I),
+    "lxt_decode_attention": ([_P] * 9 + [_I] * 6 + [_F] + [_I] * 3 + [_P], _I),
 }
 
 _lock = threading.Lock()
@@ -111,6 +112,8 @@ def library_path() -> Path:
 def load_library() -> ctypes.CDLL:
     """The kernels' shared library, built on first call in this checkout."""
     global _lib, build_log
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             target = library_path()

@@ -5,7 +5,8 @@ installed:
 
     python -m pytest tests/test_torch_kernels.py -m gpu --noconftest -q
 
-Tolerances: K1 and K4 bit-exact (exact integer sums, same epilogue order); K2 out per
+Tolerances: K1 (both paths, with split-K) and K4 bit-exact (exact integer sums, same
+epilogue order); the bare wgmma products exact (small integers); K2 out per
 element 2^-7 |ref| + 2^-5 rms(ref's row) (``flash_fwd_tolerance``, with and without
 dropout) and lse 2e-3 (fp32 sums in another order); K3 per
 element 4e-3 + 2^-7 |ref| (bf16 out; P rounded to bf16 at the kernel's running max),
@@ -57,6 +58,78 @@ def test_int8_mm_kernel_matches_plain(cuda, M, N, K):
     assert mm.int8_mm_dequant_nt.launches == before + 2
     with pytest.raises(ValueError):
         mm.int8_mm_dequant_nt(a[:, :8].contiguous(), b[:, :8].contiguous(), rs, cs)  # K % 16 != 0
+
+
+@pytest.mark.parametrize("M", [1, 4, 16, 17, 48, 49, 63, 64, 65, 300, 2048])
+@pytest.mark.parametrize("N,K", [(200, 144), (1024, 4096)])
+def test_int8_mm_paths_match_plain(cuda, M, N, K):
+    """K1 on both paths (weight streaming up to STREAM_MAX_M = 48 rows, wgmma above)
+    around the threshold and the 16-row and 128-row tile edges, with the plan's split-K,
+    bf16 and f32 out: bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(7 * M + N)
+    a = torch.randint(-127, 128, (M, K), dtype=torch.int8, device=cuda, generator=g)
+    b = torch.randint(-127, 128, (N, K), dtype=torch.int8, device=cuda, generator=g)
+    rs = torch.rand(M, device=cuda, generator=g) * 0.02
+    cs = torch.rand(N, device=cuda, generator=g) * 0.001
+    path, _, _ = mm.int8_mm_plan(M, N, K)
+    assert path == ("stream" if M <= mm.STREAM_MAX_M else "wgmma")
+    for out_dtype in (torch.bfloat16, torch.float32):
+        got = mm.int8_mm_dequant_nt(a, b, rs, cs, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(got, mm.int8_mm_dequant_nt_plain(a, b, rs, cs, out_dtype=out_dtype)), out_dtype
+
+
+@pytest.mark.parametrize("M", [1, 4, 16])
+def test_int8_mm_unsplit_stream_matches_plain(cuda, M):
+    """K1's streaming path without split-K (N 14336: the strips alone fill the SMs), the
+    decode shape of w1 / w3: bit for bit, bf16 out."""
+    N, K = 14336, 4096
+    assert mm.int8_mm_plan(M, N, K) == ("stream", mm.STREAM_BN, 1)
+    g = torch.Generator(device=cuda).manual_seed(M)
+    a = torch.randint(-127, 128, (M, K), dtype=torch.int8, device=cuda, generator=g)
+    b = torch.randint(-127, 128, (N, K), dtype=torch.int8, device=cuda, generator=g)
+    rs, cs = torch.rand(M, device=cuda, generator=g) * 0.02, torch.rand(N, device=cuda, generator=g) * 0.001
+    got = mm.int8_mm_dequant_nt(a, b, rs, cs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, mm.int8_mm_dequant_nt_plain(a, b, rs, cs))
+
+
+@pytest.mark.parametrize("M,N,K,plan", [
+    (4, 1024, 4096, None),                # the decode plan: 16 strips x 16 splits
+    (40, 200, 1040, ("stream", 64, 3)),   # ragged strips and a ragged last slice
+    (512, 4096, 16384, ("wgmma", 256, 4)),
+    (300, 1000, 4112, ("wgmma", 128, 5)),  # ragged tiles on both sides, a ragged last slice
+    (128, 4096, 128256, None),            # a deep contraction over few tiles: the plan splits K
+])
+def test_int8_mm_split_k_gives_the_same_bits_twice(cuda, M, N, K, plan):
+    """K1's split-K: the last split of a tile adds the others' int32 partials, so two runs
+    (and any arrival order) give the bits of the plain version; the counters are left at
+    zero for the next launch."""
+    g = torch.Generator(device=cuda).manual_seed(M + K)
+    a = torch.randint(-127, 128, (M, K), dtype=torch.int8, device=cuda, generator=g)
+    b = torch.randint(-127, 128, (N, K), dtype=torch.int8, device=cuda, generator=g)
+    rs = torch.rand(M, device=cuda, generator=g) * 0.02
+    cs = torch.rand(N, device=cuda, generator=g) * 0.001
+    assert (plan or mm.int8_mm_plan(M, N, K))[2] > 1
+    first = mm.int8_mm_dequant_nt(a, b, rs, cs, out_dtype=torch.float32, plan=plan)
+    second = mm.int8_mm_dequant_nt(a, b, rs, cs, out_dtype=torch.float32, plan=plan)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(first, mm.int8_mm_dequant_nt_plain(a, b, rs, cs, out_dtype=torch.float32))
+    assert int(mm._counters[a.device].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("n", [128, 256])
+def test_wgmma_s8_product_matches_float64(cuda, n):
+    """The bare int8 wgmma of K1 (csrc/wgmma_check.cu): 2-D tensor maps in the 128-byte
+    swizzle, K-major descriptors stepped 32 bytes at a time, m64n128k32 and m64n256k32,
+    against the float64 product (exact for these sums)."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    a = torch.randint(-127, 128, (64, 128), dtype=torch.int8, device=cuda, generator=g)
+    b = torch.randint(-127, 128, (n, 128), dtype=torch.int8, device=cuda, generator=g)
+    got = mm.wgmma_check_s8(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got.double(), a.double() @ b.double().T)
 
 
 # document boundaries of the packed case: on the kernels' 128-position tiles (128, 1024,
@@ -142,6 +215,62 @@ def test_decode_kernel_matches_plain(cuda, quantized, Sq, D, last):
         torch.cuda.synchronize()
         ref = da.decode_attention_plain(q, k, v, lens, scale)
     _assert_k3_close(out, ref)
+
+
+def _decode_case(dev, quantized, B, Sq, Hq, Hkv, S_max, D, last, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, Sq, Hq, D, device=dev, generator=g).to(torch.bfloat16)
+    k = torch.randn(B, Hkv, S_max, D, device=dev, generator=g).to(torch.bfloat16)
+    v = torch.randn(B, Hkv, S_max, D, device=dev, generator=g).to(torch.bfloat16)
+    lens = (torch.tensor(last, device=dev)[:, None] - (Sq - 1)
+            + torch.arange(Sq, device=dev)[None, :]).clamp(min=1).to(torch.int32)
+    scale = 1 / math.sqrt(D)
+    if quantized:
+        args = (*llama.quantize_kv_rows(k), *llama.quantize_kv_rows(v))
+        return (lambda: da.decode_attention_int8(q, *args, lens, scale),
+                lambda: da.decode_attention_int8_plain(q, *args, lens, scale))
+    return lambda: da.decode_attention(q, k, v, lens, scale), lambda: da.decode_attention_plain(q, k, v, lens, scale)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("last", [(63, 64, 65, 1000), (127, 128, 129, 40), (700, 193, 8, 1000)])
+def test_decode_kernel_at_split_edges(cuda, quantized, last):
+    """K3 split-KV with 64 query rows (Sq 8 x group 8) at D 64: windows one position
+    either side of a split edge (the plan cuts S_max 1000 into 64-position ranges here),
+    rows whose window ends before the second split while another row's runs on, and the
+    whole cache (the last range ragged)."""
+    B, Sq, Hq, Hkv, S_max, D = 4, 8, 16, 2, 1000, 64
+    splits, split_len = da.decode_split_plan(S_max, B, Hkv)
+    assert splits > 1 and split_len == 64
+    run, plain = _decode_case(cuda, quantized, B, Sq, Hq, Hkv, S_max, D, last, seed=len(last) + int(quantized))
+    before = (da.decode_attention_int8 if quantized else da.decode_attention).launches
+    out = run()
+    torch.cuda.synchronize()
+    assert (da.decode_attention_int8 if quantized else da.decode_attention).launches == before + 1
+    _assert_k3_close(out, plain())
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("Sq", [1, 5])
+def test_decode_kernel_with_one_split(cuda, quantized, Sq):
+    """A cache of one 64-position tile: one split, whose CTA writes bf16 out itself (no
+    partials, no merge kernel)."""
+    B, Hq, Hkv, S_max, D = 3, 8, 2, 64, 128
+    assert da.decode_split_plan(S_max, B, Hkv) == (1, 64)
+    run, plain = _decode_case(cuda, quantized, B, Sq, Hq, Hkv, S_max, D, (1, 33, 64), seed=Sq)
+    out = run()
+    torch.cuda.synchronize()
+    _assert_k3_close(out, plain())
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_decode_kernel_gives_the_same_bits_twice(cuda, quantized):
+    """K3 has no atomics: the splits merge in a fixed order, so two calls agree bit for
+    bit (B 4, 32/8 heads, D 128, S_max 4096: the serving shape, 8 splits)."""
+    run, _ = _decode_case(cuda, quantized, 4, 5, 32, 8, 4096, 128, (1, 513, 2048, 4096), seed=11)
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("case", ["Sq > MAX_SQ", "prefix", "segments"])
