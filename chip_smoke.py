@@ -12,7 +12,9 @@ no result line):
    timed with CUDA events beside the plain version, a PyTorch yardstick (never called
    by the port) and the least time the card could take (bound); K1 and K3 also with
    their plan (path, splits), rate, share of bound and profiler device time (theirs
-   and the yardstick's: below about 0.05 ms a call the event times are the host's);
+   and the yardstick's: below about 0.05 ms a call the event times are the host's), K4
+   likewise with its plan (m tile, splits), K1 and K4 each with their chosen plan against
+   its alternatives, and K6 with its device time and tile census;
 3. serving main path: ``generate`` at Llama-3.1-8B width (32 layers) from seeded
    on-device weights, B 4, ragged byte-tokenized prompts padded to 512, 64 new
    tokens: bf16 weights with a bf16 cache, then int8 weights with dynamic int8
@@ -180,8 +182,8 @@ def phase_build():
     build.load_library()
     dt = time.perf_counter() - t0
     log(f"[build] nvcc sm_90a, {len(build._sources())} sources -> one .so in {dt:.1f} s")
-    for line in build.build_log.splitlines():
-        if line.startswith("==") or "registers" in line or "spill" in line:
+    for line in build.build_log.splitlines():  # ptxas also says where it serializes wgmma
+        if line.startswith("==") or "registers" in line or "spill" in line or "wgmma" in line:
             log("   ", line.strip())
 
 
@@ -247,10 +249,47 @@ def phase_k1_plans() -> list[dict]:
     return recs
 
 
+def phase_k4_plans() -> list[dict]:
+    """K4's plan against its alternatives (ops/int8_mm.py:int8_mm_kn_plan), device ms from the
+    profiler: the m tile at the input gradients of an S 4096 step (w1 / w3, w2, wq / wo,
+    wk / wv), and the m tile against split-K at the CE head's dH (M 512), the audio step's
+    262-row dH chunk and two M beside it. Every forced plan bit for bit."""
+    import torch
+
+    from llama_x_tpu_torch.ops import int8_mm as mm
+
+    log("[K4 plans] device ms of the plan int8_mm_kn_plan picks and of its alternatives")
+    g = torch.Generator(device="cuda").manual_seed(14)
+    wide, dh = [(256, 1), (128, 1)], [(256, 1), (256, 2), (128, 1), (128, 2)]
+    # the dH at 384 and 256 rows beside the audio step's 262: a last 256-m tile partial or whole
+    cases = [((4096, 4096, 14336), wide), ((4096, 14336, 4096), wide), ((4096, 4096, 4096), wide),
+             ((4096, 4096, 1024), wide), ((512, 4096, 128256), dh), ((384, 4096, 128256), dh),
+             ((262, 4096, 128256), dh), ((256, 4096, 128256), [(256, 2), (256, 4), (128, 2)])]
+    recs = []
+    for (M, N, K), plans in cases:
+        a = torch.randint(-127, 128, (M, K), dtype=torch.int8, device="cuda", generator=g)
+        b = torch.randint(-127, 128, (K, N), dtype=torch.int8, device="cuda", generator=g)
+        rs, cs = torch.rand(M, device="cuda", generator=g), torch.rand(N, device="cuda", generator=g)
+        out_dtype = torch.float32 if K == 128256 else torch.bfloat16
+        want = mm.int8_mm_dequant_plain(a, b, rs, cs, out_dtype)
+        times = {}
+        for plan in plans:
+            if not torch.equal(mm.int8_mm_dequant(a, b, rs, cs, out_dtype, plan=plan), want):
+                raise AssertionError(f"M={M} N={N} K={K} plan {plan}: not bit-identical to the plain version")
+            times["/".join(map(str, plan))] = device_split_ms(
+                lambda: mm.int8_mm_dequant(a, b, rs, cs, out_dtype, plan=plan), ("int8_mm_",))["int8_mm_"]
+        chosen = mm.int8_mm_kn_plan(M, N, K)
+        log(f"    M={M} N={N} K={K}: plan {'/'.join(map(str, chosen))}; device ms "
+            + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+        recs.append(dict(M=M, N=N, K=K, plan=list(chosen), device_ms=times))
+        del a, b, want
+    return recs
+
+
 def int8_mm_cases(kernel, plain, b_nk: bool, g, cases) -> list[dict]:
     """One int8 GEMM form at (M, N, K, out dtype) cases: bit for bit against its plain
-    version (tol 0), timed beside bound, plain and torch._int_mm; K1's cases with the
-    plan (path, tile width, splits) they ran."""
+    version (tol 0), timed beside bound, plain and torch._int_mm, with the plan it ran:
+    K1's (path, tile width, splits) or K4's (m tile, splits)."""
     import torch
 
     from llama_x_tpu_torch.ops import int8_mm as mm
@@ -278,11 +317,12 @@ def int8_mm_cases(kernel, plain, b_nk: bool, g, cases) -> list[dict]:
         split = device_split_ms(lambda: kernel(a, b, rs, cs, out_dtype=out_dtype), ("int8_mm_",))
         dev = split["int8_mm_"]
         lib_dev = library_device_ms(lambda: torch._int_mm(a, b.T if b_nk else b)) if lib_ms is not None else None
-        plan = dict(zip(("path", "tile", "splits"), mm.int8_mm_plan(M, N, K))) if b_nk else {}
+        plan = (dict(zip(("path", "tile", "splits"), mm.int8_mm_plan(M, N, K))) if b_nk else
+                dict(zip(("tile", "splits"), mm.int8_mm_kn_plan(M, N, K))))
         tops = 2 * M * N * K / (ms * 1e-3) / 1e12
         log(f"      {ms:.4f} ms (plain {plain_ms:.3f}, _int_mm {lib_ms}, bound {bms:.4f} by {by}); {tops:.1f} TOP/s, "
             f"{bms / ms:.3f} of bound; device {dev:.4f} ms (profiler, {bms / dev if dev else 0:.3f} of bound; _int_mm "
-            f"{lib_dev}), host {split['host_ms']:.4f} ms a call" + (f"; {plan}" if plan else ""))
+            f"{lib_dev}), host {split['host_ms']:.4f} ms a call; {plan}")
         shapes.append(dict(M=M, N=N, K=K, out=str(out_dtype).split(".")[1], max_abs_err=err, tol=0.0, ms=ms,
                            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by, tops=tops,
                            device_ms=dev, library_device_ms=lib_dev, host_ms=split["host_ms"], **plan))
@@ -606,10 +646,12 @@ def phase_k6():
     # the tolerance and its argument: ops/flash_probe.py:probe_tolerance
     log("[K6 flash_probe] vs plain; tol per element 2^-7 |ref| + 2^-8 rms(ref) (bf16 logits and bf16 out on both "
         "sides, f32 sums in another order)")
+    # the two 8B plans of the probe entry point, then a 64-wide plan whose tiles the kernel
+    # masks per element
     B, S, Hq, Hkv, D, prefix = 1, 4096, entry.HEADS, entry.KV_HEADS, entry.HEAD_DIM, 2000
     q, k, v, _ = entry.make_inputs(S, torch.device("cuda"))
     shapes = []
-    for bq, bk in ((256, 1024), (128, 512)):
+    for bq, bk in ((256, 1024), (128, 512), (64, 64)):
         out = fp.flash_probe(q, k, v, bq, bk, prefix)
         torch.cuda.synchronize()
         ref = fp.flash_probe_plain(q, k, v, bq, bk, prefix)
@@ -620,10 +662,16 @@ def phase_k6():
         pairs = float(fp.needed_blocks(S, bq, bk, prefix).sum()) * bq * bk  # (q, kv) pairs of the needed blocks
         n_bytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
         bms, by = bound_ms(n_bytes, 4 * B * Hq * D * pairs, "bf16")
+        split = device_split_ms(lambda: fp.flash_probe(q, k, v, bq, bk, prefix), ("flash_probe_kernel",))
+        dev = split["flash_probe_kernel"]
+        tiles = fp.tile_census(S, bq, bk, prefix)
         log(f"      {ms:.4f} ms (plain {plain_ms:.3f}, library none: no PyTorch call skips whole blocks, "
-            f"bound {bms:.4f} by {by}; {pairs / S / S:.4f} of the pairs needed)")
+            f"bound {bms:.4f} by {by}; {pairs / S / S:.4f} of the pairs needed); {bms / ms:.3f} of bound; device "
+            f"{dev:.4f} ms (profiler, {bms / dev if dev else 0:.3f} of bound), host {split['host_ms']:.4f} ms a call; "
+            f"128 x 128 tiles of a head: skip {tiles['skip']}, partial {tiles['partial']}, full {tiles['full']}")
         shapes.append(dict(bq=bq, bk=bk, prefix=prefix, B=B, S=S, Hq=Hq, Hkv=Hkv, D=D, max_abs_err=err, tol=atol,
-                           rtol=rtol, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bms, bound_by=by))
+                           rtol=rtol, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bms, bound_by=by,
+                           device_ms=dev, host_ms=split["host_ms"], tiles=tiles))
         del out, ref
     return shapes
 
@@ -631,7 +679,7 @@ def phase_k6():
 def phase_kernels():
     """Returns {kernel name: per-shape records}."""
     return {"int8_mm_dequant_nt": phase_k1(), "int8_mm_plans": phase_k1_plans(), "int8_mm_dequant": phase_k4(),
-            "flash_attention": phase_k2(),
+            "int8_mm_kn_plans": phase_k4_plans(), "flash_attention": phase_k2(),
             "flash_attention_bwd": phase_k5(), "flash_probe": phase_k6(), **{
         ("decode_attention" if kind == "bf16" else "decode_attention_int8"): recs
         for kind, recs in phase_k3().items()

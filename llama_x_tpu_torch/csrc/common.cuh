@@ -1,8 +1,8 @@
 // Helpers shared by the port's hand-written Hopper kernels (sm_90a).
 //
 // Warp-level tensor-core products through `mma.sync` (the Ampere-style synchronous
-// MMA, which Hopper still runs at a fraction of the `wgmma` rate) for K1's decode path,
-// K3, K4 and K6; the flash kernels K2 and K5 and K1's large-M path run on `wgmma` and
+// MMA, which Hopper still runs at a fraction of the `wgmma` rate) for K1's decode path
+// and K3; the flash kernels K2, K5 and K6, K1's large-M path and K4 run on `wgmma` and
 // TMA (hopper.cuh). The flash kernels share the dropout hash and the mask's tile classes
 // below. Fragment layouts follow the PTX ISA
 // ("Matrix fragments for mma.m16n8k16 / mma.m16n8k32"): lane = 4 * groupID + tid,

@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks of the flash kernels K2 and K5 and of K1's wgmma
-// path: mbarriers, TMA tile loads through 4-D tensor maps over the model's [B, S, H, D]
-// tensors and 2-D maps over int8 matrices, wgmma (bf16 and s8) with shared-memory
-// descriptors in the 128-byte swizzle, register reallocation, and the host-side encoding
-// of the tensor maps.
+// Hopper (sm_90a) building blocks of the flash kernels K2, K5 and K6 and of the int8
+// GEMMs K1 and K4: mbarriers, TMA tile loads through 4-D tensor maps over the model's
+// [B, S, H, D] tensors and 2-D maps over int8 matrices, wgmma (bf16 and s8; s8 also with
+// A from registers, built from an N-major box for K4) with shared-memory descriptors in
+// the 128-byte swizzle, register reallocation, and the host-side encoding of the tensor
+// maps.
 //
 // Shared layout of every bf16 tile: D / 64 column blocks, each [rows][64] (128 bytes a
 // row), the block base 1024-aligned, written by TMA with CU_TENSOR_MAP_SWIZZLE_128B (the
@@ -269,6 +270,67 @@ template <int N>
 __device__ __forceinline__ void fence_regs(int (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// D[64 x N] (+)= A[64 x 32] * B[32 x N] in int8 with A from registers: the m16n8k32 A
+// layout on the warp's 16 rows (a[0] row 16w + g, k 4c..4c+3, lowest k in the low byte;
+// a[1] row + 8; a[2], a[3] the same rows at k + 16), B K-major from shared memory as in
+// wgmma_ss_s8; exact s32 accumulate, the accumulator layout above. Integer wgmma has no
+// transpose bit, so this is how an operand stored N-major reaches it (K4, kn_fragment).
+template <int N>
+__device__ __forceinline__ void wgmma_rs_s8(int (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  static_assert(N == 128 || N == 256, "m64n128k32 or m64n256k32");
+  if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  }
+  if constexpr (N == 256) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]), "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]), "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]), "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  }
+}
+
+// K4's register A operand from an int8 [k][n] box as TMA writes it (128 rows of 128 bytes,
+// 128-byte swizzle, 1024-aligned): the transpose of one 32-deep k step of the 16 n bytes
+// `chunk` (a warp's rows of the product) in one ldmatrix.x4.trans and four byte permutes.
+// ldmatrix.trans moves 16-bit pairs of n: lane l receives, of each 8 x 16-byte matrix, n
+// pair l / 4 at the matrix's rows 2 (l % 4) and 2 (l % 4) + 1. The rows each lane hands
+// ldmatrix (kn_row_offset) are chosen so that lane c of a quad gets k 4c..4c+3 split over
+// matrices 0 / 1 (and + 16 over matrices 2 / 3), and so that the 8 rows of each matrix lie
+// in 8 different swizzle phases (no bank conflict): matrix 0 reads k {0, 1, 4, 5, 10, 11,
+// 14, 15}, matrix 1 {2, 3, 6, 7, 8, 9, 12, 13}. The permutes then pick n = 2g and n = 2g + 1
+// out of the pairs: fragment row 16w + g is column 16 chunk + 2g of the box, row
+// 16w + g + 8 is column 16 chunk + 2g + 1 (ops/int8_mm.py mirrors these maps).
+__device__ __forceinline__ int kn_row_offset(int lane, int chunk) {
+  const int mi = lane / 8, r = lane % 8;
+  const int k = 16 * (mi >> 1) + (r >> 1) * 4 + (r & 1) + 2 * (((r >> 2) & 1) ^ (mi & 1));
+  return k * 128 + ((chunk ^ (k & 7)) << 4);
+}
+
+// `row` = base of the box + kn_row_offset(lane, chunk); kk the 32-deep step; sel0 / sel1
+// the lane's permutes (kn_selectors)
+__device__ __forceinline__ void kn_fragment(uint32_t (&a)[4], const int8_t* row, int kk, uint32_t sel0, uint32_t sel1) {
+  uint32_t r[4];
+  ldmatrix_x4_trans(r, row + kk * 32 * 128);
+  a[0] = __byte_perm(r[0], r[1], sel0);
+  a[1] = __byte_perm(r[0], r[1], sel1);
+  a[2] = __byte_perm(r[2], r[3], sel0);
+  a[3] = __byte_perm(r[2], r[3], sel1);
+}
+
+// lanes 2 and 3 of a quad receive their upper two k from matrix 0 and their lower two from matrix 1
+__device__ __forceinline__ void kn_selectors(int lane, uint32_t& sel0, uint32_t& sel1) {
+  const bool swap = lane & 2;
+  sel0 = swap ? 0x2064u : 0x6420u;
+  sel1 = swap ? 0x3175u : 0x7531u;
 }
 
 // A warpgroup's accumulator columns 16k..16k+15, rounded to bf16, as the register A operand

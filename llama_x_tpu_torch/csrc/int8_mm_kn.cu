@@ -6,194 +6,312 @@
 // through int8_mm_dequant_pallas (b in KN layout): the input gradient through every
 // frozen int8 projection when LlamaConfig.dynamic_int8_bwd is set
 // (llama_x_tpu/ops/int8.py:171-185: a = q(g * w_scale) [tokens, out], b = the stored
-// int_data [out, in], col_scale = ones), and one of the fused cross-entropy head's
-// GEMMs (llama_x_tpu/ops/cross_entropy.py:81-94, f32 out). The frozen base keeps ONE
-// layout for the forward (K1 reads it as [N, K]) and the backward (this kernel reads
-// the same bytes as [K, N]); no transposed copy of the 7 GB base exists.
+// int_data [out, in], col_scale = ones), and the fused cross-entropy head's dH
+// (llama_x_tpu/ops/cross_entropy.py:81-94, f32 out, K = the vocabulary). The frozen base
+// keeps ONE layout for the forward (K1 reads it as [N, K]) and the backward (this kernel
+// reads the same bytes as [K, N]); no transposed copy of the 7 GB base exists.
 //
 // What bounds it on an H100: at the training shapes (M = 4096 tokens) the int8
-// tensor-core rate, 2*M*N*K operations at 1979 TOP/s; the bytes (a, b once, C once)
-// are a few tens of MB.
+// tensor-core rate, 2*M*N*K operations at 1979 TOP/s (0.2431 ms at M 4096, N 4096,
+// K 14336); the bytes (a and b once, C once) are a few tens of MB.
 //
-// Design: K1's tiling (one CTA of 8 warps per 128x128 output tile, K walked in
-// 64-row steps through a two-stage cp.async ring, mma.sync m16n8k32 s8 into exact
-// int32 accumulators). The trouble is the B fragment: the MMA wants four consecutive
-// k of ONE column n in a 32-bit register, and in KN layout those bytes are N apart
-// (ldmatrix.trans only transposes 16-bit elements). The [BK][BN] tile is staged as
-// it lies in memory; each thread then reads four 32-bit words (rows k..k+3, four
-// adjacent columns) and transposes the 4x4 byte block in registers with eight
-// byte-permutes (prmt), which yields the fragment words of four columns at once.
-// Which column feeds which column slot of an MMA tile is free as long as the
-// epilogue agrees: slot g of tile j is column 4g + j of the warp's 32, so a thread
-// ends up owning 8 CONSECUTIVE output columns and stores them as one or two 16-byte
-// vectors. Bank conflicts: a B tile row is 128 bytes = all 32 banks, so the four
-// row groups (t) of a warp would collide four ways; the 16-byte chunks of a row are
-// XOR-swizzled with ((row >> 2) & 3) << 1, which puts the eight (column half, t)
-// combinations of a warp's read on eight different chunks: conflict-free without
-// padding. Cost per 32-deep k step and thread: 8 shared loads + 16 prmt for B
-// beside 16 shared loads for A and 16 MMAs.
+// The difficulty: integer wgmma reads a shared-memory operand only K-major (the transpose
+// bit exists for 16-bit types), and b is N-major. So each output tile is computed
+// transposed, out^T[n, m] = sum_k b^T[n, k] a[m, k]: b^T is wgmma's A operand, which may
+// come from registers, and a's box is its B operand, K-major as it lies.
+//
+// Design (Hopper): a persistent, warp-specialized kernel, one CTA per SM walking output
+// tiles of BM (m) x 128 (n) in grouped order (GROUP_M m tiles share a sweep of the n
+// tiles, so the strips of b are read from L2), K split where the tiles fill fewer than
+// half of the SMs; ops/int8_mm.py:int8_mm_kn_plan picks BM (256, or 128 where 256 leaves
+// SMs idle) and the splits, and is the one place K4's thresholds live. One producer
+// warp issues TMA loads of 128-byte-deep K blocks: a's [BM m][128 k] box through a 2-D
+// tensor map over [M, K] (as K1 loads it) and b's [128 k][128 n] box through one over
+// [K, N] (N % 16 keeps its stride legal), both in the 128-byte swizzle, boxes past any
+// edge zero-filled, so ragged M, N and K need no mask in the loop (a last m tile reads the
+// BM rows that end at M instead: box_row, below); a ring of 4 (BM 256)
+// or 6 (BM 128) stages with full / empty mbarriers. Two consumer warpgroups (setmaxnreg
+// 232, producer 40) each own 64 n of the tile. Per 32-deep k step a warp builds its
+// 16 x 32 slice of b^T in registers with one ldmatrix.x4.trans and four byte permutes
+// (hopper.cuh: kn_fragment; the rows it hands ldmatrix put every matrix's 8 rows in 8
+// swizzle phases, so the reads are free of bank conflicts) and issues wgmma
+// m64nBMk32 s32.s8.s8 with A from those registers and B = a's box. Shared-memory traffic
+// per stage at BM 256: 16 KB of b into registers and 2 x 32 KB of a read by the products,
+// about 80 B a cycle against the stage's ~1000 cycles of products: K1's own figure.
+// Registers that feed an in-flight wgmma must not be rewritten, and ptxas allots a thread
+// of a 384-thread CTA 168 of them, 128 of which hold the accumulator. So a warpgroup
+// builds one stage's 16 fragment registers, issues the stage's four products, waits for
+// them and hands the stage back; while it waits and builds the next, the other
+// warpgroup's products keep the tensor cores busy. Double-buffering the fragments across
+// stages measured no faster at the 256-m tile (ptxas kept the second set in local
+// memory), and a wait after every k step made ptxas serialize the products (C7513).
+// Fragment row 16w + g is column 2g of the warp's 16, row 16w + g + 8 column 2g + 1, so
+// each thread's accumulator holds, per 8 m, a 2 x 2 block (m, m + 1) x (n, n + 1): the
+// epilogue stores n pairs (4 bytes bf16, 8 bytes f32), eight lanes filling one 32-byte
+// sector of a row of out. The row and column scales are loaded before the stores
+// (a load after a store to out would wait for it).
+// Split-K: every split writes its exact int32 partial to a scratch [splits, M, N]; the
+// last split of a tile to arrive (an int32 counter per tile, reset by that split) adds the
+// others' partials and runs the epilogue. int32 sums are exact, so the result is bit for
+// bit the plain version's in any order, in one launch. The counters start at zero (the
+// wrapper's cached tensor) and are left at zero.
 //
 // Sums are exact int32: 127^2 * K must stay below 2^31, i.e. K <= 133144; the
 // vocabulary contraction of the Llama-3 head (K = 128256: 2,068,641,024) fits with 4%
-// to spare and the wrapper raises beyond. Ragged M and tile-ragged N and K are masked
-// by zero-filling cp.async; K and N must be multiples of 16 (16-byte row loads).
-// Not yet done (later work): wgmma + TMA, a deeper pipeline.
+// to spare and the wrapper raises beyond. K and N must be multiples of 16.
+//
+// The design before this one (one CTA of 8 warps per 128 x 128 tile, a two-stage
+// cp.async ring, mma.sync m16n8k32 with each B fragment transposed from four 32-bit shared
+// loads by eight byte permutes) took, in chip_smoke.py on NVIDIA H100 80GB HBM3, 700.00 W:
+// 1.1577 ms at M 4096, N 4096, K 14336; 1.3233 ms at M 4096, N 14336, K 4096; 0.3407 ms
+// at M 4096, N 4096, K 4096; 0.1084 ms at M 4096, N 4096, K 1024; 1.2553 ms for the CE
+// dH (M 512, N 4096, K 128256, f32 out).
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 64;
-constexpr int LDA = BK + 16;  // padded A row, bytes (as K1)
-constexpr int THREADS = 256;  // 8 warps: 2 along M x 4 along N
-constexpr int WM = 64, WN = 32;
-constexpr int MT = WM / 16, NT = WN / 8;
-static_assert(NT == 4, "the 4x4 byte transpose yields the fragments of four 8-column tiles");
+constexpr int BN = 128, BK = 128, THREADS = 384, GROUP_M = 8;
 
-template <bool OUT_F32>
-__global__ void __launch_bounds__(THREADS) int8_mm_kn_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
-                                                           const float* __restrict__ rs,
-                                                           const float* __restrict__ cs, void* __restrict__ out,
-                                                           int M, int N, int K) {
-  __shared__ __align__(16) int8_t As[2][BM][LDA];
-  __shared__ __align__(16) int8_t Bs[2][BK][BN];  // 16-byte chunks swizzled per row
+struct Args {
+  const float* rs;
+  const float* cs;
+  void* out;
+  int* part;      // [splits, M, N] int32 partials (splits > 1)
+  int* counters;  // one per output tile, zero between launches
+  int M, N, K, out_f32, splits;
+};
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp / (BN / WN), wn = warp % (BN / WN);
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int nk = (K + BK - 1) / BK;
+template <int BM>
+struct Smem {  // every box 1024-aligned (the 128-byte swizzle's period)
+  static constexpr int STAGES = BM == 256 ? 4 : 6;
+  int8_t a[STAGES][BM * BK];  // [m][k]: wgmma's B operand, K-major
+  int8_t b[STAGES][BK * BN];  // [k][n] as it lies: the source of the register A operand
+  uint64_t full[STAGES], empty[STAGES];
+  int flag;
+};
 
-  auto load_tile = [&](int kt, int stage) {
-    const int k0 = kt * BK;
-#pragma unroll
-    for (int i = 0; i < (BM * BK / 16) / THREADS; ++i) {
-      const int c = tid + i * THREADS;
-      const int row = c / (BK / 16), col = (c % (BK / 16)) * 16;
-      const int gm = m0 + row, gk = k0 + col;
-      const bool ok = gm < M && gk < K;
-      lxt::cp_async_16(&As[stage][row][col], ok ? a + (size_t)gm * K + gk : a, ok);
+// unit u of the persistent walk -> (m tile, n tile, split): splits of one tile are
+// neighbours; m tiles go in groups of GROUP_M, each group sweeping the n tiles
+// (ops/int8_mm.py:tile_order mirrors this)
+__device__ __forceinline__ void unit_coords(int u, int splits, int mtn, int ntn, int& mt, int& nt, int& s) {
+  s = u % splits;
+  const int tile = u / splits, width = GROUP_M * ntn, first = (tile / width) * GROUP_M;
+  const int gsize = min(mtn - first, GROUP_M), r = tile % width;
+  mt = first + r % gsize;
+  nt = r / gsize;
+}
+
+// The first row of m tile mt's a box: the tile's own, except that a last tile reaching past
+// M reads the BM rows that end at M (when M >= BM), so that no box lies mostly past the
+// tensor's edge; its rows below mt * BM belong to the tile before and are not stored.
+template <int BM>
+__device__ __forceinline__ int box_row(int mt, int M) {
+  const int m0 = mt * BM;
+  return m0 + BM > M && M >= BM ? M - BM : m0;
+}
+
+// Split-K arrival (as in K1): after this thread's partials are written, the 256 consumer
+// threads sync; one counts the arrival and the return value says whether this split came
+// last (it then resets the counter).
+__device__ __forceinline__ bool arrive_last(int* counter, int splits, int* flag, bool leader) {
+  __threadfence();
+  lxt::named_sync(1, 256);
+  if (leader) {
+    const int old = atomicAdd(counter, 1);
+    const int last = old == splits - 1;
+    if (last) *counter = 0;
+    *flag = last;
+  }
+  lxt::named_sync(1, 256);
+  const bool last = *flag;
+  if (last) __threadfence();
+  return last;
+}
+
+__device__ __forceinline__ void store_pair(const Args& p, int m, int n, float v0, float v1) {
+  const size_t off = (size_t)m * p.N + n;
+  if (p.out_f32)
+    *reinterpret_cast<float2*>(static_cast<float*>(p.out) + off) = make_float2(v0, v1);
+  else
+    *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.out) + off) = __floats2bfloat162_rn(v0, v1);
+}
+
+template <int BM>
+__global__ void __launch_bounds__(THREADS, 1)
+    int8_mm_kn_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb, const Args p,
+                      int kb_per_split) {
+  using Sm = Smem<BM>;
+  constexpr int STAGES = Sm::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  Sm& sm = *reinterpret_cast<Sm*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+
+  const int mtn = (p.M + BM - 1) / BM, ntn = (p.N + BN - 1) / BN, kbs = (p.K + BK - 1) / BK;
+  const int units = mtn * ntn * p.splits;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      lxt::mbar_init(&sm.full[s], 1);
+      lxt::mbar_init(&sm.empty[s], 8);  // one per consumer warp
     }
-#pragma unroll
-    for (int i = 0; i < (BK * BN / 16) / THREADS; ++i) {
-      const int c = tid + i * THREADS;
-      const int row = c / (BN / 16), chunk = c % (BN / 16);
-      const int gk = k0 + row, gn = n0 + chunk * 16;
-      const bool ok = gk < K && gn < N;  // N % 16 == 0: a chunk is whole or absent
-      const int phys = chunk ^ (((row >> 2) & 3) << 1);
-      lxt::cp_async_16(&Bs[stage][row][phys * 16], ok ? b + (size_t)gk * N + gn : b, ok);
-    }
-  };
+    lxt::mbar_init_fence();
+  }
+  __syncthreads();
 
-  int acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
-
-  // this thread's four adjacent B columns: bytes wn*32 + g*4 .. +3 of a tile row
-  const int b_chunk = wn * 2 + (g >> 2), b_word = (g & 3) * 4;
-
-  load_tile(0, 0);
-  lxt::cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int s = kt & 1;
-    if (kt + 1 < nk) {
-      load_tile(kt + 1, s ^ 1);
-      lxt::cp_async_commit();
-      lxt::cp_async_wait<1>();
-    } else {
-      lxt::cp_async_wait<0>();
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < BK / 32; ++ks) {
-      uint32_t af[MT][4], bf[NT][2];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const int r = wm * WM + i * 16 + g;
-        const int k = ks * 32 + t * 4;
-        af[i][0] = *reinterpret_cast<const uint32_t*>(&As[s][r][k]);
-        af[i][1] = *reinterpret_cast<const uint32_t*>(&As[s][r + 8][k]);
-        af[i][2] = *reinterpret_cast<const uint32_t*>(&As[s][r][k + 16]);
-        af[i][3] = *reinterpret_cast<const uint32_t*>(&As[s][r + 8][k + 16]);
+  if (wg == 2) {
+    // ---------------- producer: one thread issues every TMA load ----------------
+    lxt::setmaxnreg_dec<40>();
+    if (tid != 0) return;
+    lxt::tma_prefetch_map(&ta);
+    lxt::tma_prefetch_map(&tb);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      int mt, nt, s;
+      unit_coords(u, p.splits, mtn, ntn, mt, nt, s);
+      const int kb0 = s * kb_per_split, kb1 = min(kb0 + kb_per_split, kbs);
+      for (int kb = kb0; kb < kb1; ++kb) {
+        lxt::mbar_wait(&sm.empty[stage], phase ^ 1);
+        lxt::mbar_arrive_expect_tx(&sm.full[stage], (BM + BN) * BK);
+        lxt::tma_load_2d(sm.a[stage], &ta, &sm.full[stage], kb * BK, box_row<BM>(mt, p.M));
+        lxt::tma_load_2d(sm.b[stage], &tb, &sm.full[stage], nt * BN, kb * BK);
+        if (++stage == STAGES) stage = 0, phase ^= 1;
       }
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        // rows k..k+3 with (row >> 2) & 3 == t, so the swizzle term is t << 1
-        const int k = ks * 32 + half * 16 + t * 4;
-        const int col = ((b_chunk ^ (t << 1)) << 4) + b_word;
-        const uint32_t w0 = *reinterpret_cast<const uint32_t*>(&Bs[s][k][col]);
-        const uint32_t w1 = *reinterpret_cast<const uint32_t*>(&Bs[s][k + 1][col]);
-        const uint32_t w2 = *reinterpret_cast<const uint32_t*>(&Bs[s][k + 2][col]);
-        const uint32_t w3 = *reinterpret_cast<const uint32_t*>(&Bs[s][k + 3][col]);
-        // 4x4 byte transpose: word j = column j's four consecutive k, lowest k in the low byte
-        const uint32_t t0 = __byte_perm(w0, w1, 0x5140), t1 = __byte_perm(w0, w1, 0x7362);
-        const uint32_t t2 = __byte_perm(w2, w3, 0x5140), t3 = __byte_perm(w2, w3, 0x7362);
-        bf[0][half] = __byte_perm(t0, t2, 0x5410);
-        bf[1][half] = __byte_perm(t0, t2, 0x7632);
-        bf[2][half] = __byte_perm(t1, t3, 0x5410);
-        bf[3][half] = __byte_perm(t1, t3, 0x7632);
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j) lxt::mma_s8_16832(acc[i][j], af[i], bf[j][0], bf[j][1]);
     }
-    __syncthreads();
+    return;
   }
 
-  // epilogue: float(acc) * row_scale * col_scale, in that order (the plain version's).
-  // Column slot c of tile j is column 4c + j, so accumulator (j, 2t + e) is column
-  // 8t + 4e + j: this thread's 8 consecutive columns.
-  const int nb = n0 + wn * WN + t * 8;
-  if (nb >= N) return;  // N % 16 == 0: the 8 columns are all inside or all outside
-  float csv[8];
+  // ---------------- consumers: warpgroup wg owns n [64 wg, 64 wg + 64) of each tile ----------------
+  lxt::setmaxnreg_inc<232>();
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, c = lane % 4;
+  const int row_off = lxt::kn_row_offset(lane, 4 * wg + warp);  // this lane's ldmatrix row in a b box
+  uint32_t sel0, sel1;
+  lxt::kn_selectors(lane, sel0, sel1);
+  int stage = 0;
+  uint32_t phase = 0;
+  int acc[BM / 2];
+  uint32_t frag[BK / 32][4];  // one stage's b^T fragments
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    int mt, nt, s;
+    unit_coords(u, p.splits, mtn, ntn, mt, nt, s);
+    const int kb0 = s * kb_per_split, nkb = min(kb0 + kb_per_split, kbs) - kb0;
+    for (int i = 0; i < nkb; ++i) {
+      lxt::mbar_wait(&sm.full[stage], phase);
+      const int8_t* brow = sm.b[stage] + row_off;
 #pragma unroll
-  for (int c = 0; c < 8; ++c) csv[c] = cs[nb + c];
+      for (int kk = 0; kk < BK / 32; ++kk) lxt::kn_fragment(frag[kk], brow, kk, sel0, sel1);
+      lxt::fence_regs(frag);
+      lxt::wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < MT; ++i) {
+      for (int kk = 0; kk < BK / 32; ++kk)
+        lxt::wgmma_rs_s8<BM>(acc, frag[kk], lxt::desc_sw128(sm.a[stage] + 32 * kk, 16, 1024), i > 0 || kk > 0);
+      lxt::wgmma_commit();
+      lxt::wgmma_wait<0>();  // the other warpgroup's products keep the tensor cores busy meanwhile
+      lxt::fence_regs(frag);
+      __syncwarp();
+      if (lane == 0) lxt::mbar_arrive(&sm.empty[stage]);
+      if (++stage == STAGES) stage = 0, phase ^= 1;
+    }
+    lxt::fence_regs(acc);
+
+    // acc[4i + e]: n = n_t + (e >> 1), m = m_t + 8i + (e & 1)
+    const int n_t = nt * BN + 64 * wg + 16 * warp + 2 * g, m_t = box_row<BM>(mt, p.M) + 2 * c, m_lo = mt * BM;
+    const bool n_in = n_t < p.N;  // N % 16 == 0: n_t + 1 is inside too
+    if (p.splits > 1) {
+      int* part = p.part + (size_t)s * p.M * p.N;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = m0 + wm * WM + i * 16 + g + half * 8;
-      if (m >= M) continue;
-      const float r = rs[m];
-      float v[8];
+      for (int i = 0; i < BM / 8; ++i)
 #pragma unroll
-      for (int e = 0; e < 2; ++e)
+        for (int j = 0; j < 2; ++j) {
+          const int m = m_t + 8 * i + j;
+          if (n_in && m >= m_lo && m < p.M)
+            *reinterpret_cast<int2*>(part + (size_t)m * p.N + n_t) = make_int2(acc[4 * i + j], acc[4 * i + 2 + j]);
+        }
+      if (!arrive_last(p.counters + u / p.splits, p.splits, &sm.flag, threadIdx.x == 0)) continue;
+      for (int o = 0; o < p.splits; ++o) {  // a split at a time, its BM / 4 loads all in flight
+        if (o == s) continue;
+        const int* src = p.part + (size_t)o * p.M * p.N;
 #pragma unroll
-        for (int j = 0; j < NT; ++j) v[4 * e + j] = static_cast<float>(acc[i][j][half * 2 + e]) * r * csv[4 * e + j];
-      if (OUT_F32) {
-        float4* dst = reinterpret_cast<float4*>(static_cast<float*>(out) + (size_t)m * N + nb);
-        dst[0] = make_float4(v[0], v[1], v[2], v[3]);
-        dst[1] = make_float4(v[4], v[5], v[6], v[7]);
-      } else {
-        uint4 pk;
-        pk.x = lxt::pack_bf16(v[0], v[1]);
-        pk.y = lxt::pack_bf16(v[2], v[3]);
-        pk.z = lxt::pack_bf16(v[4], v[5]);
-        pk.w = lxt::pack_bf16(v[6], v[7]);
-        *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(out) + (size_t)m * N + nb) = pk;
+        for (int i = 0; i < BM / 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int m = m_t + 8 * i + j;
+            if (n_in && m >= m_lo && m < p.M) {
+              const int2 v = __ldcg(reinterpret_cast<const int2*>(src + (size_t)m * p.N + n_t));
+              acc[4 * i + j] += v.x;
+              acc[4 * i + 2 + j] += v.y;
+            }
+          }
       }
+    }
+    if (!n_in) continue;
+    const float2 cs = make_float2(__ldg(p.cs + n_t), __ldg(p.cs + n_t + 1));
+#pragma unroll
+    for (int i0 = 0; i0 < BM / 8; i0 += 8) {  // sixteen rows' scales in registers, then their stores
+      float r[8][2];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int m = m_t + 8 * (i0 + i) + j;
+          r[i][j] = m >= m_lo && m < p.M ? __ldg(p.rs + m) : 0.f;
+        }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int m = m_t + 8 * (i0 + i) + j;
+          if (m >= m_lo && m < p.M)  // float(acc) * row scale * column scale, in that order (the plain version's)
+            store_pair(p, m, n_t, static_cast<float>(acc[4 * (i0 + i) + j]) * r[i][j] * cs.x,
+                       static_cast<float>(acc[4 * (i0 + i) + 2 + j]) * r[i][j] * cs.y);
+        }
     }
   }
 }
 
+int sm_count() {
+  static int n = 0;
+  if (!n) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+template <int BM>
+int launch(const int8_t* a, const int8_t* b, const Args& p, int kb_per_split, cudaStream_t st) {
+  CUtensorMap ta, tb;
+  if (!lxt::make_u8_2d_map(&ta, a, p.M, p.K, BM) || !lxt::make_u8_2d_map(&tb, b, p.K, p.N, BK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int bytes = sizeof(Smem<BM>) + 1024;
+  static const cudaError_t attr =  // once per instantiation and process (one card a process)
+      cudaFuncSetAttribute(int8_mm_kn_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int units = ((p.M + BM - 1) / BM) * ((p.N + BN - 1) / BN) * p.splits;
+  int8_mm_kn_kernel<BM><<<min(units, sm_count()), THREADS, bytes, st>>>(ta, tb, p, kb_per_split);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// bm and splits: ops/int8_mm.py:int8_mm_kn_plan. part: int32 [splits, M, N] when
+// splits > 1; counters: int32 zeros, one per output tile.
 extern "C" int lxt_int8_mm_dequant_kn(const void* a, const void* b, const void* row_scale, const void* col_scale,
-                                      void* out, int M, int N, int K, int out_f32, void* stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+                                      void* out, int M, int N, int K, int out_f32, int bm, int splits, void* part,
+                                      void* counters, void* stream) {
+  Args p{static_cast<const float*>(row_scale), static_cast<const float*>(col_scale), out, static_cast<int*>(part),
+         static_cast<int*>(counters), M, N, K, out_f32, splits};
   auto st = static_cast<cudaStream_t>(stream);
+  if (N % 16 || K % 16 || splits < 1 || (splits > 1 && (!part || !counters)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int kbs = (K + BK - 1) / BK, per = (kbs + splits - 1) / splits;
+  if ((kbs + per - 1) / per != splits) return static_cast<int>(cudaErrorInvalidValue);  // an empty split
   const auto* a8 = static_cast<const int8_t*>(a);
   const auto* b8 = static_cast<const int8_t*>(b);
-  const auto* rs = static_cast<const float*>(row_scale);
-  const auto* cs = static_cast<const float*>(col_scale);
-  if (out_f32)
-    int8_mm_kn_kernel<true><<<grid, THREADS, 0, st>>>(a8, b8, rs, cs, out, M, N, K);
-  else
-    int8_mm_kn_kernel<false><<<grid, THREADS, 0, st>>>(a8, b8, rs, cs, out, M, N, K);
-  return static_cast<int>(cudaGetLastError());
+  if (bm == 256) return launch<256>(a8, b8, p, per, st);
+  if (bm == 128) return launch<128>(a8, b8, p, per, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

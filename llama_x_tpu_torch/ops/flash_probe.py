@@ -1,7 +1,7 @@
 """The flash probe (kernel K6, ``csrc/flash_probe.cu``): a matmul-only attention that
-bounds what the flash forward's two products cost without its softmax. It keeps the
-mma.sync loop of the earlier K2, so beside today's K2 (wgmma, TMA ring) the gap between
-the two compares designs, not the softmax alone.
+bounds what the flash forward's two products cost without its softmax. It runs K2's own
+main loop (wgmma, TMA ring, tile classes) with the softmax taken out, so the gap between
+K2 and the probe isolates what K2's online softmax, masking and rescaling cost.
 
 Port of the probe kernel of tools/probe_flash.py (``probe_kernel``): for the plan
 (bq, bk) and a prefix length,
@@ -14,7 +14,8 @@ and inside a needed block nothing is masked: the skip is whole-block, as the TPU
 kernel's. The port keeps the model's [B, S, H, D] layout (the TPU tool transposes to
 head-major around its kernel). On CPU tensors ``flash_probe`` runs ``flash_probe_plain``;
 on CUDA tensors it launches the kernel or raises (bf16, head_dim 64 or 128, bq and bk
-multiples of 64 that divide S).
+multiples of 64 that divide S). The kernel walks 128 x 128 tiles; ``probe_tile_class``
+says which it skips, which it runs with no mask code, and which it masks per element.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ import torch
 from llama_x_tpu_torch.ops.flash_attention import _check_qkv
 from llama_x_tpu_torch.utils import build
 
-_TILE = 64
+_TILE = 64  # bq and bk are multiples of this: a consumer warpgroup's 64 rows lie in one q block
+PROBE_TILE = 128  # the kernel's q and kv tile
 
 
 def needed_blocks(S: int, bq: int, bk: int, prefix: int, device=None) -> torch.Tensor:
@@ -32,6 +34,30 @@ def needed_blocks(S: int, bq: int, bk: int, prefix: int, device=None) -> torch.T
     q_start = torch.arange(S // bq, device=device)[:, None] * bq
     kv_start = torch.arange(S // bk, device=device)[None, :] * bk
     return (q_start + bq - 1 >= kv_start) | ((q_start < prefix) & (kv_start < prefix))
+
+
+def probe_tile_class(q0: int, kv0: int, nq: int, nk: int, S: int, bq: int, bk: int, prefix: int) -> str:
+    """The class of the tile [q0, q0 + nq) x [kv0, kv0 + nk) under the probe's plan, which
+    the kernel mirrors (csrc/flash_probe.cu: tile_class): "skip" when no (bq, bk) block it
+    touches below S is needed (never loaded), "full" when every one is (no mask code),
+    "partial" otherwise (S zeroed per element outside the needed blocks)."""
+    if q0 >= S or kv0 >= S:
+        return "skip"
+    need = [(i * bq + bq - 1 >= j * bk) or (i * bq < prefix and j * bk < prefix)
+            for i in range(q0 // bq, (min(q0 + nq, S) - 1) // bq + 1)
+            for j in range(kv0 // bk, (min(kv0 + nk, S) - 1) // bk + 1)]
+    return "full" if all(need) else "partial" if any(need) else "skip"
+
+
+def tile_census(S: int, bq: int, bk: int, prefix: int) -> dict:
+    """The kernel's 128 x 128 tiles of one head by class, and the share of the (q, kv)
+    pairs that the needed blocks hold (what the kernel computes)."""
+    n = {"skip": 0, "partial": 0, "full": 0}
+    for q0 in range(0, S, PROBE_TILE):
+        for kv0 in range(0, S, PROBE_TILE):
+            n[probe_tile_class(q0, kv0, PROBE_TILE, PROBE_TILE, S, bq, bk, prefix)] += 1
+    pairs = float(needed_blocks(S, bq, bk, prefix).sum()) * bq * bk / (S * S)
+    return {**n, "pairs_needed": pairs}
 
 
 def _check_plan(S: int, bq: int, bk: int) -> None:

@@ -18,8 +18,16 @@ wrapper runs its plain version; on a CUDA tensor it launches the kernel or raise
 K1 has two paths (``int8_mm_plan``): decode shapes (M up to ``STREAM_MAX_M``) stream
 the weight through ``mma.sync`` in strips of 64 rows, larger M runs a persistent
 ``wgmma`` kernel over 128 x 256 (or 128 x 128) tiles; either splits K where the card
-would otherwise sit idle. A split-K launch sums exact int32 partials, so the bits do
-not depend on the plan (``int8_mm_dequant_nt_split_plain`` writes that arithmetic out).
+would otherwise sit idle. K4 has one path (``int8_mm_kn_plan``: m tile, splits), the
+same persistent ``wgmma`` kernel turned around: integer ``wgmma`` reads a shared operand
+only K-major, so K4 computes each tile transposed, b^T from registers (each warp
+transposes its [k][n] slice with ``ldmatrix.trans`` and byte permutes: ``kn_row``,
+``kn_selectors``) times a's box from shared memory, over tiles of BM (256 or 128) m x
+``KN_BN`` n, and splits K where the tiles fill fewer than half of the SMs (the CE head's
+dH chunks of 512 and of the audio step's 262 rows). A split-K launch sums exact int32
+partials, so the bits do not depend on the plan
+(``int8_mm_dequant_nt_split_plain`` and ``int8_mm_dequant_split_plain`` write that
+arithmetic out).
 """
 
 from __future__ import annotations
@@ -47,6 +55,12 @@ BLOCK_K = 128
 GROUP_M = 8  # row tiles that sweep the column tiles together (L2 reuse of the weight strips)
 WGMMA_MIN_SPLIT_BLOCKS = 64
 H100_SMS = 132
+# K4's plan: tiles of BM (256 or 128) m x KN_BN n (two consumer warpgroups of 64 n). A
+# 128-m tile reads a's box from shared memory for every 64 n of b^T against half the
+# products of a 256-m one, and runs at about 0.8 of its rate on the H100
+# (chip_smoke.py:phase_k4_plans, PERF.md §6).
+KN_BN = 128
+KN_NARROW_RATE = 0.8
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -76,14 +90,32 @@ def int8_mm_plan(M: int, N: int, K: int, sms: int = H100_SMS) -> tuple[str, int,
     if M <= STREAM_MAX_M:
         splits, _ = _split_k(k_blocks, _cdiv(sms, _cdiv(N, STREAM_BN)))
         return "stream", STREAM_BN, splits
+    bn, splits = _cheapest_tile(k_blocks, sms, [(bn, rate, _cdiv(M, WGMMA_BM) * _cdiv(N, bn))
+                                                for bn, rate in ((256, 1.0), (128, 0.95))])
+    return "wgmma", bn, splits
+
+
+def _cheapest_tile(k_blocks: int, sms: int, options) -> tuple[int, int]:
+    """(tile width, splits) of the cheapest of ``options`` (width, rate, tiles), in
+    tile-widths of work: waves of units x width x blocks per split / rate, a split plan at
+    1 / 1.1 for its partials and fix-up. K is split only where the tiles fill fewer than half
+    of the SMs, into at most sms / tiles splits of at least WGMMA_MIN_SPLIT_BLOCKS blocks."""
     best = None
-    for bn, rate in ((256, 1.0), (128, 0.95)):
-        tiles = _cdiv(M, WGMMA_BM) * _cdiv(N, bn)
+    for width, rate, tiles in options:
         splits, per = _split_k(k_blocks, 1 if 2 * tiles >= sms else min(sms // tiles, k_blocks // WGMMA_MIN_SPLIT_BLOCKS))
-        cost = _cdiv(tiles * splits, sms) * bn * per / rate * (1.1 if splits > 1 else 1.0)
+        cost = _cdiv(tiles * splits, sms) * width * per / rate * (1.1 if splits > 1 else 1.0)
         if best is None or cost < best[0]:
-            best = (cost, bn, splits)
-    return "wgmma", best[1], best[2]
+            best = (cost, width, splits)
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=4096)
+def int8_mm_kn_plan(M: int, N: int, K: int, sms: int = H100_SMS) -> tuple[int, int]:
+    """K4's (m tile BM, splits) for an [M, K] x [K, N] product on a card of ``sms`` SMs;
+    the C entry point takes both as they are: the cheaper of the 256- and the 128-m tile
+    (``_cheapest_tile``, K1's cost, the 128-m tile at ``KN_NARROW_RATE``)."""
+    return _cheapest_tile(_cdiv(K, BLOCK_K), sms, [(bm, rate, _cdiv(M, bm) * _cdiv(N, KN_BN))
+                                                   for bm, rate in ((256, 1.0), (128, KN_NARROW_RATE))])
 
 
 def split_k_ranges(K: int, splits: int) -> list[tuple[int, int]]:
@@ -95,10 +127,11 @@ def split_k_ranges(K: int, splits: int) -> list[tuple[int, int]]:
     return [(s * per * BLOCK_K, min((s + 1) * per * BLOCK_K, K)) for s in range(splits)]
 
 
-def tile_order(M: int, N: int, bn: int) -> list[tuple[int, int]]:
-    """(row tile, column tile) of each output tile in the wgmma path's walk
-    (csrc/int8_mm.cu:unit_coords): groups of GROUP_M row tiles sweep the column tiles."""
-    mtn, ntn = _cdiv(M, WGMMA_BM), _cdiv(N, bn)
+def tile_order(M: int, N: int, bn: int, bm: int = WGMMA_BM) -> list[tuple[int, int]]:
+    """(row tile, column tile) of each output tile of bm x bn in the persistent walk of K1's
+    wgmma path and of K4 (csrc/int8_mm.cu and csrc/int8_mm_kn.cu: unit_coords): groups of
+    GROUP_M row tiles sweep the column tiles. K4 passes its m tile as bm and KN_BN as bn."""
+    mtn, ntn = _cdiv(M, bm), _cdiv(N, bn)
     order = []
     for tile in range(mtn * ntn):
         width = GROUP_M * ntn
@@ -136,6 +169,34 @@ def int8_mm_dequant_nt_split_plain(a_i8, b_nk_i8, row_scale, col_scale, out_dtyp
     return out.to(out_dtype)
 
 
+def kn_row(lane: int, chunk: int) -> tuple[int, int]:
+    """K4's b^T fragment, the shared-memory side (csrc/hopper.cuh: kn_row_offset): the k row
+    (0..31 of a 32-deep step) whose 16 n bytes of chunk ``chunk`` lane ``lane`` hands to
+    ldmatrix.x4.trans, and that row's 16-byte chunk after the 128-byte swizzle (chunk c of
+    row k lands at c ^ (k % 8)). Matrix lane // 8 takes the rows of lanes 8i..8i+7 in order."""
+    mi, r = divmod(lane, 8)
+    k = 16 * (mi >> 1) + (r >> 1) * 4 + (r & 1) + 2 * (((r >> 2) & 1) ^ (mi & 1))
+    return k, chunk ^ (k & 7)
+
+
+def kn_selectors(lane: int) -> tuple[int, int]:
+    """The two byte-permute selectors (``__byte_perm``) that turn lane ``lane``'s pairs of
+    ldmatrix registers into its fragment words: the first takes n = 2g, the second
+    n = 2g + 1 (g = lane // 4); lanes 2 and 3 of a quad hold their upper k in the first
+    register (csrc/hopper.cuh: kn_selectors)."""
+    return (0x2064, 0x3175) if lane & 2 else (0x6420, 0x7531)
+
+
+def kn_accumulator_coords(wg: int, tid: int, i: int, e: int) -> tuple[int, int]:
+    """(m, n) of accumulator register 4 i + e of thread ``tid`` (0..127) of consumer
+    warpgroup ``wg``: m within the tile's a box (which for a last tile reaching past M is
+    the BM rows that end at M), n within the tile. Fragment row 16w + g is n 2g of the
+    warp's 16, row 16w + g + 8 is n 2g + 1; the accumulator's columns are m."""
+    warp, lane = divmod(tid, 32)
+    g, c = divmod(lane, 4)
+    return 8 * i + 2 * c + (e & 1), 64 * wg + 16 * warp + 2 * g + (e >> 1)
+
+
 _counters: dict = {}
 _sms: dict = {}
 
@@ -147,7 +208,7 @@ def _sm_count(device) -> int:
 
 
 def _tile_counters(device, n: int) -> torch.Tensor:
-    """K1's split-K arrival counters on ``device``: zeros, and every launch leaves them
+    """The split-K arrival counters of K1 and K4 on ``device``: zeros, and every launch leaves them
     at zero (the last split of a tile resets its own). One launch at a time uses them:
     the port runs its kernels on one stream."""
     buf = _counters.get(device)
@@ -164,7 +225,8 @@ def _f32_vector(x, device):
 
 def _launch(wrapper, entry: str, a_i8, b_i8, b_nk: bool, row_scale, col_scale, out_dtype, plan=None):
     """Checks shared by K1 and K4, then the launch of ``entry`` counted on ``wrapper``.
-    K1 (b_nk) launches ``plan`` (path, tile width, splits), by default ``int8_mm_plan``'s."""
+    K1 (b_nk) launches ``plan`` (path, tile width, splits), by default ``int8_mm_plan``'s;
+    K4 ``plan`` (m tile, splits), by default ``int8_mm_kn_plan``'s."""
     M, K = a_i8.shape
     N, b_k = (b_i8.shape[0], b_i8.shape[1]) if b_nk else (b_i8.shape[1], b_i8.shape[0])
     if a_i8.dtype != torch.int8 or b_i8.dtype != torch.int8:
@@ -194,12 +256,18 @@ def _launch(wrapper, entry: str, a_i8, b_i8, b_nk: bool, row_scale, col_scale, o
             int(out_dtype == torch.float32)]
     if b_nk:
         path, bn, splits = plan or int8_mm_plan(M, N, K, _sm_count(a.device))
-        part = counters = None
-        if splits > 1:
-            part = torch.empty((splits, M, N), dtype=torch.int32, device=a.device)
-            counters = _tile_counters(a.device, _cdiv(M, WGMMA_BM) * _cdiv(N, bn) if path == "wgmma" else _cdiv(N, bn))
-        args += [{"stream": 0, "wgmma": 1}[path], bn, splits, part.data_ptr() if part is not None else None,
-                 counters.data_ptr() if counters is not None else None]
+        tiles = _cdiv(M, WGMMA_BM) * _cdiv(N, bn) if path == "wgmma" else _cdiv(N, bn)
+        args += [{"stream": 0, "wgmma": 1}[path], bn]
+    else:
+        bm, splits = plan or int8_mm_kn_plan(M, N, K, _sm_count(a.device))
+        tiles = _cdiv(M, bm) * _cdiv(N, KN_BN)
+        args += [bm]
+    part = counters = None
+    if splits > 1:
+        part = torch.empty((splits, M, N), dtype=torch.int32, device=a.device)
+        counters = _tile_counters(a.device, tiles)
+    args += [splits, part.data_ptr() if part is not None else None,
+             counters.data_ptr() if counters is not None else None]
     wrapper.launches += 1
     build.check(getattr(lib, entry)(*args, stream), wrapper.__name__)
     return out
@@ -223,11 +291,19 @@ def int8_mm_dequant_plain(a_i8, b_kn_i8, row_scale, col_scale, out_dtype=torch.b
     return int8_mm_dequant_nt_plain(a_i8, b_kn_i8.T, row_scale, col_scale, out_dtype)
 
 
-def int8_mm_dequant(a_i8, b_kn_i8, row_scale, col_scale, out_dtype=torch.bfloat16):
-    """K4 on CUDA tensors, its plain version on CPU tensors."""
+def int8_mm_dequant_split_plain(a_i8, b_kn_i8, row_scale, col_scale, out_dtype=torch.bfloat16, splits=1):
+    """K4's split-K arithmetic written plainly: ``int8_mm_dequant_nt_split_plain`` on the
+    same bytes read as [N, K]."""
+    return int8_mm_dequant_nt_split_plain(a_i8, b_kn_i8.T, row_scale, col_scale, out_dtype, splits)
+
+
+def int8_mm_dequant(a_i8, b_kn_i8, row_scale, col_scale, out_dtype=torch.bfloat16, plan=None):
+    """K4 on CUDA tensors, its plain version on CPU tensors. ``plan``: (m tile, splits)
+    to launch instead of ``int8_mm_kn_plan``'s (the card tests use it)."""
     if a_i8.device.type == "cpu":
         return int8_mm_dequant_plain(a_i8, b_kn_i8, row_scale, col_scale, out_dtype)
-    return _launch(int8_mm_dequant, "lxt_int8_mm_dequant_kn", a_i8, b_kn_i8, False, row_scale, col_scale, out_dtype)
+    return _launch(int8_mm_dequant, "lxt_int8_mm_dequant_kn", a_i8, b_kn_i8, False, row_scale, col_scale, out_dtype,
+                   plan)
 
 
 int8_mm_dequant.launches = 0
@@ -247,4 +323,23 @@ def wgmma_check_s8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     lib = build.load_library()
     build.check(lib.lxt_wgmma_check_s8(a.data_ptr(), b.data_ptr(), c.data_ptr(), n,
                                        torch.cuda.current_stream(a.device).cuda_stream), "wgmma_check_s8")
+    return c
+
+
+def wgmma_check_s8_rs(a: torch.Tensor, b: torch.Tensor, canonical: bool) -> torch.Tensor:
+    """One bare int8 wgmma with A from registers, K4's product (csrc/wgmma_check.cu), for
+    the card tests: a int8 [N, 128] ([m, k]) and b int8 [128, 128] ([k, n] as K4 reads the
+    base), both by TMA; returns int32 [64, N] = b[:, :64]^T a^T. ``canonical`` gathers b^T
+    into the documented register layout byte by byte, else K4's ``kn_fragment`` builds it
+    from b's swizzled box; N is 128 or 256."""
+    n = a.shape[0]
+    if a.shape != (n, 128) or b.shape != (128, 128) or n not in (128, 256):
+        raise ValueError(f"a must be [N, 128] with N 128 or 256 and b [128, 128], got {tuple(a.shape)}, {tuple(b.shape)}")
+    if a.dtype != torch.int8 or b.dtype != torch.int8 or not (a.is_cuda and b.is_cuda):
+        raise TypeError("wgmma_check_s8_rs takes int8 CUDA tensors")
+    a, b = a.contiguous(), b.contiguous()
+    c = torch.empty((64, n), dtype=torch.int32, device=a.device)
+    lib = build.load_library()
+    build.check(lib.lxt_wgmma_check_s8_rs(a.data_ptr(), b.data_ptr(), c.data_ptr(), n, int(canonical),
+                                          torch.cuda.current_stream(a.device).cuda_stream), "wgmma_check_s8_rs")
     return c

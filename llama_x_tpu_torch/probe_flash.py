@@ -6,10 +6,9 @@ bidirectional prefix.
 
 Times the flash forward (K2), forward + backward (K2 + K5) and the matmul-only probe
 (K6: the two products and the plan's whole-block skip, no softmax), and prints the three
-times and the gap between the forward and the probe. K6 is the mma.sync loop that K2 had
-before K2 moved to wgmma, a TMA ring and tile classes, so the gap compares two designs and
-no longer isolates what K2's online softmax, masking and rescaling cost; it does so again
-once K6 runs on K2's own main loop. Timed with CUDA events over ``--reps``
+times and the gap between the forward and the probe. K6 runs K2's own main loop (wgmma, a
+TMA ring, tile classes) with the softmax taken out, so the gap isolates what K2's online
+softmax, masking and rescaling cost. Timed with CUDA events over ``--reps``
 launches after warm-ups (the TPU tool's chained differential timing works around its
 host link and is not needed here). ``--bq`` / ``--bk`` are the JAX plan's blocks: they
 key the probe's skip; they do not tile K2 or K5. ``--sweep`` times the probe over the TPU tool's (bq, bk) grid. Runs on the card
@@ -97,8 +96,7 @@ def run(args) -> dict:
                                                   reps)
         print(f"mm-probe   {results['probe_matmul_only_ms']:8.3f} ms", flush=True)
     results["fwd_minus_probe_ms"] = results["fwd_ms"] - results["probe_matmul_only_ms"]
-    print(f"fwd - probe {results['fwd_minus_probe_ms']:7.3f} ms (K2 on wgmma against K6's mma.sync loop: two "
-          "designs, not K2's softmax cost alone)", flush=True)
+    print(f"fwd - probe {results['fwd_minus_probe_ms']:7.3f} ms (K2's softmax, masking and rescaling)", flush=True)
     return results
 
 

@@ -335,6 +335,47 @@ def test_int8_mm_kn_kernel_matches_plain(cuda, M, K, N):
     assert torch.equal(mm.int8_mm_dequant(a, b, rs, cs), mm.int8_mm_dequant_nt(a, b.T.contiguous(), rs, cs))
 
 
+@pytest.mark.parametrize("M,N,K,plans", [
+    (300, 4112, 1040, [(256, 1), (128, 1), (256, 3), (128, 9)]),  # ragged tiles on every side, ragged last slice
+    (37, 208, 272, [(256, 1), (128, 2), (128, 3)]),
+    (512, 4096, 16384, [(256, 1), (256, 2), (128, 1), (128, 4)]),
+    (384, 4096, 16384, [None]),  # the plan splits K in 2
+    (262, 4096, 128256, [None, (128, 1)]),  # the audio step's dH chunk: the last 256-m tile reads rows 6..261
+])
+def test_int8_mm_kn_plans_match_plain(cuda, M, N, K, plans):
+    """K4 at forced plans (m tile, splits): every plan gives the plain version's bits, bf16
+    and f32 out, twice (the split-K counters are left at zero for the next launch)."""
+    g = torch.Generator(device=cuda).manual_seed(M + N + K)
+    a = torch.randint(-127, 128, (M, K), dtype=torch.int8, device=cuda, generator=g)
+    b = torch.randint(-127, 128, (K, N), dtype=torch.int8, device=cuda, generator=g)
+    rs = torch.rand(M, device=cuda, generator=g) * 0.02
+    cs = torch.rand(N, device=cuda, generator=g) * 0.001
+    for out_dtype in (torch.bfloat16, torch.float32):
+        want = mm.int8_mm_dequant_plain(a, b, rs, cs, out_dtype=out_dtype)
+        for plan in plans:
+            for _ in range(2):
+                got = mm.int8_mm_dequant(a, b, rs, cs, out_dtype=out_dtype, plan=plan)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (plan, out_dtype)
+    if a.device in mm._counters:
+        assert int(mm._counters[a.device].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("n", [128, 256])
+@pytest.mark.parametrize("canonical", [True, False])
+def test_wgmma_s8_register_a_matches_float64(cuda, n, canonical):
+    """K4's product (csrc/wgmma_check.cu): wgmma m64nNk32 s32.s8.s8 with A from registers,
+    b^T gathered into the documented register layout (canonical) or built by K4's
+    ldmatrix.trans and byte permutes from b's swizzled TMA box, against the float64
+    product (exact for these sums)."""
+    g = torch.Generator(device=cuda).manual_seed(n + canonical)
+    a = torch.randint(-127, 128, (n, 128), dtype=torch.int8, device=cuda, generator=g)
+    b = torch.randint(-127, 128, (128, 128), dtype=torch.int8, device=cuda, generator=g)
+    got = mm.wgmma_check_s8_rs(a, b, canonical)
+    torch.cuda.synchronize()
+    assert torch.equal(got.double(), b[:, :64].double().T @ a.double().T)
+
+
 @pytest.mark.parametrize("case", ["N % 16", "K % 16", "K overflow", "float a"])
 def test_int8_mm_kn_raises(cuda, case):
     M, K, N = 4, 64, 64
@@ -623,9 +664,12 @@ def test_flash_function_with_dropout_and_preset_on_the_card(cuda):
 
 
 @pytest.mark.parametrize("S,D,bq,bk,prefix", [(512, 128, 128, 256, 200), (256, 64, 64, 64, 0),
-                                              (1024, 128, 256, 1024, 500)])
+                                              (1024, 128, 256, 1024, 500), (320, 64, 64, 64, 100),
+                                              (576, 128, 64, 192, 0)])
 def test_flash_probe_kernel_matches_plain(cuda, S, D, bq, bk, prefix):
-    """K6: the matmul-only probe against its plain version, GQA group 4."""
+    """K6: the matmul-only probe against its plain version, GQA group 4, at plans whose
+    128-tiles are all skip or full, and at 64- and 192-wide blocks that make partial tiles
+    (S 320 and 576 also end in half a tile)."""
     from llama_x_tpu_torch.ops import flash_probe as fp
 
     B, Hq, Hkv = 2, 8, 2
