@@ -14,7 +14,9 @@ no result line):
    their plan (path, splits), rate, share of bound and profiler device time (theirs
    and the yardstick's: below about 0.05 ms a call the event times are the host's), K4
    likewise with its plan (m tile, splits), K1 and K4 each with their chosen plan against
-   its alternatives, and K6 with its device time and tile census;
+   its alternatives, and K6 with its device time and tile census; K2 and K5 also at the
+   vision and omni steps' masks (prefix 272 of S 304, B 8; prefix 1772 of S 4096), K1 and
+   K4 at the omni step's 581-row CE chunk;
 3. serving main path: ``generate`` at Llama-3.1-8B width (32 layers) from seeded
    on-device weights, B 4, ragged byte-tokenized prompts padded to 512, 64 new
    tokens: bf16 weights with a bf16 cache, then int8 weights with dynamic int8
@@ -43,7 +45,25 @@ no result line):
    the launch counts held to what the policy must give, one profiled step, then the same
    step under ``full``, ``flash_proj`` and without checkpointing;
 9. audio kernel path against plain path on a 2-layer cut with ``attn_dropout=0.1`` and
-   fixed seeds.
+   fixed seeds;
+10. the vision main path: one 8B QLoRA trunk with both stems is built for phases 10 to
+   12; the vision step through ``train_vision``'s functions (8 canvases of 224, patch
+   14: 272 image tokens before 32 caption bytes, S 304, prefix-LM, remat ``full``, fused
+   CE x4), 4 steps with the launch counts held every step, a profiled step, and a 2-layer
+   kernel-vs-plain comparison of loss and adapter gradients;
+11. the omni main path (BASELINE config 5 at tools/bench_omni.py's geometry) through
+   ``train_omni``'s functions: 30 s of audio (1500 tokens) + one 224 image (272) + 2324
+   text = S 4096, prefix-LM 1772, remat ``flash_proj``, fused CE in 4 chunks of 581 rows;
+   the same checks;
+12. the evaluations at 8B width on the trained trunk: ``eval_vision``'s captions (8
+   eval-split canvases) and ``eval_librispeech``'s transcripts (4 x 20 s: 1000 audio
+   tokens), 16 new tokens each through K1, K2 with the prefix and K3, with prefill ms,
+   decode tok/s and the score, and each first token's and first decode step's logits
+   on a 2-layer cut against the plain path;
+13. real data, host path: ``train_librispeech.main`` over a LibriSpeech-layout directory
+   of WAV files written here, 2 steps on a 2-layer cut of the 8B geometry;
+14. the four new entry points (``train_vision``, ``train_omni``, ``eval_vision``,
+   ``eval_librispeech``) called as a user calls them, at their smoke sizes.
 
 Every shape's numbers are printed as the phases run. The second-to-last line of
 stdout is the kernels' JSON record (primary shape of each kernel, launches on the
@@ -209,7 +229,8 @@ def phase_k1():
     return int8_mm_cases(mm.int8_mm_dequant_nt, mm.int8_mm_dequant_nt_plain, True, g, [
         (M, N, K, bf16) for M in (4, 2048, 4096) for N, K in ((4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336))
     ] + [(512, 128256, 4096, f32), (512, 4096, 128256, f32), (262, 128256, 4096, f32)]
-      + [(M, 14336, 4096, bf16) for M in (17, 64, 65)])
+      + [(M, 14336, 4096, bf16) for M in (17, 64, 65)]
+      + [(581, 128256, 4096, f32)])  # the omni step's CE logits chunk: 2324 text rows in 4 chunks
 
 
 def phase_k1_plans() -> list[dict]:
@@ -228,6 +249,8 @@ def phase_k1_plans() -> list[dict]:
         ((2048, 1024, 4096), [("wgmma", 256, 1), ("wgmma", 256, 2), ("wgmma", 128, 1)]),
         ((512, 4096, 128256), [("wgmma", 256, 1), ("wgmma", 256, 2), ("wgmma", 128, 1)]),
         ((128, 4096, 128256), [("wgmma", 256, 1), ("wgmma", 256, 8), ("wgmma", 128, 4)]),
+        # the omni step's CE logits chunk: a last 256-row tile of 69 rows
+        ((581, 128256, 4096), [("wgmma", 256, 1), ("wgmma", 128, 1)]),
     ]
     recs = []
     for (M, N, K), plans in cases:
@@ -264,7 +287,8 @@ def phase_k4_plans() -> list[dict]:
     # the dH at 384 and 256 rows beside the audio step's 262: a last 256-m tile partial or whole
     cases = [((4096, 4096, 14336), wide), ((4096, 14336, 4096), wide), ((4096, 4096, 4096), wide),
              ((4096, 4096, 1024), wide), ((512, 4096, 128256), dh), ((384, 4096, 128256), dh),
-             ((262, 4096, 128256), dh), ((256, 4096, 128256), [(256, 2), (256, 4), (128, 2)])]
+             ((262, 4096, 128256), dh), ((256, 4096, 128256), [(256, 2), (256, 4), (128, 2)]),
+             ((581, 4096, 128256), dh)]  # the omni step's dH chunk: 96 tiles of 256, more than half the SMs
     recs = []
     for (M, N, K), plans in cases:
         a = torch.randint(-127, 128, (M, K), dtype=torch.int8, device="cuda", generator=g)
@@ -342,10 +366,11 @@ def phase_k4():
     # step through w2, w1 / w3, wq / wo and wk / wv, a ragged case, then the fused CE head:
     # dH of one 512-row chunk, which contracts over the vocabulary, and the same GEMM the
     # other way round (the JAX package's [D, V] head reads its logits in this form); last the
-    # audio step's dH chunk (262 rows)
+    # audio step's dH chunk (262 rows) and the omni step's (581 rows)
     return int8_mm_cases(mm.int8_mm_dequant, mm.int8_mm_dequant_plain, False, g, [
         (4096, 14336, 4096, bf16), (4096, 4096, 14336, bf16), (4096, 4096, 4096, bf16), (4096, 4096, 1024, bf16),
-        (300, 4112, 1040, bf16), (512, 4096, 128256, f32), (512, 128256, 4096, f32), (262, 4096, 128256, f32)])
+        (300, 4112, 1040, bf16), (512, 4096, 128256, f32), (512, 128256, 4096, f32), (262, 4096, 128256, f32),
+        (581, 4096, 128256, f32)])
 
 
 def packed_segments(S: int):
@@ -412,9 +437,13 @@ def phase_k2():
         ("causal S=4096", 1, 4096, MaskInfo(causal=True)),
         ("packed segments S=4096", 1, 4096, MaskInfo(causal=True, segment_ids=packed_segments(4096))),
         # the audio step: 2000 audio tokens before 2096 text tokens; without and with dropout
-        ("prefix-LM 2000 S=4096", 1, 4096, prefix_lm_mask()),
-        (f"prefix-LM 2000 S=4096 dropout {DROPOUT_RATE}", 1, 4096, prefix_lm_mask()),
+        ("prefix-LM 2000 S=4096", 1, 4096, prefix_mask(1, 2000)),
+        (f"prefix-LM 2000 S=4096 dropout {DROPOUT_RATE}", 1, 4096, prefix_mask(1, 2000)),
         (f"ragged causal S=37 dropout {DROPOUT_RATE}", 4, 37, MaskInfo(causal=True)),
+        # the vision step (272 image tokens before 32 caption tokens, microbatch 8: the last
+        # q and kv tiles ragged) and the omni step (1500 audio + 272 image tokens before 2324)
+        ("prefix-LM 272 S=304", 8, 304, prefix_mask(8, 272)),
+        ("prefix-LM 1772 S=4096", 1, 4096, prefix_mask(1, 1772)),
     ]
     shapes = []
     for name, B, S, mi in cases:
@@ -458,12 +487,12 @@ DROPOUT_RATE = 0.1
 DROPOUT_SEED = 0x7FFFFFF1  # the block keys wrap around 2^32
 
 
-def prefix_lm_mask():
+def prefix_mask(B: int, prefix: int):
     import torch
 
     from llama_x_tpu_torch.ops.attention import MaskInfo
 
-    return MaskInfo(causal=True, prefix_len=torch.full((1,), 2000, dtype=torch.int32, device="cuda"))
+    return MaskInfo(causal=True, prefix_len=torch.full((B,), prefix, dtype=torch.int32, device="cuda"))
 
 
 def dropout_case(name: str, fa, S: int, group: int):
@@ -492,18 +521,19 @@ def phase_k5():
     S = 4096
     segs = packed_segments(S)
     cases = [
-        ("causal S=4096", S, 32, 8, 128, MaskInfo(causal=True)),
-        ("packed segments S=4096", S, 32, 8, 128, MaskInfo(causal=True, segment_ids=segs)),
-        ("prefix-LM 2000 S=4096", S, 32, 8, 128,
-         MaskInfo(causal=True, prefix_len=torch.full((1,), 2000, dtype=torch.int32, device="cuda"))),
-        ("ragged causal S=37", 37, 32, 8, 128, MaskInfo(causal=True)),
-        ("causal S=2048 D=64", 2048, 32, 8, 64, MaskInfo(causal=True)),
-        (f"prefix-LM 2000 S=4096 dropout {DROPOUT_RATE}", S, 32, 8, 128, prefix_lm_mask()),
-        (f"ragged causal S=37 dropout {DROPOUT_RATE}", 37, 32, 8, 128, MaskInfo(causal=True)),
+        ("causal S=4096", 1, S, 32, 8, 128, MaskInfo(causal=True)),
+        ("packed segments S=4096", 1, S, 32, 8, 128, MaskInfo(causal=True, segment_ids=segs)),
+        ("prefix-LM 2000 S=4096", 1, S, 32, 8, 128, prefix_mask(1, 2000)),
+        ("ragged causal S=37", 1, 37, 32, 8, 128, MaskInfo(causal=True)),
+        ("causal S=2048 D=64", 1, 2048, 32, 8, 64, MaskInfo(causal=True)),
+        (f"prefix-LM 2000 S=4096 dropout {DROPOUT_RATE}", 1, S, 32, 8, 128, prefix_mask(1, 2000)),
+        (f"ragged causal S=37 dropout {DROPOUT_RATE}", 1, 37, 32, 8, 128, MaskInfo(causal=True)),
+        # the vision step's microbatch (prefix 272 of 304: ragged last tiles) and the omni step's
+        ("prefix-LM 272 S=304", 8, 304, 32, 8, 128, prefix_mask(8, 272)),
+        ("prefix-LM 1772 S=4096", 1, S, 32, 8, 128, prefix_mask(1, 1772)),
     ]
     shapes = []
-    for name, S, Hq, Hkv, D, mi in cases:
-        B = 1
+    for name, B, S, Hq, Hkv, D, mi in cases:
         q, k, v = _attn_inputs(g, B, S, Hq, Hkv, D)
         do = torch.randn(B, S, Hq, D, device="cuda", generator=g).to(torch.bfloat16)
         kw, dropout = dropout_case(name, fa, S, Hq // Hkv)
@@ -913,10 +943,7 @@ def two_path_logits(model, prompt, lens, cache_dtype, nxt=None):
 
 def compare_paths(model, prompt, lens, cache_dtype, tag: str) -> dict:
     """Kernel path against plain path on a 2-layer cut of the same weights."""
-    from llama_x_tpu_torch.models import llama
-
-    c = model.config.replace(num_layers=2)
-    cut = llama.Llama(c, model.tok_embeddings, list(model.layers[:2]), model.norm, model.output)
+    cut = cut_of(model)
     lp_k, ld_k, nxt = two_path_logits(cut, prompt, lens, cache_dtype)
     reset_counts()
     with plain_path():
@@ -1070,12 +1097,9 @@ def compare_train_paths(model, batch) -> dict:
     import torch
 
     from llama_x_tpu_torch import train_metamathqa as entry
-    from llama_x_tpu_torch.models import llama
 
-    c = model.config.replace(num_layers=2)
-    cut = llama.Llama(c, model.tok_embeddings, list(model.layers[:2]), model.norm, model.output)
     mb = {k: torch.as_tensor(v[0]).cuda() for k, v in batch.items()}
-    return compare_grad_paths(cut, lambda m: entry.loss_fn(m, mb)[0], "training")
+    return compare_grad_paths(cut_of(model), lambda m: entry.loss_fn(m, mb)[0], "training")
 
 
 def compare_grad_paths(cut, loss_of, tag: str) -> dict:
@@ -1291,9 +1315,7 @@ def compare_audio_paths(model, batch) -> dict:
 
     from llama_x_tpu_torch.models import audio as audio_mod
 
-    c = model.config.replace(num_layers=2, attn_dropout=DROPOUT_RATE, remat_policy="flash_q8s")
-    cut = audio_mod.LlamaAudio(c, model.tok_embeddings.data, list(model.layers[:2]), model.norm, model.output,
-                               model.audio_embed, model.audio_config)
+    cut = cut_of(model, attn_dropout=DROPOUT_RATE, remat_policy="flash_q8s")
     mb = {k: torch.as_tensor(v[0]).cuda() for k, v in batch.items()}
     seeds = [DROPOUT_SEED, 12345]
 
@@ -1309,6 +1331,405 @@ def compare_audio_paths(model, batch) -> dict:
         raise AssertionError("dropout changed nothing")
     res["loss_without_dropout"] = no_drop
     return res
+
+
+# ---------------------------------------------------------------------------
+# phases 10 to 14: the vision and omni steps on one 8B trunk, the evaluations that
+# decode from a modality prefix, the real-data host path and the new entry points
+# ---------------------------------------------------------------------------
+
+QLORA_FLAGS = [
+    "--geometry", "8b", "--quantize", "int8",
+    "--quantize_kwargs", '{"dynamic_int8_act": true, "dynamic_int8_bwd": true, "int8_head": true}',
+    "--adapter", "lora", "--adapter_kwargs", '{"rank": 8}', "--activation_checkpointing", "--prefix_lm",
+    "--optim", "AdamW", "--lr", "1e-4", "--n_steps", "4", "--seed", "0",
+]
+VISION_FLAGS = [
+    "--synthetic", "64", *QLORA_FLAGS, "--freeze_prefixes", "tok_embeddings", "output", "norm", "patch_embed",
+    "--remat_policy", "full", "--fused_ce_chunks", "4", "--image_size", "224", "--patch_size", "14",
+    "--seq_len_multiple", "32", "--batch_size", "8", "--gradient_accumulation", "1",
+]
+OMNI_FLAGS = [  # tools/bench_omni.py's geometry: 30 s + one 224 image + 2324 text = 4096 positions
+    "--synthetic", "8", *QLORA_FLAGS, "--freeze_prefixes", "tok_embeddings", "output", "norm", "audio_embed",
+    "patch_embed", "--remat_policy", "flash_proj", "--fused_ce_chunks", "4", "--audio_duration", "30",
+    "--image_size", "224", "--patch_size", "14", "--seq_len_multiple", "2324", "--max_text_len", "2324",
+    "--batch_size", "1", "--gradient_accumulation", "1",
+]
+
+
+def build_trunk():
+    """The 8B QLoRA trunk with both stems (a ``LlamaOmni``), built once from train_omni's
+    flags; the vision step and the evaluations put their own model class around the same
+    tensors."""
+    import torch
+
+    from llama_x_tpu_torch import train_omni as entry
+    from llama_x_tpu_torch.train import cli
+
+    log("[8B trunk] Llama-3.1-8B width, 32 layers, int8 base + LoRA r 8, int8 act / dgrad / head, the audio stem "
+        "and the patch-embed stem (frozen), max_seq_len 4096")
+    args = entry.parse_args(OMNI_FLAGS)
+    audio_config, vision_config, max_seq_len = entry.configs(args)
+    t0 = time.perf_counter()
+    model = cli.build_model_params(args, max_seq_len=max_seq_len, audio_config=audio_config,
+                                   vision_config=vision_config)
+    torch.cuda.synchronize()
+    log(f"    weights built on the card from seed 0 in {time.perf_counter() - t0:.1f} s; max_seq_len {max_seq_len}")
+    return model
+
+
+def step_phase(tag: str, model, args, loss_fn, batch, positions: int, policy: str) -> dict:
+    """4 optimizer steps on one repeated step batch with the launch counts held to
+    ``expected_launches`` every step, the loss falling, the int8 base and the frozen stems
+    unchanged and the adapters moving; then one profiled step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from llama_x_tpu_torch.train import cli
+    from llama_x_tpu_torch.train.trainer import TrainState, make_train_step
+
+    optimizer, _ = cli.setup_optimizer(args, model)
+    state = TrainState(model, optimizer)
+    train_step = make_train_step(loss_fn)
+    L, C = model.config.num_layers, model.config.fused_ce_chunks
+    sums = base_checksums(model)
+    stems = [p.detach().clone() for n, p in model.named_parameters() if n.split(".")[0].endswith("_embed")]
+    first = model.layers[0].feed_forward.w1
+    lora_b0 = first.lora_b.detach().clone()
+    torch.cuda.reset_peak_memory_stats()
+    steps = timed_steps(train_step, state, batch, args.n_steps, positions, expected_launches(policy, L, C))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"    {tag}: launches per step {steps[-1]['launches']}; peak memory {peak:.2f} GB")
+    if not steps[-1]["loss"] < steps[0]["loss"]:
+        raise AssertionError(f"the loss did not fall: {[r['loss'] for r in steps]}")
+    now = [p for n, p in model.named_parameters() if n.split(".")[0].endswith("_embed")]
+    if base_checksums(model) != sums or not all(torch.equal(a, b) for a, b in zip(stems, now)):
+        raise AssertionError("the frozen int8 base or a frozen stem changed during training")
+    if torch.equal(first.lora_b, lora_b0):
+        raise AssertionError("the adapter tensors did not move")
+    launches = {k: sum(r["launches"][k] for r in steps) for k in steps[0]["launches"]}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof_rec = summarize_profile(prof, wall_ms, 1, f"{tag} ({policy})", "step")
+    del prof, state, optimizer
+    return dict(steps=steps, launches=launches, peak_mem_gb=peak, profile=prof_rec)
+
+
+def phase_vision(trunk) -> dict:
+    """The vision step, put together from ``train_vision``'s own functions: 8 canvases of
+    the synthetic shapes task (224, patch 14: 256 patches + 16 newlines) before 32 caption
+    bytes, prefix-LM, remat ``full``, fused CE in 4 chunks."""
+    from llama_x_tpu_torch import train_vision as entry
+    from llama_x_tpu_torch.data.tokenizers import get_tokenizer
+    from llama_x_tpu_torch.models.vision import LlamaVision, VisionConfig
+    from llama_x_tpu_torch.train import cli
+
+    log("[vision main path] the 8B trunk with the patch-embed stem, 8 x (272 image + 32 caption tokens), "
+        "prefix-LM 272, remat full, fused CE x4, microbatch 8, AdamW 1e-4")
+    args = entry.parse_args(VISION_FLAGS)
+    model = LlamaVision.from_llama(trunk, trunk.patch_embed, VisionConfig(args.image_size, args.patch_size))
+    model.config = model.config.replace(remat_policy=args.remat_policy, fused_ce_chunks=args.fused_ce_chunks)
+    data_iter = entry.make_data(args, args.batch_size, get_tokenizer("byte"))
+    batch = cli.assemble_step_batch([next(data_iter)], pad_values={"labels": -100})
+    n_image = model.vision_config.num_image_tokens()
+    B, L = batch["tokens"].shape[1:]
+    log(f"    step batch: images {tuple(batch['images'].shape)} -> {n_image} image tokens each, captions "
+        f"{tuple(batch['tokens'].shape)}, {B} x {n_image + L} positions")
+    if (B, n_image + L) != (8, 304):
+        raise AssertionError(f"the vision step is 8 x 304 positions, got {B} x {n_image + L}")
+    res = step_phase("vision", model, args, entry.make_loss_fn(args.prefix_lm), batch, B * (n_image + L),
+                     args.remat_policy)
+    res["two_path"] = compare_prefix_step_paths(model, batch, "vision (prefix-LM 272)",
+                                                lambda m, mb: entry.make_loss_fn(True)(m, mb)[0])
+    res["flags"] = VISION_FLAGS
+    return res
+
+
+def phase_omni(trunk) -> dict:
+    """The omni step (BASELINE config 5 at tools/bench_omni.py's geometry), put together
+    from ``train_omni``'s own functions: 30 s of audio (1500 tokens), one 224 canvas (272)
+    and 2324 text tokens, prefix-LM over 1772, remat ``flash_proj``, fused CE in 4 chunks
+    of 581 rows, B 1."""
+    from llama_x_tpu_torch import train_omni as entry
+    from llama_x_tpu_torch.train import cli
+
+    log("[omni main path] the 8B trunk with both stems, 1500 audio + 272 image + 2324 text = 4096 positions, "
+        "prefix-LM 1772, remat flash_proj, fused CE x4 (581 rows a chunk), B 1, AdamW 1e-4")
+    args = entry.parse_args(OMNI_FLAGS)
+    data_iter, _ = entry.make_data(args, trunk.audio_config, 1, trunk.config.vocab_size)
+    batch = cli.assemble_step_batch([next(data_iter)], pad_values={"labels": -100})
+    n_audio = trunk.audio_config.num_audio_tokens(batch["audio"].shape[-1])
+    n_image = trunk.vision_config.num_image_tokens()
+    positions = n_audio + n_image + batch["tokens"].shape[-1]
+    log(f"    step batch: audio {tuple(batch['audio'].shape)} -> {n_audio}, image {tuple(batch['images'].shape)} -> "
+        f"{n_image}, text {tuple(batch['tokens'].shape)}: {positions} positions")
+    if (n_audio, n_image, positions) != (1500, 272, 4096):
+        raise AssertionError(f"the omni step is 1500 + 272 + 2324 positions, got {n_audio} + {n_image} + "
+                             f"{positions - n_audio - n_image}")
+    res = step_phase("omni", trunk, args, entry.make_loss_fn(args.prefix_lm), batch, positions, args.remat_policy)
+    res["two_path"] = compare_prefix_step_paths(trunk, batch, "omni (prefix-LM 1772)",
+                                                lambda m, mb: entry.make_loss_fn(True)(m, mb)[0])
+    res["flags"] = OMNI_FLAGS
+    return res
+
+
+def cut_of(model, layers: int = 2, **config):
+    """The first ``layers`` layers of ``model`` under its own class (config fields
+    replaced by ``config``), every tensor shared: the embeddings, head, norm and stems."""
+    from llama_x_tpu_torch.models.audio import LlamaAudio
+    from llama_x_tpu_torch.models.llama import Llama
+    from llama_x_tpu_torch.models.omni import LlamaOmni
+    from llama_x_tpu_torch.models.vision import LlamaVision
+
+    c = model.config.replace(num_layers=layers, **config)
+    parts = (c, model.tok_embeddings.data, list(model.layers[:layers]), model.norm, model.output)
+    if isinstance(model, LlamaOmni):
+        return LlamaOmni(*parts, model.audio_embed, model.patch_embed, model.audio_config, model.vision_config)
+    if isinstance(model, LlamaVision):
+        return LlamaVision(*parts, model.patch_embed, model.vision_config)
+    if isinstance(model, LlamaAudio):
+        return LlamaAudio(*parts, model.audio_embed, model.audio_config)
+    return Llama(*parts)
+
+
+def compare_prefix_step_paths(model, batch, tag: str, loss_of) -> dict:
+    """Loss and adapter gradients of the step's microbatch on a 2-layer cut of the
+    trained weights, through the kernels and through their plain versions."""
+    import torch
+
+    mb = {k: torch.as_tensor(v[0]).cuda() for k, v in batch.items()}
+    return compare_grad_paths(cut_of(model), lambda m: loss_of(m, mb), tag)
+
+
+def prefix_first_logits(model, prefix, bos, nxt=None):
+    """``generate``'s first two steps written out: the prefill of [prefix, bos] under
+    prefix-LM through the cache, the logits of the first generated token [B, 1, V], then
+    one decode step (K3) on ``nxt`` (default: the greedy first token) and its logits."""
+    import torch
+
+    from llama_x_tpu_torch.models import llama
+    from llama_x_tpu_torch.ops.attention import MaskInfo
+
+    B, n_prefix = prefix.shape[:2]
+    with torch.inference_mode():
+        cache = llama.init_kv_cache(model.config, B, dtype=torch.bfloat16, device=model.device)
+        x = torch.cat([prefix.to(model.tok_embeddings.dtype), torch.nn.functional.embedding(bos, model.tok_embeddings)],
+                      dim=1)
+        P = x.shape[1]
+        mi = MaskInfo(causal=True, prefix_len=torch.full((B,), n_prefix, dtype=torch.int32, device=model.device))
+        h, cache = llama.trunk(model, x, mi, cache, input_pos=torch.arange(P, device=model.device), prefill=True)
+        first = llama.head(model, h[:, -1:])
+        if nxt is None:
+            nxt = first[:, 0].argmax(-1)
+        pos = torch.tensor(P, device=model.device)
+        x1 = torch.nn.functional.embedding(nxt[:, None], model.tok_embeddings)
+        mi1 = MaskInfo(causal=True, q_positions=pos[None, None], kv_len=pos[None] + 1)
+        h1, _ = llama.trunk(model, x1, mi1, cache, input_pos=pos[None])
+        return first, llama.head(model, h1), nxt
+
+
+def compare_prefix_decode_paths(model, prefix, bos, tag: str) -> dict:
+    """The first generated token's logits and the first decode step's on a 2-layer cut,
+    kernel path (K1, K2 with the prefix, K3) against the plain path; two bf16 ulps of the
+    largest logit, as the serving comparison."""
+    cut = cut_of(model)
+    reset_counts()
+    first_k, dec_k, nxt = prefix_first_logits(cut, prefix, bos)
+    counts = read_counts()
+    if not all(counts[k] for k in ("int8_mm_dequant_nt", "flash_attention", "decode_attention")):
+        raise AssertionError(f"the kernel path skipped a kernel: {counts}")
+    reset_counts()
+    with plain_path():
+        first_p, dec_p, _ = prefix_first_logits(cut, prefix, bos, nxt)
+    if any(read_counts().values()):
+        raise AssertionError(f"the plain path launched kernels: {read_counts()}")
+    res = {}
+    for name, a, b in (("first token", first_k, first_p), ("first decode step", dec_k, dec_p)):
+        ref_max = float(b.float().abs().max())
+        tol = 2**-6 * ref_max
+        err = max_err(a, b)
+        check(f"{tag} 2-layer {name} logits, kernels vs plain (max|ref| {ref_max:.2f})", err, tol)
+        res[f"{name.replace(' ', '_')}_max_abs_err"], res[f"{name.replace(' ', '_')}_tol"] = err, tol
+    return res
+
+
+EVAL_NEW_TOKENS = 16
+
+
+def timed_eval(tag: str, model, prefix, decode_fn) -> dict:
+    """One evaluation batch through its entry point's function: a warm-up, the prefill
+    timed apart through ``prefill_start``, then the whole call with the counts reset just
+    before it and read just after; K1, K2 and K3 must launch."""
+    import torch
+
+    from llama_x_tpu_torch.models.generate import prefill_start
+
+    decode_fn(2)  # warm-up
+    B = prefix.shape[0]
+    bos = torch.full((B, 1), 256, dtype=torch.long, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill_start(model, bos, prefix_embeds=prefix, prefix_lm=True, max_new_tokens=EVAL_NEW_TOKENS)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    hyps = decode_fn(EVAL_NEW_TOKENS)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = read_counts()
+    missing = [k for k in ("int8_mm_dequant_nt", "flash_attention", "decode_attention") if counts[k] == 0]
+    if missing or len(hyps) != B:
+        raise AssertionError(f"the {tag} evaluation never launched {missing} or returned {len(hyps)} texts: {counts}")
+    res = dict(B=B, prefix=int(prefix.shape[1]), new_tokens=EVAL_NEW_TOKENS, launches=counts, total_s=total_s,
+               prefill_ms=prefill_s * 1e3, decode_tok_s=B * (EVAL_NEW_TOKENS - 1) / (total_s - prefill_s),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"    {tag}: B {B}, prefix {prefix.shape[1]} + bos, +{EVAL_NEW_TOKENS}: total {total_s:.3f} s, prefill "
+        f"{res['prefill_ms']:.1f} ms, decode {res['decode_tok_s']:.1f} tok/s, peak {res['peak_mem_gb']:.2f} GB; "
+        f"launches {counts}")
+    return res
+
+
+def phase_evals(trunk) -> dict:
+    """The two evaluations at 8B width on the trained trunk, through their own functions:
+    ``eval_vision.caption_batch`` on 8 canvases of the shapes task's eval split and
+    ``eval_librispeech.transcribe_batch`` on 4 synthetic 20 s utterances (1000 audio
+    tokens), prefix-LM, 16 new tokens, then each on a 2-layer cut against the plain path.
+    The scores of random weights mean nothing; the path is the point."""
+    import numpy as np
+    import torch
+
+    from llama_x_tpu_torch import eval_librispeech as eval_ls
+    from llama_x_tpu_torch import eval_vision as eval_vis
+    from llama_x_tpu_torch.data.tokenizers import ByteTokenizer
+    from llama_x_tpu_torch.data.vision import make_shapes_sample
+    from llama_x_tpu_torch.models import audio as audio_mod
+    from llama_x_tpu_torch.models import vision as vision_mod
+    from llama_x_tpu_torch.models.audio import LlamaAudio
+    from llama_x_tpu_torch.models.vision import LlamaVision
+    from llama_x_tpu_torch.train.wer import wer
+
+    tok = ByteTokenizer()
+    runs = {}
+    log("[evaluations] the trained 8B trunk: eval_vision's captions (8 eval-split canvases, 272 image tokens) and "
+        "eval_librispeech's transcripts (4 x 20 s -> 1000 audio tokens), prefix-LM, 16 new tokens, bf16 cache")
+    model = LlamaVision.from_llama(trunk, trunk.patch_embed, trunk.vision_config)
+    rng = np.random.default_rng(0)
+    samples = [make_shapes_sample(rng, 224, split="eval") for _ in range(8)]
+    images = torch.from_numpy(np.stack([im for im, _ in samples]))
+    with torch.inference_mode():
+        prefix = vision_mod.patch_embed(model.patch_embed, model.vision_config, images.cuda())
+    res = timed_eval("captions", model, prefix, lambda n: eval_vis.caption_batch(model, images, tok, n, True))
+    hyps = eval_vis.caption_batch(model, images, tok, EVAL_NEW_TOKENS, True)
+    res["score"] = eval_vis._score([c for _, c in samples], hyps)
+    log(f"    captions score {json.dumps(res['score'])}; first caption {hyps[0]!r}")
+    res["two_path"] = compare_prefix_decode_paths(model, prefix, torch.full((8, 1), 256, device="cuda"), "captions")
+    runs["eval_vision"] = res
+
+    model = LlamaAudio.from_llama(trunk, trunk.audio_embed, trunk.audio_config)
+    audio = torch.from_numpy((np.random.default_rng(1).standard_normal((4, 20 * 16_000)) * 0.1).astype(np.float32))
+    with torch.inference_mode():
+        prefix = audio_mod.audio_embed(model.audio_embed, model.audio_config, audio.cuda())
+    if prefix.shape[1] != 1000:
+        raise AssertionError(f"20 s of audio is 1000 audio tokens, got {prefix.shape[1]}")
+    res = timed_eval("transcripts", model, prefix, lambda n: eval_ls.transcribe_batch(model, audio, tok, n, True))
+    hyps = eval_ls.transcribe_batch(model, audio, tok, EVAL_NEW_TOKENS, True)
+    res["score"] = {"wer": wer(["synthetic reference text"] * 4, hyps), "n_utts": 4}
+    log(f"    transcripts score {json.dumps(res['score'])}")
+    res["two_path"] = compare_prefix_decode_paths(model, prefix, torch.full((4, 1), 256, device="cuda"),
+                                                  "transcripts")
+    runs["eval_librispeech"] = res
+    return runs
+
+
+def write_librispeech_dir(root: Path, n: int = 8) -> Path:
+    """A LibriSpeech-layout directory: one chapter of 16 kHz 16-bit WAV utterances of
+    1 to 4 s (tones in noise) with their transcript file."""
+    import wave
+
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    d = root / "103" / "1240"
+    d.mkdir(parents=True)
+    lines = []
+    for i in range(n):
+        t = np.arange(int((1.0 + 3.0 * rng.random()) * 16_000)) / 16_000
+        x = 0.2 * np.sin(2 * np.pi * (150 + 40 * i) * t) + 0.02 * rng.standard_normal(t.shape)
+        with wave.open(str(d / f"103-1240-{i:04d}.wav"), "wb") as w:
+            w.setnchannels(1), w.setsampwidth(2), w.setframerate(16_000)
+            w.writeframes((x * 32767).astype(np.int16).tobytes())
+        lines.append(f"103-1240-{i:04d} CHAPTER {i} OF THE SYNTHETIC BOOK READ ALOUD")
+    (d / "103-1240.trans.txt").write_text("\n".join(lines) + "\n")
+    return root
+
+
+def phase_real_data() -> dict:
+    """``train_librispeech.main`` over a LibriSpeech-layout directory written here:
+    ``LibriSpeechPacked`` (WAV decoding, the byte tokenizer, packing) feeds two QLoRA
+    steps on a 2-layer cut of the 8B geometry; every training kernel must launch."""
+    import tempfile
+
+    from llama_x_tpu_torch import train_librispeech as entry
+
+    log("[real data, host path] train_librispeech --dataset_dir (8 WAV utterances of 1-4 s), 8B width cut to "
+        "2 layers, QLoRA, prefix-LM, 8 s windows, 2 steps")
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        root = write_librispeech_dir(Path(tmp) / "LibriSpeech")
+        flags = ["--dataset_dir", str(root), *QLORA_FLAGS, "--synthetic_config", '{"num_layers": 2}',
+                 "--freeze_prefixes", "tok_embeddings", "output", "norm", "audio_embed", "--remat_policy", "flash_q8s",
+                 "--fused_ce_chunks", "2", "--audio_duration", "8", "--seq_len_multiple", "128", "--n_steps", "2",
+                 "--log_interval", "1", "--ckpt_interval", "0"]
+        reset_counts()
+        t0 = time.perf_counter()
+        entry.main(flags)
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        (run,) = (Path(tmp) / "runs" / "librispeech").iterdir()
+        recs = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    missing = [k for k in TRAIN_KERNELS if counts[k] == 0]
+    if missing or [r["step"] for r in recs] != [0, 1] or not all(math.isfinite(r["loss"]) for r in recs):
+        raise AssertionError(f"the real-data run: missing {missing}, records {recs}")
+    log(f"    2 steps in {seconds:.1f} s (model build, checkpoint included): losses {[r['loss'] for r in recs]}; "
+        f"launches {counts}")
+    return dict(flags=flags, seconds=seconds, launches=counts, records=recs)
+
+
+SMALL_CARD_MODEL = ["--synthetic_config", '{"num_layers": 2, "head_dim": 64, "num_heads": 4, "num_kv_heads": 2}']
+
+
+def phase_entry_points() -> dict:
+    """The four new entry points, each called as a user calls it, on the card at the size
+    of their CPU smokes (a small QLoRA model, heads of 64 for the attention kernels)."""
+    import tempfile
+
+    from llama_x_tpu_torch import eval_librispeech, eval_vision, train_omni, train_vision
+
+    log("[entry points] train_vision, train_omni (small QLoRA models, 2 steps), eval_vision, eval_librispeech "
+        "(--synthetic) on the card")
+    small = ["--quantize", "int8", "--quantize_kwargs",
+             '{"dynamic_int8_act": true, "dynamic_int8_bwd": true, "int8_head": true}', "--adapter", "lora",
+             "--activation_checkpointing", "--fused_ce_chunks", "2", "--prefix_lm", "--n_steps", "2",
+             "--log_interval", "1", "--ckpt_interval", "0", *SMALL_CARD_MODEL]
+    reset_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        train_vision.main(["--synthetic", "16", "--image_size", "32", "--patch_size", "8", "--batch_size", "4", *small])
+        train_omni.main(["--synthetic", "8", "--audio_duration", "1", "--image_size", "32", "--patch_size", "8",
+                         "--seq_len_multiple", "64", "--batch_size", "2", *small])
+        vis = eval_vision.main(["--synthetic", "4", "--image_size", "32", "--patch_size", "8", "--max_new_tokens", "8",
+                                "--prefix_lm"])
+        ls = eval_librispeech.main(["--synthetic", "2", "--max_new_tokens", "8", "--prefix_lm"])
+    counts = read_counts()
+    missing = [k for k in [*TRAIN_KERNELS, "decode_attention"] if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"the entry points never launched {missing}: {counts}")
+    log(f"    {time.perf_counter() - t0:.1f} s; launches {counts}")
+    return dict(launches=counts, eval_vision=vis, eval_librispeech=ls)
 
 
 # ---------------------------------------------------------------------------
@@ -1367,6 +1788,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     runs["probe"] = phase_probe()
     runs["audio"] = phase_audio()
+    gc.collect()
+    torch.cuda.empty_cache()
+    trunk = build_trunk()
+    runs["vision"] = phase_vision(trunk)
+    runs["omni"] = phase_omni(trunk)
+    runs.update(phase_evals(trunk))
+    del trunk
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["real_data"] = phase_real_data()
+    runs["entry_points"] = phase_entry_points()
     rec = record(kern, runs)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     log(smi)

@@ -19,7 +19,6 @@ import dataclasses
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from llama_x_tpu_torch.models import fusion, llama
 from llama_x_tpu_torch.ops.audio_frontend import log_mel_cmn, mel_spectrogram
@@ -134,12 +133,8 @@ def forward(model: LlamaAudio, audio: torch.Tensor | None, tokens: torch.Tensor,
     ``activation_checkpointing`` the stem is recomputed in the backward."""
     prefix = []
     if audio is not None:
-        def embed(a):
-            return audio_embed(model.audio_embed, model.audio_config, a, dtype=model.tok_embeddings.dtype)
-
-        if model.config.activation_checkpointing and torch.is_grad_enabled():
-            prefix.append(checkpoint(embed, audio, use_reentrant=False, preserve_rng_state=False))
-        else:
-            prefix.append(embed(audio))
+        dtype = model.tok_embeddings.dtype
+        prefix.append(fusion.embed_prefix(lambda a: audio_embed(model.audio_embed, model.audio_config, a, dtype=dtype),
+                                          audio, model.config))
     return fusion.fuse_forward(model, prefix, tokens, labels=labels, prefix_lm=prefix_lm, kv_cache=kv_cache,
                                input_pos=input_pos, kv_len=kv_len, dropout_seeds=dropout_seeds)

@@ -10,8 +10,10 @@ function, so both sides can be held against each other on the same weights
 ``requires_grad`` that the JAX package's ``trainable_mask`` would give them.
 
 A tree with an ``audio_embed`` stem (conv kernels [W, C_in, C_out], permuted to
-PyTorch's [C_out, C_in, W]) gives a ``LlamaAudio``; ``freeze_prefixes=("audio_embed",
-...)`` freezes it as the JAX mask does.
+PyTorch's [C_out, C_in, W]) gives a ``LlamaAudio``, one with a ``patch_embed`` stem
+(``proj.kernel`` [fan_in, D], transposed into the ``nn.Linear``, ``proj.bias``,
+``newline``) a ``LlamaVision``, and one with both a ``LlamaOmni``;
+``freeze_prefixes=("audio_embed", ...)`` freezes a stem as the JAX mask does.
 
 ``named_tensors(model)`` is the way back: the model's tensors (or their gradients)
 as numpy arrays under the JAX tree's path names, layers stacked again.
@@ -60,8 +62,16 @@ def _stem(p: dict, device):
     return stem_from_tensors(*conv(p["conv1"]), *conv(p["conv2"]))
 
 
+def _patch_embed(p: dict, device):
+    from llama_x_tpu_torch.models.vision import PatchEmbed
+
+    newline = to_tensor(p["newline"], device) if "newline" in p else None
+    return PatchEmbed(to_tensor(p["proj"]["kernel"], device).T.contiguous(), to_tensor(p["proj"]["bias"], device),
+                      newline)
+
+
 def params_from_jax(tree: dict, config: LlamaConfig, device=None,
-                    freeze_prefixes: tuple[str, ...] | None = None, audio_config=None) -> Llama:
+                    freeze_prefixes: tuple[str, ...] | None = None, audio_config=None, vision_config=None) -> Llama:
     dev = resolve_device(device)
     lp = tree["layers"]
 
@@ -79,10 +89,21 @@ def params_from_jax(tree: dict, config: LlamaConfig, device=None,
         ))
     output = None if config.tied_embeddings else _linear(tree["output"], None, dev)
     parts = (config, to_tensor(tree["tok_embeddings"]["weight"], dev), layers, norm(tree["norm"]["scale"]), output)
-    if "audio_embed" in tree:
+    if "audio_embed" in tree and "patch_embed" in tree:
+        from llama_x_tpu_torch.models.audio import AudioConfig
+        from llama_x_tpu_torch.models.omni import LlamaOmni
+        from llama_x_tpu_torch.models.vision import VisionConfig
+
+        model = LlamaOmni(*parts, _stem(tree["audio_embed"], dev), _patch_embed(tree["patch_embed"], dev),
+                          audio_config or AudioConfig(), vision_config or VisionConfig())
+    elif "audio_embed" in tree:
         from llama_x_tpu_torch.models.audio import AudioConfig, LlamaAudio
 
         model = LlamaAudio(*parts, _stem(tree["audio_embed"], dev), audio_config or AudioConfig())
+    elif "patch_embed" in tree:
+        from llama_x_tpu_torch.models.vision import LlamaVision, VisionConfig
+
+        model = LlamaVision(*parts, _patch_embed(tree["patch_embed"], dev), vision_config or VisionConfig())
     else:
         model = Llama(*parts)
     if freeze_prefixes is not None:

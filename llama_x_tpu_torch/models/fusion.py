@@ -10,9 +10,18 @@ tokens and causal over text (``MaskInfo.prefix_len``).
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from llama_x_tpu_torch.models import llama
 from llama_x_tpu_torch.ops.attention import MaskInfo
+
+
+def embed_prefix(fn, x: torch.Tensor, config: llama.LlamaConfig) -> torch.Tensor:
+    """A stem's ``fn(x)``, recomputed in the backward under ``activation_checkpointing``
+    (the JAX package wraps each stem in ``jax.checkpoint`` there)."""
+    if config.activation_checkpointing and torch.is_grad_enabled():
+        return checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False)
+    return fn(x)
 
 
 def fuse_forward(model: llama.Llama, prefix_embeds: list[torch.Tensor], tokens: torch.Tensor, *,

@@ -69,3 +69,49 @@ def restore_checkpoint(path: str | Path, state: TrainState) -> TrainState:
     state.optimizer.load_state_dict(record["optimizer"])
     state.step = int(record["step"])
     return state
+
+
+def restore_model(path: str | Path, device=None):
+    """The model of a training run, for evaluation: ``path`` is a run directory (its
+    latest step) or a step directory inside one. The architecture comes from the run's
+    model_config.json (decoder, and the audio and / or vision stem), the structure of
+    each projection (int8 base, LoRA or DoRA and its rank) from the saved tensors, and
+    every tensor from the step's ``state.pt``. Returns the model on ``device``."""
+    from llama_x_tpu_torch.adapters.lora import apply_linear_adapter
+    from llama_x_tpu_torch.adapters.quantize import quantize_linear
+    from llama_x_tpu_torch.models import llama
+    from llama_x_tpu_torch.models.audio import LlamaAudio, init_audio_stem
+    from llama_x_tpu_torch.models.omni import LlamaOmni
+    from llama_x_tpu_torch.models.vision import LlamaVision, init_patch_embed
+    from llama_x_tpu_torch.train.cli import load_model_configs
+    from llama_x_tpu_torch.utils.device import resolve_device
+
+    path = Path(path)
+    step_dir = latest_checkpoint(path) or path
+    saved = load_model_configs(path) or load_model_configs(step_dir.parent)
+    if saved is None:
+        raise FileNotFoundError(f"no model_config.json in {path} or beside {step_dir}")
+    config, audio_config, vision_config = saved
+    tensors = torch.load(step_dir / "state.pt", map_location="cpu", weights_only=True)["model"]
+    dev = resolve_device(device)
+    dtype = tensors["tok_embeddings"].dtype
+    model = llama.init(config, dtype=dtype, device=dev)  # the shapes; every value is overwritten below
+    if any(k.endswith(".int_data") for k in tensors):
+        quantize_linear(model.layers, "int8")
+    lora_a = next((v for k, v in tensors.items() if k.endswith(".lora_a")), None)
+    if lora_a is not None:
+        kind = "dora" if any(k.endswith(".m") for k in tensors) else "lora"
+        apply_linear_adapter(model.layers, kind, torch.Generator(device=dev), rank=lora_a.shape[1],
+                             dtype=lora_a.dtype)
+    gen = torch.Generator(device=dev)
+    audio_stem = None if audio_config is None else init_audio_stem(config, audio_config, gen, dtype)
+    patch_stem = None if vision_config is None else init_patch_embed(config, vision_config, gen, dtype)
+    if audio_stem is not None and patch_stem is not None:
+        model = LlamaOmni.from_llama(model, audio_stem, patch_stem, audio_config, vision_config)
+    elif audio_stem is not None:
+        model = LlamaAudio.from_llama(model, audio_stem, audio_config)
+    elif patch_stem is not None:
+        model = LlamaVision.from_llama(model, patch_stem, vision_config)
+    model.load_state_dict(tensors)
+    print(f"restored the step-{step_dir.name.rpartition('_')[2]} model from {step_dir}")
+    return model

@@ -1,13 +1,14 @@
 """Shared trainer plumbing for the command-line entry points (port of
-llama_x_tpu/train/cli.py, the part the text and audio trainers read): the common
-flags, model construction with the quantize -> adapt -> freeze composition (with an
-audio stem for the audio trainer), optimizer set-up and step-batch assembly.
+llama_x_tpu/train/cli.py): the common flags, model construction with the quantize ->
+adapt -> freeze composition (with an audio stem, a patch-embed stem or both for the
+multimodal trainers), the model config beside the checkpoints, optimizer set-up and
+step-batch assembly.
 
 Flags of the JAX trainer that belong to later slices of the port are accepted by the
 parser and refused with the slice's name, never ignored: ``--mesh``,
 ``--pp_microbatches`` and ``--attn_impl ring|ulysses`` (sharding and context
-parallelism), ``--model`` / ``--tokenizer`` / ``--resume`` from a HF checkpoint (HF
-import), the ``attn_q8`` / ``attn_q8s`` remat policies (slice 2c).
+parallelism), ``--model`` (HF import), the ``attn_q8`` / ``attn_q8s`` remat policies
+(slice 2c), and real MetaMathQA text (its files are not in the repository).
 """
 
 from __future__ import annotations
@@ -32,7 +33,9 @@ REMAT_POLICIES = list(llama.REMAT_POLICIES)
 
 def add_common_args(parser: argparse.ArgumentParser):
     parser.add_argument("--model", help="HF checkpoint (not ported yet: slice 3)")
-    parser.add_argument("--tokenizer", default="byte")
+    parser.add_argument("--tokenizer", default="byte", choices=["byte", "llama2", "llama3"],
+                        help="the real-data tokenizer (--synthetic always uses byte)")
+    parser.add_argument("--tokenizer_path", help="local tokenizer.model of llama2 / llama3 (offline)")
     parser.add_argument("--adapter", choices=["lora", "dora"])
     parser.add_argument("--adapter_kwargs", type=json.loads, default=dict())
     parser.add_argument("--quantize", choices=["int8"])
@@ -71,15 +74,17 @@ def add_common_args(parser: argparse.ArgumentParser):
     parser.add_argument("--synthetic_task", default="random", choices=["random", "count"],
                         help="random: unlearnable smoke tokens; count: learnable counting sequences")
     parser.add_argument("--synthetic_config", type=json.loads, default=dict(),
-                        help='geometry overrides for --synthetic, e.g. \'{"num_layers":8,"embed_dim":512}\'')
+                        help='overrides of the small model\'s geometry, e.g. \'{"num_layers":8,"embed_dim":512}\', '
+                             "or of --geometry's (a depth cut: '{\"num_layers\": 2}')")
     parser.add_argument("--geometry", choices=["tiny", "1b", "8b"],
                         help="random weights at a published width, made on the device (as generate_cli has it); "
-                             "default: the small --synthetic model")
+                             "default: the small model")
 
 
-def check_supported(args, real_data: str = "MetaMathQA data (slice 2b)") -> None:
-    """Refuse, by name, what later slices of the port bring. ``real_data``: the trainer's
-    real dataset and the slice that brings it; it needs files the repository does not hold."""
+def check_supported(args, real_data: str | None = "MetaMathQA data (slice 2b)") -> None:
+    """Refuse, by name, what later slices of the port bring. ``real_data``: the
+    trainer's real dataset where the port cannot read it yet (it needs files the
+    repository does not hold), or None where ``--dataset_dir`` reads it."""
     later = []
     if args.mesh or args.pp_microbatches:
         later.append("--mesh / --pp_microbatches (sharded training: slice 5)")
@@ -87,15 +92,14 @@ def check_supported(args, real_data: str = "MetaMathQA data (slice 2b)") -> None
         later.append(f"--attn_impl {args.attn_impl} (context parallelism: slice 5)")
     if args.model:
         later.append("--model (HF import: slice 3)")
-    if args.tokenizer != "byte":
-        later.append(f"--tokenizer {args.tokenizer} (needs its model file: slice 2b)")
     if args.remat_policy in ("attn_q8", "attn_q8s"):
         later.append(f"--remat_policy {args.remat_policy} (the int8-residual attention: slice 2c)")
-    if not args.synthetic:
-        later.append(f"real {real_data}: needs dataset and tokenizer files the repository does not hold; "
-                     "pass --synthetic N")
+    if not args.synthetic and real_data is not None:
+        later.append(f"real {real_data}: needs dataset files the repository does not hold; pass --synthetic N")
     if later:
         raise NotImplementedError("not ported yet: " + "; ".join(later))
+    if real_data is None and not (args.synthetic or args.dataset_dir):
+        raise ValueError("--dataset_dir required (or --synthetic N)")
 
 
 def make_save_dir(task: str, run_name: str | None) -> Path:
@@ -105,23 +109,43 @@ def make_save_dir(task: str, run_name: str | None) -> Path:
     return d
 
 
-def save_model_config(save_dir: Path, config, audio_config=None) -> None:
-    """The model hyperparameters beside the checkpoints, so that a later reader can
-    rebuild the architecture."""
+def save_model_config(save_dir: Path, config, audio_config=None, vision_config=None) -> None:
+    """The model hyperparameters beside the checkpoints, so that a later reader (the
+    evaluations' ``--resume``) can rebuild the architecture."""
     import dataclasses
 
     record = {"llama": dataclasses.asdict(config)}
     if audio_config is not None:
         record["audio"] = dataclasses.asdict(audio_config)
+    if vision_config is not None:
+        record["vision"] = dataclasses.asdict(vision_config)
     (Path(save_dir) / "model_config.json").write_text(json.dumps(record, indent=2))
 
 
-def build_model_params(args, max_seq_len: int = 2048, audio_config=None):
+def load_model_configs(run_dir: Path):
+    """(LlamaConfig, AudioConfig | None, VisionConfig | None) from a run directory's
+    model_config.json, or None where there is none."""
+    from llama_x_tpu_torch.models.audio import AudioConfig
+    from llama_x_tpu_torch.models.vision import VisionConfig
+
+    p = Path(run_dir) / "model_config.json"
+    if not p.exists():
+        return None
+    rec = json.loads(p.read_text())
+    return (llama.LlamaConfig(**rec["llama"]), AudioConfig(**rec["audio"]) if "audio" in rec else None,
+            VisionConfig(**rec["vision"]) if "vision" in rec else None)
+
+
+def build_model_params(args, max_seq_len: int = 2048, audio_config=None, vision_config=None,
+                       vocab_size: int | None = None):
     """Random init -> quantize -> adapt -> freeze, in the JAX trainer's order, and
     ``frozen_head`` read off the head's actual ``requires_grad``. With ``audio_config``
-    the model is a ``LlamaAudio``: a freshly drawn stem beside the decoder (never
-    quantized, never adapted; ``--freeze_prefixes audio_embed`` freezes it). Returns the
-    model; prints the trainable / frozen counts."""
+    the model is a ``LlamaAudio``, with ``vision_config`` a ``LlamaVision``, with both a
+    ``LlamaOmni``: freshly drawn stems beside the decoder, audio first (never quantized,
+    never adapted; ``--freeze_prefixes audio_embed patch_embed`` freezes them).
+    ``vocab_size``: the ids the data's tokenizer gives; the small model's vocabulary
+    grows to hold them, a ``--geometry`` that cannot raises. Returns the model; prints
+    the trainable / frozen counts."""
     from llama_x_tpu_torch.generate_cli import GEOMETRIES, build_model
 
     device = resolve_device(args.device)
@@ -131,12 +155,16 @@ def build_model_params(args, max_seq_len: int = 2048, audio_config=None):
     quantize = args.quantize == "int8"
     if args.geometry:
         # weights drawn directly as int8 at a published width (an 8B base never exists in float)
-        config = llama.LlamaConfig(**GEOMETRIES[args.geometry]).replace(**overrides)
+        config = llama.LlamaConfig(**GEOMETRIES[args.geometry]).replace(**{**(args.synthetic_config or {}), **overrides})
+        if vocab_size is not None and vocab_size > config.vocab_size:
+            raise ValueError(f"the tokenizer's {vocab_size} ids do not fit the {args.geometry} vocabulary of "
+                             f"{config.vocab_size}")
         model = build_model(config, quantize, args.seed, device)
     else:
         geo = dict(embed_dim=256, num_layers=4, head_dim=32, num_heads=8, num_kv_heads=4, intermediate_dim=512,
                    vocab_size=512)
         geo.update(args.synthetic_config or {})
+        geo["vocab_size"] = max(geo["vocab_size"], vocab_size or 0)
         config = llama.tiny_config(**geo).replace(**overrides)
         model = llama.init(config, seed=args.seed, dtype=dtype, device=device)
         if quantize:
@@ -151,12 +179,21 @@ def build_model_params(args, max_seq_len: int = 2048, audio_config=None):
     if args.adapter:
         gen = torch.Generator(device=device).manual_seed(args.seed + 1)
         apply_linear_adapter(model.layers, args.adapter, gen, dtype=dtype, **args.adapter_kwargs)
-    if audio_config is not None:
+    if audio_config is not None or vision_config is not None:
         from llama_x_tpu_torch.models.audio import LlamaAudio, init_audio_stem
+        from llama_x_tpu_torch.models.omni import LlamaOmni
+        from llama_x_tpu_torch.models.vision import LlamaVision, init_patch_embed
 
         gen = torch.Generator(device=device).manual_seed(args.seed + 2)
-        stem = init_audio_stem(model.config, audio_config, gen, torch.bfloat16 if args.geometry else dtype)
-        model = LlamaAudio.from_llama(model, stem, audio_config)
+        stem_dtype = torch.bfloat16 if args.geometry else dtype
+        audio_stem = None if audio_config is None else init_audio_stem(model.config, audio_config, gen, stem_dtype)
+        patch_stem = None if vision_config is None else init_patch_embed(model.config, vision_config, gen, stem_dtype)
+        if patch_stem is None:
+            model = LlamaAudio.from_llama(model, audio_stem, audio_config)
+        elif audio_stem is None:
+            model = LlamaVision.from_llama(model, patch_stem, vision_config)
+        else:
+            model = LlamaOmni.from_llama(model, audio_stem, patch_stem, audio_config, vision_config)
     n_train, n_frozen = set_trainable(model, tuple(args.freeze_prefixes))
     # frozen_head from the ACTUAL requires_grad, so that the fused-CE backward skips the
     # head's gradient exactly when the optimizer would never see it
@@ -191,3 +228,49 @@ def assemble_step_batch(micro_batches: list[dict], pad_values: dict | None = Non
         ]
         out[k] = np.stack(arrs)
     return out
+
+
+def run_training(args, model, data_iter, loss_fn, task: str, audio_config=None, vision_config=None,
+                 audio_secs_per_step: float = 0.0) -> None:
+    """The trainers' loop (the JAX trainers' ``main`` after their set-up): optimizer,
+    ``--resume``, the run directory with its model config, metrics every
+    ``--log_interval`` steps, checkpoints every ``--ckpt_interval`` steps and at the end.
+    ``data_iter`` yields microbatches; the label-token count is summed on the device
+    between log points, so no step reads back."""
+    from llama_x_tpu_torch.train.checkpoint import latest_checkpoint, restore_checkpoint, save_checkpoint
+    from llama_x_tpu_torch.train.metrics import RunLogger, Throughput, device_memory_stats
+    from llama_x_tpu_torch.train.trainer import TrainState, make_train_step
+
+    optimizer, schedule = setup_optimizer(args, model)
+    state = TrainState(model, optimizer)
+    train_step = make_train_step(loss_fn, skip_nonfinite=args.skip_nonfinite)
+    if args.resume:
+        path = latest_checkpoint(args.resume) or args.resume
+        restore_checkpoint(path, state)
+        print(f"resumed from {path} at step {state.step}")
+
+    save_dir = make_save_dir(task, args.run_name)
+    save_model_config(save_dir, model.config, audio_config, vision_config)
+    logger = RunLogger(save_dir, config=vars(args))
+    meter = Throughput()
+    tok_acc, audio_acc = 0, 0.0
+    while state.step < args.n_steps:
+        step = state.step
+        micro = [next(data_iter) for _ in range(args.gradient_accumulation)]
+        metrics = train_step(state, assemble_step_batch(micro, pad_values={"labels": -100}))
+        tok_acc = tok_acc + metrics["n_tokens"]
+        audio_acc += audio_secs_per_step
+        if step % args.log_interval == 0:
+            meter.update(int(tok_acc), audio_secs=audio_acc)
+            tok_acc, audio_acc = 0, 0.0
+            log = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                   "lr": float(schedule(step)), **device_memory_stats(model.device)}
+            if step > 0:
+                log.update(meter.rates())
+            logger.log(log, step)
+            print(f"step {step}: loss {log['loss']:.4f}")
+        if args.ckpt_interval > 0 and state.step % args.ckpt_interval == 0:
+            save_checkpoint(save_dir, state, state.step)
+
+    save_checkpoint(save_dir, state, state.step)
+    logger.finish()

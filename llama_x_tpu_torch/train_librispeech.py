@@ -5,6 +5,10 @@ prefix-LM attention) -> the eager train step.
     # offline smoke on the CPU (synthetic noise 'utterances', small random model):
     python -m llama_x_tpu_torch.train_librispeech --synthetic 64 --n_steps 10 --audio_duration 4 --device cpu
 
+    # a LibriSpeech-layout directory (**/*.trans.txt beside .flac or .wav files):
+    python -m llama_x_tpu_torch.train_librispeech --dataset_dir LibriSpeech/train-clean-100 \\
+        --tokenizer llama2 --tokenizer_path tokenizer.model --prefix_lm --audio_duration 20
+
     # the 8B QLoRA step on the card: 40 s of audio -> 2000 audio tokens + 2096 text tokens:
     python -m llama_x_tpu_torch.train_librispeech --synthetic 8 --geometry 8b --quantize int8 \\
         --quantize_kwargs '{"dynamic_int8_act": true, "dynamic_int8_bwd": true, "int8_head": true}' \\
@@ -12,8 +16,9 @@ prefix-LM attention) -> the eager train step.
         --remat_policy flash_q8s --fused_ce_chunks 8 --prefix_lm --audio_duration 40 --seq_len_multiple 2096 \\
         --n_steps 4 --log_interval 1 --ckpt_interval 0
 
-Runs on the card unless ``--device cpu``. Real LibriSpeech data (``--dataset_dir``), HF
-weights and meshes belong to later slices and raise by name.
+Runs on the card unless ``--device cpu``. The weights are random (``--geometry`` or the
+small model, its vocabulary grown to the tokenizer's); HF weights and meshes belong to
+later slices and raise by name.
 """
 
 from __future__ import annotations
@@ -22,20 +27,11 @@ import argparse
 
 import numpy as np
 
+from llama_x_tpu_torch.data.librispeech import LibriSpeechPacked
+from llama_x_tpu_torch.data.tokenizers import get_tokenizer
 from llama_x_tpu_torch.models import audio as audio_mod
 from llama_x_tpu_torch.models.audio import AudioConfig
-from llama_x_tpu_torch.train.checkpoint import latest_checkpoint, restore_checkpoint, save_checkpoint
-from llama_x_tpu_torch.train.cli import (
-    add_common_args,
-    assemble_step_batch,
-    build_model_params,
-    check_supported,
-    make_save_dir,
-    save_model_config,
-    setup_optimizer,
-)
-from llama_x_tpu_torch.train.metrics import RunLogger, Throughput, device_memory_stats
-from llama_x_tpu_torch.train.trainer import TrainState, make_train_step
+from llama_x_tpu_torch.train.cli import add_common_args, build_model_params, check_supported, run_training
 
 MAX_SEQ_LEN = 4096  # 40 s -> 2000 audio tokens + up to 2096 text tokens
 
@@ -63,15 +59,12 @@ def make_loss_fn(prefix_lm: bool):
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     add_common_args(parser)
-    parser.add_argument("--dataset_dir", help="real LibriSpeech data (not ported yet: slice 4)")
+    parser.add_argument("--dataset_dir", help="a LibriSpeech-layout directory (**/*.trans.txt, .flac or .wav)")
     parser.add_argument("--audio_duration", type=float, default=40.0)
     parser.add_argument("--seq_len_multiple", type=int, default=128)
     parser.add_argument("--prefix_lm", action="store_true", help="bidirectional attention over the audio prefix")
     args = parser.parse_args(argv)
-    if args.dataset_dir:
-        raise NotImplementedError("--dataset_dir: real LibriSpeech data (flac decoding, packing, the llama "
-                                  "tokenizers) is not ported yet (slice 4); pass --synthetic N")
-    check_supported(args, real_data="LibriSpeech data (slice 4)")
+    check_supported(args, real_data=None)
     audio_tokens = AudioConfig().num_audio_tokens(int(args.audio_duration * AudioConfig().sample_rate))
     if audio_tokens + args.seq_len_multiple > MAX_SEQ_LEN:
         raise ValueError(f"{audio_tokens} audio tokens + {args.seq_len_multiple} text tokens exceed the model's "
@@ -79,49 +72,29 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     return args
 
 
+def make_data(args, audio_config: AudioConfig, micro_bs: int, vocab_size: int | None, tokenizer=None):
+    """The microbatch iterator: ``synthetic_audio_batches`` over ``vocab_size``, or
+    ``LibriSpeechPacked`` over ``--dataset_dir`` with ``tokenizer``."""
+    if args.synthetic:
+        return synthetic_audio_batches(np.random.default_rng(args.seed), audio_config, micro_bs, args.audio_duration,
+                                       args.seq_len_multiple, vocab_size)
+    ds = LibriSpeechPacked(args.dataset_dir, tokenizer, audio_duration=args.audio_duration,
+                           seq_len_multiple=args.seq_len_multiple, batch_size=micro_bs,
+                           sample_rate=audio_config.sample_rate, seed=args.seed)
+    print(f"Training dataset size: {len(ds.samples):,} utterances")
+    return iter(ds)
+
+
 def main(argv: list[str] | None = None) -> None:
     args = parse_args(argv)
     audio_config = AudioConfig()
-    model = build_model_params(args, max_seq_len=MAX_SEQ_LEN, audio_config=audio_config)
-    config = model.config
-    optimizer, schedule = setup_optimizer(args, model)
+    tokenizer = None if args.synthetic else get_tokenizer(args.tokenizer, args.tokenizer_path)
+    model = build_model_params(args, max_seq_len=MAX_SEQ_LEN, audio_config=audio_config,
+                               vocab_size=None if tokenizer is None else tokenizer.vocab_size)
     micro_bs = args.batch_size // args.gradient_accumulation
-    data_iter = synthetic_audio_batches(np.random.default_rng(args.seed), audio_config, micro_bs, args.audio_duration,
-                                        args.seq_len_multiple, config.vocab_size)
-
-    state = TrainState(model, optimizer)
-    train_step = make_train_step(make_loss_fn(args.prefix_lm), skip_nonfinite=args.skip_nonfinite)
-    if args.resume:
-        path = latest_checkpoint(args.resume) or args.resume
-        restore_checkpoint(path, state)
-        print(f"resumed from {path} at step {state.step}")
-
-    save_dir = make_save_dir("librispeech", args.run_name)
-    save_model_config(save_dir, config, audio_config)
-    logger = RunLogger(save_dir, config=vars(args))
-    meter = Throughput()
-
-    tok_acc, audio_acc = 0, 0.0  # tokens summed on the device between log points: no read-back every step
-    while state.step < args.n_steps:
-        step = state.step
-        micro = [next(data_iter) for _ in range(args.gradient_accumulation)]
-        metrics = train_step(state, assemble_step_batch(micro, pad_values={"labels": -100}))
-        tok_acc = tok_acc + metrics["n_tokens"]
-        audio_acc += args.audio_duration * args.batch_size
-        if step % args.log_interval == 0:
-            meter.update(int(tok_acc), audio_secs=audio_acc)
-            tok_acc, audio_acc = 0, 0.0
-            log = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
-                   "lr": float(schedule(step)), **device_memory_stats(model.device)}
-            if step > 0:
-                log.update(meter.rates())
-            logger.log(log, step)
-            print(f"step {step}: loss {log['loss']:.4f}")
-        if args.ckpt_interval > 0 and state.step % args.ckpt_interval == 0:
-            save_checkpoint(save_dir, state, state.step)
-
-    save_checkpoint(save_dir, state, state.step)
-    logger.finish()
+    data_iter = make_data(args, audio_config, micro_bs, model.config.vocab_size, tokenizer)
+    run_training(args, model, data_iter, make_loss_fn(args.prefix_lm), "librispeech", audio_config=audio_config,
+                 audio_secs_per_step=args.audio_duration * args.batch_size)
 
 
 if __name__ == "__main__":

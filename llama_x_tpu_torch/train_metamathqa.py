@@ -23,18 +23,7 @@ import numpy as np
 
 from llama_x_tpu_torch.data.metamathqa import get_metamathqa
 from llama_x_tpu_torch.models import llama
-from llama_x_tpu_torch.train.checkpoint import latest_checkpoint, restore_checkpoint, save_checkpoint
-from llama_x_tpu_torch.train.cli import (
-    add_common_args,
-    assemble_step_batch,
-    build_model_params,
-    check_supported,
-    make_save_dir,
-    save_model_config,
-    setup_optimizer,
-)
-from llama_x_tpu_torch.train.metrics import RunLogger, Throughput, device_memory_stats
-from llama_x_tpu_torch.train.trainer import TrainState, make_train_step
+from llama_x_tpu_torch.train.cli import add_common_args, build_model_params, check_supported, run_training
 
 
 def loss_fn(model, mb):
@@ -74,43 +63,9 @@ def make_data(args, vocab_size: int):
 def main(argv: list[str] | None = None) -> None:
     args = parse_args(argv)
     model = build_model_params(args, max_seq_len=args.max_seq_len)
-    config = model.config
-    optimizer, schedule = setup_optimizer(args, model)
-    data_iter, train_size = make_data(args, config.vocab_size)
+    data_iter, train_size = make_data(args, model.config.vocab_size)
     print(f"Training dataset size: {train_size:,}")
-
-    state = TrainState(model, optimizer)
-    train_step = make_train_step(loss_fn, skip_nonfinite=args.skip_nonfinite)
-    if args.resume:
-        path = latest_checkpoint(args.resume) or args.resume
-        restore_checkpoint(path, state)
-        print(f"resumed from {path} at step {state.step}")
-
-    save_dir = make_save_dir("metamathqa", args.run_name)
-    save_model_config(save_dir, config)
-    logger = RunLogger(save_dir, config=vars(args))
-    meter = Throughput()
-
-    tok_acc = 0  # summed on the device between log points: no read-back every step
-    while state.step < args.n_steps:
-        step = state.step
-        micro = [next(data_iter) for _ in range(args.gradient_accumulation)]
-        metrics = train_step(state, assemble_step_batch(micro, pad_values={"labels": -100}))
-        tok_acc = tok_acc + metrics["n_tokens"]
-        if step % args.log_interval == 0:
-            meter.update(int(tok_acc))
-            tok_acc = 0
-            log = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
-                   "lr": float(schedule(step)), **device_memory_stats(model.device)}
-            if step > 0:
-                log.update(meter.rates())
-            logger.log(log, step)
-            print(f"step {step}: loss {log['loss']:.4f}")
-        if args.ckpt_interval > 0 and state.step % args.ckpt_interval == 0:
-            save_checkpoint(save_dir, state, state.step)
-
-    save_checkpoint(save_dir, state, state.step)
-    logger.finish()
+    run_training(args, model, data_iter, loss_fn, "metamathqa")
 
 
 if __name__ == "__main__":

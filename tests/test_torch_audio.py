@@ -361,10 +361,14 @@ def test_train_librispeech_entry_point_runs_on_the_cpu(policy, tmp_path, monkeyp
 
 
 def test_train_librispeech_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        ttrain_cli.parse_args(["--dataset_dir", "LibriSpeech/train-clean-100", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        ttrain_cli.parse_args(["--device", "cpu"])  # no --synthetic: real data
+    args = ttrain_cli.parse_args(["--dataset_dir", "LibriSpeech/train-clean-100", "--tokenizer", "llama2",
+                                  "--tokenizer_path", "tokenizer.model", "--device", "cpu"])
+    assert (args.dataset_dir, args.tokenizer, args.tokenizer_path) == (
+        "LibriSpeech/train-clean-100", "llama2", "tokenizer.model")  # real data is read since slice 4
+    with pytest.raises(ValueError, match="--dataset_dir"):
+        ttrain_cli.parse_args(["--device", "cpu"])  # neither --synthetic nor a dataset
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        ttrain_cli.parse_args(["--dataset_dir", "d", "--model", "meta-llama/Llama-3.1-8B", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="slice 2c"):
         ttrain_cli.parse_args(["--synthetic", "4", "--remat_policy", "attn_q8", "--device", "cpu"])
     with pytest.raises(ValueError, match="positions"):

@@ -730,3 +730,68 @@ def test_probe_entry_point_runs_on_the_card(cuda):
     assert res["clock"] == "cuda events" and all(res[k] > 0 for k in ("fwd_ms", "fwdbwd_ms", "probe_matmul_only_ms"))
     sweep = entry.main(["--seq_len", "2048", "--prefix", "1000", "--reps", "1", "--sweep"])
     assert len([k for k in sweep if k.startswith("bq")]) == len(entry.SWEEP)
+
+
+SMALL_QLORA = [
+    "--quantize", "int8", "--quantize_kwargs", '{"dynamic_int8_act": true, "dynamic_int8_bwd": true, "int8_head": true}',
+    "--adapter", "lora", "--activation_checkpointing", "--fused_ce_chunks", "2", "--prefix_lm", "--n_steps", "2",
+    "--log_interval", "1", "--ckpt_interval", "0",
+    "--synthetic_config", '{"num_layers": 2, "embed_dim": 256, "head_dim": 64, "num_heads": 4, "num_kv_heads": 2}',
+]
+
+
+@pytest.mark.parametrize("entry_name", ["train_vision", "train_omni"])
+def test_vision_and_omni_train_entry_points_run_on_the_card(cuda, tmp_path, monkeypatch, entry_name):
+    """``train_vision.main`` / ``train_omni.main`` on a small QLoRA model: the image (and
+    audio) prefix under prefix-LM through K1, K2, K4 and K5, one flash forward and one
+    backward per layer and microbatch (``flash_proj`` keeps the flash output)."""
+    import importlib
+    import json
+
+    entry = importlib.import_module(f"llama_x_tpu_torch.{entry_name}")
+    monkeypatch.chdir(tmp_path)
+    counters = (mm.int8_mm_dequant_nt, mm.int8_mm_dequant, fa.flash_fwd_with_lse, fa.flash_bwd_from_res)
+    before = [c.launches for c in counters]
+    extra = (["--synthetic", "16", "--batch_size", "4"] if entry_name == "train_vision" else
+             ["--synthetic", "8", "--audio_duration", "1", "--seq_len_multiple", "64", "--batch_size", "2"])
+    entry.main([*extra, "--image_size", "32", "--patch_size", "8", "--remat_policy", "flash_proj", *SMALL_QLORA])
+    after = [c.launches for c in counters]
+    assert all(a > b for a, b in zip(after, before))
+    assert after[2] - before[2] == after[3] - before[3] == 2 * 2  # layers x steps (one microbatch a step)
+    (run,) = (tmp_path / "runs" / entry_name.split("_")[1]).iterdir()
+    recs = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in recs] == [0, 1] and all(math.isfinite(r["loss"]) for r in recs)
+
+
+def test_eval_entry_points_decode_through_the_kernels(cuda):
+    """``eval_vision`` and ``eval_librispeech`` with ``--synthetic``: the prefill with the
+    modality prefix through K2, every new token through K3."""
+    from llama_x_tpu_torch import eval_librispeech, eval_vision
+
+    before = (fa.flash_fwd_with_lse.launches, da.decode_attention.launches)
+    vis = eval_vision.main(["--synthetic", "4", "--image_size", "32", "--patch_size", "8", "--max_new_tokens", "8",
+                            "--prefix_lm", "--eval_batch_size", "2"])
+    ls = eval_librispeech.main(["--synthetic", "2", "--max_new_tokens", "8", "--prefix_lm"])
+    after = (fa.flash_fwd_with_lse.launches, da.decode_attention.launches)
+    assert after[0] > before[0] and after[1] - before[1] >= 7 * 4  # 7 decode steps x 4 layers, first batch
+    assert vis["n_samples"] == 4 and ls["n_utts"] == 2
+
+
+@pytest.mark.parametrize("B,S,prefix", [(8, 304, 272), (1, 4096, 1772), (2, 200, 130)])
+def test_flash_kernels_at_the_vision_and_omni_prefixes(cuda, B, S, prefix):
+    """K2 (out, lse) and K5 (dq, dk, dv) at prefix lengths that are no tile multiple:
+    the vision step's 272 of 304 (ragged last q and kv tiles), the omni step's 1772."""
+    g = torch.Generator(device=cuda).manual_seed(S + prefix)
+    mk = lambda h: torch.randn(B, S, h, 128, device=cuda, generator=g).to(torch.bfloat16)  # noqa: E731
+    q, k, v, do = mk(32), mk(8), mk(8), mk(32)
+    mi = MaskInfo(causal=True, prefix_len=torch.full((B,), prefix, dtype=torch.int32, device=cuda))
+    out, lse = fa.flash_fwd_with_lse(q, k, v, mi)
+    ref, ref_lse = fa.flash_fwd_plain(q, k, v, mi)
+    atol, rtol = fa.flash_fwd_tolerance(ref)
+    assert bool(((out.float() - ref.float()).abs() <= atol + rtol * ref.float().abs()).all())
+    assert _max_err(lse, ref_lse) <= 2e-3
+    got = fa.flash_bwd_from_res(q, k, v, out, lse, do, mi)
+    want = fa.flash_bwd_plain(q, k, v, out, lse, do, mi)
+    for a, b in zip(got, want):
+        atol, rtol = fa.flash_bwd_tolerance(b)
+        assert bool(((a.float() - b.float()).abs() <= atol + rtol * b.float().abs()).all())

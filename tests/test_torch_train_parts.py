@@ -175,7 +175,7 @@ def _args(*argv):
     (["--mesh", '{"dp": 2}'], "slice 5"),
     (["--attn_impl", "ring"], "slice 5"),
     (["--model", "meta-llama/Llama-3.1-8B"], "slice 3"),
-    (["--tokenizer", "llama3"], "slice 2b"),
+    (["--pp_microbatches", "2"], "slice 5"),
     (["--remat_policy", "attn_q8s"], "slice 2c"),
     ([], "slice 2b"),  # no --synthetic: real data
 ])
