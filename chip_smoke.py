@@ -16,7 +16,10 @@ no result line):
    likewise with its plan (m tile, splits), K1 and K4 each with their chosen plan against
    its alternatives, and K6 with its device time and tile census; K2 and K5 also at the
    vision and omni steps' masks (prefix 272 of S 304, B 8; prefix 1772 of S 4096), K1 and
-   K4 at the omni step's 581-row CE chunk;
+   K4 at the omni step's 581-row CE chunk; K2's offsets form over a [B, 8, 4096, 128] cache
+   (a continuation chunk of 512 rows at 1536 over kv_len 2048, bf16 and int8 cache; a prefix
+   admission; a verify at gamma 8 over 8 slots) against its plain version, with SDPA on the
+   sliced cache as the yardstick;
 3. serving main path: ``generate`` at Llama-3.1-8B width (32 layers) from seeded
    on-device weights, B 4, ragged byte-tokenized prompts padded to 512, 64 new
    tokens: bf16 weights with a bf16 cache, then int8 weights with dynamic int8
@@ -24,6 +27,20 @@ no result line):
    and must be non-zero after it;
 4. kernel path against plain path: on a 2-layer cut of the same weights, prefill and
    first-decode logits of the kernels and of their plain versions agree;
+3a. continuous serving on the int8 model of phase 3 (int8 KV): ``ContinuousScheduler`` with
+   8 slots, 16-step chunks, chunked prefill of 512 and a prefix cache of 4; 16 byte-token
+   requests in four waves 0.25 s apart (8 prompts of 130 to 1500 tokens, 8 follow-ups that
+   extend them), TTFT / inter-token latency p50 and p99, tokens/s, prefix hits, the launches
+   of K1, K2 (self and offsets) and K3, every row against an unbatched ``generate`` under
+   the near-tie rule (a divergence only where the two tokens lie within K2's tolerance of
+   each other in the unbatched logits of that step, counted);
+3b. speculative serving: the same int8 target (bf16 cache) and an untrained 4-layer draft
+   of width 1024, gamma 4 (verify on K3) and gamma 8 (verify on K2's offsets form), the
+   acceptance rate, every row against plain greedy under the near-tie rule;
+3c. the HF round trip of a 2-layer cut at 8B width (bf16, about 3 GB, bit for bit) and
+   ``generate_cli --model`` on it; 3d. ``serve_http`` in-process on 127.0.0.1:0 over the
+   int8 model (continuous, chunked prefill): 4 concurrent completions and a streamed chat,
+   each answer's finish_reason and its tokens against a second serving (near-tie rule);
 5. training main path: QLoRA optimizer steps at Llama-3.1-8B width (32 layers, int8
    base, LoRA r 8 on every projection, frozen bf16 head on the int8 kernels, dynamic
    int8 activations and input gradients, fused CE in 8 chunks, per-block activation
@@ -483,6 +500,106 @@ def phase_k2():
     return shapes
 
 
+def offsets_census(fa, q_off, kv_len, Sq: int, S_max: int, bq: int = 128, bk: int = 128) -> dict:
+    """Tile classes of the offsets form over the rows of a call (one head): the kernel skips
+    (never loads) the kv tiles past each row's kv_len and above its shifted diagonal."""
+    counts = {"skip": 0, "partial": 0, "full": 0}
+    for off, n in zip(q_off, kv_len):
+        for q0 in range(0, Sq, bq):
+            for kv0 in range(0, S_max, bk):
+                counts[fa.tile_class(q0, kv0, bq, bk, Sq, True, None, None, None, shift=off, kv_end=n)] += 1
+    return counts
+
+
+def phase_k2_offsets():
+    """K2's offsets form over the KV cache at the serving paths' shapes (32/8 heads, D 128,
+    S_max 4096): a continuation chunk of chunked prefill (bf16 and int8 cache), a prefix
+    admission and a speculative verify at gamma 8 over eight slots."""
+    import torch
+    import torch.nn.functional as F
+
+    from llama_x_tpu_torch.models import llama
+    from llama_x_tpu_torch.ops import flash_attention as fa
+
+    log("[K2 offsets form] over a [B, 8, 4096, 128] cache read in place, 32 query heads, per-row q_offset and kv_len, "
+        "vs flash_fwd_offsets_plain; tol: out per element 2^-7 |ref| + 2^-5 rms(ref's row), lse 2e-3 (the self "
+        "form's); the int8 cache through the wrapper that dequantizes the live prefix to bf16 first; library: SDPA on "
+        "the cache sliced to the longest kv_len with a bool mask")
+    g = torch.Generator(device="cuda").manual_seed(8)
+    Hq, Hkv, D, S_max = 32, 8, 128, 4096
+    verify_off = [513 + i * (1500 - 513) // 7 for i in range(8)]
+    cases = [
+        ("continuation chunk", 1, 512, [1536], [2048], False),
+        ("continuation chunk, int8 cache", 1, 512, [1536], [2048], True),
+        ("prefix admission (200 real of 256)", 1, 256, [512], [712], False),
+        ("verify gamma 8", 8, 9, verify_off, [o + 9 for o in verify_off], False),
+    ]
+    shapes = []
+    for name, B, Sq, q_off, kv_len, int8 in cases:
+        q = torch.randn(B, Sq, Hq, D, device="cuda", generator=g).to(torch.bfloat16)
+        k = torch.randn(B, Hkv, S_max, D, device="cuda", generator=g).to(torch.bfloat16)
+        v = torch.randn(B, Hkv, S_max, D, device="cuda", generator=g).to(torch.bfloat16)
+        qo = torch.tensor(q_off, dtype=torch.int32, device="cuda")
+        ko = torch.zeros_like(qo)
+        lens = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+        n = max(kv_len)
+        if int8:
+            (k8, ks), (v8, vs) = llama.quantize_kv_rows(k), llama.quantize_kv_rows(v)
+            call = lambda: fa.flash_fwd_offsets_int8(q, k8, ks, v8, vs, qo, ko, lens, n)  # noqa: E731
+            plain = lambda: fa.flash_fwd_offsets_plain(q, fa.dequant_live(k8, ks, n), fa.dequant_live(v8, vs, n),  # noqa: E731
+                                                       qo, ko, lens)
+            kd, vd = fa.dequant_live(k8, ks, n), fa.dequant_live(v8, vs, n)
+            kv_bytes = 2 * Hkv * sum(kv_len) * (D + 4)  # int8 data + f32 scales of the live prefixes
+        else:
+            call = lambda: fa.flash_fwd_offsets(q, k, v, qo, ko, lens)  # noqa: E731
+            plain = lambda: fa.flash_fwd_offsets_plain(q, k, v, qo, ko, lens)  # noqa: E731
+            kd, vd = k[:, :, :n], v[:, :, :n]
+            kv_bytes = 2 * Hkv * sum(kv_len) * D * 2
+        before = fa.flash_fwd_offsets.launches
+        out, lse = call()
+        torch.cuda.synchronize()
+        if fa.flash_fwd_offsets.launches != before + 1:
+            raise AssertionError("the offsets form did not launch K2")
+        ref, ref_lse = plain()
+        atol, rtol = fa.flash_fwd_tolerance(ref)
+        err = check_close(f"{name} out", out, ref, atol, rtol)
+        check(f"{name} lse", max_err(lse, ref_lse), 2e-3)
+        ms = time_ms(call)
+        plain_ms = time_ms(plain, reps=3, warmup=1)
+        mask = fa.offsets_mask(qo, ko, lens, Sq, n)[:, None]
+        qt = q.transpose(1, 2)
+        lib = lambda: F.scaled_dot_product_attention(qt, kd, vd, attn_mask=mask, enable_gqa=True)  # noqa: E731
+        lib_ms = maybe_ms(lib)
+        lib_dev = library_device_ms(lib) if lib_ms is not None else None
+        visible = float(mask.sum())
+        n_bytes = 2 * (2 * B * Sq * Hq * D) + kv_bytes + 4 * B * Hq * Sq
+        bms, by = bound_ms(n_bytes, 4 * D * Hq * visible, "bf16")
+        split = device_split_ms(call, ("flash_fwd_kernel",))
+        dev = split["flash_fwd_kernel"]
+        tiles = offsets_census(fa, q_off, kv_len, Sq, S_max)
+        log(f"      {ms:.4f} ms (plain {plain_ms:.3f}, sdpa {lib_ms}, device {lib_dev}; bound {bms:.4f} by {by}: "
+            f"{n_bytes / 1e6:.2f} MB, {4 * D * Hq * visible / 1e9:.3f} GFLOP); K2 device {dev:.4f} ms (profiler, "
+            f"{bms / dev if dev else 0:.3f} of bound), host {split['host_ms']:.4f} ms a call; 128 x 128 tiles of a "
+            f"head over the rows: skip {tiles['skip']}, partial {tiles['partial']}, full {tiles['full']}")
+        shapes.append(dict(case=name, B=B, Sq=Sq, q_offset=q_off, kv_len=kv_len, S_max=S_max, Hq=Hq, Hkv=Hkv, D=D,
+                           int8_cache=int8, max_abs_err=err, lse_max_abs_err=max_err(lse, ref_lse),
+                           tol=float(atol.max()), rtol=rtol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           library_device_ms=lib_dev, bound_ms=bms, bound_by=by, device_ms=dev,
+                           host_ms=split["host_ms"], tiles=tiles))
+        del q, k, v, out, lse, ref, ref_lse, kd, vd, mask, qt, atol
+        torch.cuda.empty_cache()
+    q = torch.zeros(1, 16, 4, 32, dtype=torch.bfloat16, device="cuda")
+    kv = torch.zeros(1, 2, 64, 32, dtype=torch.bfloat16, device="cuda")
+    one = torch.ones(1, dtype=torch.int32, device="cuda")
+    try:
+        fa.flash_fwd_offsets(q, kv, kv, one, one * 0, one)
+    except ValueError as e:
+        log(f"    head_dim 32 raises: {e}")
+    else:
+        raise AssertionError("the offsets form took head_dim 32")
+    return shapes
+
+
 DROPOUT_RATE = 0.1
 DROPOUT_SEED = 0x7FFFFFF1  # the block keys wrap around 2^32
 
@@ -710,6 +827,7 @@ def phase_kernels():
     """Returns {kernel name: per-shape records}."""
     return {"int8_mm_dequant_nt": phase_k1(), "int8_mm_plans": phase_k1_plans(), "int8_mm_dequant": phase_k4(),
             "int8_mm_kn_plans": phase_k4_plans(), "flash_attention": phase_k2(),
+            "flash_attention_offsets": phase_k2_offsets(),
             "flash_attention_bwd": phase_k5(), "flash_probe": phase_k6(), **{
         ("decode_attention" if kind == "bf16" else "decode_attention_int8"): recs
         for kind, recs in phase_k3().items()
@@ -728,7 +846,8 @@ def counted():
     from llama_x_tpu_torch.ops import int8_mm as mm
 
     return {"int8_mm_dequant_nt": mm.int8_mm_dequant_nt, "int8_mm_dequant": mm.int8_mm_dequant,
-            "flash_attention": fa.flash_fwd_with_lse, "flash_attention_bwd": fa.flash_bwd_from_res,
+            "flash_attention": fa.flash_fwd_with_lse, "flash_attention_offsets": fa.flash_fwd_offsets,
+            "flash_attention_bwd": fa.flash_bwd_from_res,
             "flash_probe": fp.flash_probe,
             "decode_attention": da.decode_attention, "decode_attention_int8": da.decode_attention_int8}
 
@@ -753,6 +872,7 @@ def plain_path():
     swaps = [(mm, "int8_mm_dequant_nt", mm.int8_mm_dequant_nt_plain),
              (mm, "int8_mm_dequant", mm.int8_mm_dequant_plain),
              (fa, "_forward_impl", fa.flash_fwd_plain),
+             (fa, "flash_fwd_offsets", fa.flash_fwd_offsets_plain),
              (fa, "flash_bwd_from_res", fa.flash_bwd_plain),
              (da, "decode_attention", da.decode_attention_plain),
              (da, "decode_attention_int8", da.decode_attention_int8_plain)]
@@ -960,7 +1080,8 @@ def compare_paths(model, prompt, lens, cache_dtype, tag: str) -> dict:
     return res
 
 
-def phase_main_path() -> dict:
+def phase_main_path():
+    """-> (runs, the int8 model), which the serving phases reuse."""
     import torch
 
     from llama_x_tpu_torch.generate_cli import GEOMETRIES, build_model
@@ -982,8 +1103,407 @@ def phase_main_path() -> dict:
         run = drive_generate(model, prompt, lens, cache_dtype, need)
         run["two_path"] = compare_paths(model, prompt, lens, cache_dtype, kind)
         runs[kind] = run
-        del model
-        torch.cuda.empty_cache()
+        if not quant:
+            del model
+            torch.cuda.empty_cache()
+    return runs, model
+
+
+# ---------------------------------------------------------------------------
+# phases 3a to 3d: serving beyond generate at 8B width (the int8 model of the main path)
+# ---------------------------------------------------------------------------
+
+
+def logit_tolerance(logits):
+    """Per step: K2's tolerance applied to a row of logits, 2^-7 |top| + 2^-5 rms(row): how
+    far two greedy decodes of one prefix that sum in other orders may put two tokens."""
+    top = logits.max(dim=-1).values
+    return 2**-7 * top.abs() + 2**-5 * logits.pow(2).mean(dim=-1).sqrt()
+
+
+def reference_logits(model, prompt_ids: list[int], tokens: list[int], cache_dtype):
+    """Logits [n, V] f32 of each step of a served row, unbatched: the prompt prefilled into a
+    fresh single-row cache of the same type, then the row's tokens but the last read over
+    that cache in one pass (teacher forcing: each step's logits from the row's own prefix)."""
+    import torch
+
+    from llama_x_tpu_torch.models import llama
+    from llama_x_tpu_torch.ops.attention import MaskInfo
+
+    dev = model.device
+    P, n = len(prompt_ids), len(tokens)
+    with torch.inference_mode():
+        cache = llama.init_kv_cache(model.config, 1, dtype=cache_dtype, device=dev)
+        x = torch.nn.functional.embedding(torch.tensor([prompt_ids], device=dev), model.tok_embeddings)
+        h, _ = llama.trunk(model, x, MaskInfo(causal=True), cache, input_pos=torch.arange(P, device=dev), prefill=True)
+        rows = [llama.head(model, h[:, -1:])[0].float()]
+        if n > 1:
+            pos = torch.arange(P, P + n - 1, device=dev)
+            x = torch.nn.functional.embedding(torch.tensor([tokens[:-1]], device=dev), model.tok_embeddings)
+            mi = MaskInfo(causal=True, q_positions=pos[None], kv_len=torch.tensor([P + n - 1], device=dev))
+            h, _ = llama.trunk(model, x, mi, cache, input_pos=pos)
+            rows.append(llama.head(model, h)[0].float())
+    return torch.cat(rows, dim=0)
+
+
+def check_served_row(model, prompt_ids, tokens, cache_dtype, other=None) -> dict:
+    """A served greedy row under the near-tie rule. Every step: the served token is the
+    argmax of the unbatched reference logits of its step (``reference_logits``: the row's
+    own prefix, one row, no co-tenants) or lies within ``logit_tolerance`` of it (a near-tie
+    that another summation order may flip). ``other``: a second greedy decode of the prompt
+    (an unbatched ``generate``, or a second serving); where the two first part, both tokens
+    must lie within the tolerance of each other in that step's reference logits. Raises
+    otherwise; returns the counts."""
+    import torch
+
+    tokens = list(tokens)
+    logits = reference_logits(model, prompt_ids, tokens, cache_dtype)
+    tok = torch.tensor(tokens, device=logits.device)
+    gap = logits.max(dim=-1).values - logits.gather(1, tok[:, None])[:, 0]
+    tol = logit_tolerance(logits)
+    if bool((gap > tol).any()):
+        i = int((gap > tol).nonzero()[0, 0])
+        raise AssertionError(f"served token {i} lies {float(gap[i]):.4f} below its step's top logit (tolerance "
+                             f"{float(tol[i]):.4f}): not a greedy decode of the prompt")
+    res = dict(steps=len(tokens), off_argmax=int((gap > 0).sum()), diverged_at=None)
+    if other is None or list(other) == tokens:
+        return res
+    other = list(other)
+    i = next((j for j, (a, b) in enumerate(zip(tokens, other)) if a != b), min(len(tokens), len(other)))
+    if i >= min(len(tokens), len(other)):
+        raise AssertionError(f"the decodes agree for {i} tokens, then one stops: {len(tokens)} against {len(other)}")
+    margin = abs(float(logits[i, tokens[i]] - logits[i, other[i]]))
+    res.update(diverged_at=i, margin=margin, tol=float(tol[i]))
+    if margin > float(tol[i]):
+        raise AssertionError(f"the decodes part at step {i} with a margin of {margin:.4f} over the tolerance "
+                             f"{float(tol[i]):.4f}: not a near-tie")
+    return res
+
+
+def unbatched_generate(model, prompt_ids, n: int, cache_dtype) -> list[int]:
+    import torch
+
+    from llama_x_tpu_torch.models.generate import generate
+
+    return generate(model, torch.tensor([prompt_ids], device="cuda"), max_new_tokens=n, cache_dtype=cache_dtype)[0].tolist()
+
+
+def byte_prompt(tok, i: int, n: int) -> list[int]:
+    """A byte-token prompt of n tokens (BOS first) of numbered text, distinct per i."""
+    text = "".join(f"Request {i}, sentence {j}: the port serves Llama on Hopper with continuous batching. "
+                   for j in range(n // 40 + 2))
+    return tok(text, add_bos=True)[:n]
+
+
+class _Timeline:
+    """A stream queue that keeps when each block of tokens arrived."""
+
+    def __init__(self):
+        self.t0, self.blocks, self.done = time.perf_counter(), [], None
+
+    def put(self, item):
+        now = time.perf_counter()
+        if item is None:
+            self.done = now
+        else:
+            self.blocks.append((now, len(item)))
+
+
+def latency_stats(lines: list) -> dict:
+    """TTFT (submit to first token) and inter-token latency (a block's gap spread over its
+    tokens) in ms, p50 and p99."""
+    import numpy as np
+
+    ttft = [(tl.blocks[0][0] - tl.t0) * 1e3 for tl in lines]
+    itl = []
+    for tl in lines:
+        for (t_prev, _), (t, n) in zip(tl.blocks, tl.blocks[1:]):
+            itl += [(t - t_prev) * 1e3 / n] * n
+    pct = lambda xs, q: float(np.percentile(xs, q)) if xs else None  # noqa: E731
+    return dict(ttft_ms_p50=pct(ttft, 50), ttft_ms_p99=pct(ttft, 99), itl_ms_p50=pct(itl, 50),
+                itl_ms_p99=pct(itl, 99))
+
+
+def need_launches(counts: dict, need: list[str], what: str):
+    missing = [k for k in need if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{what} never launched {missing}: {counts}")
+
+
+def phase_continuous(model) -> dict:
+    """Continuous batching at 8B width (int8 weights + dynamic int8 act, int8 KV): 8 slots,
+    16-step decode chunks, chunked prefill of 512, a prefix cache of 4. 16 byte-token
+    requests in four waves of four 0.25 s apart: 8 prompts of 130 to 1500 tokens, then 8
+    follow-ups that extend one of them by 64 to 200 tokens (prefix hits); 32 to 64 new
+    tokens each, greedy. Every row is held to an unbatched ``generate`` of its prompt and to
+    its unbatched reference at every step, under the near-tie rule (``check_served_row``)."""
+    import torch
+
+    from llama_x_tpu_torch.data.tokenizers import ByteTokenizer
+    from llama_x_tpu_torch.serve.continuous import ContinuousScheduler
+
+    tok = ByteTokenizer()
+    cache = torch.int8
+    log("[continuous serving] 8B int8 + dynamic int8 act + int8 KV; ContinuousScheduler(n_slots=8, chunk_size=16, "
+        "prompt_multiple=64, prefill_chunk=512, prefix_cache=4); 16 requests in 4 waves of 4, 0.25 s apart")
+    base_lens = [130, 300, 500, 700, 900, 1100, 1300, 1500]
+    bases = [byte_prompt(tok, i, n) for i, n in enumerate(base_lens)]
+    ext = [64, 100, 150, 200, 64, 120, 180, 200]
+    follow = [bases[j] + byte_prompt(tok, 100 + j, ext[j] + 1)[1:] for j in (4, 5, 6, 7, 0, 1, 2, 3)]
+    prompts = bases + follow
+    new_tokens = [32 + (7 * i) % 33 for i in range(16)]
+    sched = ContinuousScheduler(model, n_slots=8, chunk_size=16, prompt_multiple=64, cache_dtype=cache,
+                                prefill_chunk=512, prefix_cache=4, seed=0)
+    try:
+        warm = sched.submit(byte_prompt(tok, 99, 40), max_tokens=4)  # the paths' first calls (cuBLAS handles)
+        if not warm.event.wait(600) or warm.error is not None:
+            raise AssertionError(f"warm-up failed: {warm.error}")
+        hits0, disp0, chunks0 = sched.prefix_hits, sched.prefill_dispatches, sched.dispatches
+        torch.cuda.synchronize()
+        reset_counts()
+        lines, handles = [], []
+        t0 = time.perf_counter()
+        for w in range(4):
+            for i in range(4 * w, 4 * w + 4):
+                lines.append(_Timeline())
+                handles.append(sched.submit(prompts[i], max_tokens=new_tokens[i], stream_q=lines[-1]))
+            if w < 3:
+                time.sleep(0.25)
+        for h in handles:
+            if not h.event.wait(900) or h.error is not None:
+                raise AssertionError(f"a request failed: {h.error}")
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        hits, dispatches = sched.prefix_hits - hits0, sched.prefill_dispatches - disp0
+        chunks = sched.dispatches - chunks0
+        profile = profile_arrivals(sched, [byte_prompt(tok, 300 + i, 300 + 100 * i) for i in range(8)], 32)
+    finally:
+        sched.close()
+    need_launches(counts, ["int8_mm_dequant_nt", "flash_attention", "flash_attention_offsets", "decode_attention_int8"],
+                  "continuous serving")
+    if hits == 0:
+        raise AssertionError("no prefix-cache hit in the follow-up requests")
+    total = sum(len(h.tokens) for h in handles)
+    res = dict(requests=16, prompt_tokens=sum(map(len, prompts)), new_tokens=total, wall_s=wall, tokens_per_s=total / wall,
+               prefix_hits=hits, prefix_tokens_reused=sched.prefix_tokens_reused, prefill_dispatches=dispatches,
+               decode_dispatches=chunks, launches=counts, profile=profile, **latency_stats(lines))
+    log(f"    {total} tokens in {wall:.2f} s: {total / wall:.1f} tok/s; TTFT p50 {res['ttft_ms_p50']:.1f} ms, p99 "
+        f"{res['ttft_ms_p99']:.1f} ms; ITL p50 {res['itl_ms_p50']:.2f} ms, p99 {res['itl_ms_p99']:.2f} ms; prefix hits "
+        f"{hits} ({sched.prefix_tokens_reused} tokens reused), prefill chunks {dispatches}, decode chunks {chunks}")
+    log(f"    launches {counts}")
+    # every row against its unbatched reference at every step and against an unbatched generate
+    checks = [check_served_row(model, p, h.tokens, cache, unbatched_generate(model, p, len(h.tokens), cache))
+              for p, h in zip(prompts, handles)]
+    res["rows"] = checks
+    res["near_tie_divergences"] = sum(c["diverged_at"] is not None for c in checks)
+    log(f"    every row a greedy decode of its prompt step by step (unbatched reference logits; tokens off the "
+        f"argmax but within the tolerance: {sum(c['off_argmax'] for c in checks)} of {total}); against an unbatched "
+        f"generate: {16 - res['near_tie_divergences']} rows equal, {res['near_tie_divergences']} part at a near-tie "
+        f"{[(c['diverged_at'], round(c['margin'], 5), round(c['tol'], 5)) for c in checks if c['diverged_at'] is not None]}")
+    return res
+
+
+def profile_arrivals(sched, prompts: list, new_tokens: int) -> dict:
+    """Where the device time goes while a scheduler admits and decodes: one wave of
+    ``prompts`` arriving together, under torch.profiler (CUDA activity, which sees the
+    worker thread's launches), from the first submit to the last row's end."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        handles = [sched.submit(p, max_tokens=new_tokens) for p in prompts]
+        for h in handles:
+            if not h.event.wait(600) or h.error is not None:
+                raise AssertionError(f"a profiled request failed: {h.error}")
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return summarize_profile(prof, wall_ms, 1, f"arrivals ({len(prompts)} requests, {new_tokens} tokens each)", "wave")
+
+
+SPEC_DRAFT = dict(num_layers=4, embed_dim=1024, num_heads=8, num_kv_heads=8, intermediate_dim=2816)
+
+
+def phase_speculative(model) -> dict:
+    """Speculative continuous batching at 8B width: the int8 target with a bf16 cache and
+    the cheap draft of tools/bench_spec_continuous_8b.py (4 layers, width 1024, heads of
+    128, the target's vocabulary; untrained, so acceptance is near its floor); 4 requests
+    of 200 to 900 tokens, 32 new tokens, greedy, at gamma 4 (verify of 5 rows: K3) and
+    gamma 8 (9 rows: K2's offsets form)."""
+    import torch
+
+    from llama_x_tpu_torch.data.tokenizers import ByteTokenizer
+    from llama_x_tpu_torch.generate_cli import GEOMETRIES, build_model
+    from llama_x_tpu_torch.models import llama
+    from llama_x_tpu_torch.serve.speculative import SpeculativeScheduler
+
+    tok = ByteTokenizer()
+    draft = build_model(llama.LlamaConfig(**{**GEOMETRIES["8b"], **SPEC_DRAFT}, max_seq_len=4096), False, 7, "cuda")
+    prompts = [byte_prompt(tok, 200 + i, n) for i, n in enumerate((200, 400, 600, 900))]
+    plain = [unbatched_generate(model, p, 32, torch.bfloat16) for p in prompts]  # plain greedy, for both gammas
+    runs = {}
+    for gamma in (4, 8):
+        log(f"[speculative serving] 8B int8 target, bf16 cache, 4-layer draft of width 1024; gamma {gamma}, 4 slots, "
+            f"4 rounds a chunk")
+        sched = SpeculativeScheduler(model, draft, gamma=gamma, n_slots=4, chunk_size=4, cache_dtype=torch.bfloat16,
+                                     seed=0)
+        try:
+            warm = sched.submit(byte_prompt(tok, 98, 40), max_tokens=4)
+            if not warm.event.wait(600) or warm.error is not None:
+                raise AssertionError(f"warm-up failed: {warm.error}")
+            torch.cuda.synchronize()
+            live0, rounds0 = int(sched.live_row_rounds), sched.rounds_run
+            reset_counts()
+            t0 = time.perf_counter()
+            handles = [sched.submit(p, max_tokens=32) for p in prompts]
+            for h in handles:
+                if not h.event.wait(900) or h.error is not None:
+                    raise AssertionError(f"a request failed: {h.error}")
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            live = int(sched.live_row_rounds) - live0
+        finally:
+            sched.close()
+        need = ["int8_mm_dequant_nt", "flash_attention", "decode_attention"]
+        need_launches(counts, need + (["flash_attention_offsets"] if gamma >= 8 else []), f"speculative gamma {gamma}")
+        total = sum(len(h.tokens) for h in handles)
+        per_pass = (total - len(handles)) / max(live, 1)
+        checks = [check_served_row(model, p, h.tokens, torch.bfloat16, ref) for p, h, ref in zip(prompts, handles, plain)]
+        res = dict(gamma=gamma, new_tokens=total, wall_s=wall, tokens_per_s=total / wall, rounds=sched.rounds_run - rounds0,
+                   live_row_rounds=live, tokens_per_verify=per_pass, acceptance_rate=(per_pass - 1) / gamma,
+                   launches=counts, rows=checks)
+        res["near_tie_divergences"] = sum(c["diverged_at"] is not None for c in checks)
+        log(f"    {total} tokens in {wall:.2f} s ({total / wall:.1f} tok/s); {per_pass:.3f} tokens a verify pass, "
+            f"acceptance rate {(per_pass - 1) / gamma:.4f}; against plain greedy (an unbatched generate of each "
+            f"prompt): {4 - res['near_tie_divergences']} rows equal, {res['near_tie_divergences']} part at a near-tie; "
+            f"every row greedy step by step (tokens off the argmax within the tolerance: "
+            f"{sum(c['off_argmax'] for c in checks)}); launches {counts}")
+        runs[f"speculative_g{gamma}"] = res
+    del draft
+    torch.cuda.empty_cache()
+    return runs
+
+
+def phase_hf_and_http(model) -> dict:
+    """The HF round trip of a 2-layer cut at 8B width (bf16, about 3 GB: every tensor back
+    bit for bit), ``generate_cli --model`` on it, then ``serve_http`` in-process on
+    127.0.0.1:0 over the int8 model (``Engine(_preloaded=...)``, continuous batching of 4
+    slots, chunked prefill of 512, int8 KV): 4 concurrent /v1/completions and one streamed
+    /v1/chat/completions with the byte tokenizer, each answer with a finish_reason and its
+    tokens a second serving's (near-tie rule)."""
+    import tempfile
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import torch
+
+    from llama_x_tpu_torch import generate_cli, serve_http
+    from llama_x_tpu_torch.generate_cli import GEOMETRIES, build_model
+    from llama_x_tpu_torch.models import hf, llama
+
+    runs = {}
+    log("[HF round trip] save_llama_hf of a 2-layer cut at 8B width (bf16), load_llama back, generate_cli --model")
+    cut = build_model(llama.LlamaConfig(**{**GEOMETRIES["8b"], "num_layers": 2}, max_seq_len=4096), False, 3, "cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        hf.save_llama_hf(cut, tmp)
+        save_s = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in Path(tmp).iterdir())
+        t0 = time.perf_counter()
+        back = hf.load_llama(tmp, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        ours, theirs = cut.state_dict(), back.state_dict()
+        if set(ours) != set(theirs) or not all(torch.equal(ours[k], theirs[k]) for k in ours):
+            raise AssertionError("the HF round trip changed a tensor")
+        del back, ours, theirs
+        log(f"    {size / 1e9:.3f} GB written in {save_s:.1f} s, read back in {load_s:.1f} s; every tensor bit for bit")
+        reset_counts()
+        generate_cli.main(["--model", tmp, "--device", "cuda", "--prompt", "The capital of France is", "--prompt",
+                           "Speculative decoding drafts", "--max_new_tokens", "16", "--no_eos"])
+        torch.cuda.synchronize()
+        counts = read_counts()
+    need_launches(counts, ["flash_attention", "decode_attention"], "generate_cli --model")
+    runs["hf_cli"] = dict(gb=size / 1e9, save_s=save_s, load_s=load_s, launches=counts)
+    del cut
+    torch.cuda.empty_cache()
+
+    log("[HTTP server] serve_http in-process on 127.0.0.1:0: Engine(_preloaded=the 8B int8 model), --continuous 4 "
+        "--prefill_chunk 512 --kv_dtype int8; 4 concurrent /v1/completions, one streamed /v1/chat/completions")
+    args = serve_http.build_parser().parse_args(["--geometry", "8b", "--tokenizer", "byte", "--continuous", "4",
+                                                 "--prefill_chunk", "512", "--decode_chunk", "16", "--kv_dtype", "int8",
+                                                 "--batch_window_ms", "0"])
+    engine = serve_http.Engine(args, _preloaded=model)
+    served = []  # (prompt ids, handle) of every row the HTTP requests gave the scheduler
+    submit = engine.sched.submit
+
+    def recording_submit(ids, *a, **kw):
+        h = submit(ids, *a, **kw)
+        served.append((list(ids), h))
+        return h
+
+    engine.sched.submit = recording_submit
+    server = ThreadingHTTPServer(("127.0.0.1", 0), serve_http.make_handler(engine))
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def post(payload, path="/v1/completions"):
+        req = urllib.request.Request(base + path, json.dumps(payload).encode(), {"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.read().decode()
+
+    texts = [("Hello from the card. " * (n // 21 + 1))[:n] for n in (60, 250, 500, 800)]
+    answers = {}
+    try:
+        warm = json.loads(post({"prompt": "warm-up", "max_tokens": 4}))
+        served.clear()
+        reset_counts()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=lambda i=i: answers.__setitem__(i, json.loads(post(
+            {"prompt": texts[i], "max_tokens": 24})))) for i in range(4)]
+        for t in threads:
+            t.start()
+        chat = post({"messages": [{"role": "user", "content": "Say something about Hopper."}], "max_tokens": 24,
+                     "stream": True}, "/v1/chat/completions")
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        events = [json.loads(line[6:]) for line in chat.splitlines() if line.startswith("data: ") and line != "data: [DONE]"]
+        if not chat.rstrip().endswith("data: [DONE]") or "finish_reason" not in events[-1]["choices"][0]:
+            raise AssertionError(f"the streamed chat answer is incomplete: {chat[-300:]}")
+        for i, a in answers.items():
+            if a["choices"][0].get("finish_reason") not in ("stop", "length"):
+                raise AssertionError(f"answer {i} has no finish_reason: {a}")
+        # each row again through the scheduler alone: the same tokens, up to near-ties
+        agains = [submit(ids, max_tokens=h.max_tokens, sampling=h.sampling, eos_id=h.eos_id) for ids, h in served]
+        for again in agains:
+            if not again.event.wait(600) or again.error is not None:
+                raise AssertionError(f"the second serving failed: {again.error}")
+        checks = [check_served_row(model, ids, h.tokens, torch.int8, again.tokens)
+                  for (ids, h), again in zip(served, agains)]
+        by_prompt = {tuple(ids): h for ids, h in served}
+        for i, a in answers.items():
+            h = by_prompt[tuple(engine.tok(texts[i], add_bos=True))]
+            kept = [t for t in h.tokens if t not in (engine.tok.pad_id, engine.tok.eos_id)]
+            if a["choices"][0]["text"] != engine.tok.decode(kept):
+                raise AssertionError(f"answer {i}'s text is not its row's tokens")
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.sched.close()
+    need_launches(counts, ["int8_mm_dequant_nt", "flash_attention", "flash_attention_offsets", "decode_attention_int8"],
+                  "the HTTP server")
+    streamed = "".join(c["delta"].get("content", "") for e in events for c in e["choices"])
+    runs["http"] = dict(requests=5, wall_s=wall, launches=counts, rows=checks, warm=warm["choices"][0]["finish_reason"],
+                        near_tie_divergences=sum(c["diverged_at"] is not None for c in checks),
+                        finish_reasons=[answers[i]["choices"][0]["finish_reason"] for i in range(4)]
+                        + [events[-1]["choices"][0]["finish_reason"]])
+    log(f"    5 answers in {wall:.2f} s, finish reasons {runs['http']['finish_reasons']}; streamed chat text "
+        f"{len(streamed)} characters; rows equal to a second serving but at "
+        f"{runs['http']['near_tie_divergences']} near-ties; launches {counts}")
     return runs
 
 
@@ -1741,6 +2261,8 @@ KERNELS = {
     "int8_mm_dequant_nt": ("llama_x_tpu_torch/csrc/int8_mm.cu", "llama_x_tpu/ops/int8_mm.py:40", 6),
     "int8_mm_dequant": ("llama_x_tpu_torch/csrc/int8_mm_kn.cu", "llama_x_tpu/ops/int8_mm.py:40", 1),
     "flash_attention": ("llama_x_tpu_torch/csrc/flash_attention.cu", "llama_x_tpu/ops/flash_attention.py:188", 0),
+    "flash_attention_offsets": ("llama_x_tpu_torch/csrc/flash_attention.cu",
+                                "llama_x_tpu/ops/flash_attention.py:188", 0),
     "flash_attention_bwd": ("llama_x_tpu_torch/csrc/flash_attention_bwd.cu",
                             "llama_x_tpu/ops/flash_attention.py:369", 1),
     "decode_attention": ("llama_x_tpu_torch/csrc/decode_attention.cu", "llama_x_tpu/ops/decode_attention.py:44", 0),
@@ -1755,7 +2277,7 @@ def record(kern: dict, runs: dict) -> dict:
     for name, (source, replaces, primary) in KERNELS.items():
         shapes = kern[name]
         p = shapes[primary]
-        per_run = {kind: run["launches"][name] for kind, run in runs.items()}
+        per_run = {kind: run["launches"].get(name, 0) for kind, run in runs.items()}
         out.append(dict(
             name=name, route="cuda", source=source, replaces=replaces, launches=sum(per_run.values()),
             launches_per_run=per_run, max_abs_err=p["max_abs_err"], tol=p["tol"], rtol=p.get("rtol", 0.0), ms=p["ms"],
@@ -1782,7 +2304,13 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     kern = phase_kernels()
-    runs = phase_main_path()
+    runs, serving_model = phase_main_path()
+    runs["continuous"] = phase_continuous(serving_model)
+    runs.update(phase_speculative(serving_model))
+    runs.update(phase_hf_and_http(serving_model))
+    del serving_model
+    gc.collect()
+    torch.cuda.empty_cache()
     runs["train"] = phase_train()
     gc.collect()
     torch.cuda.empty_cache()

@@ -10,7 +10,19 @@
 // the PV product, and l sums the undropped p. A row's q block is fixed, and a
 // 128-position kv tile lies inside one kv block (bk is a multiple of 128, or spans the
 // sequence; the wrapper raises otherwise), so the inner fmix32 of the block key is
-// hoisted to once per row and tile. The ring position offsets are not ported yet.
+// hoisted to once per row and tile.
+//
+// The offsets form (lxt_flash_attention_fwd_offsets; _fwd(offsets=) of the TPU kernel,
+// has_offsets): Sq queries of each batch row at global positions q_offset[b] + i attend
+// over a KV cache of Skv entries in its own head-major layout [B, Hkv, Skv, D], read in
+// place through head-major tensor maps, entry j at kv_offset[b] + j: causal on the
+// global positions, and nothing at or past the row's kv_len. The TPU kernel takes one
+// (q_offset, kv_offset) pair for the whole call; here each batch row has its own, so the
+// rows of a speculative verify or of a continuous batch's slots end at their own kv tile.
+// The tile classes shift the diagonal by q_offset - kv_offset, skip (never load) the kv
+// tiles at or past kv_len and mask a last tile that kv_len cuts. The serving paths run it
+// for the queries over the cache that the decode kernel K3 cannot take (more than 8 rows:
+// chunked prefill's continuation chunks, prefix-cache admission, verify at gamma >= 8).
 //
 // What computes: q folded by one f32 multiply with scale*log2e and one rounding to bf16,
 // base-2 online softmax in f32, masked logits -1e30, the l == 0 guard, natural-log lse
@@ -62,9 +74,10 @@ constexpr float LN2 = 0.6931471805599453f;
 struct Params {
   const int *qseg, *kseg, *prefix;  // null when absent
   const int *qrange, *krange;       // [B, ceil(S / SEG_CHUNK), 2] segment id ranges; null without segments
+  const int *q_off, *kv_off, *kv_len;  // [B] each: the offsets form (null otherwise)
   __nv_bfloat16* out;
   float* lse;
-  int B, S, Hq, Hkv, causal;
+  int B, Sq, Skv, Hq, Hkv, causal;  // self-attention: Sq == Skv == S
   float qscale;  // scale * log2(e)
   lxt::Dropout drop;
 };
@@ -84,20 +97,22 @@ constexpr int smem_bytes() {
   return sizeof(Smem<D>) + 1024;  // + the alignment of the dynamic base
 }
 
-// DROP is a template argument so that the kernel without dropout carries none of it
-template <int D, bool DROP>
+// DROP is a template argument so that the kernel without dropout carries none of it;
+// OFFS selects the offsets form (head-major K/V, the offsets mask)
+template <int D, bool DROP, bool OFFS>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, const Params p) {
   extern __shared__ unsigned char smem_raw[];
   Smem<D>& sm = *reinterpret_cast<Smem<D>*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
 
-  const int S = p.S;
-  const int n_q = (S + BQ - 1) / BQ, n_kv = (S + BK - 1) / BK;
+  const int S = p.Sq;
   const int h = blockIdx.x, b = blockIdx.y;
+  const lxt::Mask mask = OFFS ? lxt::offsets_mask(S, p.Skv, p.q_off, p.kv_off, p.kv_len, b)
+                              : lxt::batch_mask(S, p.causal, p.prefix, p.qrange, p.krange, b);
+  const int n_q = (S + BQ - 1) / BQ, n_kv = (mask.kv_end + BK - 1) / BK;
   const int q0 = (n_q - 1 - (int)blockIdx.z) * BQ;  // the q tiles that see the most kv tiles first
   const int hk = h / (p.Hq / p.Hkv);
-  const lxt::Mask mask = lxt::batch_mask(S, p.causal, p.prefix, p.qrange, p.krange, b);
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
 
   if (threadIdx.x == 0) {
@@ -134,8 +149,13 @@ __global__ void __launch_bounds__(THREADS, 1)
       if (lane == 0) {
         if (j >= 0) {
           lxt::mbar_arrive_expect_tx(&sm.full[stage], 2 * BK * D * 2);
-          lxt::tma_load_tile<D, BK>(sm.k[stage], &tk, &sm.full[stage], hk, kv0, b);
-          lxt::tma_load_tile<D, BK>(sm.v[stage], &tv, &sm.full[stage], hk, kv0, b);
+          if (OFFS) {
+            lxt::tma_load_tile_hm<D, BK>(sm.k[stage], &tk, &sm.full[stage], hk, kv0, b);
+            lxt::tma_load_tile_hm<D, BK>(sm.v[stage], &tv, &sm.full[stage], hk, kv0, b);
+          } else {
+            lxt::tma_load_tile<D, BK>(sm.k[stage], &tk, &sm.full[stage], hk, kv0, b);
+            lxt::tma_load_tile<D, BK>(sm.v[stage], &tv, &sm.full[stage], hk, kv0, b);
+          }
           sm.info[stage][1] = lxt::tile_class(mask, q0, 64, kv0, BK, qr0, kr);
           sm.info[stage][2] = lxt::tile_class(mask, q0 + 64, 64, kv0, BK, qr1, kr);
         } else {
@@ -296,18 +316,21 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-template <int D, bool DROP>
+template <int D, bool DROP, bool OFFS>
 int launch(const Params& p, const void* q, const void* k, const void* v, cudaStream_t st) {
-  CUtensorMap tq, tk, tv;
-  if (!lxt::make_bshd_map(&tq, q, p.B, p.S, p.Hq, D, BQ) || !lxt::make_bshd_map(&tk, k, p.B, p.S, p.Hkv, D, BK) ||
-      !lxt::make_bshd_map(&tv, v, p.B, p.S, p.Hkv, D, BK))
-    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tq, tk, tv;  // on the stack: each call encodes its own, so concurrent callers share nothing
+  bool ok = lxt::make_bshd_map(&tq, q, p.B, p.Sq, p.Hq, D, BQ);
+  if (OFFS)
+    ok = ok && lxt::make_bhsd_map(&tk, k, p.B, p.Hkv, p.Skv, D, BK) && lxt::make_bhsd_map(&tv, v, p.B, p.Hkv, p.Skv, D, BK);
+  else
+    ok = ok && lxt::make_bshd_map(&tk, k, p.B, p.Skv, p.Hkv, D, BK) && lxt::make_bshd_map(&tv, v, p.B, p.Skv, p.Hkv, D, BK);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   constexpr int bytes = smem_bytes<D>();
   static const cudaError_t attr =  // once per instantiation and process (one card a process)
-      cudaFuncSetAttribute(flash_fwd_kernel<D, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      cudaFuncSetAttribute(flash_fwd_kernel<D, DROP, OFFS>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid(p.Hq, p.B, (p.S + BQ - 1) / BQ);
-  flash_fwd_kernel<D, DROP><<<grid, THREADS, bytes, st>>>(tq, tk, tv, p);
+  const dim3 grid(p.Hq, p.B, (p.Sq + BQ - 1) / BQ);
+  flash_fwd_kernel<D, DROP, OFFS><<<grid, THREADS, bytes, st>>>(tq, tk, tv, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -326,10 +349,11 @@ extern "C" int lxt_flash_attention_fwd(const void* q, const void* k, const void*
   p.prefix = static_cast<const int*>(prefix);
   p.qrange = static_cast<const int*>(qrange);
   p.krange = static_cast<const int*>(krange);
+  p.q_off = p.kv_off = p.kv_len = nullptr;
   p.out = static_cast<__nv_bfloat16*>(out);
   p.lse = static_cast<float*>(lse);
   p.B = B;
-  p.S = S;
+  p.Sq = p.Skv = S;
   p.Hq = Hq;
   p.Hkv = Hkv;
   p.causal = causal;
@@ -337,7 +361,34 @@ extern "C" int lxt_flash_attention_fwd(const void* q, const void* k, const void*
   p.drop = lxt::Dropout{dropout, threshold, keep_scale, seed, bq > 0 ? bq : 1, bk > 0 ? bk : 1};
   if ((qseg == nullptr) != (qrange == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
-  if (D == 128) return dropout ? launch<128, true>(p, q, k, v, st) : launch<128, false>(p, q, k, v, st);
-  if (D == 64) return dropout ? launch<64, true>(p, q, k, v, st) : launch<64, false>(p, q, k, v, st);
+  if (D == 128) return dropout ? launch<128, true, false>(p, q, k, v, st) : launch<128, false, false>(p, q, k, v, st);
+  if (D == 64) return dropout ? launch<64, true, false>(p, q, k, v, st) : launch<64, false, false>(p, q, k, v, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The offsets form: q [B, Sq, Hq, D] and out in the model's layout, k / v [B, Hkv, Skv, D]
+// (a KV cache as it lies), q_offset / kv_offset / kv_len [B] int32 on the card, lse
+// [B, Hq, Sq] f32; causal on the global positions, no dropout
+extern "C" int lxt_flash_attention_fwd_offsets(const void* q, const void* k, const void* v, const void* q_offset,
+                                               const void* kv_offset, const void* kv_len, void* out, void* lse, int B,
+                                               int Sq, int Skv, int Hq, int Hkv, int D, float qscale, void* stream) {
+  Params p;
+  p.qseg = p.kseg = p.prefix = p.qrange = p.krange = nullptr;
+  p.q_off = static_cast<const int*>(q_offset);
+  p.kv_off = static_cast<const int*>(kv_offset);
+  p.kv_len = static_cast<const int*>(kv_len);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.lse = static_cast<float*>(lse);
+  p.B = B;
+  p.Sq = Sq;
+  p.Skv = Skv;
+  p.Hq = Hq;
+  p.Hkv = Hkv;
+  p.causal = 1;
+  p.qscale = qscale;
+  p.drop = lxt::Dropout{0, 0u, 1.f, 0u, 1, 1};
+  auto st = static_cast<cudaStream_t>(stream);
+  if (D == 128) return launch<128, false, true>(p, q, k, v, st);
+  if (D == 64) return launch<64, false, true>(p, q, k, v, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -95,6 +95,14 @@ __device__ __forceinline__ void tma_load_tile(__nv_bfloat16* dst, const CUtensor
   for (int c = 0; c < D / 64; ++c) tma_load_4d(dst + c * ROWS * 64, map, bar, c * 64, h, s0, b);
 }
 
+// the same tile from a head-major [B, H, S, D] map (make_bhsd_map: a KV cache as it lies)
+template <int D, int ROWS>
+__device__ __forceinline__ void tma_load_tile_hm(__nv_bfloat16* dst, const CUtensorMap* map, uint64_t* bar, int h,
+                                                 int s0, int b) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c) tma_load_4d(dst + c * ROWS * 64, map, bar, c * 64, s0, h, b);
+}
+
 // one box from shared memory into a 4-D tensor map (rows past the tensor's end are
 // dropped); completion tracked by the issuing thread's bulk groups
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0, int c1, int c2, int c3) {
@@ -374,6 +382,22 @@ inline bool make_bshd_map(CUtensorMap* map, const void* base, int B, int S, int 
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2, (cuuint64_t)S * H * D * 2};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// 4-D map over a contiguous bf16 [B, H, S, D] tensor (the KV cache's layout) as it lies;
+// box {64, rows, 1, 1} (one 128-byte column block of `rows` positions of one head), the
+// same swizzle and zero fill as make_bshd_map, so a tile lands in shared memory as it does
+// from that map.
+inline bool make_bhsd_map(CUtensorMap* map, const void* base, int B, int H, int S, int D, int rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2, (cuuint64_t)H * S * D * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

@@ -8,8 +8,9 @@ early-fusion audio model, scored by word error rate.
         --tokenizer llama2 --tokenizer_path tokenizer.model
 
 Decoding runs on the card unless ``--device cpu``: the prefill through K2 with the audio
-prefix (K1 for an int8 base), each new token through K3. HF weights (``--model``) come
-with slice 3.
+prefix (K1 for an int8 base), each new token through K3. ``--model``: text weights from a
+local HF checkpoint directory with a fresh audio stem (models/hf.py), as the JAX
+evaluation has it.
 """
 
 from __future__ import annotations
@@ -71,7 +72,7 @@ def synthetic_model(device) -> LlamaAudio:
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--data_dir", help="a LibriSpeech-layout directory")
-    parser.add_argument("--model", help="HF checkpoint (not ported yet: slice 3)")
+    parser.add_argument("--model", help="a local HF checkpoint directory (text weights; a fresh stem)")
     parser.add_argument("--tokenizer", default="byte", choices=["byte", "llama2", "llama3"])
     parser.add_argument("--tokenizer_path")
     parser.add_argument("--resume", help="a train_librispeech run directory (or a step directory inside one)")
@@ -83,10 +84,8 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     parser.add_argument("--eval_batch_size", type=int, default=8, help="utterances decoded per generate() call")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
-    if args.model:
-        raise NotImplementedError("not ported yet: --model (HF import: slice 3); pass --resume or --synthetic N")
-    if not args.synthetic and not (args.data_dir and args.resume):
-        raise ValueError("--data_dir needs --resume (a train_librispeech run); or pass --synthetic N")
+    if not args.synthetic and not (args.data_dir and (args.resume or args.model)):
+        raise ValueError("--data_dir needs --resume (a train_librispeech run) or --model; or pass --synthetic N")
     return args
 
 
@@ -94,7 +93,12 @@ def main(argv: list[str] | None = None) -> dict:
     from llama_x_tpu_torch.train.checkpoint import restore_model
 
     args = parse_args(argv)
-    model = restore_model(args.resume, args.device) if args.resume else synthetic_model(args.device)
+    if args.resume:
+        model = restore_model(args.resume, args.device)
+    elif args.model:
+        model = LlamaAudio.from_hf(args.model, device=args.device, max_seq_len=4096)
+    else:
+        model = synthetic_model(args.device)
     if args.synthetic:
         tokenizer = ByteTokenizer()
         rng = np.random.default_rng(0)

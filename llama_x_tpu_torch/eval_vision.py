@@ -11,7 +11,8 @@ Fuyu-style image model, scored by exact match and word error rate.
 The shapes task's eval split holds combinations no training sample has
 (data/vision.py:shapes_split), so a good score needs the pixels. Decoding runs on the
 card unless ``--device cpu``: the prefill through K2 with the image prefix (K1 for an
-int8 base), each new token through K3. HF weights (``--model``) come with slice 3.
+int8 base), each new token through K3. ``--model``: text weights from a local HF
+checkpoint directory with a fresh patch stem (models/hf.py), as the JAX evaluation has it.
 """
 
 from __future__ import annotations
@@ -84,7 +85,7 @@ def synthetic_model(vision_config: VisionConfig, device) -> LlamaVision:
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--data_dir", help="images with captions.jsonl / captions.tsv")
-    parser.add_argument("--model", help="HF checkpoint (not ported yet: slice 3)")
+    parser.add_argument("--model", help="a local HF checkpoint directory (text weights; a fresh stem)")
     parser.add_argument("--tokenizer", default="byte", choices=["byte", "llama2", "llama3"])
     parser.add_argument("--tokenizer_path")
     parser.add_argument("--resume", help="a train_vision run directory (or a step directory inside one)")
@@ -98,10 +99,8 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
-    if args.model:
-        raise NotImplementedError("not ported yet: --model (HF import: slice 3); pass --resume or --synthetic N")
-    if not args.synthetic and not (args.data_dir and args.resume):
-        raise ValueError("--data_dir needs --resume (a train_vision run); or pass --synthetic N")
+    if not args.synthetic and not (args.data_dir and (args.resume or args.model)):
+        raise ValueError("--data_dir needs --resume (a train_vision run) or --model; or pass --synthetic N")
     return args
 
 
@@ -111,6 +110,9 @@ def main(argv: list[str] | None = None) -> dict:
     args = parse_args(argv)
     if args.resume:
         model = restore_model(args.resume, args.device)
+    elif args.model:
+        model = LlamaVision.from_hf(args.model, device=args.device, image_size=args.image_size,
+                                    patch_size=args.patch_size, max_seq_len=4096)
     else:
         model = synthetic_model(VisionConfig(image_size=args.image_size, patch_size=args.patch_size), args.device)
     if args.synthetic:

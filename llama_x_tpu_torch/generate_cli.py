@@ -2,12 +2,20 @@
 
     python -m llama_x_tpu_torch.generate_cli --geometry 8b --quantize int8 \\
         --dynamic_int8_act --kv_dtype int8 --prompt "The capital of France is" --max_new_tokens 64
+    python -m llama_x_tpu_torch.generate_cli --model /data/llama31-8b --tokenizer llama3 \\
+        --tokenizer_path /data/llama31-8b/original/tokenizer.model --prompt "2+2=" --max_new_tokens 32
+    python -m llama_x_tpu_torch.generate_cli --resume runs/metamathqa/<run> --draft_resume runs/metamathqa/<draft> \\
+        --gamma 4 --prompt "2+2="
     echo "one prompt per line" | python -m llama_x_tpu_torch.generate_cli --geometry tiny --device cpu --stdin
 
-Weights are random, made on the device from ``--seed`` at the width of
-``--geometry`` (the serving bench's geometries); text goes through the offline
-byte tokenizer. Loading real checkpoints (``--model`` / ``--resume``) and draft
-models come with later slices. Runs on the card unless ``--device cpu``.
+Model sources (one of): ``--model`` a local HF checkpoint directory (models/hf.py,
+streamed; ``--quantize int8`` makes it int8 as it loads), ``--resume`` a run of the port's
+trainers (its model_config.json and latest checkpoint; int8 / LoRA / DoRA tensors serve as
+they are), or ``--geometry`` (the default, 8b) for random weights made on the device from
+``--seed`` at a published width. ``--draft_model`` / ``--draft_resume`` add a draft model:
+speculative decoding with ``--gamma`` draft tokens a round. Text goes through
+``--tokenizer`` (the offline byte tokenizer by default). Runs on the card unless
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -75,15 +83,41 @@ def build_model(config: llama.LlamaConfig, quantize: bool, seed: int, device=Non
     return llama.Llama(config, emb, layers, norm(), output)
 
 
-def main(argv: list[str] | None = None) -> None:
-    from llama_x_tpu_torch.data.tokenizers import get_tokenizer
-    from llama_x_tpu_torch.models.generate import generate, generate_stream
+def load_source(model_dir: str | None, resume: str | None, geometry: str | None, args, device) -> llama.Llama:
+    """The model named by one of ``--model`` / ``--resume`` / ``--geometry`` (with the
+    quantization, activation and cache-length flags of ``args``)."""
+    if model_dir:
+        model = llama.Llama.from_hf(model_dir, device=device, quantize=args.quantize)
+    elif resume:
+        from llama_x_tpu_torch.train.checkpoint import restore_model
 
+        model = restore_model(resume, device)
+    else:
+        config = llama.LlamaConfig(**GEOMETRIES[geometry or "8b"], max_seq_len=args.max_seq_len or 4096)
+        return build_model(config.replace(dynamic_int8_act=args.dynamic_int8_act), args.quantize == "int8", args.seed,
+                           device)
+    if args.max_seq_len:
+        model.set_max_seq_len(args.max_seq_len)
+    if args.dynamic_int8_act:
+        model.config = model.config.replace(dynamic_int8_act=True)
+    return model
+
+
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--geometry", default="8b", choices=sorted(GEOMETRIES))
+    src = parser.add_mutually_exclusive_group()
+    src.add_argument("--model", help="a local HF checkpoint directory")
+    src.add_argument("--resume", help="a run directory of the port's trainers (or a step directory inside one)")
+    src.add_argument("--geometry", choices=sorted(GEOMETRIES), help="random weights at this width (default 8b)")
+    draft = parser.add_mutually_exclusive_group()
+    draft.add_argument("--draft_model", help="a local HF checkpoint directory of a draft model: speculative decoding")
+    draft.add_argument("--draft_resume", help="a run directory of a draft model: speculative decoding")
+    parser.add_argument("--gamma", type=int, default=4, help="draft tokens per verify pass")
+    parser.add_argument("--tokenizer", default="byte", choices=["byte", "llama2", "llama3"])
+    parser.add_argument("--tokenizer_path", help="local tokenizer.model of llama2 / llama3 (offline)")
     parser.add_argument("--quantize", choices=["int8"], help="int8 rowwise weights")
     parser.add_argument("--dynamic_int8_act", action="store_true",
-                        help="int8 x int8 projections through the int8 GEMM kernel (needs --quantize int8)")
+                        help="int8 x int8 projections through the int8 GEMM kernel (an int8 base)")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--prompt", action="append", default=[], help="repeatable")
     parser.add_argument("--stdin", action="store_true", help="read one prompt per stdin line")
@@ -93,16 +127,28 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--top_p", type=float, default=1.0)
     parser.add_argument("--min_p", type=float, default=0.0, help="drop tokens with prob < min_p * top-token prob")
     parser.add_argument("--seed", type=int, default=0, help="weights and sampling noise")
-    parser.add_argument("--max_seq_len", type=int, default=4096, help="KV cache length")
+    parser.add_argument("--max_seq_len", type=int, default=0,
+                        help="KV cache length (0: 4096 for --geometry, the model's own otherwise)")
     parser.add_argument("--no_eos", action="store_true", help="ignore eos, always emit max_new_tokens")
     parser.add_argument("--kv_dtype", default="bf16", choices=["bf16", "int8"])
-    parser.add_argument("--batch", action="store_true", help="all prompts in ONE ragged batch")
-    parser.add_argument("--stream", action="store_true", help="print tokens as they decode")
+    parser.add_argument("--batch", action="store_true", help="all prompts in ONE ragged batch (not with a draft)")
+    parser.add_argument("--stream", action="store_true", help="print tokens as they decode (not with --batch or a draft)")
+    return parser
+
+
+def main(argv: list[str] | None = None) -> None:
+    from llama_x_tpu_torch.data.tokenizers import get_tokenizer
+    from llama_x_tpu_torch.models.generate import generate, generate_stream
+
+    parser = build_parser()
     args = parser.parse_args(argv)
-    if args.stream and args.batch:
-        parser.error("--stream is per-prompt decoding (not combinable with --batch)")
-    if args.dynamic_int8_act and args.quantize != "int8":
-        parser.error("--dynamic_int8_act needs --quantize int8")
+    speculative = bool(args.draft_model or args.draft_resume)
+    if args.stream and (args.batch or speculative):
+        parser.error("--stream is plain per-prompt decoding (not combinable with --batch or a draft)")
+    if args.batch and speculative:
+        parser.error("--batch is for the plain path (not combinable with a draft)")
+    if args.dynamic_int8_act and args.quantize != "int8" and not args.resume:
+        parser.error("--dynamic_int8_act needs --quantize int8 (or a resumed int8 run)")
 
     prompts = list(args.prompt)
     if args.stdin:
@@ -111,10 +157,10 @@ def main(argv: list[str] | None = None) -> None:
         parser.error("no prompts: pass --prompt (repeatable) or --stdin")
 
     device = resolve_device(args.device)
-    tok = get_tokenizer("byte")
-    config = llama.LlamaConfig(**GEOMETRIES[args.geometry], max_seq_len=args.max_seq_len,
-                               dynamic_int8_act=args.dynamic_int8_act)
-    model = build_model(config, args.quantize == "int8", args.seed, device)
+    tok = get_tokenizer(args.tokenizer, args.tokenizer_path)
+    model = load_source(args.model, args.resume, args.geometry, args, device)
+    config = model.config
+    draft = load_source(args.draft_model, args.draft_resume, None, args, device) if speculative else None
     gen = torch.Generator(device=device).manual_seed(args.seed)
     cache_dtype = torch.int8 if args.kv_dtype == "int8" else torch.bfloat16
     eos_id = -1 if args.no_eos else tok.eos_id
@@ -147,11 +193,22 @@ def main(argv: list[str] | None = None) -> None:
     for i, prompt in enumerate(prompts):
         ids = tok(prompt, add_bos=True)
         n_new = min(args.max_new_tokens, config.max_seq_len - len(ids))
+        if draft is not None:
+            n_new = min(n_new, config.max_seq_len - len(ids) - args.gamma - 1,
+                        draft.config.max_seq_len - len(ids) - args.gamma)
         if n_new <= 0:
             parser.error(f"prompt ({len(ids)} tokens) fills the whole {config.max_seq_len} cache")
         prompt_t = torch.tensor([ids], device=device)
         t0 = time.perf_counter()
-        if args.stream:
+        spec = ""
+        if draft is not None:
+            from llama_x_tpu_torch.models.speculative import generate_speculative
+
+            out, stats = generate_speculative(model, draft, prompt_t, max_new_tokens=n_new, gamma=args.gamma, **sample)
+            row = out[0].tolist()
+            spec = f", {stats['target_passes']} target passes"
+            print(prompt + text_of(row))
+        elif args.stream:
             print(prompt, end="", flush=True)
             row, text = [], ""
             for block in generate_stream(model, prompt_t, max_new_tokens=n_new, **sample):
@@ -166,7 +223,7 @@ def main(argv: list[str] | None = None) -> None:
         dt = time.perf_counter() - t0
         n_out = sum(1 for t in row if t not in (tok.pad_id, tok.eos_id))
         print(f"--- prompt {i}: {len(ids)} tok prompt + {n_out} tok completion ({n_out / dt:.1f} tok/s incl. "
-              f"prefill) ---", file=sys.stderr)
+              f"prefill{spec}) ---", file=sys.stderr)
 
 
 if __name__ == "__main__":

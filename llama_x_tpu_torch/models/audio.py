@@ -118,8 +118,17 @@ class LlamaAudio(llama.Llama):
         return cls.from_llama(base, init_audio_stem(config, audio_config, gen, dtype), audio_config)
 
     @classmethod
-    def from_hf(cls, *args, **kwargs):
-        raise NotImplementedError("LlamaAudio.from_hf: loading HF text weights is not ported yet (slice 3)")
+    def from_hf(cls, path, seed: int = 0, dtype=torch.bfloat16, device=None, **kwargs):
+        """Text weights from a local HF checkpoint (models/hf.py:load_llama); the audio
+        stem drawn fresh from a generator seeded with ``seed`` on the device. Keyword
+        arguments that name an ``AudioConfig`` field configure the stem, the rest go to
+        ``load_llama``."""
+        from llama_x_tpu_torch.models.hf import load_llama
+
+        audio_config = AudioConfig(**{k: kwargs.pop(k) for k in list(kwargs) if k in AudioConfig.__dataclass_fields__})
+        base = load_llama(path, dtype=dtype, device=device, **kwargs)
+        gen = torch.Generator(device=base.device).manual_seed(seed)
+        return cls.from_llama(base, init_audio_stem(base.config, audio_config, gen, dtype), audio_config)
 
     def forward(self, audio, tokens, **kw):
         return forward(self, audio, tokens, **kw)

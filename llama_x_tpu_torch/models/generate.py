@@ -49,15 +49,20 @@ def filter_logits(logits: torch.Tensor, temperature: float, top_k: int, top_p: f
     return logits
 
 
+def gumbel_argmax(filtered: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+    """argmax(filtered + Gumbel noise) over the last axis: one draw from
+    softmax(filtered), the noise made from uniforms of the logits' shape."""
+    u = torch.rand(filtered.shape, generator=generator, device=filtered.device, dtype=torch.float32)
+    gumbel = -torch.log(-torch.log(u.clamp_(min=torch.finfo(torch.float32).tiny)))
+    return (filtered + gumbel).argmax(dim=-1)
+
+
 def sample_logits(logits: torch.Tensor, temperature: float, top_k: int, top_p: float = 1.0, min_p: float = 0.0,
                   generator: torch.Generator | None = None) -> torch.Tensor:
     """logits [B, V] -> token ids [B] (int64). temperature 0 -> argmax (no draw)."""
     if temperature == 0.0:
         return logits.argmax(dim=-1)
-    logits = filter_logits(logits, temperature, top_k, top_p, min_p)
-    u = torch.rand(logits.shape, generator=generator, device=logits.device, dtype=torch.float32)
-    gumbel = -torch.log(-torch.log(u.clamp_(min=torch.finfo(torch.float32).tiny)))
-    return (logits + gumbel).argmax(dim=-1)
+    return gumbel_argmax(filter_logits(logits, temperature, top_k, top_p, min_p), generator)
 
 
 def _prefill(model: llama.Llama, prompt: torch.Tensor, *, generator, temperature, top_k, top_p, min_p, cache_dtype,

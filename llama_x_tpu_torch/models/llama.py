@@ -9,7 +9,9 @@ with a module in place of a param dict.
 
 Kernels on this path: the prefill and every training forward run the flash forward,
 the training backward the flash backward (ops/flash_attention.py), every decode step
-the decode kernel (ops/decode_attention.py), with ``dynamic_int8_act`` every int8
+the decode kernel (ops/decode_attention.py), a query of more than ``MAX_SQ`` rows over the
+cache (a continuation chunk of chunked prefill, a prefix-cache admission, a speculative
+verify at gamma >= 8) the flash forward's offsets form, with ``dynamic_int8_act`` every int8
 projection the NT int8 GEMM and with ``dynamic_int8_bwd`` its input gradient the KN
 int8 GEMM (ops/int8_mm.py); ``int8_head`` puts the fused loss's vocabulary GEMMs on
 both. The kernel modules are called through their module attributes.
@@ -167,6 +169,24 @@ class Llama(nn.Module):
     def device(self) -> torch.device:
         return self.tok_embeddings.device
 
+    @classmethod
+    def from_hf(cls, path, **kwargs) -> "Llama":
+        """A local HF checkpoint directory (models/hf.py:load_llama)."""
+        from llama_x_tpu_torch.models.hf import load_llama
+
+        return load_llama(path, **kwargs)
+
+    def set_max_seq_len(self, max_seq_len: int) -> "Llama":
+        """Serve with a cache of ``max_seq_len`` positions: the config and the rope table
+        follow, in place."""
+        c = self.config = self.config.replace(max_seq_len=max_seq_len)
+        self.rope = build_rope(
+            c.max_seq_len, c.head_dim, c.rope_base, c.is_llama3_1, scale_factor=c.rope_scale_factor,
+            low_freq_factor=c.rope_low_freq_factor, high_freq_factor=c.rope_high_freq_factor,
+            old_context_len=c.rope_old_context_len, device=self.device,
+        )
+        return self
+
     def forward(self, tokens: torch.Tensor, **kw):
         return forward(self, tokens, **kw)
 
@@ -258,19 +278,49 @@ def _decode_kernel_fits(mi: MaskInfo, Sq: int) -> bool:
     )
 
 
+def _offsets_fit(mi: MaskInfo) -> bool:
+    """What the flash forward's offsets form takes over the cache: causal queries with
+    explicit positions and kv_len, no segments, prefix or kv_positions."""
+    return (
+        mi.causal and mi.kv_len is not None and mi.q_positions is not None and mi.kv_positions is None
+        and mi.segment_ids is None and mi.prefix_len is None
+    )
+
+
+def cache_offsets(mi: MaskInfo, B: int, S: int):
+    """(q_offset [B], kv_offset [B], kv_len [B], kv_max) int32 for the offsets form over the
+    cache: q_offset = q_positions[:, 0], kv_offset 0 (cache entry j holds position j), and
+    the longest kv_len as a host int (the int8 cache's dequantized prefix). Reads one small
+    tensor back from the device, once per trunk call. Raises where a row's q_positions are
+    not contiguous (the kernel places row i at q_offset + i)."""
+    qp = mi.q_positions
+    qp = (qp.reshape(1, -1) if qp.ndim == 1 else qp).expand(B, S)
+    if mi.kv_len.ndim != 1:
+        raise ValueError(f"the offsets form takes kv_len [B], got {tuple(mi.kv_len.shape)}")
+    lens = mi.kv_len.to(torch.int32).expand(B).contiguous()
+    q_off = qp[:, 0].to(torch.int32).contiguous()
+    steps = qp.long() == qp[:, :1].long() + torch.arange(S, device=qp.device)
+    flag, kv_max = torch.stack([steps.all().long(), lens.max().long()]).tolist()
+    if not flag:
+        raise ValueError("the offsets form takes q_positions contiguous in each row (q_offset + i)")
+    return q_off, torch.zeros_like(q_off), lens, int(kv_max)
+
+
 def _named(saves: rm.SaveStore | None, name: str):
     return None if saves is None else (saves, name)
 
 
 def attention(attn: Attention, config: LlamaConfig, x: torch.Tensor, rope: torch.Tensor, mask_info: MaskInfo,
               cache=None, input_pos: torch.Tensor | None = None, prefill: bool = False,
-              saves: rm.SaveStore | None = None, dropout_seed=None):
+              saves: rm.SaveStore | None = None, dropout_seed=None, offsets=None):
     """GQA attention. x [B, S, D]. With ``cache`` (this layer's (k, v) views), the
     fresh k/v are written into the cache IN PLACE at ``input_pos`` ([S], or [B, S]
     per row) and, unless ``prefill``, attention reads the cache (decode). ``prefill``
     attends over the fresh k/v (the cache starts empty at position 0: same result).
-    A decode whose mask the decode kernel cannot take runs the plain attention on
-    CPU tensors and raises on the card. ``saves``: the checkpointed region's named
+    A read of the cache takes the decode kernel up to ``MAX_SQ`` query rows, and on the
+    card the flash forward's offsets form beyond (``offsets``: ``cache_offsets``, given by
+    ``trunk``); any other mask over the cache runs the plain attention on CPU tensors and
+    raises on the card. ``saves``: the checkpointed region's named
     saves (q/k/v, the flash output + lse, the wo output). ``dropout_seed`` turns on
     ``config.attn_dropout`` in the flash kernels. Returns (out, cache)."""
     c = config
@@ -312,10 +362,18 @@ def attention(attn: Attention, config: LlamaConfig, x: torch.Tensor, rope: torch
                 out = da.decode_attention_int8(q, k_cache[0], k_cache[1], v_cache[0], v_cache[1], lens, scale)
             else:
                 out = da.decode_attention(q, k_cache, v_cache, lens, scale)
+        elif offsets is not None:
+            q_off, kv_off, lens, kv_max = offsets
+            if quantized:
+                out, _ = fa.flash_fwd_offsets_int8(q, k_cache[0], k_cache[1], v_cache[0], v_cache[1], q_off, kv_off,
+                                                   lens, kv_max)
+            else:
+                out, _ = fa.flash_fwd_offsets(q, k_cache, v_cache, q_off, kv_off, lens)
         elif q.is_cuda:
             raise ValueError(
-                f"decode over the cache on the card takes the decode kernel only: causal queries with "
-                f"q_positions and kv_len, no segments/prefix/kv_positions, 1 <= Sq <= {da.MAX_SQ} (got Sq={S})"
+                f"a read of the cache on the card takes the decode kernel (Sq <= {da.MAX_SQ}) or the flash "
+                f"kernel's offsets form: causal queries with q_positions and kv_len, no segments/prefix/"
+                f"kv_positions (got Sq={S})"
             )
         else:
             kd = dequant_kv(k_cache) if quantized else k_cache
@@ -437,10 +495,11 @@ def check_remat_policy(policy: str) -> None:
 
 
 def block(blk: Block, config: LlamaConfig, x: torch.Tensor, rope: torch.Tensor, mask_info: MaskInfo,
-          cache=None, input_pos=None, prefill: bool = False, saves: rm.SaveStore | None = None, dropout_seed=None):
+          cache=None, input_pos=None, prefill: bool = False, saves: rm.SaveStore | None = None, dropout_seed=None,
+          offsets=None):
     """Pre-norm transformer layer."""
     attn_out, cache = attention(blk.attention, config, blk.attention_norm(x), rope, mask_info, cache,
-                                input_pos, prefill=prefill, saves=saves, dropout_seed=dropout_seed)
+                                input_pos, prefill=prefill, saves=saves, dropout_seed=dropout_seed, offsets=offsets)
     x = x + attn_out
     x = x + feed_forward(blk.feed_forward, config, blk.ffn_norm(x), saves)
     return x, cache
@@ -476,6 +535,11 @@ def trunk(model: Llama, x: torch.Tensor, mask_info: MaskInfo, kv_cache=None,
         check_remat_policy(policy)
     q8 = policy in _Q8_POLICIES
     keep = rm.POLICY_SAVES[_Q8_POLICIES[policy] if q8 else policy] if remat else ()
+    B, S = x.shape[:2]
+    offsets = None
+    if (kv_cache is not None and not prefill and x.is_cuda and not _decode_kernel_fits(mask_info, S)
+            and _offsets_fit(mask_info)):
+        offsets = cache_offsets(mask_info, B, S)  # once for every layer
 
     def region(h, blk, saves, seed):
         # the checkpointed function: the first pass records the named saves, the recompute takes them
@@ -494,7 +558,8 @@ def trunk(model: Llama, x: torch.Tensor, mask_info: MaskInfo, kv_cache=None,
                 x = x + feed_forward_q8(blk, config, x)
             continue
         cache = None if kv_cache is None else _layer_cache(kv_cache, layer)
-        x, _ = block(blk, config, x, rope, mask_info, cache, input_pos, prefill=prefill, dropout_seed=seeds[layer])
+        x, _ = block(blk, config, x, rope, mask_info, cache, input_pos, prefill=prefill, dropout_seed=seeds[layer],
+                     offsets=offsets)
     return x, kv_cache
 
 

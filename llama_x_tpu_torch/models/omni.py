@@ -51,8 +51,21 @@ class LlamaOmni(llama.Llama):
                               vision_config)
 
     @classmethod
-    def from_hf(cls, *args, **kwargs):
-        raise NotImplementedError("LlamaOmni.from_hf: loading HF text weights is not ported yet (slice 3)")
+    def from_hf(cls, path, seed: int = 0, dtype=torch.bfloat16, device=None, **kwargs):
+        """Text weights from a local HF checkpoint; the audio stem, then the patch stem,
+        drawn from one generator seeded with ``seed``. ``AudioConfig`` / ``VisionConfig``
+        fields among the keyword arguments configure the stems, the rest go to
+        ``load_llama``."""
+        from llama_x_tpu_torch.models.hf import load_llama
+
+        audio_config = AudioConfig(**{k: kwargs.pop(k) for k in list(kwargs) if k in AudioConfig.__dataclass_fields__})
+        vision_config = VisionConfig(**{k: kwargs.pop(k) for k in list(kwargs)
+                                        if k in VisionConfig.__dataclass_fields__})
+        base = load_llama(path, dtype=dtype, device=device, **kwargs)
+        gen = torch.Generator(device=base.device).manual_seed(seed)
+        audio_stem = init_audio_stem(base.config, audio_config, gen, dtype)
+        return cls.from_llama(base, audio_stem, init_patch_embed(base.config, vision_config, gen, dtype), audio_config,
+                              vision_config)
 
     def forward(self, audio, images, tokens, **kw):
         return forward(self, audio, images, tokens, **kw)

@@ -114,8 +114,18 @@ class LlamaVision(llama.Llama):
         return cls.from_llama(base, init_patch_embed(config, vision_config, gen, dtype), vision_config)
 
     @classmethod
-    def from_hf(cls, *args, **kwargs):
-        raise NotImplementedError("LlamaVision.from_hf: loading HF text weights is not ported yet (slice 3)")
+    def from_hf(cls, path, seed: int = 0, dtype=torch.bfloat16, device=None, **kwargs):
+        """Text weights from a local HF checkpoint (models/hf.py:load_llama); the patch
+        stem drawn fresh from a generator seeded with ``seed`` on the device. Keyword
+        arguments that name a ``VisionConfig`` field configure the stem, the rest go to
+        ``load_llama``."""
+        from llama_x_tpu_torch.models.hf import load_llama
+
+        vision_config = VisionConfig(**{k: kwargs.pop(k) for k in list(kwargs)
+                                        if k in VisionConfig.__dataclass_fields__})
+        base = load_llama(path, dtype=dtype, device=device, **kwargs)
+        gen = torch.Generator(device=base.device).manual_seed(seed)
+        return cls.from_llama(base, init_patch_embed(base.config, vision_config, gen, dtype), vision_config)
 
     def forward(self, images, tokens, **kw):
         return forward(self, images, tokens, **kw)

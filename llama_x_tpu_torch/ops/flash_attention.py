@@ -11,11 +11,19 @@ the dV product, ds = p * (dp - delta) * ln2 rounded before the dk and dq product
 f32 accumulation, dq scaled once at the end, dk / dv summed over the GQA group. The
 mask is built in the kernels from ``causal``, ``segment_ids`` / ``kv_segment_ids``
 and ``prefix_len`` and equals ops/attention.py's ``make_attention_mask``. The TPU's
-block-alignment gate is not copied: the kernels mask a ragged S themselves. The ring
-offsets come later. The kernels sort their tiles with ``tile_class`` (all masked: never
-loaded; all visible: no mask code; partial: masked per element), the JAX kernels'
-``_needed`` and ``_all_true`` with the segment test widened to the ranges of segment ids
-that ``segment_ranges`` gives them.
+block-alignment gate is not copied: the kernels mask a ragged S themselves. The kernels
+sort their tiles with ``tile_class`` (all masked: never loaded; all visible: no mask
+code; partial: masked per element), the JAX kernels' ``_needed`` and ``_all_true`` with
+the segment test widened to the ranges of segment ids that ``segment_ranges`` gives them.
+
+The offsets form of the forward (``_fwd(offsets=)``, ``has_offsets``), through
+``flash_fwd_offsets``: Sq queries per batch row at global positions q_offset[b] + i over a
+KV cache in its own head-major layout [B, Hkv, S_max, D], read in place, entry j at
+kv_offset[b] + j; visible iff q_offset[b] + i >= kv_offset[b] + j and j < kv_len[b]. The
+JAX kernel's scalar pair is the case where every row has the same offsets (and kv_len is
+the whole cache). ``flash_fwd_offsets_int8`` first dequantizes the live prefix of an int8
+cache to bf16, as the JAX package's XLA path (``dequant_kv``) does. Forward only: the
+backward's offsets (ring attention) come with the parallelism slice.
 
 Attention dropout (``dropout_rate`` > 0 with a ``dropout_seed``) is the JAX kernels'
 counter-based hash, reproduced bit for bit in the kernels and in the plain versions
@@ -197,23 +205,28 @@ def flash_fwd_tolerance(ref: torch.Tensor) -> tuple[torch.Tensor, float]:
 
 
 def tile_class(q0: int, kv0: int, bq: int, bk: int, S: int, causal: bool, prefix: int | None,
-               qseg_range: tuple[int, int] | None, kseg_range: tuple[int, int] | None) -> str:
+               qseg_range: tuple[int, int] | None, kseg_range: tuple[int, int] | None, shift: int = 0,
+               kv_end: int | None = None) -> str:
     """The class of the tile [q0, q0 + bq) x [kv0, kv0 + bk) under the flash kernels' mask
-    (``make_attention_mask``: base = (q >= k if causal) & (same segment), visible = base |
-    in-prefix, where base is all True with neither causal nor segments and no prefix and
-    all False with a prefix; nothing at or past S): "skip" when no element can be visible,
-    "full" when every element is, "partial" otherwise. ``prefix`` is the batch row's
-    prefix length or None; ``qseg_range`` / ``kseg_range`` the (min, max) of the tile's
-    segment ids below S, or None without segments. The kernels mirror it
+    (``make_attention_mask``: base = (q + shift >= k if causal) & (same segment), visible =
+    base | in-prefix, where base is all True with neither causal nor segments and no prefix
+    and all False with a prefix; no query at or past S, no key at or past ``kv_end``):
+    "skip" when no element can be visible, "full" when every element is, "partial"
+    otherwise. ``prefix`` is the batch row's prefix length or None; ``qseg_range`` /
+    ``kseg_range`` the (min, max) of the tile's segment ids below S, or None without
+    segments. Self-attention has shift 0 and kv_end S; the offsets form over a cache has
+    shift = q_offset - kv_offset and kv_end = the row's kv_len, so a tile at or past kv_len
+    is skipped and one that kv_len cuts is never full. The kernels mirror it
     (csrc/common.cuh: tile_class): skip tiles are never loaded, full ones run with no mask
     code. It is the JAX kernels' ``_needed`` and ``_all_true`` with the segment test
     widened to id ranges: two ranges that do not meet share no id."""
-    if q0 >= S or kv0 >= S:
+    kv_end = S if kv_end is None else kv_end
+    if q0 >= S or kv0 >= kv_end:
         return "skip"
     segs = qseg_range is not None
     has_base, has_prefix = causal or segs, prefix is not None
-    base_skip = (causal and q0 + bq - 1 < kv0) or (not has_base and has_prefix)
-    base_full = (not causal or q0 >= kv0 + bk - 1) and (has_base or not has_prefix)
+    base_skip = (causal and q0 + bq - 1 + shift < kv0) or (not has_base and has_prefix)
+    base_full = (not causal or q0 + shift >= kv0 + bk - 1) and (has_base or not has_prefix)
     if segs and not base_skip:
         (qlo, qhi), (klo, khi) = qseg_range, kseg_range
         base_skip = qhi < klo or khi < qlo
@@ -222,7 +235,7 @@ def tile_class(q0: int, kv0: int, bq: int, bk: int, S: int, causal: bool, prefix
     pre_full = has_prefix and q0 + bq <= prefix and kv0 + bk <= prefix
     if base_skip and not pre_any:
         return "skip"
-    if (base_full or pre_full) and q0 + bq <= S and kv0 + bk <= S:
+    if (base_full or pre_full) and q0 + bq <= S and kv0 + bk <= kv_end:
         return "full"
     return "partial"
 
@@ -477,6 +490,120 @@ def flash_attention(q, k, v, mask_info: MaskInfo | None = None, scale: float | N
                     dropout_rate: float = 0.0, dropout_seed=None, block_q: int = 512, block_kv: int = 1024):
     """Flash attention over the model's [B, S, H, D] layout (output only)."""
     return flash_fwd_with_lse(q, k, v, mask_info, scale, dropout_rate, dropout_seed, block_q, block_kv)[0]
+
+
+# ---------------------------------------------------------------------------
+# the offsets form over a KV cache
+# ---------------------------------------------------------------------------
+
+
+def offsets_mask(q_offset, kv_offset, kv_len, Sq: int, Skv: int) -> torch.Tensor:
+    """[B, Sq, Skv] bool: query i of row b sees cache entry j iff q_offset[b] + i >=
+    kv_offset[b] + j and j < kv_len[b]."""
+    dev = q_offset.device
+    i = torch.arange(Sq, device=dev)
+    j = torch.arange(Skv, device=dev)
+    qpos = q_offset.long().reshape(-1, 1) + i
+    kpos = kv_offset.long().reshape(-1, 1) + j
+    return (qpos[:, :, None] >= kpos[:, None, :]) & (j[None, None, :] < kv_len.long().reshape(-1, 1, 1))
+
+
+def flash_fwd_offsets_plain(q, k, v, q_offset, kv_offset, kv_len, scale: float | None = None):
+    """Plain version of the offsets form's arithmetic: q [B, Sq, Hq, D] in the model's
+    layout, k / v [B, Hkv, Skv, D] in the cache's, q_offset / kv_offset / kv_len [B] ->
+    (out [B, Sq, Hq, D] in q's dtype, lse [B, Hq, Sq, 1] f32). The same fold of q, base-2
+    softmax, -1e30 masking, l == 0 guard and natural-log lse as ``flash_fwd_plain``."""
+    B, Sq, Hq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    qs = (q.float() * (scale * _LOG2E)).to(q.dtype)
+    qf = qs.reshape(B, Sq, Hkv, group, D).float()
+    s = torch.einsum("bqhgd,bhkd->bhgqk", qf, k.float())  # base-2 logits [B, Hkv, g, Sq, Skv]
+    mask = offsets_mask(q_offset, kv_offset, kv_len, Sq, Skv)[:, None, None]
+    s = torch.where(mask, s, torch.full_like(s, _NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp2(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    pv = torch.einsum("bhgqk,bhkd->bhgqd", p.to(v.dtype).float(), v.float())
+    out = pv / torch.where(l == 0.0, torch.ones_like(l), l)
+    lse = (m + torch.log2(torch.clamp(l, min=1e-30))) * _LN2
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(q.dtype)
+    return out, lse.reshape(B, Hq, Sq, 1)
+
+
+def _row_ints(x, B: int, dev) -> torch.Tensor:
+    """[B] int32 on ``dev`` from a per-row tensor (or one broadcast over the rows)."""
+    return x.to(device=dev, dtype=torch.int32).reshape(-1).expand(B).contiguous()
+
+
+def _launch_offsets(q, k, v, q_offset, kv_offset, kv_len, scale: float):
+    B, Sq, Hq, D = q.shape
+    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"k/v {tuple(k.shape)} / {tuple(v.shape)} are not a [B, Hkv, S, D] cache for q {tuple(q.shape)}")
+    Hkv, Skv = k.shape[1], k.shape[2]
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
+    if D not in (64, 128):
+        raise ValueError(f"the flash kernels take head_dim 64 or 128, got {D}")
+    if q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16:
+        raise TypeError(f"the flash kernels take bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
+    q = q.contiguous()
+    for t in (q, k, v):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError("q, k, v must lie on one CUDA device")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("the cache is read in place: k and v must be contiguous and 16-byte aligned")
+    dev = q.device
+    q_off, kv_off, lens = (_row_ints(t, B, dev) for t in (q_offset, kv_offset, kv_len))
+    out = torch.empty_like(q)
+    lse = torch.empty((B, Hq, Sq, 1), dtype=torch.float32, device=dev)
+    if B == 0 or Sq == 0:
+        return out, lse
+    lib = build.load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    flash_fwd_offsets.launches += 1
+    build.check(
+        lib.lxt_flash_attention_fwd_offsets(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_off.data_ptr(), kv_off.data_ptr(), lens.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), B, Sq, Skv, Hq, Hkv, D, float(scale * _LOG2E), stream,
+        ),
+        "flash_attention_offsets",
+    )
+    return out, lse
+
+
+def flash_fwd_offsets(q, k, v, q_offset, kv_offset, kv_len, scale: float | None = None):
+    """The offsets form over a bf16 KV cache: q [B, Sq, Hq, D], k / v [B, Hkv, S_max, D]
+    (a layer of the cache, read in place), q_offset / kv_offset / kv_len [B] -> (out
+    [B, Sq, Hq, D], lse [B, Hq, Sq, 1] f32). The kernel on CUDA tensors (head_dim 64 or
+    128, bfloat16, contiguous cache; anything else raises), its plain version on CPU
+    tensors. No autograd: serving reads it."""
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+    if q.device.type == "cpu":
+        return flash_fwd_offsets_plain(q, k, v, q_offset, kv_offset, kv_len, scale)
+    return _launch_offsets(q, k, v, q_offset, kv_offset, kv_len, scale)
+
+
+flash_fwd_offsets.launches = 0
+
+
+def dequant_live(data: torch.Tensor, scale: torch.Tensor, n: int) -> torch.Tensor:
+    """The first ``n`` positions of an int8 cache side ([B, Hkv, S_max, D] data, [B, Hkv,
+    S_max] f32 scales) as bf16 [B, Hkv, n, D]: data * scale, rounded to bf16 once (the JAX
+    package's ``dequant_kv``)."""
+    return (data[:, :, :n] * scale[:, :, :n, None]).to(torch.bfloat16)  # int8 * f32 computes in f32
+
+
+def flash_fwd_offsets_int8(q, k_i8, k_scale, v_i8, v_scale, q_offset, kv_offset, kv_len, kv_max: int,
+                           scale: float | None = None):
+    """The offsets form over an int8 cache: the live prefix [0, kv_max) of each side
+    (``kv_max`` >= every row's kv_len, known on the host) is dequantized to bf16 in plain
+    PyTorch, then the bf16 form runs over it."""
+    n = max(1, min(int(kv_max), k_i8.shape[2]))
+    k, v = dequant_live(k_i8, k_scale, n), dequant_live(v_i8, v_scale, n)
+    return flash_fwd_offsets(q, k, v, q_offset, kv_offset, torch.clamp(kv_len, max=n), scale)
 
 
 def wgmma_check(a: torch.Tensor, b: torch.Tensor, b_mn_major: bool) -> torch.Tensor:

@@ -1,0 +1,209 @@
+"""Speculative continuous batching: draft-propose / target-verify rounds over the
+persistent slot batch (port of llama_x_tpu/serve/speculative.py).
+
+models/speculative.py runs the round for one request batch; here the round is the
+continuous scheduler's chunk step, so requests join and leave at round boundaries, every
+per-request quantity (sampling parameters, stop token, budget) is an [n_slots] tensor, and
+each slot's acceptance advances its own position.
+
+A temperature-0 row accepts the longest draft prefix that matches the target's argmax and
+emits the target's own greedy tokens: its output is the target's greedy trajectory
+whatever shares the batch. A sampled row runs the rejection step on its own filtered
+distributions (``filter_logits_rows``). Both kinds share one round: the round computes both
+laws and picks per row. Frozen and empty slots ride along with m = 0: their draft and
+verify writes land at held positions that their kv_len never exposes.
+
+The verify pass is gamma + 1 query rows over the target's slot cache: through the decode
+kernel up to gamma 7, through the flash kernel's offsets form (per-row offsets over the
+slots) from gamma 8.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from llama_x_tpu_torch.models import llama
+from llama_x_tpu_torch.models.generate import gumbel_argmax
+from llama_x_tpu_torch.models.speculative import speculative_accept
+from llama_x_tpu_torch.ops.attention import MaskInfo
+from llama_x_tpu_torch.serve.continuous import (
+    ContinuousScheduler,
+    RowHandle,
+    filter_logits_rows,
+    lane,
+    sample_first,
+)
+from llama_x_tpu_torch.utils.device import resolve_device
+
+# state: (t_cache, d_cache, prev [N], cur [N], pos [N], done [N] bool, emitted [N]); prev and
+# cur are the last two tokens of each row (the draft's pair step re-feeds prev), pos the
+# depth that the target's and the draft's caches both hold
+
+
+def init_spec_state(config: llama.LlamaConfig, draft_config: llama.LlamaConfig, n_slots: int,
+                    cache_dtype=torch.bfloat16, device=None):
+    dev = resolve_device(device)
+    zeros = lambda: torch.zeros(n_slots, dtype=torch.int64, device=dev)  # noqa: E731
+    return (llama.init_kv_cache(config, n_slots, dtype=cache_dtype, device=dev),
+            llama.init_kv_cache(draft_config, n_slots, dtype=cache_dtype, device=dev),
+            zeros(), zeros(), zeros(), torch.ones(n_slots, dtype=torch.bool, device=dev), zeros())
+
+
+def _sample_rows(logits, temperature, top_k, top_p, min_p, generator):
+    """Per-row draft sampling -> (tokens [B], q rows [B, V] f32). Greedy rows take the raw
+    argmax (their q row is never read by the greedy law)."""
+    f = filter_logits_rows(logits, temperature, top_k, top_p, min_p)
+    sampled = gumbel_argmax(f, generator)
+    greedy = logits.float().argmax(dim=-1)
+    return torch.where(temperature == 0.0, greedy, sampled), torch.softmax(f, dim=-1)
+
+
+@torch.inference_mode()
+def spec_chunk(model: llama.Llama, draft_model: llama.Llama, state, n_rounds: int, generator, temperature, top_k,
+               top_p, min_p, eos_ids, budget, gamma: int, pad_id: int = 0, live_rounds: torch.Tensor | None = None):
+    """``n_rounds`` speculative rounds over every slot -> (tokens [N, n_rounds * (gamma + 1)],
+    new state): each live row's new tokens are the prefix of its row of length
+    emitted_after - emitted_before (a row emits m in [0, gamma + 1] a round). Reads nothing
+    back from the device, but the verify pass at gamma >= 8 (one flag a round: the offsets
+    form's check of the positions). ``live_rounds`` (a 0-d tensor, optional) gains the
+    number of rows live at each round's start: tokens / live rounds is the acceptance."""
+    t_cache, d_cache, prev, cur, pos, done, emitted = state
+    N = temperature.shape[0]
+    dev = pos.device
+    buf = torch.full((N, n_rounds * (gamma + 1)), pad_id, dtype=torch.long, device=dev)
+    cursor = torch.zeros(N, dtype=torch.long, device=dev)
+    idx = torch.arange(gamma + 1, device=dev)[None, :]
+    for _ in range(n_rounds):
+        if live_rounds is not None:
+            live_rounds += (~done).sum()
+        # draft: the pair step, then gamma - 1 single steps at per-row positions
+        pair = torch.stack([prev, cur], dim=1)
+        x = torch.nn.functional.embedding(pair, draft_model.tok_embeddings)
+        ppos = pos[:, None] + torch.arange(-1, 1, device=dev)[None, :]
+        h, _ = llama.trunk(draft_model, x, MaskInfo(causal=True, q_positions=ppos, kv_len=pos + 1), d_cache,
+                           input_pos=ppos)
+        tok, q = _sample_rows(llama.head(draft_model, h[:, -1:])[:, 0], temperature, top_k, top_p, min_p, generator)
+        drafts, qs, p = [tok], [q], pos + 1
+        for _ in range(gamma - 1):
+            x = torch.nn.functional.embedding(tok[:, None], draft_model.tok_embeddings)
+            h, _ = llama.trunk(draft_model, x, MaskInfo(causal=True, q_positions=p[:, None], kv_len=p + 1), d_cache,
+                               input_pos=p[:, None])
+            tok, q = _sample_rows(llama.head(draft_model, h)[:, 0], temperature, top_k, top_p, min_p, generator)
+            drafts.append(tok)
+            qs.append(q)
+            p = p + 1
+        drafts, q_probs = torch.stack(drafts, dim=1), torch.stack(qs, dim=1)
+
+        # target: one verify pass over [cur, d_1..d_gamma]
+        inputs = torch.cat([cur[:, None], drafts], dim=1)
+        x = torch.nn.functional.embedding(inputs, model.tok_embeddings)
+        qpos = pos[:, None] + idx
+        h, _ = llama.trunk(model, x, MaskInfo(causal=True, q_positions=qpos, kv_len=pos + gamma + 1), t_cache,
+                           input_pos=qpos)
+        t_logits = llama.head(model, h)  # [N, gamma + 1, V]
+
+        # acceptance: both laws, picked per row by its temperature
+        targets = t_logits.float().argmax(dim=-1)
+        match = torch.cat([drafts == targets[:, :gamma], torch.zeros_like(drafts[:, :1], dtype=torch.bool)], dim=1)
+        a_greedy = match.int().argmin(dim=1)
+        rep = lambda v: v.repeat_interleave(gamma + 1)  # noqa: E731
+        p_flat = filter_logits_rows(t_logits.reshape(N * (gamma + 1), -1), rep(temperature), rep(top_k), rep(top_p),
+                                    rep(min_p))
+        p_probs = torch.softmax(p_flat, dim=-1).reshape(t_logits.shape)
+        emitted_s, m_s = speculative_accept(drafts, q_probs, p_probs, generator)
+        is_greedy = temperature == 0.0
+        emit = torch.where(is_greedy[:, None], targets, emitted_s)
+        m = torch.where(is_greedy, a_greedy + 1, m_s)
+
+        # freeze, budget and stop token, per row and monotone
+        m = torch.where(done, torch.zeros_like(m), torch.minimum(m, budget - emitted))
+        emit = torch.where(idx < m[:, None], emit, torch.full_like(emit, pad_id))
+        live_eos = (emit == eos_ids[:, None]) & (idx < m[:, None])
+        hit_eos = live_eos.any(dim=1)
+        m = torch.where(hit_eos, torch.minimum(m, live_eos.int().argmax(dim=1) + 1), m)
+        emit = torch.where(idx < m[:, None], emit, torch.full_like(emit, pad_id))
+
+        buf.scatter_(1, cursor[:, None] + idx, emit)  # cursor + gamma < n_rounds (gamma + 1)
+        padded = torch.cat([cur[:, None], emit], dim=1)
+        prev = padded.gather(1, torch.clamp(m - 1, min=0)[:, None])[:, 0]
+        cur = padded.gather(1, m[:, None])[:, 0]
+        emitted = emitted + m
+        done = done | hit_eos | (emitted >= budget)
+        pos, cursor = pos + m, cursor + m
+    return buf, (t_cache, d_cache, prev, cur, pos, done, emitted)
+
+
+@torch.inference_mode()
+def spec_admit_row(model: llama.Llama, draft_model: llama.Llama, state, slot: int, prompt: list[int], sampling,
+                   eos_id: int, generator: torch.Generator | None = None):
+    """Prefill BOTH caches' lanes for one prompt row and make it live -> (first token,
+    state). The first token is sampled from the TARGET's last position."""
+    t_cache, d_cache, prev, cur, pos, done, emitted = state
+    P = len(prompt)
+    ids = torch.tensor([prompt], dtype=torch.long, device=model.device)
+    x_pos = torch.arange(P, device=model.device)
+
+    def prefill(m, cache):
+        x = torch.nn.functional.embedding(ids, m.tok_embeddings)
+        return llama.trunk(m, x, MaskInfo(causal=True), lane(cache, slot), input_pos=x_pos, prefill=True)[0]
+
+    h = prefill(model, t_cache)
+    prefill(draft_model, d_cache)
+    first = sample_first(model, h[:, -1:], sampling, generator)
+    prev[slot] = prompt[-1]
+    cur[slot] = first
+    pos[slot] = P
+    done[slot] = first == eos_id
+    emitted[slot] = 1
+    return first, state
+
+
+class SpeculativeScheduler(ContinuousScheduler):
+    """Continuous batching whose chunk step is a scan of speculative rounds.
+    ``chunk_size`` counts ROUNDS per dispatch (each emits 1..gamma + 1 tokens a live row).
+    Prefix caching and chunked prefill do not compose with the two-cache admission yet
+    (as in the JAX package) and raise."""
+
+    def __init__(self, model: llama.Llama, draft_model: llama.Llama, *, gamma: int = 4, **kw):
+        if kw.get("prefix_cache") or kw.get("prefill_chunk"):
+            raise ValueError("speculative continuous batching does not compose with prefix caching or chunked "
+                             "prefill yet")
+        if model.config.vocab_size != draft_model.config.vocab_size:
+            raise ValueError("the draft must share the target's vocabulary")
+        self.draft_model, self.draft_config = draft_model, draft_model.config
+        self.gamma = gamma
+        self.rounds_run = 0
+        super().__init__(model, **kw)
+        # rows live at each round's start, summed on the device: (tokens emitted after the
+        # first of each row) / live_row_rounds is the tokens a verify pass gives, 1 + accepted
+        self.live_row_rounds = torch.zeros((), dtype=torch.int64, device=self.device)
+
+    def _init_state(self):
+        return init_spec_state(self.config, self.draft_config, self.n_slots, self.cache_dtype, self.device)
+
+    # a round writes target positions up to pos + gamma and draft positions up to
+    # pos + gamma - 1; pos <= P + budget - 1 while live, so P + budget + gamma must fit both
+    def _cap(self) -> int:
+        return min(self.config.max_seq_len, self.draft_config.max_seq_len)
+
+    def submit(self, ids, max_tokens: int, sampling=(0.0, 0, 1.0, 0.0), eos_id: int = -1,
+               stream_q=None) -> RowHandle:
+        if len(ids) + self.gamma + 1 >= self._cap():
+            raise ValueError(f"prompt ({len(ids)} tokens) + gamma {self.gamma} fills the {self._cap()} cache")
+        return super().submit(ids, max_tokens, sampling, eos_id, stream_q)
+
+    def _admit(self, slot: int, row: RowHandle):
+        first, self.state = spec_admit_row(self.model, self.draft_model, self.state, slot, row.ids, row.sampling,
+                                           row.eos_id, self.generator)
+        self._activate(slot, row, int(first))
+
+    def _budget_cap(self, row: RowHandle) -> int:
+        return min(row.max_tokens, self._cap() - len(row.ids) - self.gamma)
+
+    def _dispatch_chunk(self):
+        toks, self.state = spec_chunk(self.model, self.draft_model, self.state, self.chunk_size, self.generator,
+                                      *self._row_tensors(), gamma=self.gamma, pad_id=self.pad_id,
+                                      live_rounds=self.live_row_rounds)
+        self.dispatches += 1
+        self.rounds_run += self.chunk_size
+        return toks, self.state[6].clone(), self.state[5].clone()

@@ -7,8 +7,9 @@ step-batch assembly.
 Flags of the JAX trainer that belong to later slices of the port are accepted by the
 parser and refused with the slice's name, never ignored: ``--mesh``,
 ``--pp_microbatches`` and ``--attn_impl ring|ulysses`` (sharding and context
-parallelism), ``--model`` (HF import), the ``attn_q8`` / ``attn_q8s`` remat policies
-(slice 2c), and real MetaMathQA text (its files are not in the repository).
+parallelism), the ``attn_q8`` / ``attn_q8s`` remat policies (slice 2c), and real
+MetaMathQA text (its files are not in the repository). ``--model`` reads a local HF
+checkpoint directory (models/hf.py).
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ REMAT_POLICIES = list(llama.REMAT_POLICIES)
 
 
 def add_common_args(parser: argparse.ArgumentParser):
-    parser.add_argument("--model", help="HF checkpoint (not ported yet: slice 3)")
+    parser.add_argument("--model", help="a local HF checkpoint directory (the text weights)")
     parser.add_argument("--tokenizer", default="byte", choices=["byte", "llama2", "llama3"],
                         help="the real-data tokenizer (--synthetic always uses byte)")
     parser.add_argument("--tokenizer_path", help="local tokenizer.model of llama2 / llama3 (offline)")
@@ -90,8 +91,6 @@ def check_supported(args, real_data: str | None = "MetaMathQA data (slice 2b)") 
         later.append("--mesh / --pp_microbatches (sharded training: slice 5)")
     if args.attn_impl in ("ring", "ulysses"):
         later.append(f"--attn_impl {args.attn_impl} (context parallelism: slice 5)")
-    if args.model:
-        later.append("--model (HF import: slice 3)")
     if args.remat_policy in ("attn_q8", "attn_q8s"):
         later.append(f"--remat_policy {args.remat_policy} (the int8-residual attention: slice 2c)")
     if not args.synthetic and real_data is not None:
@@ -138,7 +137,8 @@ def load_model_configs(run_dir: Path):
 
 def build_model_params(args, max_seq_len: int = 2048, audio_config=None, vision_config=None,
                        vocab_size: int | None = None):
-    """Random init -> quantize -> adapt -> freeze, in the JAX trainer's order, and
+    """Random init (or ``--model``: a local HF checkpoint, quantized as it loads) ->
+    quantize -> adapt -> freeze, in the JAX trainer's order, and
     ``frozen_head`` read off the head's actual ``requires_grad``. With ``audio_config``
     the model is a ``LlamaAudio``, with ``vision_config`` a ``LlamaVision``, with both a
     ``LlamaOmni``: freshly drawn stems beside the decoder, audio first (never quantized,
@@ -153,7 +153,14 @@ def build_model_params(args, max_seq_len: int = 2048, audio_config=None, vision_
     overrides = dict(activation_checkpointing=args.activation_checkpointing, fused_ce_chunks=args.fused_ce_chunks,
                      remat_policy=args.remat_policy, max_seq_len=max_seq_len)
     quantize = args.quantize == "int8"
-    if args.geometry:
+    if args.model:
+        from llama_x_tpu_torch.models.hf import load_llama
+
+        model = load_llama(args.model, dtype=dtype, device=device, quantize=args.quantize, **overrides)
+        if vocab_size is not None and vocab_size > model.config.vocab_size:
+            raise ValueError(f"the tokenizer's {vocab_size} ids do not fit the checkpoint's vocabulary of "
+                             f"{model.config.vocab_size}")
+    elif args.geometry:
         # weights drawn directly as int8 at a published width (an 8B base never exists in float)
         config = llama.LlamaConfig(**GEOMETRIES[args.geometry]).replace(**{**(args.synthetic_config or {}), **overrides})
         if vocab_size is not None and vocab_size > config.vocab_size:

@@ -40,6 +40,7 @@ _SIGNATURES = {
     "lxt_int8_mm_dequant_kn": ([_P] * 5 + [_I] * 6 + [_P] * 3, _I),
     "lxt_flash_attention_fwd": ([_P] * 10 + [_I] * 6 + [_F] + _DROPOUT + [_P], _I),
     "lxt_flash_attention_bwd": ([_P] * 16 + [_I] * 6 + [_F] + _DROPOUT + [_P], _I),
+    "lxt_flash_attention_fwd_offsets": ([_P] * 8 + [_I] * 6 + [_F, _P], _I),
     "lxt_wgmma_check": ([_P, _P, _P, _I, _I, _P], _I),
     "lxt_wgmma_check_s8": ([_P, _P, _P, _I, _P], _I),
     "lxt_wgmma_check_s8_rs": ([_P, _P, _P, _I, _I, _P], _I),

@@ -499,10 +499,10 @@ def test_check_supported_refuses_only_what_is_missing():
     cli.check_supported(args("--synthetic", "4", "--tokenizer", "llama3", "--tokenizer_path", "t.model"))
     cli.check_supported(args("--dataset_dir", "d", "--tokenizer", "llama2", dataset=True), real_data=None)
     for flags, name in ((["--mesh", '{"dp": 2}'], "slice 5"), (["--pp_microbatches", "2"], "slice 5"),
-                        (["--attn_impl", "ulysses"], "slice 5"), (["--model", "m"], "slice 3"),
-                        (["--remat_policy", "attn_q8"], "slice 2c")):
+                        (["--attn_impl", "ulysses"], "slice 5"), (["--remat_policy", "attn_q8"], "slice 2c")):
         with pytest.raises(NotImplementedError, match=name):
             cli.check_supported(args("--synthetic", "4", *flags))
+    cli.check_supported(args("--synthetic", "4", "--model", "m"))  # HF import: slice 3, ported
     with pytest.raises(NotImplementedError, match="MetaMathQA"):
         cli.check_supported(args("--tokenizer", "llama3"))
     with pytest.raises(ValueError, match="--dataset_dir"):

@@ -144,8 +144,7 @@ def test_eval_entry_points_run_with_synthetic_data_on_the_cpu(capsys):
 
 def test_eval_entry_points_refuse_what_is_not_ported():
     for mod in (teval_vis, teval_ls):
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            mod.parse_args(["--model", "meta-llama/Llama-3.1-8B", "--data_dir", "x"])
+        assert mod.parse_args(["--model", "m", "--data_dir", "x"]).model == "m"  # HF import: slice 3
         with pytest.raises(ValueError, match="--resume"):
             mod.parse_args(["--data_dir", "x"])
         assert mod.parse_args(["--synthetic", "2"]).device == "cuda"

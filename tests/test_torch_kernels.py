@@ -273,24 +273,114 @@ def test_decode_kernel_gives_the_same_bits_twice(cuda, quantized):
     assert torch.equal(first, second)
 
 
-@pytest.mark.parametrize("case", ["Sq > MAX_SQ", "prefix", "segments"])
+@pytest.mark.parametrize("case", ["kv_positions", "prefix", "segments", "Sq > MAX_SQ, positions with a gap"])
 def test_decode_outside_the_kernel_contract_raises(cuda, case):
-    """On the card a decode over the cache never takes the plain attention: a mask
-    the decode kernel cannot take raises."""
+    """On the card a read of the cache never takes the plain attention: a mask that
+    neither the decode kernel nor the flash kernel's offsets form takes raises (above
+    MAX_SQ rows, causal q_positions with kv_len go to the offsets form; positions that
+    are not contiguous in a row raise)."""
     from llama_x_tpu_torch.ops.attention import MaskInfo
 
     cfg = llama.tiny_config(embed_dim=256, head_dim=64, num_heads=4, num_kv_heads=2, intermediate_dim=512,
                             max_seq_len=64)
     model = llama.init(cfg, seed=0, dtype=torch.bfloat16, device=cuda)
     cache = llama.init_kv_cache(cfg, 1, dtype=torch.bfloat16, device=cuda)
-    S = da.MAX_SQ + 1 if case == "Sq > MAX_SQ" else 1
+    S = da.MAX_SQ + 1 if case.startswith("Sq") else 1
     pos = torch.arange(S, device=cuda)
+    if case.startswith("Sq"):
+        pos[-1] += 1
     extra = {"prefix": dict(prefix_len=torch.ones(1, dtype=torch.int32, device=cuda)),
-             "segments": dict(segment_ids=torch.ones(1, S, dtype=torch.int32, device=cuda))}.get(case, {})
-    mi = MaskInfo(causal=True, q_positions=pos[None], kv_len=torch.tensor([S], device=cuda), **extra)
+             "segments": dict(segment_ids=torch.ones(1, S, dtype=torch.int32, device=cuda)),
+             "kv_positions": dict(kv_positions=torch.arange(64, device=cuda)[None])}.get(case, {})
+    mi = MaskInfo(causal=True, q_positions=pos[None], kv_len=torch.tensor([S + 1], device=cuda), **extra)
     x = torch.zeros(1, S, cfg.embed_dim, dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="decode kernel"):
+    with pytest.raises(ValueError, match="decode kernel|contiguous"):
         llama.trunk(model, x, mi, cache, input_pos=pos)
+
+
+def _offsets_case(cuda, B, Sq, Hq, Hkv, D, S_max, q_off, kv_len, kv_off=None, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(B, Sq, Hq, D, device=cuda, generator=g).to(torch.bfloat16)
+    k = torch.randn(B, Hkv, S_max, D, device=cuda, generator=g).to(torch.bfloat16)
+    v = torch.randn(B, Hkv, S_max, D, device=cuda, generator=g).to(torch.bfloat16)
+    ints = lambda xs: torch.tensor(xs, dtype=torch.int32, device=cuda)
+    return q, k, v, ints(q_off), ints(kv_off if kv_off is not None else [0] * B), ints(kv_len)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("shape", [
+    # a continuation chunk of chunked prefill; a prefix admission (the last q tile ragged,
+    # kv_len cutting a kv tile); a verify at gamma 8 over eight slots; offsets on both sides
+    ("chunk", 1, 512, 4096, [1536], [2048], None),
+    ("prefix admission", 1, 256, 4096, [512], [712], None),
+    ("verify gamma 8", 8, 9, 2048, [513, 640, 700, 800, 901, 1000, 1200, 1500],
+     [522, 649, 709, 809, 910, 1009, 1209, 1509], None),
+    ("kv offsets", 2, 130, 1024, [300, 77], [1024, 333], [40, 0]),
+])
+def test_flash_offsets_kernel_matches_plain(cuda, D, shape):
+    """K2's offsets form over a [B, Hkv, S_max, D] cache read in place, per-row q_offset,
+    kv_offset and kv_len, against ``flash_fwd_offsets_plain``: out per element
+    ``flash_fwd_tolerance``, lse 2e-3; and the int8 cache through the dequantizing
+    wrapper against the plain version over the same dequantized prefix."""
+    _, B, Sq, S_max, q_off, kv_len, kv_off = shape
+    q, k, v, qo, ko, lens = _offsets_case(cuda, B, Sq, 32 if D == 128 else 8, 8 if D == 128 else 2, D, S_max,
+                                          q_off, kv_len, kv_off)
+    before = fa.flash_fwd_offsets.launches
+    out, lse = fa.flash_fwd_offsets(q, k, v, qo, ko, lens)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd_offsets.launches == before + 1
+    ref, ref_lse = fa.flash_fwd_offsets_plain(q, k, v, qo, ko, lens)
+    atol, rtol = fa.flash_fwd_tolerance(ref)
+    assert ((out.float() - ref.float()).abs() <= atol + rtol * ref.float().abs()).all()
+    assert _max_err(lse, ref_lse) <= 2e-3
+
+    k8, ks = llama.quantize_kv_rows(k)
+    v8, vs = llama.quantize_kv_rows(v)
+    n = max(kv_len)
+    out8, _ = fa.flash_fwd_offsets_int8(q, k8, ks, v8, vs, qo, ko, lens, n)
+    torch.cuda.synchronize()
+    ref8, _ = fa.flash_fwd_offsets_plain(q, fa.dequant_live(k8, ks, n), fa.dequant_live(v8, vs, n), qo, ko, lens)
+    atol8, _ = fa.flash_fwd_tolerance(ref8)
+    assert ((out8.float() - ref8.float()).abs() <= atol8 + rtol * ref8.float().abs()).all()
+
+
+def test_flash_offsets_outside_the_kernel_contract_raises(cuda):
+    """head_dim 32, a float16 query, a cache that is not contiguous: each raises; nothing
+    falls back to the plain version."""
+    q, k, v, qo, ko, lens = _offsets_case(cuda, 1, 16, 4, 2, 64, 256, [10], [26])
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_fwd_offsets(q[..., :32].contiguous(), k[..., :32].contiguous(), v[..., :32].contiguous(), qo, ko,
+                             lens)
+    with pytest.raises(TypeError):
+        fa.flash_fwd_offsets(q.half(), k, v, qo, ko, lens)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd_offsets(q, k[:, :, :128], v[:, :, :128], qo, ko, lens)
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.int8])
+def test_cache_read_beyond_max_sq_runs_the_offsets_form(cuda, cache_dtype):
+    """A 24-row chunk over a cache holding 40 earlier positions: the trunk takes K2's
+    offsets form once a layer (its counter moves, K3's do not) and gives finite states."""
+    from llama_x_tpu_torch.ops.attention import MaskInfo
+
+    cfg = llama.tiny_config(embed_dim=256, head_dim=64, num_heads=4, num_kv_heads=2, intermediate_dim=512,
+                            max_seq_len=128)
+    model = llama.init(cfg, seed=0, dtype=torch.bfloat16, device=cuda)
+    cache = llama.init_kv_cache(cfg, 1, dtype=cache_dtype, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    tokens = torch.randint(0, 256, (1, 64), device=cuda, generator=g)
+    x = torch.nn.functional.embedding(tokens, model.tok_embeddings)
+    with torch.inference_mode():
+        llama.trunk(model, x[:, :40], MaskInfo(causal=True), cache, input_pos=torch.arange(40, device=cuda),
+                    prefill=True)
+        pos = torch.arange(40, 64, device=cuda)
+        mi = MaskInfo(causal=True, q_positions=pos[None], kv_len=torch.tensor([64], device=cuda))
+        before = (fa.flash_fwd_offsets.launches, da.decode_attention.launches, da.decode_attention_int8.launches)
+        h, _ = llama.trunk(model, x[:, 40:], mi, cache, input_pos=pos)
+        torch.cuda.synchronize()
+        assert fa.flash_fwd_offsets.launches == before[0] + cfg.num_layers
+        assert (da.decode_attention.launches, da.decode_attention_int8.launches) == before[1:]
+    assert h.shape == (1, 24, cfg.embed_dim) and bool(torch.isfinite(h).all())
 
 
 @pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.int8])

@@ -174,7 +174,6 @@ def _args(*argv):
 @pytest.mark.parametrize("flags,slice_name", [
     (["--mesh", '{"dp": 2}'], "slice 5"),
     (["--attn_impl", "ring"], "slice 5"),
-    (["--model", "meta-llama/Llama-3.1-8B"], "slice 3"),
     (["--pp_microbatches", "2"], "slice 5"),
     (["--remat_policy", "attn_q8s"], "slice 2c"),
     ([], "slice 2b"),  # no --synthetic: real data
@@ -183,6 +182,11 @@ def test_cli_refuses_later_slices_by_name(flags, slice_name):
     args = _args(*(flags if not flags else ["--synthetic", "8", *flags]))
     with pytest.raises(NotImplementedError, match=slice_name):
         tcli.check_supported(args)
+
+
+def test_cli_takes_model_since_slice_3():
+    """--model (a local HF checkpoint directory) is no longer refused."""
+    tcli.check_supported(_args("--synthetic", "8", "--model", "some/dir"))
 
 
 def test_build_model_params_composes_quantize_adapt_freeze(capsys):
