@@ -19,7 +19,12 @@ no result line):
    K4 at the omni step's 581-row CE chunk; K2's offsets form over a [B, 8, 4096, 128] cache
    (a continuation chunk of 512 rows at 1536 over kv_len 2048, bf16 and int8 cache; a prefix
    admission; a verify at gamma 8 over 8 slots) against its plain version, with SDPA on the
-   sliced cache as the yardstick;
+   sliced cache as the yardstick; K2's ring form and K5's offsets form (ring attention's
+   blocks) at the four blocks of a ring of 2 (q / kv offsets (0, 0), (4096, 0), (4096, 4096),
+   (0, 4096): diagonal, full, diagonal, skipped; S_local 4096, 32/8 heads, D 128) under causal,
+   packed-document (crossing the shard boundary), prefix-LM 2000, prefix-LM 5000 (past the
+   first shard: the global prefix test decides) and non-causal masks, with their tile
+   census and SDPA on the block's bool mask as the yardstick;
 3. serving main path: ``generate`` at Llama-3.1-8B width (32 layers) from seeded
    on-device weights, B 4, ragged byte-tokenized prompts padded to 512, 64 new
    tokens: bf16 weights with a bf16 cache, then int8 weights with dynamic int8
@@ -27,19 +32,20 @@ no result line):
    and must be non-zero after it;
 4. kernel path against plain path: on a 2-layer cut of the same weights, prefill and
    first-decode logits of the kernels and of their plain versions agree;
-3a. continuous serving on the int8 model of phase 3 (int8 KV): ``ContinuousScheduler`` with
+3a. continuous serving on the first 8 of the 32 layers of phase 3's int8 model (a depth cut,
+   int8 KV): ``ContinuousScheduler`` with
    8 slots, 16-step chunks, chunked prefill of 512 and a prefix cache of 4; 16 byte-token
    requests in four waves 0.25 s apart (8 prompts of 130 to 1500 tokens, 8 follow-ups that
    extend them), TTFT / inter-token latency p50 and p99, tokens/s, prefix hits, the launches
    of K1, K2 (self and offsets) and K3, every row against an unbatched ``generate`` under
    the near-tie rule (a divergence only where the two tokens lie within K2's tolerance of
    each other in the unbatched logits of that step, counted);
-3b. speculative serving: the same int8 target (bf16 cache) and an untrained 4-layer draft
+3b. speculative serving: the same 8-layer int8 target (bf16 cache) and an untrained 4-layer draft
    of width 1024, gamma 4 (verify on K3) and gamma 8 (verify on K2's offsets form), the
    acceptance rate, every row against plain greedy under the near-tie rule;
 3c. the HF round trip of a 2-layer cut at 8B width (bf16, about 3 GB, bit for bit) and
    ``generate_cli --model`` on it; 3d. ``serve_http`` in-process on 127.0.0.1:0 over the
-   int8 model (continuous, chunked prefill): 4 concurrent completions and a streamed chat,
+   8-layer int8 model (continuous, chunked prefill): 4 concurrent completions and a streamed chat,
    each answer's finish_reason and its tokens against a second serving (near-tie rule);
 5. training main path: QLoRA optimizer steps at Llama-3.1-8B width (32 layers, int8
    base, LoRA r 8 on every projection, frozen bf16 head on the int8 kernels, dynamic
@@ -80,7 +86,19 @@ no result line):
 13. real data, host path: ``train_librispeech.main`` over a LibriSpeech-layout directory
    of WAV files written here, 2 steps on a 2-layer cut of the 8B geometry;
 14. the four new entry points (``train_vision``, ``train_omni``, ``eval_vision``,
-   ``eval_librispeech``) called as a user calls them, at their smoke sizes.
+   ``eval_librispeech``) called as a user calls them, at their smoke sizes;
+15. context parallelism: the text QLoRA step of phase 5 at Llama-3.1-8B width with its
+   depth cut to 4 layers, S 8192 of packed documents crossing the shard boundary, at cp 2:
+   two spawned processes share the one card over gloo (asked for by name: NCCL refuses two
+   ranks on one device), each holding 4096 positions, through ``train_metamathqa``'s own
+   functions (``parse_args`` with ``--mesh '{"cp": 2}'``, the mesh, ``validate_launch`` /
+   ``validate_model``, the dp split, ``make_train_step`` over the mesh); ring attention for
+   4 steps then Ulysses for 2, the launches of K2's ring form and K5's offsets form (ring)
+   or K2 / K5 (Ulysses) held to ``cp_expected_launches`` every step on every rank; the loss
+   and LoRA gradients at the first step (ring and Ulysses) and every step's loss against
+   the same step at cp 1 in this process over the whole 8192; per rank the step time, the
+   peak memory and the exchange's share of the step (gloo through host memory). A rank that
+   fails or outlives its timeout fails the phase.
 
 Every shape's numbers are printed as the phases run. The second-to-last line of
 stdout is the kernels' JSON record (primary shape of each kernel, launches on the
@@ -507,7 +525,7 @@ def offsets_census(fa, q_off, kv_len, Sq: int, S_max: int, bq: int = 128, bk: in
     for off, n in zip(q_off, kv_len):
         for q0 in range(0, Sq, bq):
             for kv0 in range(0, S_max, bk):
-                counts[fa.tile_class(q0, kv0, bq, bk, Sq, True, None, None, None, shift=off, kv_end=n)] += 1
+                counts[fa.tile_class(q0, kv0, bq, bk, Sq, True, None, None, None, q_offset=off, kv_end=n)] += 1
     return counts
 
 
@@ -828,7 +846,7 @@ def phase_kernels():
     return {"int8_mm_dequant_nt": phase_k1(), "int8_mm_plans": phase_k1_plans(), "int8_mm_dequant": phase_k4(),
             "int8_mm_kn_plans": phase_k4_plans(), "flash_attention": phase_k2(),
             "flash_attention_offsets": phase_k2_offsets(),
-            "flash_attention_bwd": phase_k5(), "flash_probe": phase_k6(), **{
+            "flash_attention_bwd": phase_k5(), "flash_probe": phase_k6(), **phase_ring_kernels(), **{
         ("decode_attention" if kind == "bf16" else "decode_attention_int8"): recs
         for kind, recs in phase_k3().items()
     }}
@@ -848,6 +866,7 @@ def counted():
     return {"int8_mm_dequant_nt": mm.int8_mm_dequant_nt, "int8_mm_dequant": mm.int8_mm_dequant,
             "flash_attention": fa.flash_fwd_with_lse, "flash_attention_offsets": fa.flash_fwd_offsets,
             "flash_attention_bwd": fa.flash_bwd_from_res,
+            "flash_attention_ring": fa.flash_fwd_ring, "flash_attention_bwd_ring": fa.flash_bwd_ring,
             "flash_probe": fp.flash_probe,
             "decode_attention": da.decode_attention, "decode_attention_int8": da.decode_attention_int8}
 
@@ -1244,7 +1263,7 @@ def phase_continuous(model) -> dict:
 
     tok = ByteTokenizer()
     cache = torch.int8
-    log("[continuous serving] 8B int8 + dynamic int8 act + int8 KV; ContinuousScheduler(n_slots=8, chunk_size=16, "
+    log(f"[continuous serving] 8B width, {model.config.num_layers} layers, int8 + dynamic int8 act + int8 KV; ContinuousScheduler(n_slots=8, chunk_size=16, "
         "prompt_multiple=64, prefill_chunk=512, prefix_cache=4); 16 requests in 4 waves of 4, 0.25 s apart")
     base_lens = [130, 300, 500, 700, 900, 1100, 1300, 1500]
     bases = [byte_prompt(tok, i, n) for i, n in enumerate(base_lens)]
@@ -1322,6 +1341,10 @@ def profile_arrivals(sched, prompts: list, new_tokens: int) -> dict:
     return summarize_profile(prof, wall_ms, 1, f"arrivals ({len(prompts)} requests, {new_tokens} tokens each)", "wave")
 
 
+# the serving phases' depth: the first 8 of the 8B model's 32 layers, at full width, which
+# keeps the whole script inside half its time limit (the unbatched references of the
+# continuous phase's 16 rows took most of its 196 s at 32 layers and 126 s at 16 on an H100)
+SERVING_LAYERS = 8
 SPEC_DRAFT = dict(num_layers=4, embed_dim=1024, num_heads=8, num_kv_heads=8, intermediate_dim=2816)
 
 
@@ -1344,7 +1367,7 @@ def phase_speculative(model) -> dict:
     plain = [unbatched_generate(model, p, 32, torch.bfloat16) for p in prompts]  # plain greedy, for both gammas
     runs = {}
     for gamma in (4, 8):
-        log(f"[speculative serving] 8B int8 target, bf16 cache, 4-layer draft of width 1024; gamma {gamma}, 4 slots, "
+        log(f"[speculative serving] 8B int8 target ({model.config.num_layers} layers), bf16 cache, 4-layer draft of width 1024; gamma {gamma}, 4 slots, "
             f"4 rounds a chunk")
         sched = SpeculativeScheduler(model, draft, gamma=gamma, n_slots=4, chunk_size=4, cache_dtype=torch.bfloat16,
                                      seed=0)
@@ -1430,7 +1453,7 @@ def phase_hf_and_http(model) -> dict:
     del cut
     torch.cuda.empty_cache()
 
-    log("[HTTP server] serve_http in-process on 127.0.0.1:0: Engine(_preloaded=the 8B int8 model), --continuous 4 "
+    log(f"[HTTP server] serve_http in-process on 127.0.0.1:0: Engine(_preloaded=the 8B int8 model, {model.config.num_layers} layers), --continuous 4 "
         "--prefill_chunk 512 --kv_dtype int8; 4 concurrent /v1/completions, one streamed /v1/chat/completions")
     args = serve_http.build_parser().parse_args(["--geometry", "8b", "--tokenizer", "byte", "--continuous", "4",
                                                  "--prefill_chunk", "512", "--decode_chunk", "16", "--kv_dtype", "int8",
@@ -2253,6 +2276,387 @@ def phase_entry_points() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 15 and 16: context parallelism. K2's ring form and K5's offsets form at the
+# blocks of a ring of 2 at 8B attention width; the text QLoRA step at cp 2 (ring, then
+# Ulysses) in two processes that share the card over gloo, against cp 1 in one process
+# ---------------------------------------------------------------------------
+
+RING_S = 4096  # S_local of each rank of a ring of 2: the 8192-position step at cp 2
+RING_PAIRS = [(0, 0), (RING_S, 0), (RING_S, RING_S), (0, RING_S)]  # (q_offset, kv_offset): diagonal, full, diagonal, skipped
+
+
+def ring_cases():
+    """(name, causal, segment ids over the 2 * RING_S positions or None, prefix or None):
+    the documents are 8 packed ones whose ids cross the shard boundary; prefix-LM 5000
+    reaches past the first shard, so the global prefix test decides the second one."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(15)
+    segs = torch.sort(torch.randint(1, 9, (1, 2 * RING_S), device="cuda", generator=g), dim=1).values.to(torch.int32)
+    if int(segs[0, RING_S - 1]) != int(segs[0, RING_S]):
+        raise AssertionError("the packed documents must cross the shard boundary")
+    return [("causal", True, None, None), ("packed documents", True, segs, None), ("prefix-LM 2000", True, None, 2000),
+            ("prefix-LM 5000", True, None, 5000), ("non-causal", False, None, None)]
+
+
+def ring_block_mask_info(causal: bool, segs, prefix, qo: int, ko: int):
+    import torch
+
+    from llama_x_tpu_torch.ops.attention import MaskInfo
+
+    return MaskInfo(causal=causal, segment_ids=None if segs is None else segs[:, qo:qo + RING_S].contiguous(),
+                    kv_segment_ids=None if segs is None else segs[:, ko:ko + RING_S].contiguous(),
+                    prefix_len=None if prefix is None else torch.full((1,), prefix, dtype=torch.int32, device="cuda"))
+
+
+def ring_census(fa, mi, S: int, bq: int, bk: int, qo: int, ko: int) -> dict:
+    """The tiles of one head of a ring block at a kernel's tiling, by the predicate the
+    kernels mirror (tile_class with both offsets)."""
+    seg = None if mi.segment_ids is None else mi.segment_ids[0].cpu()
+    kseg = None if mi.kv_segment_ids is None else mi.kv_segment_ids[0].cpu()
+    prefix = None if mi.prefix_len is None else int(mi.prefix_len[0])
+    n = {"skip": 0, "partial": 0, "full": 0}
+    for q0 in range(0, S, bq):
+        qr = None if seg is None else (int(seg[q0:q0 + bq].min()), int(seg[q0:q0 + bq].max()))
+        for kv0 in range(0, S, bk):
+            kr = None if kseg is None else (int(kseg[kv0:kv0 + bk].min()), int(kseg[kv0:kv0 + bk].max()))
+            n[fa.tile_class(q0, kv0, bq, bk, S, bool(mi.causal), prefix, qr, kr, q_offset=qo, kv_offset=ko)] += 1
+    return dict(computed=n["partial"] + n["full"], full=n["full"], skipped=n["skip"])
+
+
+def sdpa_masked_backward_ms(F, q, k, v, do, mask):
+    """K5's yardstick on a ring block: the backward of one scaled_dot_product_attention call
+    with the block's bool mask (None: unmasked), timed here and never called by the port."""
+    import torch
+
+    leaves = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
+    try:
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, enable_gqa=True)
+        run = lambda: torch.autograd.grad(out, leaves, do.transpose(1, 2), retain_graph=True)
+        run()
+    except (RuntimeError, ValueError, TypeError) as e:
+        log(f"    yardstick unavailable: {type(e).__name__}: {str(e).splitlines()[0][:120]}")
+        return None
+    return time_ms(run, reps=5, warmup=1)
+
+
+def phase_ring_kernels() -> dict:
+    """K2's ring form and K5's offsets form against their plain versions at every block
+    of a ring of 2 (B 1, S_local 4096, 32/8 heads, D 128, bf16) under five masks."""
+    import torch
+    import torch.nn.functional as F
+
+    from llama_x_tpu_torch.ops import flash_attention as fa
+
+    log("[K2 ring form / K5 offsets form] vs plain at (q_offset, kv_offset) in "
+        f"{RING_PAIRS}, S_local {RING_S}, 32/8 heads, D 128; tol: out as K2's (2^-7 |ref| + 2^-5 rms of the row) on "
+        "the rows that see a key of the block, lse 2e-3 there and below -1e29 on both sides elsewhere (a row that sees "
+        "nothing is weighed by exactly 0 in the lse merge); dq, dk, dv (f32, added into zeroed accumulators) as K5's "
+        "(2^-7 |ref| + 2^-5 rms(ref)), from the block's own out / lse and delta")
+    g = torch.Generator(device="cuda").manual_seed(16)
+    B, S, Hq, Hkv, D = 1, RING_S, 32, 8, 128
+    q, k, v = _attn_inputs(g, B, S, Hq, Hkv, D)
+    do = torch.randn(B, S, Hq, D, device="cuda", generator=g).to(torch.bfloat16)
+    fwd, bwd = [], []
+    for name, causal, segs, prefix in ring_cases():
+        for qo, ko in RING_PAIRS:
+            tag = f"{name} ({qo}, {ko})"
+            mi = ring_block_mask_info(causal, segs, prefix, qo, ko)
+            out, lse = fa.flash_fwd_ring(q, k, v, mi, qo, ko)
+            torch.cuda.synchronize()
+            ref, ref_lse = fa.flash_fwd_ring_plain(q, k, v, mi, qo, ko)
+            mask = fa.ring_block_mask(mi, B, S, qo, ko, device="cuda")
+            seen = torch.ones(B, S, dtype=torch.bool, device="cuda") if mask is None else mask[:, 0].any(-1)
+            visible = float(S * S) if mask is None else float(mask.sum())
+            atol, rtol = fa.flash_fwd_tolerance(ref)
+            if bool(seen.any()):
+                err = check_close(f"{tag} out", out[seen], ref[seen], atol[seen], rtol)
+                lse_seen = seen[:, None, :, None].expand_as(lse)
+                lse_err = max_err(lse[lse_seen], ref_lse[lse_seen])
+                check(f"{tag} lse", lse_err, 2e-3)
+            else:
+                err, lse_err = 0.0, 0.0
+                log(f"    {tag}: no row sees a key of this block")
+            unseen = ~seen[:, None, :, None].expand_as(lse)
+            if bool(unseen.any()) and not (float(lse[unseen].max()) < -1e29 and float(ref_lse[unseen].max()) < -1e29):
+                raise AssertionError(f"{tag}: a row that sees no key has lse {float(lse[unseen].max())}")
+            run = lambda: fa.flash_fwd_ring(q, k, v, mi, qo, ko)
+            ms = time_ms(run)
+            plain_ms = time_ms(lambda: fa.flash_fwd_ring_plain(q, k, v, mi, qo, ko), reps=2, warmup=1)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            lib_ms = maybe_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True))
+            n_bytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D) + 4 * B * Hq * S
+            bms, by = bound_ms(n_bytes, 4 * D * Hq * visible, "bf16")
+            tiles = ring_census(fa, mi, S, 128, 128, qo, ko)
+            split = device_split_ms(run, ("flash_fwd_kernel",), reps=5)
+            log(f"      fwd {ms:.4f} ms (plain {plain_ms:.3f}, sdpa {lib_ms}, bound {bms:.4f} by {by}); device "
+                f"{split['flash_fwd_kernel']:.4f} ms (profiler); 128 x 128 tiles: {census_text(tiles)}; visible pairs "
+                f"{visible / (S * S):.4f}")
+            fwd.append(dict(case=name, q_offset=qo, kv_offset=ko, B=B, S=S, Hq=Hq, Hkv=Hkv, D=D, max_abs_err=err,
+                            lse_max_abs_err=lse_err, tol=float(atol.max()), rtol=rtol, ms=ms,
+                            device_ms=split["flash_fwd_kernel"], plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                            bound_by=by, tiles=tiles, visible=visible))
+
+            delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+            acc = [torch.zeros(t.shape, dtype=torch.float32, device="cuda") for t in (q, k, v)]
+            fa.flash_bwd_ring(q, k, v, out, lse, do, delta, acc, mi, qo, ko)
+            torch.cuda.synchronize()
+            want = fa.flash_bwd_ring_plain(q, k, v, out, lse, do, delta, mi, qo, ko)
+            errs, atols = {}, {}
+            for n, a, b in zip(("dq", "dk", "dv"), acc, want):
+                atols[n], brtol = fa.flash_bwd_tolerance(b)
+                errs[n] = check_close(f"{tag} {n}", a, b, atols[n], brtol)
+            del want
+            brun = lambda: fa.flash_bwd_ring(q, k, v, out, lse, do, delta, acc, mi, qo, ko)
+            bms_k = time_ms(brun, reps=5, warmup=1)
+            bplain = time_ms(lambda: fa.flash_bwd_ring_plain(q, k, v, out, lse, do, delta, mi, qo, ko), reps=1,
+                             warmup=1)
+            blib = sdpa_masked_backward_ms(F, q, k, v, do, mask)
+            # q, k, v, dO bf16 and lse, delta f32 read once; dq, dk, dv f32 read and written once
+            n_bytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D) + 2 * 4 * B * Hq * S \
+                + 2 * 4 * (B * S * Hq * D + 2 * B * S * Hkv * D)
+            bbound, bby = bound_ms(n_bytes, 10 * D * Hq * visible, "bf16")
+            btiles = {"dkv": ring_census(fa, mi, S, 64, 128, qo, ko), "dq": ring_census(fa, mi, S, 128, 64, qo, ko)}
+            bsplit = device_split_ms(brun, ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"), reps=5)
+            dev_ms = bsplit["flash_bwd_dq_kernel"] + bsplit["flash_bwd_dkv_kernel"]
+            log(f"      bwd {bms_k:.4f} ms (plain {bplain:.3f}, sdpa backward {blib}, bound {bbound:.4f} by {bby}); "
+                f"device dq {bsplit['flash_bwd_dq_kernel']:.4f} + dkv {bsplit['flash_bwd_dkv_kernel']:.4f} ms; tiles "
+                f"dkv {census_text(btiles['dkv'])}, dq {census_text(btiles['dq'])}")
+            bwd.append(dict(case=name, q_offset=qo, kv_offset=ko, B=B, S=S, Hq=Hq, Hkv=Hkv, D=D,
+                            max_abs_err=max(errs.values()), errs=errs, tol=max(atols.values()), rtol=brtol, ms=bms_k,
+                            device_ms=dev_ms, plain_ms=bplain, library_ms=blib, bound_ms=bbound, bound_by=bby,
+                            tiles=btiles, visible=visible))
+            del out, lse, ref, ref_lse, acc, delta, mask
+            torch.cuda.empty_cache()
+    return {"flash_attention_ring": fwd, "flash_attention_bwd_ring": bwd}
+
+
+CP = 2
+CP_LAYERS = 4  # the depth cut of the cp phase: 4 of Llama-3.1-8B's 32 layers, at full width
+CP_FLAGS = [
+    "--synthetic", "16", "--geometry", "8b", "--synthetic_config", json.dumps({"num_layers": CP_LAYERS}),
+    "--quantize", "int8", "--quantize_kwargs", '{"dynamic_int8_act": true, "dynamic_int8_bwd": true, "int8_head": true}',
+    "--adapter", "lora", "--adapter_kwargs", '{"rank": 8}', "--freeze_prefixes", "tok_embeddings", "output", "norm",
+    "--activation_checkpointing", "--fused_ce_chunks", "8", "--document_mask", "--max_seq_len", str(CP * RING_S),
+    "--batch_size", "1", "--gradient_accumulation", "1", "--optim", "AdamW", "--lr", "1e-3", "--seed", "0",
+]
+CP_STEPS = (("ring", 4), ("ulysses", 2))
+CP_TIMEOUT_S = 420
+
+
+def cp_expected_launches(impl: str, layers: int, cp: int) -> dict:
+    """The attention launches of one step of one rank under remat "full": the ring runs
+    cp blocks of K2's ring form a layer, doubled by the recompute, and cp blocks of K5's
+    offsets form; Ulysses runs K2 and K5 in their normal form once a layer (K2 twice)."""
+    ring = impl == "ring"
+    return {"flash_attention_ring": 2 * cp * layers if ring else 0, "flash_attention_bwd_ring": cp * layers if ring else 0,
+            "flash_attention": 0 if ring else 2 * layers, "flash_attention_bwd": 0 if ring else layers}
+
+
+def cp_batch(entry, args, vocab: int) -> dict:
+    """The first step batch of the text trainer's data whose packed documents cross the
+    middle of the sequence (the shard boundary at cp 2)."""
+    from llama_x_tpu_torch.train import cli
+
+    data_iter, _ = entry.make_data(args, vocab)
+    for _ in range(16):
+        batch = cli.assemble_step_batch([next(data_iter)], pad_values={"labels": -100})
+        seg = batch["segment_ids"][0, 0]
+        half = seg.shape[0] // CP
+        if seg.shape[0] == CP * RING_S and seg[half - 1] == seg[half] and seg.max() > 1:
+            return batch
+    raise AssertionError("no packed row crosses the shard boundary")
+
+
+def cp_first_grads(model, entry, rows: dict, mesh):
+    """Loss and adapter (LoRA) gradients of the step batch's microbatch at the current
+    weights, summed over the mesh (each rank's loss is its share of the mean)."""
+    import torch
+
+    from llama_x_tpu_torch.parallel.mesh import all_reduce, use_mesh
+
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad and "lora_" in n]
+    mb = {k: torch.as_tensor(v[0]).cuda() for k, v in rows.items()}
+    with use_mesh(mesh):
+        loss, _ = entry.loss_fn(model, mb)
+        grads = torch.autograd.grad(loss, [p for _, p in named])
+    loss = float(all_reduce(mesh, loss.detach().float()))
+    return loss, {n: all_reduce(mesh, g.float()).cpu() for (n, _), g in zip(named, grads)}
+
+
+def cp_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """One rank of the cp phase (a spawned process on the shared card, over gloo): the
+    text trainer's own pieces at cp ``world``; writes its record to ``out_dir``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from llama_x_tpu_torch import train_metamathqa as entry
+    from llama_x_tpu_torch.parallel.mesh import init_distributed, make_mesh, use_mesh
+    from llama_x_tpu_torch.parallel.sharding import shard_batch
+    from llama_x_tpu_torch.train import cli
+    from llama_x_tpu_torch.train.trainer import TrainState, make_train_step
+    from llama_x_tpu_torch.train.validate import validate_launch, validate_model
+
+    dev = init_distributed("gloo", "cuda", init_method=f"file://{store}", rank=rank, world_size=world)
+    try:
+        mesh = make_mesh(cp=world)
+        args = entry.parse_args([*CP_FLAGS, "--mesh", json.dumps({"cp": world}), "--attn_impl", "ring",
+                                 "--dist_backend", "gloo", "--device", str(dev), "--n_steps", "6"])
+        validate_launch(args, mesh, max_seq_len=args.max_seq_len)
+        model = cli.build_model_params(args, max_seq_len=args.max_seq_len)
+        validate_model(model.config, mesh, args)
+        rows = shard_batch(cp_batch(entry, args, model.config.vocab_size), mesh)
+        rec = {"rank": rank, "device": str(dev), "first": {}, "steps": []}
+        for impl, _ in CP_STEPS:
+            model.config = model.config.replace(attn_impl=impl)
+            loss, grads = cp_first_grads(model, entry, rows, mesh)
+            rec["first"][impl] = (loss, grads if rank == 0 else None)
+        optimizer, _ = cli.setup_optimizer(args, model)
+        state = TrainState(model, optimizer)
+        train_step = make_train_step(entry.loss_fn, mesh=mesh)
+        for impl, n in CP_STEPS:
+            model.config = model.config.replace(attn_impl=impl)
+            expect = cp_expected_launches(impl, CP_LAYERS, world)
+            for i in range(n):
+                reset_counts()
+                mesh.comm.reset()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                with use_mesh(mesh):
+                    m = train_step(state, rows)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                counts = read_counts()
+                step = dict(impl=impl, step=i, loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), seconds=dt,
+                            exchange_s=mesh.comm.seconds, exchange_share=mesh.comm.seconds / dt,
+                            exchange_calls=mesh.comm.calls, exchange_bytes=mesh.comm.bytes,
+                            peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts)
+                log(f"    rank {rank} {impl} step {i}: loss {step['loss']:.4f}, grad norm {step['grad_norm']:.4f}, "
+                    f"{dt:.3f} s, exchange {mesh.comm.seconds:.3f} s ({step['exchange_share']:.3f} of the step, "
+                    f"{mesh.comm.calls} calls, {mesh.comm.bytes / 1e6:.1f} MB), peak {step['peak_gb']:.2f} GB")
+                wrong = {k: (counts[k], v) for k, v in expect.items() if counts[k] != v}
+                if wrong:
+                    raise AssertionError(f"rank {rank} {impl} step {i} launches (got, expected): {wrong}")
+                if min(counts["int8_mm_dequant_nt"], counts["int8_mm_dequant"]) == 0:
+                    raise AssertionError(f"rank {rank} {impl} step {i} skipped the int8 kernels: {counts}")
+                rec["steps"].append(step)
+        torch.save(rec, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_cp_ranks(world: int) -> list[dict]:
+    """Spawn the cp ranks on the card, wait with a timeout of their own; a rank that fails
+    or hangs fails the phase (and the hung ones are killed)."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=cp_rank, args=(r, world, str(Path(tmp) / "store"), tmp)) for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.perf_counter() + CP_TIMEOUT_S
+        try:
+            for p in procs:
+                p.join(max(1.0, deadline - time.perf_counter()))
+        finally:
+            hung = [r for r, p in enumerate(procs) if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        if hung:
+            raise AssertionError(f"cp ranks {hung} did not finish within {CP_TIMEOUT_S} s")
+        bad = [(r, p.exitcode) for r, p in enumerate(procs) if p.exitcode != 0]
+        if bad:
+            raise AssertionError(f"cp ranks failed (rank, exit code): {bad}")
+        return [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def phase_cp() -> dict:
+    """The text QLoRA step at Llama-3.1-8B width (depth cut to 4 layers), S 8192 of packed
+    documents crossing the shard boundary, at cp 2 over two processes on the one card
+    (gloo, asked for by name: NCCL refuses two ranks on one device), ring for 4 steps then
+    Ulysses for 2, against the same step at cp 1 in this process over the whole 8192."""
+    import torch
+
+    from llama_x_tpu_torch import train_metamathqa as entry
+    from llama_x_tpu_torch.train import cli
+    from llama_x_tpu_torch.train.trainer import TrainState, make_train_step
+
+    log(f"[cp phase] text QLoRA at Llama-3.1-8B width, {CP_LAYERS} layers (depth cut), S {CP * RING_S} = {CP} x "
+        f"{RING_S}, packed documents across the boundary, remat full, fused CE x8; {CP} ranks on cuda:0 over gloo, "
+        f"ring x {CP_STEPS[0][1]} then ulysses x {CP_STEPS[1][1]}, against cp 1; tol: loss 1e-3 of |loss|, adapter "
+        "gradients relative L2 2^-6 per tensor")
+    t0 = time.perf_counter()
+    ranks = run_cp_ranks(CP)
+    cp_wall = time.perf_counter() - t0
+    # cp 1: the same flags, one process, the whole sequence
+    args = entry.parse_args([*CP_FLAGS, "--n_steps", "6"])
+    model = cli.build_model_params(args, max_seq_len=args.max_seq_len)
+    batch = cp_batch(entry, args, model.config.vocab_size)
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad and "lora_" in n]
+    mb = {k: torch.as_tensor(v[0]).cuda() for k, v in batch.items()}
+    loss1, _ = entry.loss_fn(model, mb)
+    grads1 = dict(zip([n for n, _ in named], torch.autograd.grad(loss1, [p for _, p in named])))
+    loss1 = float(loss1.detach())
+    out = {"first": {}, "ranks": [], "cp1_steps": []}
+    for impl, _ in CP_STEPS:
+        loss, grads = ranks[0]["first"][impl]
+        check(f"cp {CP} {impl} loss {loss:.5f} vs cp 1 {loss1:.5f}", abs(loss - loss1), 1e-3 * abs(loss1))
+        worst, worst_name = 0.0, ""
+        for name, g in grads.items():
+            ref = grads1[name].float().cpu()
+            rel = float((g - ref).norm() / ref.norm().clamp(min=1e-30))
+            if rel > worst:
+                worst, worst_name = rel, name
+        check(f"cp {CP} {impl} adapter gradients ({len(grads)} tensors), worst relative L2 ({worst_name})", worst,
+              2**-6)
+        out["first"][impl] = dict(loss=loss, loss_cp1=loss1, grad_rel_l2_worst=worst)
+    del grads1
+    optimizer, _ = cli.setup_optimizer(args, model)
+    state = TrainState(model, optimizer)
+    train_step = make_train_step(entry.loss_fn)
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(sum(n for _, n in CP_STEPS)):
+        t1 = time.perf_counter()
+        m = train_step(state, batch)
+        torch.cuda.synchronize()
+        out["cp1_steps"].append(dict(step=i, loss=float(m["loss"]), seconds=time.perf_counter() - t1))
+    peak1 = torch.cuda.max_memory_allocated() / 1e9
+    steps = [r["steps"] for r in ranks]
+    for j, ref in enumerate(out["cp1_steps"]):
+        got = steps[0][j]
+        if any(abs(s[j]["loss"] - got["loss"]) > 1e-6 * abs(got["loss"]) for s in steps):
+            raise AssertionError(f"the ranks logged different losses at step {j}")
+        check(f"step {j} ({got['impl']}) loss {got['loss']:.5f} vs cp 1 {ref['loss']:.5f}", abs(got["loss"] - ref["loss"]),
+              1e-3 * abs(ref["loss"]))
+    launches = {}
+    for r in ranks:
+        for s in r["steps"]:
+            for k, v in s["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    for r in ranks:
+        for impl, _ in CP_STEPS:
+            st = [s for s in r["steps"] if s["impl"] == impl][1:] or [s for s in r["steps"] if s["impl"] == impl]
+            ms = sum(s["seconds"] for s in st) / len(st) * 1e3
+            share = sum(s["exchange_share"] for s in st) / len(st)
+            log(f"    rank {r['rank']} {impl}: step {ms:.1f} ms (after the first), exchange share {share:.3f}, peak "
+                f"{max(s['peak_gb'] for s in st):.2f} GB")
+        out["ranks"].append(dict(rank=r["rank"], steps=r["steps"]))
+    cp1_ms = sum(s["seconds"] for s in out["cp1_steps"][1:]) / (len(out["cp1_steps"]) - 1) * 1e3
+    log(f"    cp 1: step {cp1_ms:.1f} ms (after the first), peak {peak1:.2f} GB; the cp {CP} ranks' processes took "
+        f"{cp_wall:.1f} s with their start and build")
+    out.update(launches=launches, cp1_step_ms=cp1_ms, cp1_peak_gb=peak1, cp_wall_s=cp_wall)
+    del model, state, optimizer
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the record
 # ---------------------------------------------------------------------------
 
@@ -2265,6 +2669,11 @@ KERNELS = {
                                 "llama_x_tpu/ops/flash_attention.py:188", 0),
     "flash_attention_bwd": ("llama_x_tpu_torch/csrc/flash_attention_bwd.cu",
                             "llama_x_tpu/ops/flash_attention.py:369", 1),
+    # the ring forms: the primary shape is the causal block below the diagonal (4096, 0)
+    "flash_attention_ring": ("llama_x_tpu_torch/csrc/flash_attention.cu",
+                             "llama_x_tpu/ops/flash_attention.py:188", 1),
+    "flash_attention_bwd_ring": ("llama_x_tpu_torch/csrc/flash_attention_bwd.cu",
+                                 "llama_x_tpu/ops/flash_attention.py:369", 1),
     "decode_attention": ("llama_x_tpu_torch/csrc/decode_attention.cu", "llama_x_tpu/ops/decode_attention.py:44", 0),
     "decode_attention_int8": ("llama_x_tpu_torch/csrc/decode_attention.cu",
                               "llama_x_tpu/ops/decode_attention.py:44", 0),
@@ -2285,9 +2694,23 @@ def record(kern: dict, runs: dict) -> dict:
             shape={k: v for k, v in p.items() if k not in ("max_abs_err", "tol", "rtol", "ms", "plain_ms",
                                                             "bound_ms", "bound_by", "library_ms", "errs",
                                                             "tflops", "tops", "tiles", "split", "device_ms",
-                                                            "library_device_ms", "host_ms")},
+                                                            "library_device_ms", "host_ms", "visible",
+                                                            "lse_max_abs_err")},
         ))
     return {"kernels": out}
+
+
+class PhaseTimer:
+    """Seconds between successive phase ends, by phase name (the time budget's account)."""
+
+    def __init__(self, t0: float):
+        self.last, self.seconds = t0, {}
+
+    def __call__(self, name: str, result):
+        now = time.perf_counter()
+        self.seconds[name] = round(now - self.last, 1)
+        self.last = now
+        return result
 
 
 def main() -> int:
@@ -2302,31 +2725,38 @@ def main() -> int:
     smi = nvidia_smi()
     log(smi)
     t0 = time.perf_counter()
-    phase_build()
-    kern = phase_kernels()
-    runs, serving_model = phase_main_path()
-    runs["continuous"] = phase_continuous(serving_model)
-    runs.update(phase_speculative(serving_model))
-    runs.update(phase_hf_and_http(serving_model))
-    del serving_model
+    timer = PhaseTimer(t0)
+    timer("build", phase_build())
+    kern = timer("kernels", phase_kernels())
+    runs, serving_model = timer("main path", phase_main_path())
+    # the serving phases run on the first SERVING_LAYERS layers of the int8 model (a depth cut)
+    serving_cut = cut_of(serving_model, SERVING_LAYERS)
+    runs["continuous"] = timer("continuous", phase_continuous(serving_cut))
+    runs.update(timer("speculative", phase_speculative(serving_cut)))
+    runs.update(timer("hf and http", phase_hf_and_http(serving_cut)))
+    del serving_model, serving_cut
     gc.collect()
     torch.cuda.empty_cache()
-    runs["train"] = phase_train()
+    runs["train"] = timer("train", phase_train())
     gc.collect()
     torch.cuda.empty_cache()
-    runs["probe"] = phase_probe()
-    runs["audio"] = phase_audio()
+    runs["probe"] = timer("probe", phase_probe())
+    runs["audio"] = timer("audio", phase_audio())
     gc.collect()
     torch.cuda.empty_cache()
     trunk = build_trunk()
-    runs["vision"] = phase_vision(trunk)
-    runs["omni"] = phase_omni(trunk)
-    runs.update(phase_evals(trunk))
+    runs["vision"] = timer("vision", phase_vision(trunk))
+    runs["omni"] = timer("omni", phase_omni(trunk))
+    runs.update(timer("evals", phase_evals(trunk)))
     del trunk
     gc.collect()
     torch.cuda.empty_cache()
-    runs["real_data"] = phase_real_data()
-    runs["entry_points"] = phase_entry_points()
+    runs["real_data"] = timer("real data", phase_real_data())
+    runs["entry_points"] = timer("entry points", phase_entry_points())
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["cp"] = timer("cp", phase_cp())
+    log(f"[phase seconds] {json.dumps(timer.seconds)}")
     rec = record(kern, runs)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     log(smi)

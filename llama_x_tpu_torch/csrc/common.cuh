@@ -132,14 +132,18 @@ __device__ __forceinline__ float dropout_keep(const Dropout& d, uint32_t block_k
 }
 
 // The flash kernels' mask (ops/attention.py:make_attention_mask): visible = base |
-// in_prefix, base = (q + shift >= k if causal) & (qseg == kseg if segments) (with
-// neither, base is all True without a prefix and all False with one), in_prefix = q <
-// prefix & k < prefix; no query at or past S and no key at or past kv_end is visible.
-// Self-attention (batch_mask): kv_end = S and shift = 0. The offsets form over a KV cache
-// (offsets_mask, K2 only): q row i sits at global position q_offset + i, cache entry j at
-// kv_offset + j, so shift = q_offset - kv_offset, and kv_end is the row's kv_len; it has
-// no prefix and no segments. `prefix` is the batch row's length or -1; qrange / krange
-// hold the batch row's min and max segment id of every SEG_CHUNK positions
+// in_prefix, base = (q + q_off >= k + kv_off if causal) & (qseg == kseg if segments) (with
+// neither, base is all True without a prefix and all False with one), in_prefix =
+// q + q_off < prefix & k + kv_off < prefix; no query at or past S and no key at or past
+// kv_end is visible. q and k are local rows; q_off and kv_off place them at global
+// positions. Self-attention (batch_mask): kv_end = S and both offsets 0. The ring form
+// (batch_mask with offsets; ring attention's _fwd(offsets=) / _bwd(offsets=)): the local
+// q shard starts at q_off and the rotated kv block at kv_off, one pair for the whole call,
+// with every mask: the causal diagonal shifts by q_off - kv_off and the prefix is tested
+// at global positions. The offsets form over a KV cache (offsets_mask, K2 only): q row i
+// sits at q_offset[b] + i, cache entry j at kv_offset[b] + j, kv_end is the row's kv_len;
+// it has no prefix and no segments. `prefix` is the batch row's length or -1; qrange /
+// krange hold the batch row's min and max segment id of every SEG_CHUNK positions
 // ([ceil(S / SEG_CHUNK)][2], from the wrapper) and are null without segments.
 constexpr int SEG_CHUNK = 64;
 enum TileClass { TILE_SKIP = 0, TILE_PARTIAL = 1, TILE_FULL = 2 };
@@ -147,23 +151,23 @@ enum TileClass { TILE_SKIP = 0, TILE_PARTIAL = 1, TILE_FULL = 2 };
 struct Mask {
   int S, causal, prefix;
   const int *qrange, *krange;
-  int kv_end, shift;
+  int kv_end, q_off, kv_off;
 };
 
 // the Mask of batch row b from the kernels' arguments (prefix [B] and the [B, chunks, 2]
-// ranges, each null when absent)
+// ranges, each null when absent; q_off / kv_off: the ring form's global starts, else 0)
 __device__ __forceinline__ Mask batch_mask(int S, int causal, const int* prefix, const int* qrange, const int* krange,
-                                           int b) {
+                                           int b, int q_off, int kv_off) {
   const size_t row = (size_t)b * ((S + SEG_CHUNK - 1) / SEG_CHUNK) * 2;
   return Mask{S, causal, prefix ? prefix[b] : -1, qrange ? qrange + row : nullptr, krange ? krange + row : nullptr,
-              S, 0};
+              S, q_off, kv_off};
 }
 
 // the causal Mask of batch row b of Sq queries over a cache of Skv entries, from the
 // per-row q_offset, kv_offset and kv_len [B] (kv_len clamped to the cache)
 __device__ __forceinline__ Mask offsets_mask(int Sq, int Skv, const int* q_offset, const int* kv_offset,
                                              const int* kv_len, int b) {
-  return Mask{Sq, 1, -1, nullptr, nullptr, max(0, min(kv_len[b], Skv)), q_offset[b] - kv_offset[b]};
+  return Mask{Sq, 1, -1, nullptr, nullptr, max(0, min(kv_len[b], Skv)), q_offset[b], kv_offset[b]};
 }
 
 __device__ __forceinline__ int2 seg_range(const int* r, int x0, int n, int S) {
@@ -176,24 +180,26 @@ __device__ __forceinline__ int2 seg_range(const int* r, int x0, int n, int S) {
   return out;
 }
 
-// The class of the tile [q0, q0 + bq) x [kv0, kv0 + bk): TILE_SKIP when no element is
-// visible (the kernels never load it), TILE_FULL when every element is (the tile then runs
-// with no mask code), TILE_PARTIAL otherwise. qr / kr: the tile's segment id ranges
-// (seg_range; unread without segments). A tile reaching past kv_end is never full, a tile
-// starting at or past it is skipped. Mirrors ops/flash_attention.py:tile_class (and the
-// JAX kernels' _needed and _all_true, with the segment test widened to id ranges and the
-// diagonal shifted by the offsets).
+// The class of the tile [q0, q0 + bq) x [kv0, kv0 + bk) of local rows: TILE_SKIP when no
+// element is visible (the kernels never load it), TILE_FULL when every element is (the
+// tile then runs with no mask code), TILE_PARTIAL otherwise. qr / kr: the tile's segment
+// id ranges (seg_range; unread without segments). A tile reaching past kv_end is never
+// full, a tile starting at or past it is skipped. The causal and prefix tests take the
+// tile's global starts q0 + q_off and kv0 + kv_off. Mirrors ops/flash_attention.py:
+// tile_class (and the JAX kernels' _needed and _all_true, with the segment test widened
+// to id ranges).
 __device__ __forceinline__ int tile_class(const Mask& m, int q0, int bq, int kv0, int bk, int2 qr, int2 kr) {
   if (q0 >= m.S || kv0 >= m.kv_end) return TILE_SKIP;
+  const int qa = q0 + m.q_off, ka = kv0 + m.kv_off;
   const bool has_base = m.causal || m.qrange, has_prefix = m.prefix >= 0;
-  bool base_skip = (m.causal && q0 + bq - 1 + m.shift < kv0) || (!has_base && has_prefix);
-  bool base_full = (!m.causal || q0 + m.shift >= kv0 + bk - 1) && (has_base || !has_prefix);
+  bool base_skip = (m.causal && qa + bq - 1 < ka) || (!has_base && has_prefix);
+  bool base_full = (!m.causal || qa >= ka + bk - 1) && (has_base || !has_prefix);
   if (m.qrange && !base_skip) {
     base_skip = qr.y < kr.x || kr.y < qr.x;
     base_full = base_full && qr.x == qr.y && kr.x == kr.y && qr.x == kr.x;
   }
-  const bool pre_any = has_prefix && q0 < m.prefix && kv0 < m.prefix;
-  const bool pre_full = has_prefix && q0 + bq <= m.prefix && kv0 + bk <= m.prefix;
+  const bool pre_any = has_prefix && qa < m.prefix && ka < m.prefix;
+  const bool pre_full = has_prefix && qa + bq <= m.prefix && ka + bk <= m.prefix;
   if (base_skip && !pre_any) return TILE_SKIP;
   if ((base_full || pre_full) && q0 + bq <= m.S && kv0 + bk <= m.kv_end) return TILE_FULL;
   return TILE_PARTIAL;
@@ -207,10 +213,12 @@ __device__ __forceinline__ int2 kv_range(const Mask& m, int kv0, int bk) {
   return m.krange && kv0 >= 0 && kv0 < m.kv_end ? seg_range(m.krange, kv0, bk, m.kv_end) : make_int2(0, 0);
 }
 
-// one element of a TILE_PARTIAL tile; qs / ks are the two positions' segment ids
+// one element of a TILE_PARTIAL tile (local rows q, k); qs / ks are the two positions'
+// segment ids
 __device__ __forceinline__ bool visible(const Mask& m, int q, int k, int qs, int ks) {
-  const bool base = (!m.causal || q + m.shift >= k) && (!m.qrange || qs == ks) && (m.causal || m.qrange || m.prefix < 0);
-  return (base || (q < m.prefix && k < m.prefix)) && q < m.S && k < m.kv_end;
+  const int qg = q + m.q_off, kg = k + m.kv_off;
+  const bool base = (!m.causal || qg >= kg) && (!m.qrange || qs == ks) && (m.causal || m.qrange || m.prefix < 0);
+  return (base || (qg < m.prefix && kg < m.prefix)) && q < m.S && k < m.kv_end;
 }
 
 }  // namespace lxt

@@ -24,6 +24,18 @@
 // for the queries over the cache that the decode kernel K3 cannot take (more than 8 rows:
 // chunked prefill's continuation chunks, prefix-cache admission, verify at gamma >= 8).
 //
+// The ring form (lxt_flash_attention_fwd with q_offset / kv_offset; the TPU kernel's
+// _fwd(offsets=[[q_offset, kv_offset]]) as ring attention calls it,
+// llama_x_tpu/ops/ring_attention.py:_make_ring_flash): the self-attention layout and
+// every mask, with the local q shard at global positions q_offset + i and the rotated kv
+// block at kv_offset + j, one pair for the whole call. The causal diagonal shifts by
+// q_offset - kv_offset and the prefix is tested at global positions (common.cuh: Mask),
+// so a block that lies wholly above the diagonal is never loaded, a block from an earlier
+// shard is full under a causal mask, and a prefix longer than one shard reaches into the
+// next. Only the mask and the tile classes change; the loop is the one below. A row
+// that sees nothing in the block (a skipped block) ends with l = 0: out 0 and lse
+// (-1e30 + log2(1e-30)) ln2, whose weight in ring attention's lse merge is exactly 0.
+//
 // What computes: q folded by one f32 multiply with scale*log2e and one rounding to bf16,
 // base-2 online softmax in f32, masked logits -1e30, the l == 0 guard, natural-log lse
 // beside the output. q/k/v/out stay in the model's [B, S, H, D] layout.
@@ -78,6 +90,7 @@ struct Params {
   __nv_bfloat16* out;
   float* lse;
   int B, Sq, Skv, Hq, Hkv, causal;  // self-attention: Sq == Skv == S
+  int q_offset, kv_offset;          // the ring form's global starts of the q shard and the kv block (else 0)
   float qscale;  // scale * log2(e)
   lxt::Dropout drop;
 };
@@ -109,7 +122,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int S = p.Sq;
   const int h = blockIdx.x, b = blockIdx.y;
   const lxt::Mask mask = OFFS ? lxt::offsets_mask(S, p.Skv, p.q_off, p.kv_off, p.kv_len, b)
-                              : lxt::batch_mask(S, p.causal, p.prefix, p.qrange, p.krange, b);
+                              : lxt::batch_mask(S, p.causal, p.prefix, p.qrange, p.krange, b, p.q_offset, p.kv_offset);
   const int n_q = (S + BQ - 1) / BQ, n_kv = (mask.kv_end + BK - 1) / BK;
   const int q0 = (n_q - 1 - (int)blockIdx.z) * BQ;  // the q tiles that see the most kv tiles first
   const int hk = h / (p.Hq / p.Hkv);
@@ -337,12 +350,14 @@ int launch(const Params& p, const void* q, const void* k, const void* v, cudaStr
 }  // namespace
 
 // qrange / krange: per batch row the min and max segment id of every 64 positions
-// ([B, ceil(S / 64), 2] int32; null without segments), which decide the tile classes
+// ([B, ceil(S / 64), 2] int32; null without segments), which decide the tile classes.
+// q_offset / kv_offset: the ring form's global starts (0, 0 for plain self-attention);
+// kseg (and krange) then belong to the rotated kv block.
 extern "C" int lxt_flash_attention_fwd(const void* q, const void* k, const void* v, const void* qseg,
                                        const void* kseg, const void* qrange, const void* krange, const void* prefix,
                                        void* out, void* lse, int B, int S, int Hq, int Hkv, int D, int causal,
-                                       float qscale, int dropout, unsigned int threshold, float keep_scale,
-                                       unsigned int seed, int bq, int bk, void* stream) {
+                                       int q_offset, int kv_offset, float qscale, int dropout, unsigned int threshold,
+                                       float keep_scale, unsigned int seed, int bq, int bk, void* stream) {
   Params p;
   p.qseg = static_cast<const int*>(qseg);
   p.kseg = static_cast<const int*>(kseg);
@@ -357,9 +372,12 @@ extern "C" int lxt_flash_attention_fwd(const void* q, const void* k, const void*
   p.Hq = Hq;
   p.Hkv = Hkv;
   p.causal = causal;
+  p.q_offset = q_offset;
+  p.kv_offset = kv_offset;
   p.qscale = qscale;
   p.drop = lxt::Dropout{dropout, threshold, keep_scale, seed, bq > 0 ? bq : 1, bk > 0 ? bk : 1};
-  if ((qseg == nullptr) != (qrange == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  if ((qseg == nullptr) != (qrange == nullptr) || (kseg == nullptr) != (krange == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   if (D == 128) return dropout ? launch<128, true, false>(p, q, k, v, st) : launch<128, false, false>(p, q, k, v, st);
   if (D == 64) return dropout ? launch<64, true, false>(p, q, k, v, st) : launch<64, false, false>(p, q, k, v, st);
@@ -385,6 +403,7 @@ extern "C" int lxt_flash_attention_fwd_offsets(const void* q, const void* k, con
   p.Hq = Hq;
   p.Hkv = Hkv;
   p.causal = 1;
+  p.q_offset = p.kv_offset = 0;  // unread: offsets_mask takes the per-row arrays
   p.qscale = qscale;
   p.drop = lxt::Dropout{0, 0u, 1.f, 0u, 1, 1};
   auto st = static_cast<cudaStream_t>(stream);

@@ -17,8 +17,18 @@
 // ds = p (dp - delta) ln2 with the undropped p, delta unchanged. A kv tile (64 or 128
 // positions) lies inside one kv block of the plan (bk is a multiple of 128, or spans the
 // sequence); the q block may change inside a q tile (bq 32), so the dkv kernel keeps
-// fmix32(key) and r * bk per q column in its ring. The ring position offsets are not
-// ported yet.
+// fmix32(key) and r * bk per q column in its ring.
+//
+// The offsets form (ACC; the TPU kernel's _bwd(offsets=, delta=, cast=False) as ring
+// attention's backward calls it, llama_x_tpu/ops/ring_attention.py:_make_ring_flash):
+// the local q shard at global positions q_offset + i, the rotated kv block at
+// kv_offset + j, with K2's ring-form mask (common.cuh: Mask). out and lse are the ring's
+// final merged ones, so p = exp2(s - lse*log2e) is this block's exact share of the
+// softmax; delta = rowsum(dO * out) [B, Hq, S] f32 comes from the caller, computed once
+// per ring backward, and the dq kernel reads it instead of summing its own. dq, dk and dv
+// are f32 and ADDED into the caller's accumulators (each element has one writer, so the
+// sum stays deterministic): dq sums over the ring's kv blocks at home, dk and dv travel
+// the ring with their kv block. No dropout (ring attention refuses it).
 //
 // What bounds it on an H100: the bf16 tensor-core rate; the five products that the
 // algorithm needs are 10*B*Hq*(visible pairs)*D operations, 0.348 ms at B 1, S 4096,
@@ -78,11 +88,12 @@ constexpr float LN2 = 0.6931471805599453f;
 struct Params {
   const __nv_bfloat16 *o, *dout;    // the forward's out and its gradient, [B, S, Hq, D]
   const float* lse;                 // [B, Hq, S]
-  float* delta;                     // [B, Hq, S]: written by the dq kernel, read by the dkv kernel
+  float* delta;                     // [B, Hq, S]: written by the dq kernel and read by the dkv kernel (ACC: given)
   const int *qseg, *kseg, *prefix;  // null when absent
   const int *qrange, *krange;       // [B, ceil(S / SEG_CHUNK), 2] segment id ranges; null without segments
-  __nv_bfloat16 *dq, *dk, *dv;
+  void *dq, *dk, *dv;               // bf16, written; ACC: f32 accumulators, added into
   int B, S, Hq, Hkv, causal;
+  int q_offset, kv_offset;          // ACC: the global starts of the q shard and the kv block
   float qscale;  // scale * log2(e)
   lxt::Dropout drop;
 };
@@ -102,7 +113,7 @@ struct DqSmem {
   uint64_t qd_full, full[STAGES], empty[STAGES];
 };
 
-template <int D, bool DROP>
+template <int D, bool DROP, bool ACC>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
                         const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
@@ -115,7 +126,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int h = blockIdx.x, b = blockIdx.y;
   const int q0 = (n_q - 1 - (int)blockIdx.z) * CTA_ROWS;
   const int hk = h / (p.Hq / p.Hkv);
-  const lxt::Mask mask = lxt::batch_mask(S, p.causal, p.prefix, p.qrange, p.krange, b);
+  const lxt::Mask mask = lxt::batch_mask(S, p.causal, p.prefix, p.qrange, p.krange, b, p.q_offset, p.kv_offset);
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
 
   if (threadIdx.x == 0) {
@@ -185,6 +196,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     const size_t stat = ((size_t)b * p.Hq + h) * S + qpos[r];
     qseg[r] = (p.qseg && in) ? p.qseg[(size_t)b * S + qpos[r]] : 0;
     lse2[r] = in ? p.lse[stat] * LOG2E : 0.f;
+    if (ACC) {  // the caller's delta, against the ring's final out
+      dl[r] = in ? p.delta[stat] : 0.f;
+      continue;
+    }
     // delta = rowsum(dO * O) in f32: lane c of the row's quad takes columns 32k + 8c .. + 7
     float sum = 0.f;
     if (in) {
@@ -312,11 +327,19 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (qpos[r] >= S) continue;
-    __nv_bfloat16* dst = p.dq + ((size_t)b * S + qpos[r]) * ((size_t)p.Hq * D) + (size_t)h * D;
+    const size_t off = ((size_t)b * S + qpos[r]) * ((size_t)p.Hq * D) + (size_t)h * D;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(dst + n * 8 + c * 2) =
-          __floats2bfloat162_rn(dq[4 * n + 2 * r] * p.qscale, dq[4 * n + 2 * r + 1] * p.qscale);
+    for (int n = 0; n < D / 8; ++n) {
+      const float x = dq[4 * n + 2 * r] * p.qscale, y = dq[4 * n + 2 * r + 1] * p.qscale;
+      if (ACC) {
+        float2* dst = reinterpret_cast<float2*>(static_cast<float*>(p.dq) + off + n * 8 + c * 2);
+        const float2 was = *dst;
+        *dst = make_float2(was.x + x, was.y + y);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.dq) + off + n * 8 + c * 2) =
+            __floats2bfloat162_rn(x, y);
+      }
+    }
   }
   if (tid == 0) lxt::tma_store_wait_read();  // the Qs store has read its shared rows
 }
@@ -340,7 +363,7 @@ struct DkvSmem {
   uint64_t kv_full, full[STAGES], empty[STAGES];
 };
 
-template <int D, bool DROP>
+template <int D, bool DROP, bool ACC>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                          const __grid_constant__ CUtensorMap tqs, const __grid_constant__ CUtensorMap tdo,
@@ -353,7 +376,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int hk = blockIdx.x, b = blockIdx.y;
   const int kv0 = blockIdx.z * CTA_ROWS;  // the kv tiles that see the most q tiles (causal) first
   const int group = p.Hq / p.Hkv;
-  const lxt::Mask mask = lxt::batch_mask(S, p.causal, p.prefix, p.qrange, p.krange, b);
+  const lxt::Mask mask = lxt::batch_mask(S, p.causal, p.prefix, p.qrange, p.krange, b, p.q_offset, p.kv_offset);
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
   const int drop_j = DROP ? kv0 / p.drop.bk : 0;  // one plan block holds the whole kv tile
 
@@ -541,13 +564,23 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       const int col = n * 8 + c * 2;
-      *reinterpret_cast<__nv_bfloat162*>(p.dk + off + col) = __floats2bfloat162_rn(dk[4 * n + 2 * r], dk[4 * n + 2 * r + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(p.dv + off + col) = __floats2bfloat162_rn(dv[4 * n + 2 * r], dv[4 * n + 2 * r + 1]);
+      if (ACC) {
+        float2* dkp = reinterpret_cast<float2*>(static_cast<float*>(p.dk) + off + col);
+        float2* dvp = reinterpret_cast<float2*>(static_cast<float*>(p.dv) + off + col);
+        const float2 ok = *dkp, ov = *dvp;
+        *dkp = make_float2(ok.x + dk[4 * n + 2 * r], ok.y + dk[4 * n + 2 * r + 1]);
+        *dvp = make_float2(ov.x + dv[4 * n + 2 * r], ov.y + dv[4 * n + 2 * r + 1]);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.dk) + off + col) =
+            __floats2bfloat162_rn(dk[4 * n + 2 * r], dk[4 * n + 2 * r + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.dv) + off + col) =
+            __floats2bfloat162_rn(dv[4 * n + 2 * r], dv[4 * n + 2 * r + 1]);
+      }
     }
   }
 }
 
-template <int D, bool DROP>
+template <int D, bool DROP, bool ACC>
 int launch(const Params& p, const void* q, const void* k, const void* v, const void* dout, void* qs,
            cudaStream_t st) {
   // dq kernel: Q, dO by 128 rows, K, V by 64, the Qs store by 64; dkv kernel: K, V by
@@ -564,17 +597,17 @@ int launch(const Params& p, const void* q, const void* k, const void* v, const v
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   constexpr int dq_bytes = sizeof(DqSmem<D>) + 1024, dkv_bytes = sizeof(DkvSmem<D>) + 1024;
   static const cudaError_t attr_dq =  // once per instantiation and process (one card a process)
-      cudaFuncSetAttribute(flash_bwd_dq_kernel<D, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
+      cudaFuncSetAttribute(flash_bwd_dq_kernel<D, DROP, ACC>, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
   static const cudaError_t attr_dkv =
-      cudaFuncSetAttribute(flash_bwd_dkv_kernel<D, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_bytes);
+      cudaFuncSetAttribute(flash_bwd_dkv_kernel<D, DROP, ACC>, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_bytes);
   if (attr_dq != cudaSuccess) return static_cast<int>(attr_dq);
   if (attr_dkv != cudaSuccess) return static_cast<int>(attr_dkv);
   cudaError_t err;
-  flash_bwd_dq_kernel<D, DROP><<<dim3(p.Hq, p.B, (p.S + CTA_ROWS - 1) / CTA_ROWS), THREADS, dq_bytes, st>>>(
+  flash_bwd_dq_kernel<D, DROP, ACC><<<dim3(p.Hq, p.B, (p.S + CTA_ROWS - 1) / CTA_ROWS), THREADS, dq_bytes, st>>>(
       q128, do128, k64, v64, qs64, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkv_kernel<D, DROP><<<dim3(p.Hkv, p.B, (p.S + CTA_ROWS - 1) / CTA_ROWS), THREADS, dkv_bytes, st>>>(
+  flash_bwd_dkv_kernel<D, DROP, ACC><<<dim3(p.Hkv, p.B, (p.S + CTA_ROWS - 1) / CTA_ROWS), THREADS, dkv_bytes, st>>>(
       k128, v128, qs64, do64, p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -583,15 +616,17 @@ int launch(const Params& p, const void* q, const void* k, const void* v, const v
 
 // qrange / krange: as for lxt_flash_attention_fwd. delta: f32 [B, Hq, S] scratch and qs:
 // scratch of q's shape and type, written by the dq kernel (rowsum(dO * O) and the folded
-// q) and read by the dkv kernel. dropout,
-// threshold, keep_scale, seed, bq, bk: the forward's dropout (common.cuh), with the JAX
-// plan's blocks that key the mask.
+// q) and read by the dkv kernel. dropout, threshold, keep_scale, seed, bq, bk: the
+// forward's dropout (common.cuh), with the JAX plan's blocks that key the mask.
+// accumulate = 1 is the offsets form: q_offset / kv_offset place the q shard and the kv
+// block, delta is the caller's (read only), dq / dk / dv are f32 accumulators of q's / k's
+// shape that the kernels add into; it takes no dropout.
 extern "C" int lxt_flash_attention_bwd(const void* q, const void* k, const void* v, const void* out, const void* dout,
                                        const void* lse, void* delta, const void* qseg, const void* kseg, const void* qrange,
                                        const void* krange, const void* prefix, void* qs, void* dq, void* dk, void* dv,
-                                       int B, int S, int Hq, int Hkv, int D, int causal, float qscale, int dropout,
-                                       unsigned int threshold, float keep_scale, unsigned int seed, int bq, int bk,
-                                       void* stream) {
+                                       int B, int S, int Hq, int Hkv, int D, int causal, int q_offset, int kv_offset,
+                                       int accumulate, float qscale, int dropout, unsigned int threshold,
+                                       float keep_scale, unsigned int seed, int bq, int bk, void* stream) {
   Params p;
   p.o = static_cast<const __nv_bfloat16*>(out);
   p.dout = static_cast<const __nv_bfloat16*>(dout);
@@ -602,19 +637,28 @@ extern "C" int lxt_flash_attention_bwd(const void* q, const void* k, const void*
   p.prefix = static_cast<const int*>(prefix);
   p.qrange = static_cast<const int*>(qrange);
   p.krange = static_cast<const int*>(krange);
-  p.dq = static_cast<__nv_bfloat16*>(dq);
-  p.dk = static_cast<__nv_bfloat16*>(dk);
-  p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.dq = dq;
+  p.dk = dk;
+  p.dv = dv;
   p.B = B;
   p.S = S;
   p.Hq = Hq;
   p.Hkv = Hkv;
   p.causal = causal;
+  p.q_offset = q_offset;
+  p.kv_offset = kv_offset;
   p.qscale = qscale;
   p.drop = lxt::Dropout{dropout, threshold, keep_scale, seed, bq > 0 ? bq : 1, bk > 0 ? bk : 1};
-  if ((qseg == nullptr) != (qrange == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  if ((qseg == nullptr) != (qrange == nullptr) || (kseg == nullptr) != (krange == nullptr) || (accumulate && dropout))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
-  if (D == 128) return dropout ? launch<128, true>(p, q, k, v, dout, qs, st) : launch<128, false>(p, q, k, v, dout, qs, st);
-  if (D == 64) return dropout ? launch<64, true>(p, q, k, v, dout, qs, st) : launch<64, false>(p, q, k, v, dout, qs, st);
+  if (D == 128) {
+    if (accumulate) return launch<128, false, true>(p, q, k, v, dout, qs, st);
+    return dropout ? launch<128, true, false>(p, q, k, v, dout, qs, st) : launch<128, false, false>(p, q, k, v, dout, qs, st);
+  }
+  if (D == 64) {
+    if (accumulate) return launch<64, false, true>(p, q, k, v, dout, qs, st);
+    return dropout ? launch<64, true, false>(p, q, k, v, dout, qs, st) : launch<64, false, false>(p, q, k, v, dout, qs, st);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -5,6 +5,11 @@ Modality tokens are PREPENDED to the text embeddings, one rope spans the concate
 sequence, and after the trunk the modality positions are sliced off so that the loss
 covers text only. With ``prefix_lm`` attention is bidirectional over all modality
 tokens and causal over text (``MaskInfo.prefix_len``).
+
+Under context parallelism (``attn_impl`` ring / ulysses) every rank runs the stems whole
+(they are small) and keeps its slice of the fused sequence: the labels are padded with the
+ignore index over the modality positions and cut with it, so no position is stripped and
+the loss is this rank's share of the mean over the text.
 """
 
 from __future__ import annotations
@@ -14,6 +19,8 @@ from torch.utils.checkpoint import checkpoint
 
 from llama_x_tpu_torch.models import llama
 from llama_x_tpu_torch.ops.attention import MaskInfo
+from llama_x_tpu_torch.ops.cross_entropy import IGNORE_INDEX
+from llama_x_tpu_torch.parallel import context as cp
 
 
 def embed_prefix(fn, x: torch.Tensor, config: llama.LlamaConfig) -> torch.Tensor:
@@ -48,9 +55,20 @@ def fuse_forward(model: llama.Llama, prefix_embeds: list[torch.Tensor], tokens: 
     else:
         mask_info = MaskInfo(causal=True)
 
+    mesh = llama.context_mesh(model.config) if kv_cache is None else None
+    if mesh is not None:
+        if labels is None:
+            raise ValueError("context parallelism runs the training loss: pass labels")
+        labels = torch.cat([torch.full((labels.shape[0], n_prefix), IGNORE_INDEX, dtype=labels.dtype,
+                                       device=labels.device), labels], dim=1)
+        x, mask_info, labels = cp.shard_sequence(mesh, x, mask_info, labels)
+        n_prefix = 0  # the padded labels ignore the modality positions
+
     x, kv_cache = llama.trunk(model, x, mask_info, kv_cache, input_pos, dropout_seeds=dropout_seeds)
 
     if n_prefix > 0:
         x = x[:, n_prefix:]  # strip modality positions before the head
     out = llama.head(model, x, labels)
+    if mesh is not None:
+        out = cp.loss_share(mesh, out, labels)
     return (out, kv_cache) if kv_cache is not None else out

@@ -27,6 +27,16 @@ run the MLP outside as ``feed_forward_q8``, an ``autograd.Function`` whose resid
 are the block's hidden state and h1 (and h3) as rowwise int8. ``attn_q8`` /
 ``attn_q8s`` (the int8-residual attention) are not ported yet and raise.
 
+Context parallelism (``attn_impl`` "ring" / "ulysses", without a cache): the ambient mesh's
+"cp" axis (parallel/mesh.py: ``use_mesh``) splits the sequence. ``forward`` and the
+multimodal ``fuse_forward`` cut the embeddings (after the stems), the segment ids and the
+labels to this rank's slice (parallel/context.py: ``shard_sequence``), ``trunk`` takes the
+RoPE rows at the slice's global positions, attention runs over the ring
+(``context_parallel_attention``: K2's ring form and K5's offsets form) or through Ulysses'
+all-to-alls (K2 / K5 in their normal form), and the loss is this rank's share of the mean
+over the whole sequence (``loss_share``). Attention dropout raises there, as in the JAX
+package.
+
 Attention dropout: ``LlamaConfig.attn_dropout`` with ``forward(dropout_seeds=)``, one
 32-bit seed per layer (or a CPU ``torch.Generator`` to draw them from); the JAX
 package splits a ``dropout_rng`` per layer and draws each kernel's seed from it, which
@@ -51,7 +61,12 @@ from llama_x_tpu_torch.ops.int8 import quantize_int8_rowwise
 from llama_x_tpu_torch.ops.linear import Linear, apply_linear, apply_linear_grouped, linear_vjp
 from llama_x_tpu_torch.ops.norms import rms_norm
 from llama_x_tpu_torch.ops.rope import apply_rope, build_rope
+from llama_x_tpu_torch.parallel import context as cp
+from llama_x_tpu_torch.parallel.mesh import Mesh, current_mesh
+from llama_x_tpu_torch.parallel.ulysses import ulysses_attention
 from llama_x_tpu_torch.utils.device import resolve_device
+
+CP_IMPLS = ("ring", "ulysses")  # the context-parallel attention implementations
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +107,10 @@ class LlamaConfig:
     # and w2 outputs; "<base>_q8" / "<base>_q8s" keep <base> for the attention half and
     # run the MLP as feed_forward_q8 (h1 and h3, or h1 alone, kept as rowwise int8)
     remat_policy: str = "full"
+    # "ring" / "ulysses": context-parallel attention over the ambient mesh's "cp" axis
+    # (training without a cache); "auto" / "flash": the flash kernels on the card, their
+    # plain versions on the CPU
+    attn_impl: str = "auto"
 
     def replace(self, **kw) -> "LlamaConfig":
         return dataclasses.replace(self, **kw)
@@ -306,6 +325,17 @@ def cache_offsets(mi: MaskInfo, B: int, S: int):
     return q_off, torch.zeros_like(q_off), lens, int(kv_max)
 
 
+def context_mesh(config: LlamaConfig) -> Mesh | None:
+    """The ambient mesh when attention is context-parallel (``attn_impl`` ring / ulysses),
+    else None; raises where such a config finds no mesh."""
+    if config.attn_impl not in CP_IMPLS:
+        return None
+    mesh = current_mesh()
+    if mesh is None:
+        raise ValueError(f"attn_impl={config.attn_impl!r} needs parallel.mesh.use_mesh(mesh) around the step")
+    return mesh
+
+
 def _named(saves: rm.SaveStore | None, name: str):
     return None if saves is None else (saves, name)
 
@@ -379,6 +409,16 @@ def attention(attn: Attention, config: LlamaConfig, x: torch.Tensor, rope: torch
             kd = dequant_kv(k_cache) if quantized else k_cache
             vd = dequant_kv(v_cache) if quantized else v_cache
             out = dot_product_attention(q, kd.transpose(1, 2), vd.transpose(1, 2), mask_info)
+    elif c.attn_impl in CP_IMPLS and cache is None:
+        # the sequence is split over the mesh's "cp" axis: ring attention passes the kv
+        # blocks around the ring, Ulysses scatters heads / gathers the sequence and back
+        if c.attn_dropout > 0.0 and dropout_seed is not None:
+            raise NotImplementedError(f"attention dropout is not supported with attn_impl={c.attn_impl!r}")
+        mesh = context_mesh(c)
+        if c.attn_impl == "ring":
+            out = cp.context_parallel_attention(q, k, v, mesh, mask_info)
+        else:
+            out = ulysses_attention(q, k, v, mesh, mask_info)
     else:
         rate = c.attn_dropout if dropout_seed is not None else 0.0
         out, _ = rm.run_saved(_named(saves, rm.FLASH), lambda kept: fa.flash_fwd_with_lse(
@@ -527,7 +567,12 @@ def trunk(model: Llama, x: torch.Tensor, mask_info: MaskInfo, kv_cache=None,
     block (under a q8 policy: its attention half) keeps its input and what
     ``remat_policy`` names, and the rest is recomputed in the backward."""
     config = model.config
-    rope = model.rope if input_pos is not None else model.rope[: x.shape[1]]
+    if input_pos is not None:
+        rope = model.rope
+    else:  # a context-parallel rank's rows sit at their global positions
+        mesh = context_mesh(config) if kv_cache is None else None
+        start = cp.sequence_start(mesh, x.shape[1]) if mesh is not None else 0
+        rope = model.rope[start: start + x.shape[1]]
     seeds = layer_seeds(dropout_seeds, config.num_layers)
     remat = kv_cache is None and config.activation_checkpointing and torch.is_grad_enabled()
     policy = config.remat_policy
@@ -593,6 +638,11 @@ def forward(model: Llama, tokens: torch.Tensor, *, segment_ids: torch.Tensor | N
         mask_info = MaskInfo(causal=True, q_positions=q_pos, kv_len=kv_len)
     else:
         mask_info = MaskInfo(causal=True, segment_ids=segment_ids)
+    mesh = context_mesh(model.config) if kv_cache is None else None
+    if mesh is not None:  # this rank's slice of the sequence (labels are aligned to positions)
+        x, mask_info, labels = cp.shard_sequence(mesh, x, mask_info, labels)
     x, kv_cache = trunk(model, x, mask_info, kv_cache, input_pos, dropout_seeds=dropout_seeds)
     out = head(model, x, labels)
+    if mesh is not None and labels is not None:
+        out = cp.loss_share(mesh, out, labels)
     return (out, kv_cache) if kv_cache is not None else out

@@ -22,8 +22,16 @@ KV cache in its own head-major layout [B, Hkv, S_max, D], read in place, entry j
 kv_offset[b] + j; visible iff q_offset[b] + i >= kv_offset[b] + j and j < kv_len[b]. The
 JAX kernel's scalar pair is the case where every row has the same offsets (and kv_len is
 the whole cache). ``flash_fwd_offsets_int8`` first dequantizes the live prefix of an int8
-cache to bf16, as the JAX package's XLA path (``dequant_kv``) does. Forward only: the
-backward's offsets (ring attention) come with the parallelism slice.
+cache to bf16, as the JAX package's XLA path (``dequant_kv``) does.
+
+The ring form (``_fwd(offsets=)`` / ``_bwd(offsets=, delta=, cast=False)`` as ring attention
+calls them), through ``flash_fwd_ring`` (K2) and ``flash_bwd_ring`` (K5): self-attention
+operands of one shard, every mask, with the local q rows at global positions q_offset + i
+and the rotated kv block at kv_offset + j (one pair for the call): the causal diagonal is
+shifted by q_offset - kv_offset and the prefix tested at global positions. The forward
+returns the block's bf16 out and f32 lse; the backward takes the ring's final merged out
+and lse and a precomputed delta [B, Hq, S], and adds f32 dq, dk, dv into the caller's
+accumulators. Their plain versions are ``flash_fwd_ring_plain`` / ``flash_bwd_ring_plain``.
 
 Attention dropout (``dropout_rate`` > 0 with a ``dropout_seed``) is the JAX kernels'
 counter-based hash, reproduced bit for bit in the kernels and in the plain versions
@@ -158,6 +166,12 @@ def flash_fwd_plain(q, k, v, mask_info: MaskInfo | None = None, scale: float | N
     (model layout) -> (out [B, S, Hq, D] in q's dtype, lse [B, Hq, S, 1] f32)."""
     mi = mask_info or MaskInfo(causal=False)
     _check_mask(mi)
+    mask = make_attention_mask(mi, q.shape[1], k.shape[1], q.shape[0], device=q.device)
+    return _fwd_plain_masked(q, k, v, mask, scale, dropout)
+
+
+def _fwd_plain_masked(q, k, v, mask, scale, dropout: Dropout | None = None):
+    """The plain forward under a materialized [B, 1, Sq, Skv] mask (or None)."""
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
     group = Hq // Hkv
@@ -166,7 +180,6 @@ def flash_fwd_plain(q, k, v, mask_info: MaskInfo | None = None, scale: float | N
     qs = (q.float() * (scale * _LOG2E)).to(q.dtype)  # the wrapper-side fold of the JAX kernel
     qf = qs.reshape(B, Sq, Hkv, group, D).float()
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float())  # base-2 logits [B, Hkv, g, Sq, Skv]
-    mask = make_attention_mask(mi, Sq, Skv, B, device=q.device)
     if mask is not None:
         s = torch.where(mask[:, :, None], s, torch.full_like(s, _NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
@@ -205,34 +218,38 @@ def flash_fwd_tolerance(ref: torch.Tensor) -> tuple[torch.Tensor, float]:
 
 
 def tile_class(q0: int, kv0: int, bq: int, bk: int, S: int, causal: bool, prefix: int | None,
-               qseg_range: tuple[int, int] | None, kseg_range: tuple[int, int] | None, shift: int = 0,
-               kv_end: int | None = None) -> str:
-    """The class of the tile [q0, q0 + bq) x [kv0, kv0 + bk) under the flash kernels' mask
-    (``make_attention_mask``: base = (q + shift >= k if causal) & (same segment), visible =
-    base | in-prefix, where base is all True with neither causal nor segments and no prefix
-    and all False with a prefix; no query at or past S, no key at or past ``kv_end``):
-    "skip" when no element can be visible, "full" when every element is, "partial"
-    otherwise. ``prefix`` is the batch row's prefix length or None; ``qseg_range`` /
-    ``kseg_range`` the (min, max) of the tile's segment ids below S, or None without
-    segments. Self-attention has shift 0 and kv_end S; the offsets form over a cache has
-    shift = q_offset - kv_offset and kv_end = the row's kv_len, so a tile at or past kv_len
-    is skipped and one that kv_len cuts is never full. The kernels mirror it
-    (csrc/common.cuh: tile_class): skip tiles are never loaded, full ones run with no mask
-    code. It is the JAX kernels' ``_needed`` and ``_all_true`` with the segment test
-    widened to id ranges: two ranges that do not meet share no id."""
+               qseg_range: tuple[int, int] | None, kseg_range: tuple[int, int] | None, q_offset: int = 0,
+               kv_offset: int = 0, kv_end: int | None = None) -> str:
+    """The class of the tile [q0, q0 + bq) x [kv0, kv0 + bk) of local rows under the flash
+    kernels' mask (``make_attention_mask`` at global positions q + q_offset and k + kv_offset:
+    base = (q + q_offset >= k + kv_offset if causal) & (same segment), visible = base |
+    (q + q_offset < prefix & k + kv_offset < prefix), where base is all True with neither
+    causal nor segments and no prefix and all False with a prefix; no query at or past S, no
+    key at or past ``kv_end``): "skip" when no element can be visible, "full" when every
+    element is, "partial" otherwise. ``prefix`` is the batch row's prefix length or None;
+    ``qseg_range`` / ``kseg_range`` the (min, max) of the tile's segment ids below S, or None
+    without segments. Self-attention has both offsets 0 and kv_end S. The ring form has the
+    q shard's and the kv block's global starts, so a block wholly above the diagonal is
+    skipped and one from an earlier shard is full under a causal mask. The offsets form over
+    a cache has the row's offsets and kv_end = its kv_len, so a tile at or past kv_len is
+    skipped and one that kv_len cuts is never full. The kernels mirror it (csrc/common.cuh:
+    tile_class): skip tiles are never loaded, full ones run with no mask code. It is the JAX
+    kernels' ``_needed`` and ``_all_true`` with the segment test widened to id ranges: two
+    ranges that do not meet share no id."""
     kv_end = S if kv_end is None else kv_end
     if q0 >= S or kv0 >= kv_end:
         return "skip"
+    qa, ka = q0 + q_offset, kv0 + kv_offset  # global starts
     segs = qseg_range is not None
     has_base, has_prefix = causal or segs, prefix is not None
-    base_skip = (causal and q0 + bq - 1 + shift < kv0) or (not has_base and has_prefix)
-    base_full = (not causal or q0 + shift >= kv0 + bk - 1) and (has_base or not has_prefix)
+    base_skip = (causal and qa + bq - 1 < ka) or (not has_base and has_prefix)
+    base_full = (not causal or qa >= ka + bk - 1) and (has_base or not has_prefix)
     if segs and not base_skip:
         (qlo, qhi), (klo, khi) = qseg_range, kseg_range
         base_skip = qhi < klo or khi < qlo
         base_full = base_full and qlo == qhi == klo == khi
-    pre_any = has_prefix and q0 < prefix and kv0 < prefix
-    pre_full = has_prefix and q0 + bq <= prefix and kv0 + bk <= prefix
+    pre_any = has_prefix and qa < prefix and ka < prefix
+    pre_full = has_prefix and qa + bq <= prefix and ka + bk <= prefix
     if base_skip and not pre_any:
         return "skip"
     if (base_full or pre_full) and q0 + bq <= S and kv0 + bk <= kv_end:
@@ -305,7 +322,10 @@ def _dropout_args(dropout: Dropout | None, skv: int) -> tuple:
     return 1, dropout.threshold, dropout.keep_scale, dropout.seed, dropout.bq, dropout.bk
 
 
-def _launch(q, k, v, mi: MaskInfo, scale: float, dropout: Dropout | None = None):
+def _launch(q, k, v, mi: MaskInfo, scale: float, dropout: Dropout | None = None, offsets: tuple[int, int] = (0, 0),
+            counter=None):
+    """K2 on self-attention operands; ``offsets``: the ring form's (q_offset, kv_offset);
+    ``counter``: the wrapper whose ``launches`` this call adds to."""
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     q, k, v = _check_qkv(q, k, v)
@@ -319,12 +339,13 @@ def _launch(q, k, v, mi: MaskInfo, scale: float, dropout: Dropout | None = None)
         return out, lse
     lib = build.load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    flash_fwd_with_lse.launches += 1
+    (counter or flash_fwd_with_lse).launches += 1
     build.check(
         lib.lxt_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(qseg), _ptr(kseg), _ptr(qrange), _ptr(krange),
             _ptr(prefix), out.data_ptr(), lse.data_ptr(),
-            B, S, Hq, Hkv, D, int(bool(mi.causal)), float(scale * _LOG2E), *drop, stream,
+            B, S, Hq, Hkv, D, int(bool(mi.causal)), int(offsets[0]), int(offsets[1]), float(scale * _LOG2E), *drop,
+            stream,
         ),
         "flash_attention",
     )
@@ -348,6 +369,15 @@ def flash_bwd_plain(q, k, v, out, lse, do, mask_info: MaskInfo | None = None, sc
     (dq, dk, dv) in the inputs' layouts and dtypes."""
     mi = mask_info or MaskInfo(causal=False)
     _check_mask(mi)
+    mask = make_attention_mask(mi, q.shape[1], k.shape[1], q.shape[0], device=q.device)
+    delta = (do.float() * out.float()).sum(dim=-1).transpose(1, 2)  # [B, Hq, Sq]
+    dq, dk, dv = _bwd_plain_masked(q, k, v, lse, do, delta, mask, scale, dropout)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_plain_masked(q, k, v, lse, do, delta, mask, scale, dropout: Dropout | None = None):
+    """The plain backward under a materialized mask with delta [B, Hq, Sq] f32 given;
+    returns f32 (dq, dk, dv), before any cast."""
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
     group = Hq // Hkv
@@ -359,11 +389,9 @@ def flash_bwd_plain(q, k, v, out, lse, do, mask_info: MaskInfo | None = None, sc
     dof = do.reshape(B, Sq, Hkv, group, D).float()
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float())  # base-2 logits [B, Hkv, g, Sq, Skv]
     p = torch.exp2(s - lse.reshape(B, Hkv, group, Sq, 1) * _LOG2E)
-    mask = make_attention_mask(mi, Sq, Skv, B, device=q.device)
     if mask is not None:
         p = torch.where(mask[:, :, None], p, torch.zeros_like(p))
-    delta = (do.float() * out.float()).sum(dim=-1)  # [B, Sq, Hq]
-    delta = delta.reshape(B, Sq, Hkv, group).permute(0, 2, 3, 1)[..., None]
+    delta = delta.reshape(B, Hkv, group, Sq, 1)
     dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, v.float())
     p_v = p
     if dropout is not None:  # the forward's mask, rebuilt: dV sees p * keep, dp is masked, ds keeps the undropped p
@@ -374,7 +402,7 @@ def flash_bwd_plain(q, k, v, out, lse, do, mask_info: MaskInfo | None = None, sc
     ds = (p * (dp - delta) * _LN2).to(q.dtype).float()
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf)
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()) * fold
-    return dq.reshape(B, Sq, Hq, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return dq.reshape(B, Sq, Hq, D), dk, dv
 
 
 def flash_bwd_tolerance(ref: torch.Tensor) -> tuple[float, float]:
@@ -394,7 +422,10 @@ def flash_bwd_tolerance(ref: torch.Tensor) -> tuple[float, float]:
     return 2**-5 * float(ref.float().pow(2).mean().sqrt()), 2**-7
 
 
-def _launch_bwd(q, k, v, out, lse, do, mi: MaskInfo, scale: float, dropout: Dropout | None = None):
+def _launch_bwd(q, k, v, out, lse, do, mi: MaskInfo, scale: float, dropout: Dropout | None = None,
+                offsets: tuple[int, int] = (0, 0), ring=None):
+    """K5; ``ring``: the offsets form's (delta, dq_acc, dk_acc, dv_acc), f32, which the kernels
+    read (delta) and add into (the rest) at ``offsets``; None: bf16 dq, dk, dv are returned."""
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     q, k, v = _check_qkv(q, k, v)
@@ -409,22 +440,30 @@ def _launch_bwd(q, k, v, out, lse, do, mi: MaskInfo, scale: float, dropout: Drop
         raise ValueError("out and do must be 16-byte aligned")
     qseg, kseg, qrange, krange, prefix = _mask_operands(mi, B, S, dev)
     drop = _dropout_args(dropout, S)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # written by the dq kernel for the dkv kernel: the folded q and delta = rowsum(dO * O)
-    # in f32, laid out like lse
+    # the folded q, written by the dq kernel for the dkv kernel
     qs = torch.empty_like(q)
-    delta = torch.empty((B, Hq, S), dtype=torch.float32, device=dev)
+    if ring is None:
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        # delta = rowsum(dO * O) in f32, laid out like lse: written by the dq kernel
+        delta = torch.empty((B, Hq, S), dtype=torch.float32, device=dev)
+    else:
+        delta, dq, dk, dv = ring
+        for t, want in ((delta, (B, Hq, S)), (dq, tuple(q.shape)), (dk, tuple(k.shape)), (dv, tuple(v.shape))):
+            if tuple(t.shape) != want or t.dtype != torch.float32 or not t.is_contiguous() or t.device != dev:
+                raise ValueError(f"the offsets form takes contiguous f32 delta / accumulators on q's device, "
+                                 f"got {tuple(t.shape)} {t.dtype} for {want}")
     if B == 0 or S == 0:
         return dq, dk, dv
     lib = build.load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    flash_bwd_from_res.launches += 1
+    (flash_bwd_from_res if ring is None else flash_bwd_ring).launches += 1
     build.check(
         lib.lxt_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             _ptr(qseg), _ptr(kseg), _ptr(qrange), _ptr(krange), _ptr(prefix), qs.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, S, Hq, Hkv, D, int(bool(mi.causal)), float(scale * _LOG2E), *drop, stream,
+            B, S, Hq, Hkv, D, int(bool(mi.causal)), int(offsets[0]), int(offsets[1]), int(ring is not None),
+            float(scale * _LOG2E), *drop, stream,
         ),
         "flash_attention_bwd",
     )
@@ -490,6 +529,85 @@ def flash_attention(q, k, v, mask_info: MaskInfo | None = None, scale: float | N
                     dropout_rate: float = 0.0, dropout_seed=None, block_q: int = 512, block_kv: int = 1024):
     """Flash attention over the model's [B, S, H, D] layout (output only)."""
     return flash_fwd_with_lse(q, k, v, mask_info, scale, dropout_rate, dropout_seed, block_q, block_kv)[0]
+
+
+# ---------------------------------------------------------------------------
+# the ring form (ring attention's per-block calls)
+# ---------------------------------------------------------------------------
+
+
+def ring_block_mask(mask_info: MaskInfo, B: int, S: int, q_offset: int, kv_offset: int, device="cpu"):
+    """[B, 1, S, S] bool mask (or None) on ``device`` of one ring block: ``mask_info``'s causal
+    flag, local q segment ids, the kv block's segment ids (``kv_segment_ids``) and the prefix
+    lengths, at global positions q_offset + i and kv_offset + j (the JAX ring's
+    ``block_mask_info``)."""
+    ar = torch.arange(S, dtype=torch.int32, device=device)
+    block = mask_info._replace(q_positions=ar + int(q_offset), kv_positions=ar + int(kv_offset))
+    return make_attention_mask(block, S, S, B, device=device)
+
+
+def _check_ring(mi: MaskInfo) -> None:
+    _check_mask(mi)
+    if (mi.kv_segment_ids is None) != (mi.segment_ids is None):
+        raise ValueError("the ring form takes the q shard's segment_ids with the kv block's kv_segment_ids")
+
+
+def flash_fwd_ring_plain(q, k, v, mask_info: MaskInfo, q_offset: int, kv_offset: int, scale: float | None = None):
+    """Plain version of K2's ring form: ``flash_fwd_plain``'s arithmetic under
+    ``ring_block_mask``. q [B, S, Hq, D], k / v [B, S, Hkv, D] (one shard each) ->
+    (out [B, S, Hq, D] in q's dtype, lse [B, Hq, S, 1] f32). A row that sees no key of the
+    block has lse (-1e30 + log2(S)) ln2, -1e30 ln2 in f32 as in the kernel, and an out that
+    the ring's lse merge weighs by exactly 0 (the kernels may leave 0 there)."""
+    _check_ring(mask_info)
+    mask = ring_block_mask(mask_info, q.shape[0], q.shape[1], q_offset, kv_offset, q.device)
+    return _fwd_plain_masked(q, k, v, mask, scale)
+
+
+def flash_fwd_ring(q, k, v, mask_info: MaskInfo, q_offset: int, kv_offset: int, scale: float | None = None):
+    """K2's ring form: the block attention of the local q shard (global positions q_offset +
+    i) over one kv block (kv_offset + j) with ``mask_info``'s causal flag, q ``segment_ids``,
+    the block's ``kv_segment_ids`` and ``prefix_len`` tested at global positions -> (bf16 out,
+    f32 natural-log lse [B, Hq, S, 1]). The kernel on CUDA tensors (head_dim 64 or 128,
+    bfloat16; anything else raises), its plain version on CPU tensors. No autograd: ring
+    attention's autograd function calls it."""
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+    if q.device.type == "cpu":
+        return flash_fwd_ring_plain(q, k, v, mask_info, q_offset, kv_offset, scale)
+    _check_ring(mask_info)
+    return _launch(q, k, v, mask_info, scale, None, (q_offset, kv_offset), counter=flash_fwd_ring)
+
+
+flash_fwd_ring.launches = 0
+
+
+def flash_bwd_ring_plain(q, k, v, out, lse, do, delta, mask_info: MaskInfo, q_offset: int, kv_offset: int,
+                         scale: float | None = None):
+    """Plain version of K5's offsets form: f32 (dq, dk, dv) of one ring block from the ring's
+    final merged ``out`` / ``lse`` and ``delta`` = rowsum(dO * out) [B, Hq, S] f32 (the JAX
+    ``_bwd(offsets=, delta=, cast=False)``). ``out`` is unread: delta carries it."""
+    _check_ring(mask_info)
+    mask = ring_block_mask(mask_info, q.shape[0], q.shape[1], q_offset, kv_offset, q.device)
+    return _bwd_plain_masked(q, k, v, lse, do, delta, mask, scale)
+
+
+def flash_bwd_ring(q, k, v, out, lse, do, delta, accumulators, mask_info: MaskInfo, q_offset: int,
+                   kv_offset: int, scale: float | None = None) -> None:
+    """K5's offsets form: ADDS this ring block's f32 dq, dk, dv into ``accumulators`` = (dq
+    [B, S, Hq, D], dk, dv [B, S, Hkv, D]), all f32, given the ring's final ``out`` (bf16),
+    ``lse`` [B, Hq, S, 1] and ``delta`` [B, Hq, S] f32. The kernels on CUDA tensors (they add
+    in place), the plain version on CPU tensors."""
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+    if q.device.type == "cpu":
+        for acc, g in zip(accumulators, flash_bwd_ring_plain(q, k, v, out, lse, do, delta, mask_info, q_offset,
+                                                             kv_offset, scale)):
+            acc += g
+        return
+    _check_ring(mask_info)
+    _launch_bwd(q, k, v, out, lse, do, mask_info, scale, None, (q_offset, kv_offset),
+                ring=(delta.contiguous(), *accumulators))
+
+
+flash_bwd_ring.launches = 0
 
 
 # ---------------------------------------------------------------------------

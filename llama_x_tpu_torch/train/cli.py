@@ -5,11 +5,17 @@ multimodal trainers), the model config beside the checkpoints, optimizer set-up 
 step-batch assembly.
 
 Flags of the JAX trainer that belong to later slices of the port are accepted by the
-parser and refused with the slice's name, never ignored: ``--mesh``,
-``--pp_microbatches`` and ``--attn_impl ring|ulysses`` (sharding and context
-parallelism), the ``attn_q8`` / ``attn_q8s`` remat policies (slice 2c), and real
-MetaMathQA text (its files are not in the repository). ``--model`` reads a local HF
-checkpoint directory (models/hf.py).
+parser and refused with the slice's name, never ignored: a ``--mesh`` with fsdp, pp or tp
+above 1 and ``--pp_microbatches`` (parameter sharding and the pipeline: slice 5b), the
+``attn_q8`` / ``attn_q8s`` remat policies (slice 2c), and real MetaMathQA text (its files
+are not in the repository). ``--model`` reads a local HF checkpoint directory
+(models/hf.py).
+
+Data and context parallelism: ``--mesh '{"dp": D, "cp": C}'`` with ``--attn_impl ring`` or
+``ulysses`` under ``torch.distributed.run`` (D x C processes). ``setup_mesh`` joins the
+process group (``--dist_backend``: nccl on the card, one card per rank; gloo on the CPU, or
+when ranks share a card), builds the mesh and validates the flags; ``run_training`` gives
+each rank its dp block of every step batch, and rank 0 alone writes the run directory.
 """
 
 from __future__ import annotations
@@ -25,7 +31,10 @@ import torch
 from llama_x_tpu_torch.adapters.lora import apply_linear_adapter, set_trainable
 from llama_x_tpu_torch.adapters.quantize import quantize_linear
 from llama_x_tpu_torch.models import llama
+from llama_x_tpu_torch.parallel.mesh import LATER_AXES, Mesh, init_distributed, make_mesh
+from llama_x_tpu_torch.parallel.sharding import shard_batch
 from llama_x_tpu_torch.train.optim import get_optimizer, trapezoid_schedule
+from llama_x_tpu_torch.train.validate import validate_launch
 from llama_x_tpu_torch.train.trainer import trainable_parameters
 from llama_x_tpu_torch.utils.device import resolve_device
 
@@ -65,8 +74,13 @@ def add_common_args(parser: argparse.ArgumentParser):
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
 
-    parser.add_argument("--mesh", type=json.loads, default=dict(), help="not ported yet: slice 5")
-    parser.add_argument("--pp_microbatches", type=int, default=0, help="not ported yet: slice 5")
+    parser.add_argument("--mesh", type=json.loads, default=dict(),
+                        help='the mesh, e.g. \'{"dp": 2, "cp": 2}\' (one process a rank, under torch.distributed.run); '
+                             "fsdp, pp and tp above 1 are not ported yet (slice 5b)")
+    parser.add_argument("--dist_backend", choices=["nccl", "gloo"],
+                        help="the process group's backend: default nccl on the card (one card per rank), gloo on the "
+                             "CPU; gloo when ranks share a card")
+    parser.add_argument("--pp_microbatches", type=int, default=0, help="not ported yet: slice 5b (the pipeline)")
     parser.add_argument("--attn_impl", default="auto", choices=["auto", "flash", "ring", "ulysses"])
     parser.add_argument("--remat_policy", default="full", choices=REMAT_POLICIES)
     parser.add_argument("--fused_ce_chunks", type=int, default=0)
@@ -87,10 +101,11 @@ def check_supported(args, real_data: str | None = "MetaMathQA data (slice 2b)") 
     trainer's real dataset where the port cannot read it yet (it needs files the
     repository does not hold), or None where ``--dataset_dir`` reads it."""
     later = []
-    if args.mesh or args.pp_microbatches:
-        later.append("--mesh / --pp_microbatches (sharded training: slice 5)")
-    if args.attn_impl in ("ring", "ulysses"):
-        later.append(f"--attn_impl {args.attn_impl} (context parallelism: slice 5)")
+    sharded = [f"{a}={args.mesh[a]}" for a in LATER_AXES if (args.mesh.get(a) or 1) > 1]
+    if sharded:
+        later.append(f"--mesh with {', '.join(sharded)} (fsdp / tp parameter sharding and the pipeline: slice 5b)")
+    if args.pp_microbatches:
+        later.append("--pp_microbatches (the pipeline: slice 5b)")
     if args.remat_policy in ("attn_q8", "attn_q8s"):
         later.append(f"--remat_policy {args.remat_policy} (the int8-residual attention: slice 2c)")
     if not args.synthetic and real_data is not None:
@@ -99,6 +114,19 @@ def check_supported(args, real_data: str | None = "MetaMathQA data (slice 2b)") 
         raise NotImplementedError("not ported yet: " + "; ".join(later))
     if real_data is None and not (args.synthetic or args.dataset_dir):
         raise ValueError("--dataset_dir required (or --synthetic N)")
+
+
+def setup_mesh(args, modality: str = "text", max_seq_len: int | None = None) -> Mesh:
+    """The trainer's mesh: with ``--mesh``, join the process group of torchrun's ranks (the
+    backend ``--dist_backend`` or, by default, nccl on the card and gloo on the CPU), point
+    ``args.device`` at this rank's device and build the mesh; without it a mesh of one
+    rank. Then ``validate_launch``. Every rank calls it."""
+    if args.mesh:
+        backend = args.dist_backend or ("gloo" if torch.device(args.device).type == "cpu" else "nccl")
+        args.device = str(init_distributed(backend, args.device))
+    mesh = make_mesh(**args.mesh)
+    validate_launch(args, mesh, modality=modality, max_seq_len=max_seq_len)
+    return mesh
 
 
 def make_save_dir(task: str, run_name: str | None) -> Path:
@@ -151,7 +179,7 @@ def build_model_params(args, max_seq_len: int = 2048, audio_config=None, vision_
     device = resolve_device(args.device)
     dtype = getattr(torch, args.dtype)
     overrides = dict(activation_checkpointing=args.activation_checkpointing, fused_ce_chunks=args.fused_ce_chunks,
-                     remat_policy=args.remat_policy, max_seq_len=max_seq_len)
+                     remat_policy=args.remat_policy, max_seq_len=max_seq_len, attn_impl=args.attn_impl)
     quantize = args.quantize == "int8"
     if args.model:
         from llama_x_tpu_torch.models.hf import load_llama
@@ -238,36 +266,44 @@ def assemble_step_batch(micro_batches: list[dict], pad_values: dict | None = Non
 
 
 def run_training(args, model, data_iter, loss_fn, task: str, audio_config=None, vision_config=None,
-                 audio_secs_per_step: float = 0.0) -> None:
+                 audio_secs_per_step: float = 0.0, mesh: Mesh | None = None) -> None:
     """The trainers' loop (the JAX trainers' ``main`` after their set-up): optimizer,
     ``--resume``, the run directory with its model config, metrics every
     ``--log_interval`` steps, checkpoints every ``--ckpt_interval`` steps and at the end.
     ``data_iter`` yields microbatches; the label-token count is summed on the device
-    between log points, so no step reads back."""
+    between log points, so no step reads back. Over a ``mesh`` of several ranks every rank
+    draws the same step batch and trains on its dp block of rows inside ``use_mesh``; rank 0
+    alone writes the run directory, its metrics and checkpoints."""
+    from llama_x_tpu_torch.parallel.mesh import use_mesh
     from llama_x_tpu_torch.train.checkpoint import latest_checkpoint, restore_checkpoint, save_checkpoint
     from llama_x_tpu_torch.train.metrics import RunLogger, Throughput, device_memory_stats
     from llama_x_tpu_torch.train.trainer import TrainState, make_train_step
 
+    mesh = mesh or make_mesh()
+    lead = mesh.rank == 0
     optimizer, schedule = setup_optimizer(args, model)
     state = TrainState(model, optimizer)
-    train_step = make_train_step(loss_fn, skip_nonfinite=args.skip_nonfinite)
+    train_step = make_train_step(loss_fn, skip_nonfinite=args.skip_nonfinite, mesh=mesh)
     if args.resume:
         path = latest_checkpoint(args.resume) or args.resume
         restore_checkpoint(path, state)
         print(f"resumed from {path} at step {state.step}")
 
-    save_dir = make_save_dir(task, args.run_name)
-    save_model_config(save_dir, model.config, audio_config, vision_config)
-    logger = RunLogger(save_dir, config=vars(args))
+    if lead:
+        save_dir = make_save_dir(task, args.run_name)
+        save_model_config(save_dir, model.config, audio_config, vision_config)
+        logger = RunLogger(save_dir, config=vars(args))
     meter = Throughput()
     tok_acc, audio_acc = 0, 0.0
     while state.step < args.n_steps:
         step = state.step
         micro = [next(data_iter) for _ in range(args.gradient_accumulation)]
-        metrics = train_step(state, assemble_step_batch(micro, pad_values={"labels": -100}))
+        batch = shard_batch(assemble_step_batch(micro, pad_values={"labels": -100}), mesh)
+        with use_mesh(mesh):
+            metrics = train_step(state, batch)
         tok_acc = tok_acc + metrics["n_tokens"]
         audio_acc += audio_secs_per_step
-        if step % args.log_interval == 0:
+        if lead and step % args.log_interval == 0:
             meter.update(int(tok_acc), audio_secs=audio_acc)
             tok_acc, audio_acc = 0, 0.0
             log = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
@@ -276,8 +312,9 @@ def run_training(args, model, data_iter, loss_fn, task: str, audio_config=None, 
                 log.update(meter.rates())
             logger.log(log, step)
             print(f"step {step}: loss {log['loss']:.4f}")
-        if args.ckpt_interval > 0 and state.step % args.ckpt_interval == 0:
+        if lead and args.ckpt_interval > 0 and state.step % args.ckpt_interval == 0:
             save_checkpoint(save_dir, state, state.step)
 
-    save_checkpoint(save_dir, state, state.step)
-    logger.finish()
+    if lead:
+        save_checkpoint(save_dir, state, state.step)
+        logger.finish()

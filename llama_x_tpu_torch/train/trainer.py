@@ -12,6 +12,15 @@ never touched.
 Gradients of the microbatches are summed into fp32 buffers and divided by their
 number: ``.grad`` of a bf16 parameter would accumulate in bf16 and drift from the
 JAX trainer.
+
+Over a mesh (dp x cp ranks, parallel/mesh.py) each rank holds its dp block of the
+microbatch's rows (parallel/sharding.py: ``shard_batch``), and the model its cp slice of
+the sequence, whose loss comes back as the rank's share of the mean over its rows. The
+step scales each dp rank's loss by its label count over the count all-reduced across dp,
+so that the losses of all ranks add up to the mean over the whole microbatch, as on one
+process; the gradients are then all-reduced (summed) over the mesh before the norm and the
+clip, and the logged loss is the sum over the mesh (the label count is the dp sum).
+Every rank then takes the same update.
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ from typing import Callable
 import torch
 from torch import nn
 
+from llama_x_tpu_torch.parallel.mesh import Mesh, all_reduce
 from llama_x_tpu_torch.train.optim import AdamW, global_norm
 
 
@@ -41,7 +51,13 @@ def trainable_parameters(model: nn.Module) -> list[torch.Tensor]:
     return [p for p in model.parameters() if p.requires_grad]
 
 
-def make_train_step(loss_fn: Callable, skip_nonfinite: bool = False):
+def _all_reduce_flat(mesh: Mesh, grads: list[torch.Tensor]) -> list[torch.Tensor]:
+    """The gradients summed over the mesh, through one flat buffer (one collective)."""
+    flat = all_reduce(mesh, torch.cat([g.reshape(-1) for g in grads]))
+    return [t.reshape(g.shape) for t, g in zip(torch.split(flat, [g.numel() for g in grads]), grads)]
+
+
+def make_train_step(loss_fn: Callable, skip_nonfinite: bool = False, mesh: Mesh | None = None):
     """loss_fn(model, microbatch) -> (scalar loss, n_label_tokens).
 
     Returns train_step(state, batch) -> metrics, which updates ``state`` in place;
@@ -53,7 +69,11 @@ def make_train_step(loss_fn: Callable, skip_nonfinite: bool = False):
 
     skip_nonfinite: when the global grad norm is NaN or Inf (a bad batch, an
     overflow) the whole update, parameters AND optimizer state, is suppressed for
-    that step instead of poisoning the run; the step count still advances."""
+    that step instead of poisoning the run; the step count still advances.
+
+    mesh: a mesh of more than one rank (see the module docstring); ``batch`` is then this
+    rank's dp block of rows, and ``loss_fn``'s count the label tokens of those rows."""
+    distributed = mesh is not None and mesh.size > 1
 
     def train_step(state: TrainState, batch: dict) -> dict:
         params = [p for _, p in state.trainable]
@@ -65,6 +85,10 @@ def make_train_step(loss_fn: Callable, skip_nonfinite: bool = False):
         for i in range(accum):
             mb = {k: torch.as_tensor(v[i]).to(dev) for k, v in batch.items()}
             loss, n = loss_fn(state.model, mb)
+            if distributed:  # this dp rank's share of the microbatch's mean
+                n_all = all_reduce(mesh, n, "dp")
+                loss = loss * (n.float() / n_all.clamp(min=1).float())
+                n = n_all
             micro = torch.autograd.grad(loss, params, allow_unused=True)
             micro = [torch.zeros_like(p) if g is None else g for g, p in zip(micro, params)]
             if grads is None:
@@ -75,6 +99,9 @@ def make_train_step(loss_fn: Callable, skip_nonfinite: bool = False):
             loss_sum = loss_sum + loss.detach().float()
             ntok = ntok + n
         grads = [g / accum for g in grads]
+        if distributed:
+            grads = _all_reduce_flat(mesh, grads)
+            loss_sum = all_reduce(mesh, loss_sum)
         grad_norm = global_norm(grads)
 
         skipped = torch.zeros((), dtype=torch.float32, device=dev)

@@ -17,8 +17,10 @@ prefix-LM attention) -> the eager train step.
         --n_steps 4 --log_interval 1 --ckpt_interval 0
 
 Runs on the card unless ``--device cpu``. The weights are random (``--geometry`` or the
-small model, its vocabulary grown to the tokenizer's); HF weights and meshes belong to
-later slices and raise by name.
+small model, its vocabulary grown to the tokenizer's). ``--mesh '{"dp": D, "cp": C}'`` with
+``--attn_impl ring|ulysses`` runs under ``torch.distributed.run``: every rank runs the
+audio stem whole and keeps its slice of the fused sequence. A mesh with fsdp / pp / tp
+above 1 belongs to slice 5b and raises by name.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ from llama_x_tpu_torch.data.librispeech import LibriSpeechPacked
 from llama_x_tpu_torch.data.tokenizers import get_tokenizer
 from llama_x_tpu_torch.models import audio as audio_mod
 from llama_x_tpu_torch.models.audio import AudioConfig
-from llama_x_tpu_torch.train.cli import add_common_args, build_model_params, check_supported, run_training
+from llama_x_tpu_torch.train.cli import add_common_args, build_model_params, check_supported, run_training, setup_mesh
+from llama_x_tpu_torch.train.validate import validate_model
 
 MAX_SEQ_LEN = 4096  # 40 s -> 2000 audio tokens + up to 2096 text tokens
 
@@ -88,13 +91,15 @@ def make_data(args, audio_config: AudioConfig, micro_bs: int, vocab_size: int | 
 def main(argv: list[str] | None = None) -> None:
     args = parse_args(argv)
     audio_config = AudioConfig()
+    mesh = setup_mesh(args, "audio", MAX_SEQ_LEN)
     tokenizer = None if args.synthetic else get_tokenizer(args.tokenizer, args.tokenizer_path)
     model = build_model_params(args, max_seq_len=MAX_SEQ_LEN, audio_config=audio_config,
                                vocab_size=None if tokenizer is None else tokenizer.vocab_size)
+    validate_model(model.config, mesh, args, modality="audio")
     micro_bs = args.batch_size // args.gradient_accumulation
     data_iter = make_data(args, audio_config, micro_bs, model.config.vocab_size, tokenizer)
     run_training(args, model, data_iter, make_loss_fn(args.prefix_lm), "librispeech", audio_config=audio_config,
-                 audio_secs_per_step=args.audio_duration * args.batch_size)
+                 audio_secs_per_step=args.audio_duration * args.batch_size, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -11,8 +11,13 @@
         --fused_ce_chunks 8 --document_mask --max_seq_len 4096 --gradient_accumulation 2 --batch_size 2 \\
         --n_steps 4 --log_interval 1
 
-Runs on the card unless ``--device cpu``. Real data, HF weights, meshes and the
-``attn_q8`` remat policies belong to later slices and raise by name.
+    # context parallelism: two ranks, the sequence split over "cp", ring attention (CPU)
+    python -m torch.distributed.run --standalone --nproc_per_node 2 -m llama_x_tpu_torch.train_metamathqa \
+        --synthetic 64 --n_steps 4 --batch_size 2 --document_mask --max_seq_len 256 --device cpu \
+        --mesh '{"cp": 2}' --attn_impl ring
+
+Runs on the card unless ``--device cpu``. Real data, a mesh with fsdp / pp / tp above 1
+and the ``attn_q8`` remat policies belong to later slices and raise by name.
 """
 
 from __future__ import annotations
@@ -23,7 +28,8 @@ import numpy as np
 
 from llama_x_tpu_torch.data.metamathqa import get_metamathqa
 from llama_x_tpu_torch.models import llama
-from llama_x_tpu_torch.train.cli import add_common_args, build_model_params, check_supported, run_training
+from llama_x_tpu_torch.train.cli import add_common_args, build_model_params, check_supported, run_training, setup_mesh
+from llama_x_tpu_torch.train.validate import validate_model
 
 
 def loss_fn(model, mb):
@@ -62,10 +68,12 @@ def make_data(args, vocab_size: int):
 
 def main(argv: list[str] | None = None) -> None:
     args = parse_args(argv)
+    mesh = setup_mesh(args, "text", args.max_seq_len)
     model = build_model_params(args, max_seq_len=args.max_seq_len)
+    validate_model(model.config, mesh, args)
     data_iter, train_size = make_data(args, model.config.vocab_size)
     print(f"Training dataset size: {train_size:,}")
-    run_training(args, model, data_iter, loss_fn, "metamathqa")
+    run_training(args, model, data_iter, loss_fn, "metamathqa", mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -18,7 +18,10 @@ optional prefix-LM attention over every modality token.
         --audio_duration 30 --seq_len_multiple 2324 --max_text_len 2324 --n_steps 4 --log_interval 1 --ckpt_interval 0
 
 Runs on the card unless ``--device cpu``. The weights are random (``--geometry`` or the
-small model); HF weights and the pipeline-parallel path (slice 5) raise by name.
+small model). ``--mesh '{"dp": D, "cp": C}'`` with ``--attn_impl ring|ulysses`` runs under
+``torch.distributed.run``: every rank runs both stems whole and keeps its slice of the
+fused sequence. The pipeline-parallel path (a mesh with a ``pp`` axis, slice 5b) raises
+by name.
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ from llama_x_tpu_torch.data.vision import make_shapes_sample
 from llama_x_tpu_torch.models import omni as omni_mod
 from llama_x_tpu_torch.models.audio import AudioConfig
 from llama_x_tpu_torch.models.vision import VisionConfig
-from llama_x_tpu_torch.train.cli import add_common_args, build_model_params, check_supported, run_training
+from llama_x_tpu_torch.train.cli import add_common_args, build_model_params, check_supported, run_training, setup_mesh
+from llama_x_tpu_torch.train.validate import validate_model
 
 
 def synthetic_omni_batches(rng, audio_config, micro_bs, audio_duration, image_size, seq_len_multiple, vocab):
@@ -99,14 +103,16 @@ def make_data(args, audio_config: AudioConfig, micro_bs: int, vocab_size: int, t
 def main(argv: list[str] | None = None) -> None:
     args = parse_args(argv)
     audio_config, vision_config, max_seq_len = configs(args)
+    mesh = setup_mesh(args, "omni", max_seq_len)
     tokenizer = None if args.synthetic else get_tokenizer(args.tokenizer, args.tokenizer_path)
     model = build_model_params(args, max_seq_len=max_seq_len, audio_config=audio_config, vision_config=vision_config,
                                vocab_size=None if tokenizer is None else tokenizer.vocab_size)
+    validate_model(model.config, mesh, args, modality="omni")
     data_iter, has_audio = make_data(args, audio_config, args.batch_size // args.gradient_accumulation,
                                      model.config.vocab_size, tokenizer)
     run_training(args, model, data_iter, make_loss_fn(args.prefix_lm), "omni", audio_config=audio_config,
                  vision_config=vision_config,
-                 audio_secs_per_step=args.audio_duration * args.batch_size if has_audio else 0.0)
+                 audio_secs_per_step=args.audio_duration * args.batch_size if has_audio else 0.0, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -16,8 +16,10 @@ prepended to the caption (optional prefix-LM attention) -> the eager train step.
         --fused_ce_chunks 4 --prefix_lm --batch_size 8 --n_steps 4 --log_interval 1 --ckpt_interval 0
 
 Runs on the card unless ``--device cpu``. The weights are random (``--geometry`` or the
-small model); HF weights and the pipeline-parallel path (a mesh with a ``pp`` axis,
-slice 5) raise by name.
+small model). ``--mesh '{"dp": D, "cp": C}'`` with ``--attn_impl ring|ulysses`` runs under
+``torch.distributed.run``: every rank runs the patch stem whole and keeps its slice of the
+fused sequence. The pipeline-parallel path (a mesh with a ``pp`` axis, slice 5b) raises
+by name.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ from llama_x_tpu_torch.data.tokenizers import get_tokenizer
 from llama_x_tpu_torch.data.vision import ImageCaptions, synthetic_shapes_batches
 from llama_x_tpu_torch.models import vision as vision_mod
 from llama_x_tpu_torch.models.vision import VisionConfig
-from llama_x_tpu_torch.train.cli import add_common_args, build_model_params, check_supported, run_training
+from llama_x_tpu_torch.train.cli import add_common_args, build_model_params, check_supported, run_training, setup_mesh
+from llama_x_tpu_torch.train.validate import validate_model
 
 
 def make_loss_fn(prefix_lm: bool):
@@ -71,11 +74,14 @@ def main(argv: list[str] | None = None) -> None:
     vision_config = VisionConfig(image_size=args.image_size, patch_size=args.patch_size)
     # image tokens + the text budget: 224 / 14 -> 256 patches + 16 newlines = 272
     max_seq_len = vision_config.num_image_tokens() + args.max_text_len
+    mesh = setup_mesh(args, "vision", max_seq_len)
     tokenizer = get_tokenizer("byte") if args.synthetic else get_tokenizer(args.tokenizer, args.tokenizer_path)
     model = build_model_params(args, max_seq_len=max_seq_len, vision_config=vision_config,
                                vocab_size=tokenizer.vocab_size)
+    validate_model(model.config, mesh, args, modality="vision")
     data_iter = make_data(args, args.batch_size // args.gradient_accumulation, tokenizer)
-    run_training(args, model, data_iter, make_loss_fn(args.prefix_lm), "vision", vision_config=vision_config)
+    run_training(args, model, data_iter, make_loss_fn(args.prefix_lm), "vision", vision_config=vision_config,
+                 mesh=mesh)
 
 
 if __name__ == "__main__":

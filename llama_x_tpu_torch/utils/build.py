@@ -38,8 +38,8 @@ _DROPOUT = [_I, _U, _F, _U, _I, _I]  # on, threshold, keep scale, seed, bq, bk (
 _SIGNATURES = {
     "lxt_int8_mm_dequant_nt": ([_P] * 5 + [_I] * 7 + [_P] * 3, _I),
     "lxt_int8_mm_dequant_kn": ([_P] * 5 + [_I] * 6 + [_P] * 3, _I),
-    "lxt_flash_attention_fwd": ([_P] * 10 + [_I] * 6 + [_F] + _DROPOUT + [_P], _I),
-    "lxt_flash_attention_bwd": ([_P] * 16 + [_I] * 6 + [_F] + _DROPOUT + [_P], _I),
+    "lxt_flash_attention_fwd": ([_P] * 10 + [_I] * 8 + [_F] + _DROPOUT + [_P], _I),
+    "lxt_flash_attention_bwd": ([_P] * 16 + [_I] * 9 + [_F] + _DROPOUT + [_P], _I),
     "lxt_flash_attention_fwd_offsets": ([_P] * 8 + [_I] * 6 + [_F, _P], _I),
     "lxt_wgmma_check": ([_P, _P, _P, _I, _I, _P], _I),
     "lxt_wgmma_check_s8": ([_P, _P, _P, _I, _P], _I),

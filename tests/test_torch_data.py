@@ -483,8 +483,9 @@ def test_train_vision_and_omni_read_a_dataset_dir(tmp_path, monkeypatch):
 
 
 def test_check_supported_refuses_only_what_is_missing():
-    """--tokenizer and --tokenizer_path pass; --mesh, --pp_microbatches, ring /
-    ulysses, --model and attn_q8(s) raise by name; real text data names MetaMathQA."""
+    """--tokenizer and --tokenizer_path pass, and so do a dp x cp --mesh with ring / ulysses
+    and --model; a --mesh with fsdp / pp / tp above 1, --pp_microbatches and attn_q8(s)
+    raise by name; real text data names MetaMathQA."""
     import argparse
 
     from llama_x_tpu_torch.train import cli
@@ -498,8 +499,9 @@ def test_check_supported_refuses_only_what_is_missing():
 
     cli.check_supported(args("--synthetic", "4", "--tokenizer", "llama3", "--tokenizer_path", "t.model"))
     cli.check_supported(args("--dataset_dir", "d", "--tokenizer", "llama2", dataset=True), real_data=None)
-    for flags, name in ((["--mesh", '{"dp": 2}'], "slice 5"), (["--pp_microbatches", "2"], "slice 5"),
-                        (["--attn_impl", "ulysses"], "slice 5"), (["--remat_policy", "attn_q8"], "slice 2c")):
+    cli.check_supported(args("--synthetic", "4", "--mesh", '{"dp": 2, "cp": 2}', "--attn_impl", "ulysses"))
+    for flags, name in ((["--mesh", '{"pp": 2}'], "slice 5b"), (["--pp_microbatches", "2"], "slice 5b"),
+                        (["--mesh", '{"dp": 2, "fsdp": 2}'], "slice 5b"), (["--remat_policy", "attn_q8"], "slice 2c")):
         with pytest.raises(NotImplementedError, match=name):
             cli.check_supported(args("--synthetic", "4", *flags))
     cli.check_supported(args("--synthetic", "4", "--model", "m"))  # HF import: slice 3, ported

@@ -87,7 +87,7 @@ def test_tile_class_with_offsets_matches_the_mask(shift, kv_end, Sq, bq, bk):
     counts = {"skip": 0, "partial": 0, "full": 0}
     for q0 in range(0, Sq, bq):
         for kv0 in range(0, S_kv, bk):
-            cls = tfa.tile_class(q0, kv0, bq, bk, Sq, True, None, None, None, shift=shift, kv_end=kv_end)
+            cls = tfa.tile_class(q0, kv0, bq, bk, Sq, True, None, None, None, q_offset=shift, kv_end=kv_end)
             tile = mask[q0:q0 + bq, kv0:kv0 + bk]
             whole = tile.shape == (bq, bk) and bool(tile.all())
             assert cls != "skip" or not bool(tile.any()), (q0, kv0)

@@ -14,7 +14,8 @@ which a window one position off misses by 5x or more; K5 per element 2^-7 |ref| 
 2^-5 rms(ref) for each of dq, dk, dv (``flash_bwd_tolerance``, the one formula the
 chip smoke script uses too), with and without dropout (one flipped bit of the hash moves
 elements by the size of the output); K6 per element 2^-7 |ref| + 2^-8 rms(ref)
-(``probe_tolerance``)."""
+(``probe_tolerance``). K2's ring form and K5's offsets form (ring attention's blocks) with
+K2's and K5's tolerances, out compared on the rows that see a key of the block."""
 
 import math
 
@@ -885,3 +886,70 @@ def test_flash_kernels_at_the_vision_and_omni_prefixes(cuda, B, S, prefix):
     for a, b in zip(got, want):
         atol, rtol = fa.flash_bwd_tolerance(b)
         assert bool(((a.float() - b.float()).abs() <= atol + rtol * b.float().abs()).all())
+
+
+RING_MASKS = ["causal", "doc", "prefix", "prefix past the shard", "noncausal"]
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("mask", RING_MASKS)
+def test_flash_ring_forms_match_plain(cuda, D, mask):
+    """K2's ring form and K5's offsets form at the four blocks of a ring of 2 (S_local 256,
+    32/8 heads): out (on the rows that see a key of the block) and lse within K2's
+    tolerance, dq / dk / dv (f32, added into zeroed accumulators) within K5's."""
+    S, Hq, Hkv = 256, 32, 8
+    g = torch.Generator(device=cuda).manual_seed(D)
+    mk = lambda *shape: torch.randn(*shape, device=cuda, generator=g).to(torch.bfloat16)
+    q, k, v, do = mk(1, S, Hq, D), mk(1, S, Hkv, D), mk(1, S, Hkv, D), mk(1, S, Hq, D)
+    segs = torch.sort(torch.randint(1, 5, (1, 2 * S), device=cuda, generator=g), dim=1).values.to(torch.int32)
+    prefix = {"prefix": S // 2, "prefix past the shard": S + 37}.get(mask)
+    before = (fa.flash_fwd_ring.launches, fa.flash_bwd_ring.launches)
+    for qo, ko in [(0, 0), (S, 0), (S, S), (0, S)]:
+        mi = MaskInfo(causal=mask != "noncausal", segment_ids=segs[:, qo:qo + S] if mask == "doc" else None,
+                      kv_segment_ids=segs[:, ko:ko + S] if mask == "doc" else None,
+                      prefix_len=None if prefix is None else torch.tensor([prefix], dtype=torch.int32, device=cuda))
+        out, lse = fa.flash_fwd_ring(q, k, v, mi, qo, ko)
+        torch.cuda.synchronize()
+        ref, ref_lse = fa.flash_fwd_ring_plain(q, k, v, mi, qo, ko)
+        m = fa.ring_block_mask(mi, 1, S, qo, ko, device=cuda)
+        seen = torch.ones(1, S, dtype=torch.bool, device=cuda) if m is None else m[:, 0].any(-1)
+        atol, rtol = fa.flash_fwd_tolerance(ref)
+        assert bool(((out.float() - ref.float()).abs() <= atol + rtol * ref.float().abs())[seen].all()), (qo, ko)
+        ls = seen[:, None, :, None].expand_as(lse)
+        if bool(ls.any()):
+            assert _max_err(lse[ls], ref_lse[ls]) <= 2e-3
+        assert bool((lse[~ls] < -1e29).all())
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        acc = [torch.zeros(t.shape, dtype=torch.float32, device=cuda) for t in (q, k, v)]
+        fa.flash_bwd_ring(q, k, v, out, lse, do, delta, acc, mi, qo, ko)
+        torch.cuda.synchronize()
+        for got, want in zip(acc, fa.flash_bwd_ring_plain(q, k, v, out, lse, do, delta, mi, qo, ko)):
+            atol, rtol = fa.flash_bwd_tolerance(want)
+            assert bool(((got - want).abs() <= atol + rtol * want.abs()).all()), (qo, ko)
+    assert (fa.flash_fwd_ring.launches, fa.flash_bwd_ring.launches) == (before[0] + 4, before[1] + 4)
+
+
+def test_ring_on_the_card_runs_the_kernels_or_raises(cuda, monkeypatch):
+    """One rank's ring is the flash attention of its block; the plain ring is refused on
+    CUDA tensors, and a kernel library that cannot be built raises (no fallback)."""
+    from llama_x_tpu_torch.ops.ring_attention import ring_attention
+    from llama_x_tpu_torch.parallel.mesh import make_mesh
+    from llama_x_tpu_torch.utils import build
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(1, 256, h, 128, device=cuda, generator=g).to(torch.bfloat16) for h in (32, 8, 8))
+    mesh = make_mesh()
+    mi = MaskInfo(causal=True)
+    got = ring_attention(q, k, v, mesh, mi)
+    want, _ = fa.flash_fwd_plain(q, k, v, mi)
+    atol, rtol = fa.flash_fwd_tolerance(want)
+    assert bool(((got.float() - want.float()).abs() <= atol + rtol * want.float().abs()).all())
+    with pytest.raises(ValueError, match="CPU tensors"):
+        ring_attention(q, k, v, mesh, mi, impl="xla")
+
+    def no_build():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(build, "load_library", no_build)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        ring_attention(q, k, v, mesh, mi)

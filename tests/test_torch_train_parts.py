@@ -172,9 +172,9 @@ def _args(*argv):
 
 
 @pytest.mark.parametrize("flags,slice_name", [
-    (["--mesh", '{"dp": 2}'], "slice 5"),
-    (["--attn_impl", "ring"], "slice 5"),
-    (["--pp_microbatches", "2"], "slice 5"),
+    (["--mesh", '{"fsdp": 2}'], "slice 5b"),
+    (["--mesh", '{"dp": 2, "tp": 2}'], "slice 5b"),
+    (["--pp_microbatches", "2"], "slice 5b"),
     (["--remat_policy", "attn_q8s"], "slice 2c"),
     ([], "slice 2b"),  # no --synthetic: real data
 ])
