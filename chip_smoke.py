@@ -24,7 +24,11 @@ no result line):
    (0, 4096): diagonal, full, diagonal, skipped; S_local 4096, 32/8 heads, D 128) under causal,
    packed-document (crossing the shard boundary), prefix-LM 2000, prefix-LM 5000 (past the
    first shard: the global prefix test decides) and non-causal masks, with their tile
-   census and SDPA on the block's bool mask as the yardstick;
+   census and SDPA on the block's bool mask as the yardstick; K1 and K4 at the tensor-parallel
+   shard shapes of 8B width (tp 2: wq N 2048, wk / wv N 512, wo K 2048, w1 / w3 N 7168, w2
+   K 7168 and the head's vocabulary shard N 64128; tp 4's N 32064, not a multiple of 128; K4
+   at the matching input gradients and the CE dH over K 64128 / 32064), bit for bit, with
+   plan, bound and ``_int_mm``;
 3. serving main path: ``generate`` at Llama-3.1-8B width (32 layers) from seeded
    on-device weights, B 4, ragged byte-tokenized prompts padded to 512, 64 new
    tokens: bf16 weights with a bf16 cache, then int8 weights with dynamic int8
@@ -98,7 +102,19 @@ no result line):
    and LoRA gradients at the first step (ring and Ulysses) and every step's loss against
    the same step at cp 1 in this process over the whole 8192; per rank the step time, the
    peak memory and the exchange's share of the step (gloo through host memory). A rank that
-   fails or outlives its timeout fails the phase.
+   fails or outlives its timeout fails the phase;
+16. slice 5b: the same text QLoRA step at Llama-3.1-8B width (4 layers, S 4096 packed
+   documents, remat full, CE x8) through ``train_metamathqa``'s own functions in two spawned
+   processes sharing the card over gloo, at ``--mesh '{"tp": 2}'`` (1 row), ``'{"fsdp": 2}'``
+   (2 rows) and ``'{"pp": 2}' --pp_microbatches 2`` (2 rows), 2 steps each: the first step's
+   loss and gathered LoRA gradients against the same step in this process at the mesh's
+   batch (1e-3 of |loss|, relative L2 2^-6), the launches of K1 / K2 / K4 / K5 held every
+   step to ``p5b_expected_launches``, per rank the step time, the exchange's share, the bytes
+   moved and the peak memory (fsdp's below one process's at a rank's one row); then
+   ``generate`` at tp 2 on the first 8 layers of phase 3's int8 model (int8 KV on the local
+   heads, B 4, prompts padded to 512, 32 new tokens), every rank's rows the same and each
+   held against an unsharded ``generate`` under the near-tie rule, with decode tok/s and
+   the exchange's share.
 
 Every shape's numbers are printed as the phases run. The second-to-last line of
 stdout is the kernels' JSON record (primary shape of each kernel, launches on the
@@ -841,10 +857,39 @@ def phase_k6():
     return shapes
 
 
+# the tensor-parallel shard shapes at 8B width (tp 2: wq N 2048, wk / wv N 512, wo K 2048, w1 / w3
+# N 7168, w2 K 7168, the head's vocabulary shard N 64128; tp 4: the head's N 32064, not a multiple
+# of 128), M 4096 positions (the CE at its 512-row chunk); K4 at the matching input gradients
+# (column-parallel K = out / tp: 2048, 512, 7168; row-parallel N = in / tp: 2048, 7168) and the
+# CE dH over the vocabulary shard (K 64128, 32064)
+TP_K1_CASES = [(4096, 2048, 4096), (4096, 512, 4096), (4096, 4096, 2048), (4096, 7168, 4096), (4096, 4096, 7168),
+               (512, 64128, 4096), (512, 32064, 4096)]
+TP_K4_CASES = [(4096, 4096, 2048), (4096, 4096, 512), (4096, 4096, 7168), (4096, 2048, 4096), (4096, 7168, 4096),
+               (512, 4096, 64128), (512, 4096, 32064)]
+
+
+def phase_int8_tp_shards() -> dict:
+    """K1 and K4 at the shard shapes of tensor parallelism (the card holds one rank's shards
+    at tp 2; tp 4's head shard is held here too): bit for bit against their plain versions,
+    with bound, plan, plain and ``_int_mm`` times."""
+    import torch
+
+    from llama_x_tpu_torch.ops import int8_mm as mm
+
+    log("[K1 / K4 at the tp shard shapes] vs plain; tol 0: bit for bit")
+    g = torch.Generator(device="cuda").manual_seed(16)
+    f32, bf16 = torch.float32, torch.bfloat16
+    k1 = int8_mm_cases(mm.int8_mm_dequant_nt, mm.int8_mm_dequant_nt_plain, True, g,
+                       [(M, N, K, f32 if N > 16384 else bf16) for M, N, K in TP_K1_CASES])
+    k4 = int8_mm_cases(mm.int8_mm_dequant, mm.int8_mm_dequant_plain, False, g,
+                       [(M, N, K, f32 if K > 16384 else bf16) for M, N, K in TP_K4_CASES])
+    return {"int8_mm_dequant_nt_tp": k1, "int8_mm_dequant_tp": k4}
+
+
 def phase_kernels():
     """Returns {kernel name: per-shape records}."""
     return {"int8_mm_dequant_nt": phase_k1(), "int8_mm_plans": phase_k1_plans(), "int8_mm_dequant": phase_k4(),
-            "int8_mm_kn_plans": phase_k4_plans(), "flash_attention": phase_k2(),
+            "int8_mm_kn_plans": phase_k4_plans(), **phase_int8_tp_shards(), "flash_attention": phase_k2(),
             "flash_attention_offsets": phase_k2_offsets(),
             "flash_attention_bwd": phase_k5(), "flash_probe": phase_k6(), **phase_ring_kernels(), **{
         ("decode_attention" if kind == "bf16" else "decode_attention_int8"): recs
@@ -1009,9 +1054,9 @@ def labelled_quantizers():
 
     inner = i8.quantize_int8_rowwise
 
-    def labelled(x):
+    def labelled(*args, **kwargs):
         with record_function(QUANTIZE_LABEL):
-            return inner(x)
+            return inner(*args, **kwargs)
 
     try:
         i8.quantize_int8_rowwise = ce.quantize_int8_rowwise = lm.quantize_int8_rowwise = labelled
@@ -2657,6 +2702,354 @@ def phase_cp() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 16: slice 5b. The text QLoRA step at 8B width under tp 2, fsdp 2 and pp 2 (GPipe, 2
+# microbatches), and ``generate`` at tp 2, in two spawned processes that share the card over
+# gloo, each against the same work in this one process
+# ---------------------------------------------------------------------------
+
+P5B_LAYERS = 4  # the depth cut of the 5b phase's training: 4 of Llama-3.1-8B's 32 layers, at full width
+P5B_FLAGS = [
+    "--synthetic", "16", "--geometry", "8b", "--synthetic_config", json.dumps({"num_layers": P5B_LAYERS}),
+    "--quantize", "int8", "--quantize_kwargs", '{"dynamic_int8_act": true, "dynamic_int8_bwd": true, "int8_head": true}',
+    "--adapter", "lora", "--adapter_kwargs", '{"rank": 8}', "--freeze_prefixes", "tok_embeddings", "output", "norm",
+    "--activation_checkpointing", "--fused_ce_chunks", "8", "--document_mask", "--max_seq_len", "4096",
+    "--gradient_accumulation", "1", "--optim", "AdamW", "--lr", "1e-3", "--seed", "0", "--n_steps", "2",
+]
+# mesh -> (batch rows of a step over the mesh, extra flags)
+P5B_MESHES = (("tp", {"tp": 2}, 1, []), ("fsdp", {"fsdp": 2}, 2, []),
+              ("pp", {"pp": 2}, 2, ["--pp_microbatches", "2"]))
+P5B_STEPS = 2
+P5B_SERVE_NEW = 32
+P5B_TIMEOUT_S = 480
+
+
+def p5b_expected_launches(name: str, mesh: dict, rank: int) -> dict:
+    """One rank's launches in one step (remat "full", CE x8, one row a microbatch): tp and
+    fsdp run every layer's 7 projections on their shards (``expected_launches``); a pp stage
+    runs its L / P layers for each of the 2 microbatches, and only the last stage the CE."""
+    if name != "pp":
+        return expected_launches("full", P5B_LAYERS, 8)
+    stages = mesh["pp"]
+    one = expected_launches("full", P5B_LAYERS // stages, 8 if rank == stages - 1 else 0)
+    return {k: 2 * v for k, v in one.items()}
+
+
+def p5b_step_batch(entry, args, vocab: int) -> dict:
+    from llama_x_tpu_torch.train import cli
+
+    data_iter, _ = entry.make_data(args, vocab)
+    return cli.assemble_step_batch([next(data_iter)], pad_values={"labels": -100})
+
+
+class GradRecorder:
+    """An optimizer in front of the real one: keeps the first gradients it is handed (what
+    the train step hands its optimizer after the reduction over the mesh), then steps."""
+
+    def __init__(self, optimizer):
+        self.inner, self.params, self.first = optimizer, optimizer.params, None
+
+    def step(self, grads, norm=None):
+        if self.first is None:
+            self.first = [g.detach().clone() for g in grads]
+        self.inner.step(grads, norm=norm)
+
+
+def p5b_lora_grads(state, grads, mesh) -> dict:
+    """{name: whole gradient on the CPU} of the LoRA tensors: each gathered over the axes it is
+    sharded over, every pipeline stage's (an all-gather over pp)."""
+    import torch.distributed as dist
+
+    from llama_x_tpu_torch.parallel.mesh import AXES
+    from llama_x_tpu_torch.parallel.tensor import gather_now
+
+    out = {}
+    for (n, p), g in zip(state.trainable, grads):
+        if "lora_" in n:
+            out[n] = gather_now(g, mesh, AXES, like=p).float().cpu()
+    if mesh is not None and mesh.axis_size("pp") > 1:
+        parts = [None] * mesh.axis_size("pp")
+        dist.all_gather_object(parts, out, group=mesh.group("pp"))
+        for part in parts:
+            out.update(part)
+    return out
+
+
+def p5b_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """One rank of the 5b phase (a spawned process on the shared card, over gloo): the text
+    trainer's own pieces at tp 2, fsdp 2 and pp 2 in turn, then ``generate`` at tp 2 on the
+    first 8 layers of the main path's int8 model; writes its record to ``out_dir``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from llama_x_tpu_torch import train_metamathqa as entry
+    from llama_x_tpu_torch.parallel.mesh import init_distributed, make_mesh, use_mesh
+    from llama_x_tpu_torch.parallel.sharding import shard_batch
+    from llama_x_tpu_torch.train import cli
+    from llama_x_tpu_torch.train.trainer import TrainState, make_train_step
+    from llama_x_tpu_torch.train.validate import validate_launch, validate_model
+
+    dev = init_distributed("gloo", "cuda", init_method=f"file://{store}", rank=rank, world_size=world)
+    rec = {"rank": rank, "device": str(dev), "train": {}}
+    try:
+        for name, shape, rows, extra in P5B_MESHES:
+            mesh = make_mesh(**shape)
+            base = torch.cuda.memory_allocated()  # what the earlier configurations left
+            args = entry.parse_args([*P5B_FLAGS, "--batch_size", str(rows), *extra, "--mesh", json.dumps(shape),
+                                     "--dist_backend", "gloo", "--device", str(dev)])
+            validate_launch(args, mesh, max_seq_len=args.max_seq_len)
+            model = cli.build_model_params(args, max_seq_len=args.max_seq_len)
+            validate_model(model.config, mesh, args)
+            cli.place_model(model, mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+            batch = shard_batch(p5b_step_batch(entry, args, model.config.vocab_size), mesh)
+            optimizer, _ = cli.setup_optimizer(args, model)
+            recorder = GradRecorder(optimizer)
+            state = TrainState(model, recorder)
+            train_step = make_train_step(entry.make_loss_fn(args, mesh), mesh=mesh)
+            expect = p5b_expected_launches(name, shape, mesh.index("pp"))
+            steps = []
+            torch.cuda.reset_peak_memory_stats()
+            for i in range(P5B_STEPS):
+                reset_counts()
+                mesh.comm.reset()
+                t0 = time.perf_counter()
+                with use_mesh(mesh):
+                    m = train_step(state, batch)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                counts = read_counts()
+                step = dict(step=i, loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), seconds=dt,
+                            exchange_s=mesh.comm.seconds, exchange_share=mesh.comm.seconds / dt,
+                            exchange_calls=mesh.comm.calls, exchange_bytes=mesh.comm.bytes,
+                            peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9, launches=counts)
+                log(f"    rank {rank} {name} step {i}: loss {step['loss']:.4f}, grad norm {step['grad_norm']:.4f}, "
+                    f"{dt:.3f} s, exchange {mesh.comm.seconds:.3f} s ({step['exchange_share']:.3f} of the step, "
+                    f"{mesh.comm.calls} calls, {mesh.comm.bytes / 1e6:.1f} MB), peak {step['peak_gb']:.2f} GB")
+                wrong = {k: (counts[k], v) for k, v in expect.items() if counts[k] != v}
+                if wrong:
+                    raise AssertionError(f"rank {rank} {name} step {i} launches (got, expected): {wrong}")
+                steps.append(step)
+            grads = p5b_lora_grads(state, recorder.first, mesh)
+            rec["train"][name] = dict(steps=steps, loss=steps[0]["loss"], grads=grads if rank == 0 else None,
+                                      expect=expect)
+            del model, state, optimizer, recorder, train_step, grads
+            gc.collect()
+            torch.cuda.empty_cache()
+        rec["serve"] = p5b_serve_rank(rank, dev)
+        torch.save(rec, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def p5b_serving_model(device):
+    """The main path's int8 model (32 layers, seed 0, built as phase 3 builds it), cut to its
+    first SERVING_LAYERS layers; the other layers are freed."""
+    import torch
+
+    from llama_x_tpu_torch.generate_cli import GEOMETRIES, build_model
+    from llama_x_tpu_torch.models import llama
+
+    config = llama.LlamaConfig(**GEOMETRIES["8b"], max_seq_len=4096, dynamic_int8_act=True)
+    full = build_model(config, True, seed=0, device=device)
+    model = cut_of(full, SERVING_LAYERS)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    return model
+
+
+def p5b_serve_rank(rank: int, dev) -> dict:
+    """``generate`` at tp 2 (int8 weights, dynamic int8 activations, int8 KV on the local heads)
+    over the ragged B 4 prompts of the main path, 32 new tokens; launches counted around it."""
+    import torch
+
+    from llama_x_tpu_torch.models.generate import generate, prefill_start
+    from llama_x_tpu_torch.parallel.mesh import make_mesh
+    from llama_x_tpu_torch.parallel.sharding import shard_params
+
+    mesh = make_mesh(tp=2)
+    model = shard_params(p5b_serving_model(dev), mesh)
+    prompt, lens = ragged_prompts()
+    generate(model, prompt, max_new_tokens=2, prompt_lens=lens, cache_dtype=torch.int8)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill_start(model, prompt, prompt_lens=lens, cache_dtype=torch.int8, max_new_tokens=P5B_SERVE_NEW)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    reset_counts()
+    mesh.comm.reset()
+    t0 = time.perf_counter()
+    out = generate(model, prompt, max_new_tokens=P5B_SERVE_NEW, prompt_lens=lens, cache_dtype=torch.int8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    missing = [k for k in ("int8_mm_dequant_nt", "flash_attention", "decode_attention_int8") if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"rank {rank}: tp generate never launched {missing}: {counts}")
+    B = prompt.shape[0]
+    res = dict(tokens=out.cpu().tolist(), wall_s=wall, prefill_ms=prefill_s * 1e3, exchange_s=mesh.comm.seconds,
+               exchange_share=mesh.comm.seconds / wall, exchange_calls=mesh.comm.calls,
+               exchange_bytes=mesh.comm.bytes, launches=counts, tok_s=B * (P5B_SERVE_NEW - 1) / (wall - prefill_s))
+    log(f"    rank {rank} tp 2 generate B {B} +{P5B_SERVE_NEW}: {wall:.3f} s, prefill {prefill_s * 1e3:.1f} ms, decode "
+        f"{res['tok_s']:.1f} tok/s, exchange {mesh.comm.seconds:.3f} s ({res['exchange_share']:.3f} of the generate, "
+        f"{mesh.comm.calls} calls, {mesh.comm.bytes / 1e6:.1f} MB); launches {counts}")
+    return res
+
+
+def run_p5b_ranks(world: int) -> list[dict]:
+    """Spawn the 5b ranks on the card, wait with a timeout of their own; a rank that fails or
+    hangs fails the phase (and the hung ones are killed)."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=p5b_rank, args=(r, world, str(Path(tmp) / "store"), tmp)) for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.perf_counter() + P5B_TIMEOUT_S
+        try:
+            for p in procs:
+                p.join(max(1.0, deadline - time.perf_counter()))
+        finally:
+            hung = [r for r, p in enumerate(procs) if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        if hung:
+            raise AssertionError(f"5b ranks {hung} did not finish within {P5B_TIMEOUT_S} s")
+        bad = [(r, p.exitcode) for r, p in enumerate(procs) if p.exitcode != 0]
+        if bad:
+            raise AssertionError(f"5b ranks failed (rank, exit code): {bad}")
+        return [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def p5b_reference(entry, rows: int) -> dict:
+    """The first step's loss and LoRA gradients in this one process over the mesh's batch
+    (``rows`` rows in one microbatch), and the peak memory of a step at one row (a rank's
+    share under fsdp) on a fresh model."""
+    import torch
+
+    from llama_x_tpu_torch.train import cli
+    from llama_x_tpu_torch.train.trainer import TrainState, make_train_step
+
+    args = entry.parse_args([*P5B_FLAGS, "--batch_size", str(rows)])
+    base = torch.cuda.memory_allocated()  # what earlier phases left in this process
+    model = cli.build_model_params(args, max_seq_len=args.max_seq_len)
+    batch = p5b_step_batch(entry, args, model.config.vocab_size)
+    optimizer, _ = cli.setup_optimizer(args, model)
+    recorder = GradRecorder(optimizer)
+    state = TrainState(model, recorder)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m = make_train_step(entry.loss_fn)(state, batch)
+    torch.cuda.synchronize()
+    out = dict(loss=float(m["loss"]), grads=p5b_lora_grads(state, recorder.first, None),
+               seconds=time.perf_counter() - t0, peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9)
+    del model, state, optimizer, recorder
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_5b() -> dict:
+    """Slice 5b on the card: the text QLoRA step at Llama-3.1-8B width (depth cut to 4 layers,
+    S 4096 packed byte-token documents) at tp 2, fsdp 2 and pp 2 (2 GPipe microbatches of one
+    row) in two processes on the one card over gloo, each rank's first-step loss and gathered
+    LoRA gradients against the same step in this process at the mesh's batch, the launches
+    held every step, fsdp's peak memory below one process's at a rank's share of the batch;
+    then ``generate`` at tp 2 on the first 8 layers of the main path's int8 model (int8 KV,
+    B 4, prompts padded to 512, 32 new tokens), each rank's rows against an unsharded
+    ``generate`` under the near-tie rule."""
+    import torch
+
+    from llama_x_tpu_torch import train_metamathqa as entry
+    from llama_x_tpu_torch.models.generate import generate
+
+    log(f"[5b phase] text QLoRA at Llama-3.1-8B width, {P5B_LAYERS} layers (depth cut), S 4096, remat full, fused "
+        f"CE x8, int8 act / dgrad / head; tp 2, fsdp 2, pp 2 (2 microbatches) on 2 ranks of cuda:0 over gloo, "
+        f"{P5B_STEPS} steps each; then tp 2 generate; tol: loss 1e-3 of |loss|, LoRA gradients relative L2 2^-6")
+    t0 = time.perf_counter()
+    ranks = run_p5b_ranks(2)
+    wall = time.perf_counter() - t0
+    refs = {rows: p5b_reference(entry, rows) for rows in (1, 2)}
+    out = {"train": {}, "ranks_wall_s": wall, "reference": {r: {k: v for k, v in ref.items() if k != "grads"}
+                                                            for r, ref in refs.items()}}
+    launches = {}
+    for name, shape, rows, _ in P5B_MESHES:
+        ref = refs[rows]
+        losses = [r["train"][name]["loss"] for r in ranks]
+        if any(abs(x - losses[0]) > 1e-6 * abs(losses[0]) for x in losses):
+            raise AssertionError(f"{name}: the ranks logged different losses {losses}")
+        check(f"{name} 2 loss {losses[0]:.5f} vs one process {ref['loss']:.5f}", abs(losses[0] - ref["loss"]),
+              1e-3 * abs(ref["loss"]))
+        grads = ranks[0]["train"][name]["grads"]
+        if set(grads) != set(ref["grads"]):
+            raise AssertionError(f"{name}: LoRA tensors differ from one process's: {sorted(set(grads) ^ set(ref['grads']))[:4]}")
+        worst, worst_name = 0.0, ""
+        for n, g in grads.items():
+            want = ref["grads"][n]
+            rel = float((g - want).norm() / want.norm().clamp(min=1e-30))
+            if rel > worst:
+                worst, worst_name = rel, n
+        check(f"{name} 2 LoRA gradients ({len(grads)} tensors), worst relative L2 ({worst_name})", worst, 2**-6)
+        per_rank = []
+        for r in ranks:
+            st = r["train"][name]["steps"]
+            later = st[1:] or st
+            per_rank.append(dict(rank=r["rank"], step_ms=sum(s["seconds"] for s in later) / len(later) * 1e3,
+                                 exchange_share=sum(s["exchange_share"] for s in later) / len(later),
+                                 exchange_mb=later[-1]["exchange_bytes"] / 1e6, peak_gb=max(s["peak_gb"] for s in st),
+                                 launches=st[-1]["launches"]))
+            for s in st:
+                for k, v in s["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+            log(f"    rank {r['rank']} {name}: step {per_rank[-1]['step_ms']:.1f} ms (after the first), exchange share "
+                f"{per_rank[-1]['exchange_share']:.3f}, {per_rank[-1]['exchange_mb']:.1f} MB a step, peak "
+                f"{per_rank[-1]['peak_gb']:.2f} GB; launches a step {st[-1]['launches']}")
+        out["train"][name] = dict(loss=losses[0], loss_one_process=ref["loss"], grad_rel_l2_worst=worst, ranks=per_rank)
+    one_row_peak = refs[1]["peak_gb"]
+    fsdp_peak = max(r["peak_gb"] for r in out["train"]["fsdp"]["ranks"])
+    log(f"    peak memory a rank at fsdp 2: {fsdp_peak:.2f} GB against {one_row_peak:.2f} GB in one process at the "
+        f"same rows (one); one process's step {refs[1]['seconds'] * 1e3:.1f} ms at 1 row, "
+        f"{refs[2]['seconds'] * 1e3:.1f} ms at 2 (first steps)")
+    if not fsdp_peak < one_row_peak:
+        raise AssertionError(f"fsdp's per-rank peak {fsdp_peak:.2f} GB is not below one process's {one_row_peak:.2f} GB")
+    # serving: each rank's rows against an unsharded generate of the same model
+    model = p5b_serving_model("cuda")
+    prompt, lens = ragged_prompts()
+    want = generate(model, prompt, max_new_tokens=P5B_SERVE_NEW, prompt_lens=lens, cache_dtype=torch.int8).cpu().tolist()
+    served = {"rows": []}
+    for r in ranks:
+        toks = r["serve"]["tokens"]
+        if r["rank"] > 0 and toks != ranks[0]["serve"]["tokens"]:
+            raise AssertionError("the tp ranks sampled different tokens")
+        for i, row in enumerate(toks):
+            ids = prompt[i, :int(lens[i])].tolist()
+            served["rows"].append(check_served_row(model, ids, row, torch.int8, other=want[i]))
+        for k, v in r["serve"]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    same = sum(a == b for a, b in zip(ranks[0]["serve"]["tokens"], want))
+    log(f"    tp 2 generate: {same} of {len(want)} rows equal to the unsharded generate token for token, the others "
+        f"near-ties ({[s['diverged_at'] for s in served['rows'][:len(want)]]}); decode "
+        + ", ".join(f"rank {r['rank']} {r['serve']['tok_s']:.1f} tok/s, exchange share {r['serve']['exchange_share']:.3f}"
+                    for r in ranks))
+    served.update({k: [r["serve"][k] for r in ranks] for k in ("tok_s", "prefill_ms", "exchange_share",
+                                                                "exchange_bytes", "wall_s")}, identical_rows=same)
+    out["serve"] = served
+    out["launches"] = launches
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the record
 # ---------------------------------------------------------------------------
 
@@ -2756,6 +3149,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     runs["cp"] = timer("cp", phase_cp())
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["5b"] = timer("5b", phase_5b())
     log(f"[phase seconds] {json.dumps(timer.seconds)}")
     rec = record(kern, runs)
     log(f"[done] {time.perf_counter() - t0:.1f} s")

@@ -36,7 +36,7 @@ def fuse_forward(model: llama.Llama, prefix_embeds: list[torch.Tensor], tokens: 
                  kv_len=None, dropout_seeds=None):
     """prefix_embeds: list of [B, T_i, D] modality token embeddings, prepended in order
     before the text tokens [B, S]. Returns loss/logits (+ the cache when one is given)."""
-    x = torch.nn.functional.embedding(tokens, model.tok_embeddings)
+    x = llama.embed(model, tokens)
     n_prefix = sum(int(p.shape[1]) for p in prefix_embeds)
     if prefix_embeds:
         x = torch.cat([*[p.to(x.dtype) for p in prefix_embeds], x], dim=1)

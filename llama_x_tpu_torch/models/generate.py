@@ -70,7 +70,7 @@ def _prefill(model: llama.Llama, prompt: torch.Tensor, *, generator, temperature
     """Prefill + first token -> (first [B], (kv_cache, last token, pos, done-less))."""
     config = model.config
     B, P = prompt.shape
-    x = torch.nn.functional.embedding(prompt, model.tok_embeddings)
+    x = llama.embed(model, prompt)
     n_prefix = 0
     if prefix_embeds is not None:
         if prompt_lens is not None:
@@ -81,7 +81,8 @@ def _prefill(model: llama.Llama, prompt: torch.Tensor, *, generator, temperature
     if total_p + max_new_tokens > config.max_seq_len:
         raise ValueError(f"prefill {total_p} + {max_new_tokens} new tokens exceed max_seq_len {config.max_seq_len}")
 
-    kv_cache = llama.init_kv_cache(config, B, dtype=cache_dtype, device=model.device)
+    kv_cache = llama.init_kv_cache(config, B, dtype=cache_dtype, device=model.device,
+                                    kv_heads=llama.local_kv_heads(model))
     pos = torch.arange(total_p, dtype=torch.int32, device=model.device)
     prefix = (torch.full((B,), n_prefix, dtype=torch.int32, device=model.device)
               if (prefix_lm and n_prefix) else None)
@@ -107,7 +108,7 @@ def _decode_steps(model: llama.Llama, state, n: int, *, generator, temperature, 
     ragged = pos.ndim == 1
     toks = []
     for _ in range(n):
-        x = torch.nn.functional.embedding(tok[:, None], model.tok_embeddings)
+        x = llama.embed(model, tok[:, None])
         if ragged:
             mask = MaskInfo(causal=True, q_positions=pos[:, None], kv_len=pos + 1)
             input_pos = pos[:, None]

@@ -17,6 +17,14 @@
   time; int8 bases dequantized and LoRA / DoRA merged into the exported weights
   (``merged_weight``, the JAX package's ``_merged_kernel``).
 
+- a sharded load (``mesh``, the JAX ``load_llama(mesh=)``): each rank reads only its slice of
+  each tensor (``parallel/sharding.py:local_spec``; safetensors slices straight from the file,
+  ``.bin`` tensors through their mmap), skips the layers of other pipeline stages, and with
+  ``quantize="int8"`` takes each row's absmax over the axis that splits the row before it
+  rounds (``ops/int8.py:quantize_int8_rowwise`` given the mesh), so its int8 codes and scales are the
+  unsharded load's slices. The model comes back placed on the mesh, as ``shard_params``
+  leaves one.
+
 Only local directories: a hub id raises (the port never downloads).
 """
 
@@ -118,8 +126,13 @@ class _TensorIndex:
     def keys(self):
         return list(self.shapes)
 
-    def read(self, key: str) -> torch.Tensor:
-        t = self._safetensors[key].get_slice(key)[:] if key in self._safetensors else self._torch[key]
+    def read(self, key: str, index: tuple[slice, ...] | None = None) -> torch.Tensor:
+        """The tensor ``key``, or its ``index`` slice (one slice per dimension)."""
+        if key in self._safetensors:
+            sl = self._safetensors[key].get_slice(key)
+            t = sl[:] if index is None else sl[index]
+        else:
+            t = self._torch[key] if index is None else self._torch[key][index].contiguous()
         n = t.numel() * t.element_size()
         LOAD_STATS["chunk_bytes"] += n
         LOAD_STATS["max_chunk_bytes"] = max(LOAD_STATS["max_chunk_bytes"], n)
@@ -135,11 +148,14 @@ def _weight_files(path: Path) -> list[Path]:
     raise RuntimeError(f"no weights (*.safetensors, *.bin) in {path}")
 
 
-def load_llama(path, dtype=torch.bfloat16, device=None, quantize: str | None = None, **config_overrides) -> Llama:
+def load_llama(path, dtype=torch.bfloat16, device=None, quantize: str | None = None, mesh=None,
+               **config_overrides) -> Llama:
     """A ``Llama`` from a local HF checkpoint directory, streamed tensor by tensor onto
     ``device`` in ``dtype``; ``quantize="int8"`` makes every projection rowwise int8 as it
-    lands. ``config_overrides`` replace fields of the checkpoint's config (``max_seq_len``
-    and the training flags)."""
+    lands. ``mesh``: each rank reads only its slices (see the module docstring).
+    ``config_overrides`` replace fields of the checkpoint's config (``max_seq_len`` and the
+    training flags)."""
+    from llama_x_tpu_torch.parallel import sharding
     from llama_x_tpu_torch.ops.int8 import quantize_int8_rowwise
 
     src = _local_dir(path)
@@ -168,32 +184,52 @@ def load_llama(path, dtype=torch.bfloat16, device=None, quantize: str | None = N
     if sorted(per_layer) != list(range(config.num_layers)) or any(len(v) != len(_LAYER_MAP) for v in per_layer.values()):
         raise ValueError(f"{path}: the checkpoint's layers do not match num_layers={config.num_layers}")
 
-    def tensor(key: str) -> torch.Tensor:
-        return index.read(key).to(device=dev, dtype=dtype)
+    pp = mesh is not None and mesh.axis_size("pp") > 1
+    full_shapes: dict[str, tuple] = {}
 
-    def linear(key: str) -> Linear:
-        w = tensor(key)
+    def tensor(key: str, name: str) -> torch.Tensor:
+        """The checkpoint's ``key`` as the port's tensor ``name``: whole, or this rank's slice."""
+        shape = index.shapes[key]
+        full_shapes[name] = shape
+        if mesh is None:
+            return index.read(key).to(device=dev, dtype=dtype)
+        spec = sharding.local_spec(name, len(shape), pp)
+        return index.read(key, sharding.local_bounds(spec, shape, mesh)).to(device=dev, dtype=dtype)
+
+    def linear(key: str, name: str) -> Linear:
+        w = tensor(key, name + ".weight")
         if quantize is None:
             return Linear(weight=w)
-        int_data, scale = quantize_int8_rowwise(w)
+        full_shapes[name + ".int_data"] = full_shapes[name + ".weight"]
+        full_shapes[name + ".scale"] = full_shapes[name + ".weight"][:1]
+        # rowwise int8; under a mesh the row's absmax over the axis that splits its columns
+        split = None if mesh is None else sharding.local_spec(name + ".int_data", 2, pp)[1]
+        int_data, scale = quantize_int8_rowwise(w, mesh if split else None, split or "tp")
         return Linear(int_data=int_data, scale=scale.to(dtype))
 
+    held = sharding.stage_range(config.num_layers, mesh)
     layers = []
     for i in range(config.num_layers):
+        if i not in held:
+            layers.append(sharding.RemoteBlock())
+            continue
         k = per_layer[i]
-        lin = {name.split(".")[1]: linear(k[suffix]) for suffix, (name, leaf) in _LAYER_MAP.items() if leaf == "weight"}
+        lin = {name.split(".")[1]: linear(k[suffix], f"layers.{i}.{name}")
+               for suffix, (name, leaf) in _LAYER_MAP.items() if leaf == "weight"}
         layers.append(Block(
-            RMSNorm(tensor(k["input_layernorm.weight"]), config.norm_eps),
+            RMSNorm(tensor(k["input_layernorm.weight"], f"layers.{i}.attention_norm.scale"), config.norm_eps),
             Attention(lin["wq"], lin["wk"], lin["wv"], lin["wo"]),
-            RMSNorm(tensor(k["post_attention_layernorm.weight"]), config.norm_eps),
+            RMSNorm(tensor(k["post_attention_layernorm.weight"], f"layers.{i}.ffn_norm.scale"), config.norm_eps),
             FeedForward(lin["w1"], lin["w2"], lin["w3"]),
         ))
-    emb = tensor(top["tok_embeddings"])
+    emb = tensor(top["tok_embeddings"], "tok_embeddings")
     output = None
     if not config.tied_embeddings:
         # a checkpoint without lm_head that does not declare tying: the head is a copy of the embedding
-        output = Linear(weight=tensor(top["output"]) if "output" in top else emb.clone())
-    return Llama(config, emb, layers, RMSNorm(tensor(top["norm"]), config.norm_eps), output)
+        output = Linear(weight=tensor(top["output"], "output.weight") if "output" in top else emb.clone())
+        full_shapes.setdefault("output.weight", full_shapes["tok_embeddings"])
+    model = Llama(config, emb, layers, RMSNorm(tensor(top["norm"], "norm.scale"), config.norm_eps), output)
+    return model if mesh is None else sharding.mark_placement(model, mesh, full_shapes)
 
 
 # ---------------------------------------------------------------------------

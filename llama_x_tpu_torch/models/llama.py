@@ -37,6 +37,16 @@ all-to-alls (K2 / K5 in their normal form), and the loss is this rank's share of
 over the whole sequence (``loss_share``). Attention dropout raises there, as in the JAX
 package.
 
+Parameter sharding (``parallel/sharding.py:shard_params``: fsdp, tp and pp over a mesh;
+``parallel/tensor.py`` for the collectives): the embedding is vocabulary-parallel
+(``embed``), attention runs on the Hq / tp and Hkv / tp heads of this rank (their count
+comes from the projections' local width; K2, K5 and K3 take them as they are, and a KV
+cache holds the local heads: ``init_kv_cache(kv_heads=local_kv_heads(model))``), the linears
+gather their fsdp shards just before use (ops/linear.py), inside the checkpointed region,
+so the recompute gathers again, and the head is vocabulary-parallel (the fused loss across
+"tp", or logits gathered over "tp" for sampling, so every rank samples the same token).
+Under pp the model holds its stage's layers only and runs through ``parallel/pipeline.py``.
+
 Attention dropout: ``LlamaConfig.attn_dropout`` with ``forward(dropout_seeds=)``, one
 32-bit seed per layer (or a CPU ``torch.Generator`` to draw them from); the JAX
 package splits a ``dropout_rng`` per layer and draws each kernel's seed from it, which
@@ -56,13 +66,16 @@ from llama_x_tpu_torch.ops import decode_attention as da
 from llama_x_tpu_torch.ops import flash_attention as fa
 from llama_x_tpu_torch.ops import remat as rm
 from llama_x_tpu_torch.ops.attention import MaskInfo, dot_product_attention
-from llama_x_tpu_torch.ops.cross_entropy import cross_entropy_loss, fused_linear_cross_entropy
+from llama_x_tpu_torch.ops.cross_entropy import (cross_entropy_loss, fused_linear_cross_entropy,
+                                                  vocab_parallel_cross_entropy)
 from llama_x_tpu_torch.ops.int8 import quantize_int8_rowwise
 from llama_x_tpu_torch.ops.linear import Linear, apply_linear, apply_linear_grouped, linear_vjp
 from llama_x_tpu_torch.ops.norms import rms_norm
 from llama_x_tpu_torch.ops.rope import apply_rope, build_rope
 from llama_x_tpu_torch.parallel import context as cp
-from llama_x_tpu_torch.parallel.mesh import Mesh, current_mesh
+from llama_x_tpu_torch.parallel.mesh import Mesh, all_gather, current_mesh
+from llama_x_tpu_torch.parallel.tensor import (copy_to_tp, gather, mesh_of, placement, tp_rows, tp_size,
+                                               vocab_parallel_embedding)
 from llama_x_tpu_torch.parallel.ulysses import ulysses_attention
 from llama_x_tpu_torch.utils.device import resolve_device
 
@@ -247,12 +260,19 @@ def init(config: LlamaConfig, *, seed: int = 0, dtype=torch.bfloat16, device=Non
 # ---------------------------------------------------------------------------
 
 
-def init_kv_cache(config: LlamaConfig, batch_size: int, dtype=torch.bfloat16, device=None):
+def local_kv_heads(model: Llama) -> int:
+    """The kv heads this rank's attention holds: Hkv / tp under tensor parallelism."""
+    return model.config.num_kv_heads // tp_size(mesh_of(model))
+
+
+def init_kv_cache(config: LlamaConfig, batch_size: int, dtype=torch.bfloat16, device=None,
+                  kv_heads: int | None = None):
     """Static full-length cache, layout [L, B, n_kv, S, hd] (each head's rows
     contiguous, the decode kernel's read). ``dtype=torch.int8``: each side is a pair
-    (int8 [L, B, n_kv, S, hd], f32 scale [L, B, n_kv, S])."""
+    (int8 [L, B, n_kv, S, hd], f32 scale [L, B, n_kv, S]). ``kv_heads``: n_kv when it is
+    not the config's (a tensor-parallel rank's ``local_kv_heads``)."""
     dev = resolve_device(device)
-    shape = (config.num_layers, batch_size, config.num_kv_heads, config.max_seq_len, config.head_dim)
+    shape = (config.num_layers, batch_size, kv_heads or config.num_kv_heads, config.max_seq_len, config.head_dim)
     if dtype == torch.int8:
         def side():
             return (torch.zeros(shape, dtype=torch.int8, device=dev),
@@ -357,9 +377,10 @@ def attention(attn: Attention, config: LlamaConfig, x: torch.Tensor, rope: torch
     B, S, _ = x.shape
     int8_kw = dict(dynamic_int8_act=c.dynamic_int8_act, dynamic_int8_bwd=c.dynamic_int8_bwd)
     q, k, v = apply_linear_grouped(x, (attn.wq, attn.wk, attn.wv), save=_named(saves, rm.QKV), **int8_kw)
-    q = apply_rope(q.reshape(B, S, c.num_heads, c.head_dim), rope, positions=input_pos)
-    k = apply_rope(k.reshape(B, S, c.num_kv_heads, c.head_dim), rope, positions=input_pos)
-    v = v.reshape(B, S, c.num_kv_heads, c.head_dim)
+    # this rank's heads (all of them, or Hq / tp and Hkv / tp under tensor parallelism)
+    q = apply_rope(q.reshape(B, S, -1, c.head_dim), rope, positions=input_pos)
+    k = apply_rope(k.reshape(B, S, -1, c.head_dim), rope, positions=input_pos)
+    v = v.reshape(B, S, -1, c.head_dim)
 
     decode_from_cache = False
     quantized = False
@@ -423,7 +444,7 @@ def attention(attn: Attention, config: LlamaConfig, x: torch.Tensor, rope: torch
         rate = c.attn_dropout if dropout_seed is not None else 0.0
         out, _ = rm.run_saved(_named(saves, rm.FLASH), lambda kept: fa.flash_fwd_with_lse(
             q, k, v, mask_info, dropout_rate=rate, dropout_seed=dropout_seed, preset=kept))
-    out = out.reshape(B, S, c.num_heads * c.head_dim)
+    out = out.reshape(B, S, -1)
     return apply_linear(out, attn.wo, save=_named(saves, rm.O_PROJ), **int8_kw), cache
 
 
@@ -462,9 +483,10 @@ class _FeedForwardQ8(torch.autograd.Function):
         h1, h3 = apply_linear_grouped(x, (ff.w1, ff.w3), **kw)
         out = apply_linear(torch.nn.functional.silu(h1) * h3, ff.w2, **kw)
         F = h1.shape[-1]
-        kept = [h, *quantize_int8_rowwise(h1.reshape(-1, F))]
+        rows = tp_rows(placement(ff.w1), "col")  # h1 / h3 hold F / tp columns under tp: the absmax spans the row
+        kept = [h, *quantize_int8_rowwise(h1.reshape(-1, F), rows)]
         if not config.remat_policy.endswith("_q8s"):
-            kept += quantize_int8_rowwise(h3.reshape(-1, F))
+            kept += quantize_int8_rowwise(h3.reshape(-1, F), rows)
         ctx.save_for_backward(*kept)
         ctx.blk, ctx.kw, ctx.keys = blk, kw, keys
         return out
@@ -560,13 +582,18 @@ def layer_seeds(dropout_seeds, num_layers: int) -> list:
 
 
 def trunk(model: Llama, x: torch.Tensor, mask_info: MaskInfo, kv_cache=None,
-          input_pos: torch.Tensor | None = None, prefill: bool = False, dropout_seeds=None):
-    """Run every layer. x [B, S, D] embeddings. Returns (x, kv_cache); the cache (a
-    pair of [L, B, n_kv, S, hd] tensors, or of (int8, scale) pairs) is updated in
-    place and returned. Without a cache and with ``activation_checkpointing``, each
-    block (under a q8 policy: its attention half) keeps its input and what
-    ``remat_policy`` names, and the rest is recomputed in the backward."""
+          input_pos: torch.Tensor | None = None, prefill: bool = False, dropout_seeds=None,
+          layers: range | None = None):
+    """Run every layer (``layers``: these of them, a pipeline stage's). x [B, S, D]
+    embeddings. Returns (x, kv_cache); the cache (a pair of [L, B, n_kv, S, hd] tensors,
+    or of (int8, scale) pairs) is updated in place and returned. Without a cache and with
+    ``activation_checkpointing``, each block (under a q8 policy: its attention half) keeps
+    its input and what ``remat_policy`` names, and the rest is recomputed in the backward."""
     config = model.config
+    layers = range(config.num_layers) if layers is None else layers
+    if any(not isinstance(model.layers[i], Block) for i in layers):
+        raise ValueError("this rank holds one pipeline stage's layers: run the model through "
+                         "parallel/pipeline.py:pipeline_loss")
     if input_pos is not None:
         rope = model.rope
     else:  # a context-parallel rank's rows sit at their global positions
@@ -595,7 +622,8 @@ def trunk(model: Llama, x: torch.Tensor, mask_info: MaskInfo, kv_cache=None,
                            dropout_seed=seed)
         return h + out
 
-    for layer, blk in enumerate(model.layers):
+    for layer in layers:
+        blk = model.layers[layer]
         if remat:
             x = checkpoint(region, x, blk, rm.SaveStore(keep), seeds[layer], use_reentrant=False,
                            preserve_rng_state=False)
@@ -608,21 +636,39 @@ def trunk(model: Llama, x: torch.Tensor, mask_info: MaskInfo, kv_cache=None,
     return x, kv_cache
 
 
+def embed(model: Llama, tokens: torch.Tensor) -> torch.Tensor:
+    """The token embeddings [..., D] of ``tokens``: a lookup, vocabulary-parallel under tp
+    (parallel/tensor.py), the table gathered over "fsdp" first."""
+    mesh = mesh_of(model)
+    if mesh is None:
+        return torch.nn.functional.embedding(tokens, model.tok_embeddings)
+    weight = gather(model.tok_embeddings, mesh)
+    if tp_size(mesh) == 1:
+        return torch.nn.functional.embedding(tokens, weight)
+    return vocab_parallel_embedding(tokens, weight, mesh, model.config.vocab_size)
+
+
 def head(model: Llama, x: torch.Tensor, labels: torch.Tensor | None = None) -> torch.Tensor:
     """Final norm + LM head -> logits, or the scalar loss when labels are given (fused
     into the head when ``fused_ce_chunks > 0``). Tied embeddings use the embedding
-    matrix: one shared weight, one shared gradient."""
+    matrix: one shared weight, one shared gradient. Under tp the head is vocabulary-
+    parallel: the loss combines across "tp", and logits are gathered whole over it."""
     c = model.config
     x = model.norm(x)
     weight = model.tok_embeddings if c.tied_embeddings else model.output.weight
+    mesh = mesh_of(model)
+    tp = tp_size(mesh) > 1
     if labels is not None and c.fused_ce_chunks > 0:
         n = x.shape[0] * x.shape[1]
         return fused_linear_cross_entropy(x.reshape(n, -1), weight, labels.reshape(n), c.fused_ce_chunks,
-                                          not c.frozen_head, c.int8_head and c.frozen_head)
-    logits = torch.nn.functional.linear(x, weight.to(x.dtype))
+                                          not c.frozen_head, c.int8_head and c.frozen_head, mesh, c.vocab_size)
+    if mesh is not None:
+        weight = gather(weight, mesh)
+    logits = torch.nn.functional.linear(copy_to_tp(x, mesh) if tp else x, weight.to(x.dtype))
     if labels is not None:
-        return cross_entropy_loss(logits, labels)
-    return logits
+        return vocab_parallel_cross_entropy(logits, labels, mesh, c.vocab_size) if tp else cross_entropy_loss(
+            logits, labels)
+    return all_gather(mesh, logits, "tp", -1, total=c.vocab_size) if tp else logits
 
 
 def forward(model: Llama, tokens: torch.Tensor, *, segment_ids: torch.Tensor | None = None,
@@ -632,7 +678,7 @@ def forward(model: Llama, tokens: torch.Tensor, *, segment_ids: torch.Tensor | N
     documents), or the scalar loss when labels [B, S] are given. With kv_cache +
     input_pos [S] + kv_len [B]: a decode step over the cache; returns (out, kv_cache).
     ``dropout_seeds`` (``layer_seeds``) turns on ``config.attn_dropout``."""
-    x = torch.nn.functional.embedding(tokens, model.tok_embeddings)
+    x = embed(model, tokens)
     if kv_cache is not None:
         q_pos = input_pos[None, :] if input_pos is not None else None
         mask_info = MaskInfo(causal=True, q_positions=q_pos, kv_len=kv_len)

@@ -41,8 +41,9 @@ def _prefill(model: llama.Llama, prompt: torch.Tensor, cache_dtype, prompt_lens=
     are right-padded to P; their pad K/V stay hidden behind each row's kv_len until
     overwritten (the ragged ``generate``'s argument)."""
     B, P = prompt.shape
-    cache = llama.init_kv_cache(model.config, B, dtype=cache_dtype, device=model.device)
-    x = torch.nn.functional.embedding(prompt, model.tok_embeddings)
+    cache = llama.init_kv_cache(model.config, B, dtype=cache_dtype, device=model.device,
+                               kv_heads=llama.local_kv_heads(model))
+    x = llama.embed(model, prompt)
     h, cache = llama.trunk(model, x, MaskInfo(causal=True), cache, input_pos=torch.arange(P, device=model.device),
                            prefill=True)
     if prompt_lens is None:
@@ -72,13 +73,13 @@ def _draft_propose(model: llama.Llama, cache, prev, cur, pos, gamma: int, genera
     bonus token followed it); re-running prev fills it, and elsewhere rewrites the same
     K/V."""
     pair = torch.stack([prev, cur], dim=1)
-    x = torch.nn.functional.embedding(pair, model.tok_embeddings)
+    x = llama.embed(model, pair)
     ppos = pos[:, None] + torch.arange(-1, 1, device=pos.device)[None, :]
     h, _ = llama.trunk(model, x, MaskInfo(causal=True, q_positions=ppos, kv_len=pos + 1), cache, input_pos=ppos)
     tok, q = _draft_sample(llama.head(model, h[:, -1:])[:, 0], temperature, top_k, top_p, min_p, generator)
     drafts, qs, p = [tok], [q], pos + 1
     for _ in range(gamma - 1):
-        x = torch.nn.functional.embedding(tok[:, None], model.tok_embeddings)
+        x = llama.embed(model, tok[:, None])
         h, _ = llama.trunk(model, x, MaskInfo(causal=True, q_positions=p[:, None], kv_len=p + 1), cache,
                            input_pos=p[:, None])
         tok, q = _draft_sample(llama.head(model, h)[:, 0], temperature, top_k, top_p, min_p, generator)
@@ -93,7 +94,7 @@ def _target_verify(model: llama.Llama, cache, cur, drafts, pos, gamma: int):
     logits [B, gamma + 1, V]: logits[:, i] scores the token AFTER input i (the last is the
     bonus position of a full accept). The cache updates in place."""
     inputs = torch.cat([cur[:, None], drafts], dim=1)
-    x = torch.nn.functional.embedding(inputs, model.tok_embeddings)
+    x = llama.embed(model, inputs)
     qpos = pos[:, None] + torch.arange(gamma + 1, device=pos.device)[None, :]
     h, _ = llama.trunk(model, x, MaskInfo(causal=True, q_positions=qpos, kv_len=pos + gamma + 1), cache,
                        input_pos=qpos)

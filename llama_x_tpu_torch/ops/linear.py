@@ -21,6 +21,18 @@ the linear's trainable tensors from (x, g) without the base forward product. The
 package calls ``jax.vjp`` on the linear there and lets XLA drop the replayed forward;
 PyTorch drops nothing, so the replay gets the base output handed in as a placeholder
 that no gradient reads.
+
+A linear that ``parallel/sharding.py:shard_params`` placed on a mesh holds its shards, and
+the functions here add what GSPMD adds (``parallel/tensor.py``): every tensor sharded over
+"fsdp" is gathered just before use (differentiably: its gradient comes back reduce-scattered;
+the int8 base inside ``int8_linear``, again in its backward). Under tp a column-parallel
+linear (``tp_kind`` "col": out over "tp") reads its input through ``copy_to_tp`` (its
+input gradient is a partial sum over the local output features), and its LoRA rank-r
+activation too (``lora_a`` is whole over "tp", ``lora_b`` sharded on out); a row-parallel
+linear ("row": in over "tp") sums its base partial and its adapter partial (``lora_a``
+sharded on in) in one ``reduce_from_tp`` of its whole output, reads its whole ``lora_b``
+through ``copy_to_tp`` and gathers its DoRA ``m`` over "tp"; DoRA's column norm there sums
+its squares over "tp" before the square root.
 """
 
 from __future__ import annotations
@@ -30,6 +42,9 @@ from torch import nn
 
 from llama_x_tpu_torch.ops.int8 import int8_linear
 from llama_x_tpu_torch.ops.remat import run_saved
+from llama_x_tpu_torch.parallel.mesh import all_reduce
+from llama_x_tpu_torch.parallel.tensor import (Placement, copy_to_tp, gather, gather_now, placement, reduce_from_tp,
+                                               tp_kind, whole_shape)
 
 
 class Linear(nn.Module):
@@ -80,55 +95,82 @@ class _FloatLinear(torch.autograd.Function):
         return gx, gw, None
 
 
+def _mesh(place: Placement | None):
+    return None if place is None else place.mesh
+
+
+def _t(lin: Linear, name: str, place: Placement | None, axes=("fsdp",)):
+    """One of the linear's tensors, gathered over ``axes`` where it is sharded there."""
+    t = getattr(lin, name)
+    return t if t is None else gather(t, _mesh(place), axes)
+
+
 def _base_matmul(x: torch.Tensor, lin: Linear, dynamic_int8_act: bool, dynamic_int8_bwd: bool,
                  save=None, preset: torch.Tensor | None = None) -> torch.Tensor:
-    """The base product. ``save=(store, name)``: a named point of a checkpointed region;
-    ``preset``: the output, handed in (no product runs)."""
+    """The base product (a row-parallel linear's partial sum). ``save=(store, name)``: a
+    named point of a checkpointed region; ``preset``: the output, handed in (no product runs)."""
 
     named = save is not None and save[1] in save[0].names
+    place = placement(lin)
 
     def base(kept):
         if lin.int_data is not None:
-            return int8_linear(x, lin.int_data, lin.scale, dynamic_int8_act, dynamic_int8_bwd, kept)
+            return int8_linear(x, lin.int_data, lin.scale, dynamic_int8_act, dynamic_int8_bwd, kept, place)
+        w = _t(lin, "weight", place).to(x.dtype)
         if named or kept is not None:
-            return _FloatLinear.apply(x, lin.weight.to(x.dtype), None if kept is None else (kept,))
-        return torch.nn.functional.linear(x, lin.weight.to(x.dtype))
+            return _FloatLinear.apply(x, w, None if kept is None else (kept,))
+        return torch.nn.functional.linear(x, w)
 
     return base(preset) if preset is not None else run_saved(save, base)
 
 
-def _dequant_kernel(lin: Linear) -> torch.Tensor:
-    """Base weight as float [in, out] (for the DoRA norm)."""
+def _dequant_kernel(lin: Linear, place: Placement | None = None) -> torch.Tensor:
+    """Base weight as float [in, out] (for the DoRA norm), whole over "fsdp"."""
+    mesh = _mesh(place)
     if lin.int_data is not None:
-        return (lin.int_data.float() * lin.scale.float()[:, None]).T
-    return lin.weight.float().T
+        return (gather_now(lin.int_data, mesh).float() * gather_now(lin.scale, mesh).float()[:, None]).T
+    return gather_now(lin.weight, mesh).float().T
 
 
-def _finish_linear(lin: Linear, out: torch.Tensor, delta: torch.Tensor | None) -> torch.Tensor:
-    """+LoRA delta, DoRA rescale, +bias, in that order."""
-    if delta is not None:
+def _finish_linear(lin: Linear, out: torch.Tensor, delta: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor:
+    """+LoRA delta, (row-parallel: the sum over "tp"), DoRA rescale, +bias, in that order."""
+    place = placement(lin)
+    kind = tp_kind(place)
+    if kind == "row":  # one all-reduce covers the base partial and the adapter partial
+        out = reduce_from_tp(out if delta is None else out + delta.to(out.dtype), place.mesh).to(dtype)
+    elif delta is not None:
         out = out + delta
     if lin.m is not None:
         with torch.no_grad():
-            d_w = lin.lora_a.float() @ lin.lora_b.float() * lin.lora_scale.float()
-            norm = torch.linalg.vector_norm(_dequant_kernel(lin) + d_w, dim=0)  # [out]
-        out = out * (lin.m.float() / norm).to(out.dtype)
+            a, b = gather_now(lin.lora_a, _mesh(place)), gather_now(lin.lora_b, _mesh(place))
+            d_w = a.float() @ b.float() * lin.lora_scale.float()
+            w = _dequant_kernel(lin, place) + d_w
+            if kind == "row":  # the in axis is split over "tp": its squares sum there
+                norm = torch.sqrt(all_reduce(place.mesh, w.square().sum(dim=0), "tp"))
+            else:
+                norm = torch.linalg.vector_norm(w, dim=0)  # [out], over the in axis
+        m = _t(lin, "m", place, ("fsdp", "tp") if kind == "row" else ("fsdp",))
+        out = out * (m.float() / norm).to(out.dtype)
     if lin.bias is not None:
-        out = out + lin.bias.to(out.dtype)
+        out = out + _t(lin, "bias", place, ("fsdp", "tp") if kind == "row" else ("fsdp",)).to(out.dtype)
     return out
 
 
 def _lora_delta(x_a: torch.Tensor, lin: Linear, dtype: torch.dtype) -> torch.Tensor:
-    return (x_a @ lin.lora_b.to(dtype)) * lin.lora_scale.to(dtype)
+    place = placement(lin)
+    b = _t(lin, "lora_b", place)
+    if tp_kind(place) == "row":
+        b = copy_to_tp(b, place.mesh)  # whole over "tp", fed by a partial: its gradient sums over "tp"
+    return (x_a @ b.to(dtype)) * lin.lora_scale.to(dtype)
+
+
+def _lora_a(lins, x: torch.Tensor) -> torch.Tensor:
+    return torch.cat([_t(lin, "lora_a", placement(lin)).to(x.dtype) for lin in lins], dim=1)
 
 
 def apply_linear(x: torch.Tensor, lin: Linear, *, dynamic_int8_act: bool = False,
                  dynamic_int8_bwd: bool = False, save=None, base_out: torch.Tensor | None = None) -> torch.Tensor:
-    out = _base_matmul(x, lin, dynamic_int8_act, dynamic_int8_bwd, save, base_out)
-    delta = None
-    if lin.lora_a is not None:
-        delta = _lora_delta(x @ lin.lora_a.to(x.dtype), lin, x.dtype)
-    return _finish_linear(lin, out, delta)
+    return _apply(x, (lin,), dynamic_int8_act, dynamic_int8_bwd, save, base_out)[0]
 
 
 def apply_linear_grouped(x: torch.Tensor, lins, *, dynamic_int8_act: bool = False,
@@ -136,20 +178,29 @@ def apply_linear_grouped(x: torch.Tensor, lins, *, dynamic_int8_act: bool = Fals
     """Several linears on the SAME input, their LoRA A-projections fused into one
     concatenated GEMM (x is read once); exact, since each output column of a matmul
     reads only its own weight column. ``save`` names every base product of the group."""
-    outs = [_base_matmul(x, lin, dynamic_int8_act, dynamic_int8_bwd, save) for lin in lins]
+    return _apply(x, tuple(lins), dynamic_int8_act, dynamic_int8_bwd, save, None)
+
+
+def _apply(x, lins, dynamic_int8_act, dynamic_int8_bwd, save, base_out):
+    kinds = {tp_kind(placement(lin)) for lin in lins}
+    if len(kinds) > 1:
+        raise ValueError(f"a group of linears mixes tensor-parallel roles {kinds}")
+    kind = kinds.pop()
+    mesh = placement(lins[0]).mesh if kind else None
+    xb = copy_to_tp(x, mesh) if kind == "col" else x  # the base products' input
+    outs = [_base_matmul(xb, lin, dynamic_int8_act, dynamic_int8_bwd, save, base_out) for lin in lins]
     lora_is = [i for i, lin in enumerate(lins) if lin.lora_a is not None]
     deltas: dict[int, torch.Tensor] = {}
-    if len(lora_is) >= 2:
-        xa = x @ torch.cat([lins[i].lora_a.to(x.dtype) for i in lora_is], dim=1)
+    if lora_is:
+        xa = x @ _lora_a([lins[i] for i in lora_is], x)
+        if kind == "col":
+            xa = copy_to_tp(xa, mesh)  # whole over "tp", feeding the tp-sharded lora_b
         off = 0
         for i in lora_is:
             r = lins[i].lora_a.shape[1]
-            deltas[i] = _lora_delta(xa[..., off:off + r], lins[i], x.dtype)
+            deltas[i] = _lora_delta(xa[..., off:off + r] if len(lora_is) > 1 else xa, lins[i], x.dtype)
             off += r
-    elif lora_is:
-        i = lora_is[0]
-        deltas[i] = _lora_delta(x @ lins[i].lora_a.to(x.dtype), lins[i], x.dtype)
-    return tuple(_finish_linear(lin, out, deltas.get(i)) for i, (lin, out) in enumerate(zip(lins, outs)))
+    return tuple(_finish_linear(lin, out, deltas.get(i), x.dtype) for i, (lin, out) in enumerate(zip(lins, outs)))
 
 
 def linear_vjp(lin: Linear, x: torch.Tensor, g: torch.Tensor, *, dynamic_int8_act: bool = False,
@@ -162,7 +213,9 @@ def linear_vjp(lin: Linear, x: torch.Tensor, g: torch.Tensor, *, dynamic_int8_ac
     output, so a linear with ``m`` runs its base product again."""
     named = [(n, p) for n, p in lin.named_parameters() if p.requires_grad]
     base = lin.int_data if lin.int_data is not None else lin.weight
-    placeholder = None if lin.m is not None else x.new_zeros(*x.shape[:-1], base.shape[0])
+    # the product's width: whole over "fsdp" (gathered before use), this rank's over "tp"
+    out_features = whole_shape(base, _mesh(placement(lin)))[0]
+    placeholder = None if lin.m is not None else x.new_zeros(*x.shape[:-1], out_features)
     with torch.enable_grad():
         xg = x.detach().requires_grad_(True)
         out = apply_linear(xg, lin, dynamic_int8_act=dynamic_int8_act, dynamic_int8_bwd=dynamic_int8_bwd,

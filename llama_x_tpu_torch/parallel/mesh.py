@@ -3,9 +3,11 @@
 The JAX package builds one ``jax.sharding.Mesh`` with the axes (dp, fsdp, pp, cp, tp) and
 lets GSPMD insert the collectives. Here every rank is one process: ``make_mesh`` lays the
 ranks out in the same axis order (tp innermost, dp outermost), infers the unnamed axes the
-same way, and makes one process group per axis that a collective runs over. The port
-carries data and context parallelism: a mesh with fsdp, pp or tp above 1 raises (slice 5b:
-parameter sharding, the pipeline and tensor parallelism).
+same way, and makes one process group per axis above size 1 and per combination of such
+axes (``"dp+fsdp"``: the batch axes; ``"tp+fsdp"``: a tensor sharded over both) that a
+collective runs over. Every axis is carried: data (dp), ZeRO-3 parameter sharding (fsdp,
+``parallel/sharding.py``), the pipeline (pp, ``parallel/pipeline.py``), context (cp) and
+tensor parallelism (tp, ``parallel/tensor.py``).
 
 The backend is named by the caller and never switched: ``nccl`` when each rank has a card
 of its own, ``gloo`` on the CPU, and ``gloo`` when ranks share a card (NCCL refuses two ranks
@@ -20,6 +22,8 @@ context-parallel attention), as the JAX package does.
 
 from __future__ import annotations
 
+import itertools
+import math
 import os
 import time
 from dataclasses import dataclass, field
@@ -29,7 +33,6 @@ import torch
 import torch.distributed as dist
 
 AXES = ("dp", "fsdp", "pp", "cp", "tp")
-LATER_AXES = ("fsdp", "pp", "tp")  # parameter sharding, the pipeline, tensor parallelism: slice 5b
 
 
 def mesh_shape(n: int, dp: int | None = None, fsdp: int | None = None, pp: int = 1, cp: int = 1,
@@ -63,8 +66,10 @@ class CommStats:
 @dataclass
 class Mesh:
     """This rank's view of the mesh: the axis sizes, its rank (whose coordinates ``index``
-    gives), the backend, and the process group of each axis above size 1 and of the whole
-    mesh ("mesh")."""
+    gives), the backend, and the process groups: one per axis above size 1, one per
+    combination of such axes (keyed "a+b" in the order of ``AXES``) and the whole mesh
+    ("mesh"). An axis argument names one axis, a combination ("dp+fsdp") or "mesh"; axes
+    of size 1 in it are dropped."""
 
     shape: dict[str, int]
     rank: int
@@ -79,11 +84,29 @@ class Mesh:
     def coords(self) -> dict[str, int]:
         return dict(zip(AXES, (int(c) for c in np.unravel_index(self.rank, tuple(self.shape[a] for a in AXES)))))
 
+    def axes(self, axis: str) -> tuple[str, ...]:
+        """The axes above size 1 that ``axis`` names, in the order of ``AXES``."""
+        named = AXES if axis == "mesh" else tuple(axis.split("+"))
+        unknown = set(named) - set(AXES)
+        if unknown:
+            raise ValueError(f"unknown mesh axes {sorted(unknown)}")
+        return tuple(a for a in AXES if a in named and self.shape[a] > 1)
+
     def index(self, axis: str) -> int:
-        return self.coords()[axis]
+        """This rank's index along ``axis`` (mixed radix over a combination, the first axis
+        major: its rank in the combination's process group)."""
+        c, i = self.coords(), 0
+        for a in self.axes(axis):
+            i = i * self.shape[a] + c[a]
+        return i
 
     def axis_size(self, axis: str) -> int:
-        return self.size if axis == "mesh" else self.shape[axis]
+        return int(np.prod([self.shape[a] for a in self.axes(axis)] or [1]))
+
+    def group(self, axis: str):
+        """The process group of ``axis`` (see the class docstring)."""
+        axes = self.axes(axis)
+        return self.groups["mesh" if axes == self.axes("mesh") else "+".join(axes)]
 
 
 def rank_device(backend: str, device: str | torch.device, local_rank: int, local_world_size: int) -> torch.device:
@@ -127,35 +150,28 @@ def init_distributed(backend: str, device: str | torch.device = "cuda", init_met
     return dev
 
 
-def refuse_later_axes(shape: dict[str, int]) -> None:
-    """Raise, naming slice 5b, for a mesh with fsdp, pp or tp above 1."""
-    later = [f"{a}={shape[a]}" for a in LATER_AXES if shape[a] > 1]
-    if later:
-        raise NotImplementedError(f"mesh {shape}: {', '.join(later)} is not ported yet (slice 5b: fsdp / tp "
-                                  f"parameter sharding and the pipeline); pass dp and cp only, e.g. "
-                                  f'{{"dp": {shape["dp"] * shape["fsdp"]}, "cp": {shape["cp"]}}}')
-
-
 def make_mesh(dp: int | None = None, fsdp: int | None = None, pp: int = 1, cp: int = 1, tp: int = 1) -> Mesh:
     """The (dp, fsdp, pp, cp, tp) mesh over the ranks of the process group (one rank when
     none is initialized), with the JAX package's inference of unnamed axes. Every rank must
     call it, in the same order: it makes the axes' process groups."""
     n = dist.get_world_size() if dist.is_initialized() else 1
     shape = mesh_shape(n, dp, fsdp, pp, cp, tp)
-    refuse_later_axes(shape)
     rank = dist.get_rank() if dist.is_initialized() else 0
     backend = dist.get_backend() if dist.is_initialized() else None
     mesh = Mesh(shape, rank, backend)
     if n > 1:
         grid = np.arange(n).reshape(tuple(shape[a] for a in AXES))
-        for i, axis in enumerate(AXES):
-            if shape[axis] == 1:
-                continue
-            lines = np.moveaxis(grid, i, -1).reshape(-1, shape[axis])
-            for line in lines:  # every rank makes every group, in one order
-                g = dist.new_group([int(r) for r in line])
-                if rank in line:
-                    mesh.groups[axis] = g
+        live = [i for i, a in enumerate(AXES) if shape[a] > 1]
+        for k in range(1, len(live)):
+            for combo in itertools.combinations(live, k):
+                size = int(np.prod([shape[AXES[i]] for i in combo]))
+                # the combination's axes last, in AXES order: each line lists one group's
+                # ranks in mixed-radix order, which is ascending
+                lines = np.moveaxis(grid, combo, range(len(AXES) - len(combo), len(AXES))).reshape(-1, size)
+                for line in lines:  # every rank makes every group, in one order
+                    g = dist.new_group([int(r) for r in line])
+                    if rank in line:
+                        mesh.groups["+".join(AXES[i] for i in combo)] = g
         mesh.groups["mesh"] = dist.group.WORLD
     return mesh
 
@@ -186,7 +202,7 @@ def current_mesh() -> Mesh | None:
 
 
 # ---------------------------------------------------------------------------
-# collectives over one axis ("dp", "cp", or "mesh" for all of it)
+# collectives over an axis ("dp", a combination "dp+fsdp", or "mesh" for all of it)
 # ---------------------------------------------------------------------------
 
 
@@ -217,26 +233,75 @@ def _bytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def all_reduce(mesh: Mesh, t: torch.Tensor, axis: str = "mesh") -> torch.Tensor:
-    """Sum of ``t`` over the axis' ranks (a new tensor on t's device)."""
+def all_reduce(mesh: Mesh, t: torch.Tensor, axis: str = "mesh", op: str = "sum") -> torch.Tensor:
+    """Sum (``op="max"``: maximum) of ``t`` over the axis' ranks (a new tensor on t's device)."""
     if mesh.axis_size(axis) == 1:
         return t
     with _Timed(mesh, _bytes(t)):
         buf = _to_backend(mesh, t).clone()
-        dist.all_reduce(buf, group=mesh.groups[axis])
+        dist.all_reduce(buf, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM, group=mesh.group(axis))
         return buf.to(t.device)
 
 
-def all_gather(mesh: Mesh, t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
-    """The axis' ranks' ``t`` concatenated along ``dim`` in rank order."""
+def shard_bounds(total: int, n: int, i: int) -> tuple[int, int]:
+    """[start, stop) of shard ``i`` of ``n`` over ``total`` entries, as GSPMD cuts a dimension
+    that does not divide: every shard ceil(total / n) long but the last ones, which are
+    shorter (or empty). The port keeps a shard unpadded."""
+    size = -(-total // n)
+    return min(i * size, total), min((i + 1) * size, total)
+
+
+def all_gather(mesh: Mesh, t: torch.Tensor, axis: str, dim: int, total: int | None = None) -> torch.Tensor:
+    """The axis' ranks' ``t`` concatenated along ``dim`` in rank order. ``total``: the whole
+    length along ``dim`` when the shards are ``shard_bounds``' uneven ones (each is padded
+    to the longest for the exchange and cut back after it)."""
     n = mesh.axis_size(axis)
     if n == 1:
         return t
-    with _Timed(mesh, _bytes(t) * n):
-        src = _to_backend(mesh, t)
+    dim = dim % t.ndim
+    size = t.shape[dim] if total is None else -(-total // n)
+    shape = list(t.shape)
+    shape[dim] = size
+    with _Timed(mesh, math.prod(shape) * t.element_size() * n):
+        src = _to_backend(mesh, _pad(t, dim, size))
         parts = [torch.empty_like(src) for _ in range(n)]
-        dist.all_gather(parts, src, group=mesh.groups[axis])
-        return torch.cat(parts, dim=dim).to(t.device)
+        dist.all_gather(parts, src, group=mesh.group(axis))
+        out = torch.cat(parts, dim=dim)
+        if total is not None:
+            out = out.narrow(dim, 0, total)
+        return out.to(t.device)
+
+
+def _pad(t: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    """``t`` with zeros after its end along ``dim`` up to ``size``."""
+    if t.shape[dim] == size:
+        return t
+    shape = list(t.shape)
+    shape[dim] = size - t.shape[dim]
+    return torch.cat([t, t.new_zeros(shape)], dim=dim)
+
+
+NATIVE_REDUCE_SCATTER = ("nccl",)  # backends whose own reduce-scatter ``reduce_scatter`` calls
+
+
+def reduce_scatter(mesh: Mesh, t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    """This rank's ``shard_bounds`` slice along ``dim`` of the sum of ``t`` over the axis'
+    ranks. On a backend of ``NATIVE_REDUCE_SCATTER`` one reduce-scatter (``dim`` padded to n
+    equal shards and moved first); elsewhere an all-reduce and a cut, the same sum at twice
+    the bytes (gloo has no reduce-scatter in every PyTorch release)."""
+    n = mesh.axis_size(axis)
+    if n == 1:
+        return t
+    dim = dim % t.ndim
+    lo, hi = shard_bounds(t.shape[dim], n, mesh.index(axis))
+    if mesh.backend not in NATIVE_REDUCE_SCATTER:
+        return all_reduce(mesh, t, axis).narrow(dim, lo, hi - lo).contiguous()
+    size = -(-t.shape[dim] // n)
+    with _Timed(mesh, t.numel() // max(t.shape[dim], 1) * size * n * t.element_size()):
+        src = _to_backend(mesh, _pad(t, dim, size * n).movedim(dim, 0))
+        out = src.new_empty((size, *src.shape[1:]))
+        dist.reduce_scatter_tensor(out, src, group=mesh.group(axis))
+        return out[:hi - lo].movedim(0, dim).contiguous().to(t.device)
 
 
 def all_to_all(mesh: Mesh, t: torch.Tensor, axis: str) -> torch.Tensor:
@@ -250,8 +315,47 @@ def all_to_all(mesh: Mesh, t: torch.Tensor, axis: str) -> torch.Tensor:
     with _Timed(mesh, _bytes(t)):
         src = _to_backend(mesh, t)
         out = torch.empty_like(src)
-        dist.all_to_all_single(out, src, group=mesh.groups[axis])
+        dist.all_to_all_single(out, src, group=mesh.group(axis))
         return out.to(t.device)
+
+
+def _peer(mesh: Mesh, axis: str, index: int) -> int:
+    """The global rank of the rank at ``index`` along ``axis`` (this rank's other coordinates)."""
+    return dist.get_process_group_ranks(mesh.group(axis))[index]
+
+
+def send(mesh: Mesh, tensors, axis: str, to: int, tag: int = 0):
+    """Send ``tensors`` (as one message) to the rank at index ``to`` along ``axis``; returns
+    the request, whose ``wait()`` the caller owes before it reuses the tensors' memory
+    (the staged copy is kept alive on the request)."""
+    ts = list(tensors)
+    with _Timed(mesh, _bytes(*ts)):
+        buf = _to_backend(mesh, _pack(ts))
+        return _Sent(mesh, dist.isend(buf, _peer(mesh, axis, to), group=mesh.group(axis), tag=tag), buf)
+
+
+class _Sent:
+    """A send in flight and its staged message, kept alive until ``wait()``."""
+
+    def __init__(self, mesh: Mesh, req, buf: torch.Tensor):
+        self.mesh, self.req, self.buf = mesh, req, buf
+
+    def wait(self) -> None:
+        with _Timed(self.mesh, 0):
+            self.req.wait()
+        self.buf = None
+
+
+def recv(mesh: Mesh, like, axis: str, frm: int, tag: int = 0) -> list[torch.Tensor]:
+    """Receive the message of ``send`` from the rank at index ``frm`` along ``axis``: tensors
+    of ``like``'s shapes and dtypes, on ``like[0]``'s device."""
+    like = list(like)
+    n = sum(_span(t) for t in like)
+    with _Timed(mesh, n):
+        dev = like[0].device
+        buf = torch.empty(n, dtype=torch.uint8, device="cpu" if mesh.backend == "gloo" else dev)
+        dist.recv(buf, _peer(mesh, axis, frm), group=mesh.group(axis), tag=tag)
+        return _unpack(buf.to(dev), like)
 
 
 def _span(t: torch.Tensor) -> int:
@@ -294,7 +398,7 @@ class RingExchange:
         t0 = time.perf_counter()
         send = _to_backend(mesh, _pack(self.like))
         self.recv = torch.empty_like(send)
-        group = mesh.groups[axis]
+        group = mesh.group(axis)
         ranks = dist.get_process_group_ranks(group)
         to, frm = ranks[(i - 1) % n if reverse else (i + 1) % n], ranks[(i + 1) % n if reverse else (i - 1) % n]
         self.reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, send, to, group, tag),

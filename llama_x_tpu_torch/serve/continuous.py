@@ -94,10 +94,13 @@ def sampling_tensors(rows: list[tuple], device) -> tuple[torch.Tensor, ...]:
 # ---------------------------------------------------------------------------
 
 
-def init_state(config: llama.LlamaConfig, n_slots: int, cache_dtype=torch.bfloat16, device=None):
+def init_state(config: llama.LlamaConfig, n_slots: int, cache_dtype=torch.bfloat16, device=None,
+               kv_heads: int | None = None):
+    """The scheduler's state over ``n_slots`` lanes; ``kv_heads``: a tensor-parallel rank's
+    local kv heads (``llama.local_kv_heads``)."""
     dev = resolve_device(device)
     zeros = lambda: torch.zeros(n_slots, dtype=torch.int64, device=dev)  # noqa: E731
-    return (llama.init_kv_cache(config, n_slots, dtype=cache_dtype, device=dev), zeros(), zeros(),
+    return (llama.init_kv_cache(config, n_slots, dtype=cache_dtype, device=dev, kv_heads=kv_heads), zeros(), zeros(),
             torch.ones(n_slots, dtype=torch.bool, device=dev), zeros())  # empty slots are "done"
 
 
@@ -114,9 +117,10 @@ def lane(kv_cache, slot: int):
     return one(kv_cache[0]), one(kv_cache[1])
 
 
-def row_cache(config: llama.LlamaConfig, length: int, cache_dtype, device):
+def row_cache(config: llama.LlamaConfig, length: int, cache_dtype, device, kv_heads: int | None = None):
     """A private single-row cache of ``length`` positions (a chunked prefill's)."""
-    return llama.init_kv_cache(config.replace(max_seq_len=length), 1, dtype=cache_dtype, device=device)
+    return llama.init_kv_cache(config.replace(max_seq_len=length), 1, dtype=cache_dtype, device=device,
+                               kv_heads=kv_heads)
 
 
 def copy_positions(dst_cache, src_cache, n: int) -> None:
@@ -148,7 +152,7 @@ def admit_row(model: llama.Llama, state, slot: int, prompt: list[int], sampling,
     read, and the decode steps overwrite each later position before they expose it."""
     P = len(prompt)
     ids = torch.tensor([prompt], dtype=torch.long, device=model.device)
-    x = torch.nn.functional.embedding(ids, model.tok_embeddings)
+    x = llama.embed(model, ids)
     h, _ = llama.trunk(model, x, MaskInfo(causal=True), lane(state[0], slot),
                        input_pos=torch.arange(P, device=model.device), prefill=True)
     first = sample_first(model, h[:, -1:], sampling, generator)
@@ -162,7 +166,7 @@ def _suffix_over_cache(model, cache, suffix: list[int], start: int):
     flash kernel's offsets form takes (the decode kernel up to MAX_SQ rows)."""
     n = len(suffix)
     ids = torch.tensor([suffix], dtype=torch.long, device=model.device)
-    x = torch.nn.functional.embedding(ids, model.tok_embeddings)
+    x = llama.embed(model, ids)
     qpos = torch.arange(start, start + n, device=model.device)
     mask = MaskInfo(causal=True, q_positions=qpos[None], kv_len=torch.tensor([start + n], device=model.device))
     h, _ = llama.trunk(model, x, mask, cache, input_pos=qpos)
@@ -190,7 +194,7 @@ def prefill_chunk(model: llama.Llama, cache, chunk: list[int], start: int):
     fresh K/V); a later one attends over the whole row cache (positions [0, start + len))."""
     if start == 0:
         ids = torch.tensor([chunk], dtype=torch.long, device=model.device)
-        x = torch.nn.functional.embedding(ids, model.tok_embeddings)
+        x = llama.embed(model, ids)
         h, _ = llama.trunk(model, x, MaskInfo(causal=True), cache,
                            input_pos=torch.arange(len(chunk), device=model.device), prefill=True)
         return h[:, -1:]
@@ -228,7 +232,7 @@ def decode_rows(model: llama.Llama, state, n_steps: int, generator: torch.Genera
     S_max = model.config.max_seq_len
     toks = []
     for _ in range(n_steps):
-        x = torch.nn.functional.embedding(tok[:, None], model.tok_embeddings)
+        x = llama.embed(model, tok[:, None])
         mask = MaskInfo(causal=True, q_positions=pos[:, None], kv_len=pos + 1)
         h, _ = llama.trunk(model, x, mask, kv_cache, input_pos=pos[:, None])
         nxt = sample_logits_rows(llama.head(model, h)[:, 0], temperature, top_k, top_p, min_p, generator)
@@ -325,7 +329,7 @@ class ContinuousScheduler:
         self.worker.start()
 
     def _init_state(self):
-        return init_state(self.config, self.n_slots, self.cache_dtype, self.device)
+        return init_state(self.config, self.n_slots, self.cache_dtype, self.device, llama.local_kv_heads(self.model))
 
     # -- client side ---------------------------------------------------------
 
@@ -404,7 +408,7 @@ class ContinuousScheduler:
     def _start_prefill(self, slot: int, row: RowHandle):
         """Chunked-prefill admission: a private row cache (seeded from a prefix hit when
         one matches), queued for chunks."""
-        cache = row_cache(self.config, len(row.ids), self.cache_dtype, self.device)
+        cache = row_cache(self.config, len(row.ids), self.cache_dtype, self.device, llama.local_kv_heads(self.model))
         start = 0
         hit = self._take_prefix(row.ids)
         if hit is not None:

@@ -41,11 +41,12 @@ from llama_x_tpu_torch.utils.device import resolve_device
 
 
 def init_spec_state(config: llama.LlamaConfig, draft_config: llama.LlamaConfig, n_slots: int,
-                    cache_dtype=torch.bfloat16, device=None):
+                    cache_dtype=torch.bfloat16, device=None, kv_heads=(None, None)):
+    """``kv_heads``: the target's and the draft's local kv heads under tensor parallelism."""
     dev = resolve_device(device)
     zeros = lambda: torch.zeros(n_slots, dtype=torch.int64, device=dev)  # noqa: E731
-    return (llama.init_kv_cache(config, n_slots, dtype=cache_dtype, device=dev),
-            llama.init_kv_cache(draft_config, n_slots, dtype=cache_dtype, device=dev),
+    return (llama.init_kv_cache(config, n_slots, dtype=cache_dtype, device=dev, kv_heads=kv_heads[0]),
+            llama.init_kv_cache(draft_config, n_slots, dtype=cache_dtype, device=dev, kv_heads=kv_heads[1]),
             zeros(), zeros(), zeros(), torch.ones(n_slots, dtype=torch.bool, device=dev), zeros())
 
 
@@ -78,14 +79,14 @@ def spec_chunk(model: llama.Llama, draft_model: llama.Llama, state, n_rounds: in
             live_rounds += (~done).sum()
         # draft: the pair step, then gamma - 1 single steps at per-row positions
         pair = torch.stack([prev, cur], dim=1)
-        x = torch.nn.functional.embedding(pair, draft_model.tok_embeddings)
+        x = llama.embed(draft_model, pair)
         ppos = pos[:, None] + torch.arange(-1, 1, device=dev)[None, :]
         h, _ = llama.trunk(draft_model, x, MaskInfo(causal=True, q_positions=ppos, kv_len=pos + 1), d_cache,
                            input_pos=ppos)
         tok, q = _sample_rows(llama.head(draft_model, h[:, -1:])[:, 0], temperature, top_k, top_p, min_p, generator)
         drafts, qs, p = [tok], [q], pos + 1
         for _ in range(gamma - 1):
-            x = torch.nn.functional.embedding(tok[:, None], draft_model.tok_embeddings)
+            x = llama.embed(draft_model, tok[:, None])
             h, _ = llama.trunk(draft_model, x, MaskInfo(causal=True, q_positions=p[:, None], kv_len=p + 1), d_cache,
                                input_pos=p[:, None])
             tok, q = _sample_rows(llama.head(draft_model, h)[:, 0], temperature, top_k, top_p, min_p, generator)
@@ -96,7 +97,7 @@ def spec_chunk(model: llama.Llama, draft_model: llama.Llama, state, n_rounds: in
 
         # target: one verify pass over [cur, d_1..d_gamma]
         inputs = torch.cat([cur[:, None], drafts], dim=1)
-        x = torch.nn.functional.embedding(inputs, model.tok_embeddings)
+        x = llama.embed(model, inputs)
         qpos = pos[:, None] + idx
         h, _ = llama.trunk(model, x, MaskInfo(causal=True, q_positions=qpos, kv_len=pos + gamma + 1), t_cache,
                            input_pos=qpos)
@@ -144,7 +145,7 @@ def spec_admit_row(model: llama.Llama, draft_model: llama.Llama, state, slot: in
     x_pos = torch.arange(P, device=model.device)
 
     def prefill(m, cache):
-        x = torch.nn.functional.embedding(ids, m.tok_embeddings)
+        x = llama.embed(m, ids)
         return llama.trunk(m, x, MaskInfo(causal=True), lane(cache, slot), input_pos=x_pos, prefill=True)[0]
 
     h = prefill(model, t_cache)
@@ -179,7 +180,8 @@ class SpeculativeScheduler(ContinuousScheduler):
         self.live_row_rounds = torch.zeros((), dtype=torch.int64, device=self.device)
 
     def _init_state(self):
-        return init_spec_state(self.config, self.draft_config, self.n_slots, self.cache_dtype, self.device)
+        return init_spec_state(self.config, self.draft_config, self.n_slots, self.cache_dtype, self.device,
+                               (llama.local_kv_heads(self.model), llama.local_kv_heads(self.draft_model)))
 
     # a round writes target positions up to pos + gamma and draft positions up to
     # pos + gamma - 1; pos <= P + budget - 1 while live, so P + budget + gamma must fit both

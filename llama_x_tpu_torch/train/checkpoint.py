@@ -7,6 +7,13 @@ file; ``restore_checkpoint`` loads a step directory into an existing ``TrainStat
 moments (fp32 or quantized), optimizer count and step all come back bit for bit. The
 file is ``state.pt`` (``torch.save`` of plain tensors and ints). Reading the JAX
 package's ``.npz`` / Orbax checkpoints comes with the HF import / export slice.
+
+A sharded run (fsdp / tp / pp, parallel/sharding.py) saves what an unsharded run saves,
+as the JAX package's Orbax checkpoints do: every rank takes part in gathering the whole
+tensors (``full_state_dict``, the optimizer's ``state_dict``; under pp each stage's layers and
+moments) and rank 0 alone writes them; every rank restores by reading the file and taking
+its slices. So a run saved at tp 2 or fsdp 2 restores into a run without a mesh, and the
+other way round. The optimizer's moments are kept by parameter name.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ from pathlib import Path
 
 import torch
 
+from llama_x_tpu_torch.parallel.sharding import full_state_dict, load_full_state_dict
 from llama_x_tpu_torch.train.trainer import TrainState
 
 
@@ -25,7 +33,38 @@ def _point_last(ckpt_dir: Path, name: str) -> None:
     os.replace(tmp, ckpt_dir / "last")
 
 
-def save_checkpoint(ckpt_dir: str | Path, state: TrainState, step: int) -> Path:
+def _optimizer_record(state: TrainState) -> dict:
+    """The optimizer's state whole, its moments keyed by parameter name (every stage's)."""
+    sd = state.optimizer.state_dict()
+    names = [n for n, _ in state.trainable]
+    rec = {"count": sd["count"], "mu": dict(zip(names, sd["mu"])), "nu": dict(zip(names, sd["nu"]))}
+    mesh = getattr(state.model, "mesh", None)
+    if mesh is not None and mesh.axis_size("pp") > 1:
+        import torch.distributed as dist
+
+        def cpu(x):
+            return tuple(cpu(t) for t in x) if isinstance(x, tuple) else x.detach().cpu()
+
+        parts = [None] * mesh.axis_size("pp")
+        dist.all_gather_object(parts, {k: {n: cpu(v) for n, v in rec[k].items()} for k in ("mu", "nu")},
+                               group=mesh.group("pp"))
+        for part in parts:
+            for k in ("mu", "nu"):
+                rec[k].update(part[k])
+    return rec
+
+
+def save_checkpoint(ckpt_dir: str | Path | None, state: TrainState, step: int) -> Path | None:
+    """Save ``state`` under ``ckpt_dir``/step_<step> and point ``last`` at it. Over a mesh every
+    rank calls it (the tensors are gathered whole) and only the one given a ``ckpt_dir``
+    (rank 0) writes."""
+    record = {
+        "step": state.step,
+        "model": {k: v.detach().cpu() for k, v in full_state_dict(state.model).items()},
+        "optimizer": _optimizer_record(state),
+    }
+    if ckpt_dir is None:
+        return None
     ckpt_dir = Path(ckpt_dir).absolute()
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     path = ckpt_dir / f"step_{step:08d}"
@@ -33,11 +72,6 @@ def save_checkpoint(ckpt_dir: str | Path, state: TrainState, step: int) -> Path:
         # the end-of-training save lands on the last interval save's step when
         # n_steps % ckpt_interval == 0: the bytes would be the same, so keep them
         path.mkdir()
-        record = {
-            "step": state.step,
-            "model": {k: v.detach().cpu() for k, v in state.model.state_dict().items()},
-            "optimizer": state.optimizer.state_dict(),
-        }
         tmp = path / ".state.pt.tmp"
         torch.save(record, tmp)
         os.replace(tmp, path / "state.pt")
@@ -57,16 +91,14 @@ def latest_checkpoint(ckpt_dir: str | Path) -> Path | None:
 
 
 def restore_checkpoint(path: str | Path, state: TrainState) -> TrainState:
-    """Load ``path`` (a step directory) into ``state``, in place; returns it."""
+    """Load ``path`` (a step directory) into ``state``, in place; returns it. A sharded model
+    takes its slices of the saved whole tensors (every rank of its mesh calls it)."""
     record = torch.load(Path(path) / "state.pt", map_location="cpu", weights_only=True)
-    with torch.no_grad():
-        own = state.model.state_dict()
-        missing = set(own) ^ set(record["model"])
-        if missing:
-            raise ValueError(f"checkpoint and model disagree on tensors: {sorted(missing)[:8]}")
-        for name, t in own.items():
-            t.copy_(record["model"][name])
-    state.optimizer.load_state_dict(record["optimizer"])
+    load_full_state_dict(state.model, record["model"])
+    opt = record["optimizer"]
+    names = [n for n, _ in state.trainable]
+    state.optimizer.load_state_dict({"count": opt["count"], "mu": [opt["mu"][n] for n in names],
+                                     "nu": [opt["nu"][n] for n in names]})
     state.step = int(record["step"])
     return state
 

@@ -5,17 +5,19 @@ multimodal trainers), the model config beside the checkpoints, optimizer set-up 
 step-batch assembly.
 
 Flags of the JAX trainer that belong to later slices of the port are accepted by the
-parser and refused with the slice's name, never ignored: a ``--mesh`` with fsdp, pp or tp
-above 1 and ``--pp_microbatches`` (parameter sharding and the pipeline: slice 5b), the
-``attn_q8`` / ``attn_q8s`` remat policies (slice 2c), and real MetaMathQA text (its files
-are not in the repository). ``--model`` reads a local HF checkpoint directory
-(models/hf.py).
+parser and refused with the slice's name, never ignored: the ``attn_q8`` / ``attn_q8s``
+remat policies (slice 2c) and real MetaMathQA text (its files are not in the repository).
+``--model`` reads a local HF checkpoint directory (models/hf.py).
 
-Data and context parallelism: ``--mesh '{"dp": D, "cp": C}'`` with ``--attn_impl ring`` or
-``ulysses`` under ``torch.distributed.run`` (D x C processes). ``setup_mesh`` joins the
-process group (``--dist_backend``: nccl on the card, one card per rank; gloo on the CPU, or
-when ranks share a card), builds the mesh and validates the flags; ``run_training`` gives
-each rank its dp block of every step batch, and rank 0 alone writes the run directory.
+Parallelism: ``--mesh '{"dp": D, "fsdp": F, "pp": P, "cp": C, "tp": T}'`` under
+``torch.distributed.run`` (D x F x P x C x T processes; ``--attn_impl ring`` or ``ulysses``
+with cp, ``--pp_microbatches`` with pp). ``setup_mesh`` joins the process group
+(``--dist_backend``: nccl on the card, one card per rank; gloo on the CPU, or when ranks
+share a card), builds the mesh and validates the flags; ``place_model`` shards the built
+model's parameters over fsdp / tp / pp (parallel/sharding.py); ``run_training`` gives each
+rank its block of every step batch, and rank 0 alone writes the run directory (every rank
+takes part in gathering a checkpoint). With a pp axis each trainer's loss is the GPipe
+schedule (``parallel/pipeline.py``) over ``pp_microbatch_count`` microbatches.
 """
 
 from __future__ import annotations
@@ -31,8 +33,8 @@ import torch
 from llama_x_tpu_torch.adapters.lora import apply_linear_adapter, set_trainable
 from llama_x_tpu_torch.adapters.quantize import quantize_linear
 from llama_x_tpu_torch.models import llama
-from llama_x_tpu_torch.parallel.mesh import LATER_AXES, Mesh, init_distributed, make_mesh
-from llama_x_tpu_torch.parallel.sharding import shard_batch
+from llama_x_tpu_torch.parallel.mesh import Mesh, init_distributed, make_mesh
+from llama_x_tpu_torch.parallel.sharding import shard_batch, shard_params
 from llama_x_tpu_torch.train.optim import get_optimizer, trapezoid_schedule
 from llama_x_tpu_torch.train.validate import validate_launch
 from llama_x_tpu_torch.train.trainer import trainable_parameters
@@ -75,12 +77,14 @@ def add_common_args(parser: argparse.ArgumentParser):
     parser.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
 
     parser.add_argument("--mesh", type=json.loads, default=dict(),
-                        help='the mesh, e.g. \'{"dp": 2, "cp": 2}\' (one process a rank, under torch.distributed.run); '
-                             "fsdp, pp and tp above 1 are not ported yet (slice 5b)")
+                        help='the mesh, e.g. \'{"dp": 2, "cp": 2}\', \'{"fsdp": 2, "tp": 2}\' or \'{"dp": 2, "pp": 2}\' '
+                             "(one process a rank, under torch.distributed.run)")
     parser.add_argument("--dist_backend", choices=["nccl", "gloo"],
                         help="the process group's backend: default nccl on the card (one card per rank), gloo on the "
                              "CPU; gloo when ranks share a card")
-    parser.add_argument("--pp_microbatches", type=int, default=0, help="not ported yet: slice 5b (the pipeline)")
+    parser.add_argument("--pp_microbatches", type=int, default=0,
+                        help="GPipe microbatches with a pp mesh axis (default: the pp size, or the gcd with the local "
+                             "batch)")
     parser.add_argument("--attn_impl", default="auto", choices=["auto", "flash", "ring", "ulysses"])
     parser.add_argument("--remat_policy", default="full", choices=REMAT_POLICIES)
     parser.add_argument("--fused_ce_chunks", type=int, default=0)
@@ -101,11 +105,6 @@ def check_supported(args, real_data: str | None = "MetaMathQA data (slice 2b)") 
     trainer's real dataset where the port cannot read it yet (it needs files the
     repository does not hold), or None where ``--dataset_dir`` reads it."""
     later = []
-    sharded = [f"{a}={args.mesh[a]}" for a in LATER_AXES if (args.mesh.get(a) or 1) > 1]
-    if sharded:
-        later.append(f"--mesh with {', '.join(sharded)} (fsdp / tp parameter sharding and the pipeline: slice 5b)")
-    if args.pp_microbatches:
-        later.append("--pp_microbatches (the pipeline: slice 5b)")
     if args.remat_policy in ("attn_q8", "attn_q8s"):
         later.append(f"--remat_policy {args.remat_policy} (the int8-residual attention: slice 2c)")
     if not args.synthetic and real_data is not None:
@@ -127,6 +126,33 @@ def setup_mesh(args, modality: str = "text", max_seq_len: int | None = None) -> 
     mesh = make_mesh(**args.mesh)
     validate_launch(args, mesh, modality=modality, max_seq_len=max_seq_len)
     return mesh
+
+
+def place_model(model, mesh: Mesh):
+    """Shard the built model's parameters over the mesh's fsdp / tp / pp axes (each rank
+    keeps its slices: parallel/sharding.py); a model on a mesh without them stays whole."""
+    if any(mesh.axis_size(a) > 1 for a in ("fsdp", "pp", "tp")):
+        shard_params(model, mesh)
+    return model
+
+
+def pp_microbatch_count(args, mesh: Mesh, micro_bs: int) -> int:
+    """GPipe microbatches for the pp trainer path: --pp_microbatches, else the pp size
+    (falling back to the gcd when the local batch does not divide). Shared by every trainer
+    with a pp mode."""
+    import math
+
+    pp = mesh.shape.get("pp", 1)
+    dp_size = mesh.shape.get("dp", 1) * mesh.shape.get("fsdp", 1)
+    local_bs = micro_bs // dp_size
+    n_micro = args.pp_microbatches or (pp if local_bs % pp == 0 else math.gcd(local_bs, pp))
+    assert local_bs % n_micro == 0, (
+        f"local batch {local_bs} (batch {micro_bs} / data-parallel {dp_size}) must "
+        f"divide into --pp_microbatches {n_micro}"
+    )
+    if n_micro < pp:
+        print(f"warning: {n_micro} pipeline microbatches < {pp} stages — large bubble")
+    return n_micro
 
 
 def make_save_dir(task: str, run_name: str | None) -> Path:
@@ -242,7 +268,7 @@ def build_model_params(args, max_seq_len: int = 2048, audio_config=None, vision_
 def setup_optimizer(args, model):
     schedule = trapezoid_schedule(args.lr, args.n_steps, args.warmup, args.decay)
     optimizer = get_optimizer(args.optim, trainable_parameters(model), schedule, args.weight_decay,
-                              args.clip_grad_norm)
+                              args.clip_grad_norm, mesh=getattr(model, "mesh", None))
     return optimizer, schedule
 
 
@@ -312,9 +338,9 @@ def run_training(args, model, data_iter, loss_fn, task: str, audio_config=None, 
                 log.update(meter.rates())
             logger.log(log, step)
             print(f"step {step}: loss {log['loss']:.4f}")
-        if lead and args.ckpt_interval > 0 and state.step % args.ckpt_interval == 0:
-            save_checkpoint(save_dir, state, state.step)
+        if args.ckpt_interval > 0 and state.step % args.ckpt_interval == 0:
+            save_checkpoint(save_dir if lead else None, state, state.step)
 
+    save_checkpoint(save_dir if lead else None, state, state.step)
     if lead:
-        save_checkpoint(save_dir, state, state.step)
         logger.finish()

@@ -15,11 +15,25 @@ parameters computes in bf16 and would not track it:
 
 The optimizer takes fp32 gradients explicitly (the trainer accumulates them in fp32
 buffers) and updates the parameters in place.
+
+Over a mesh (``mesh``, with parameters that ``parallel/sharding.py:shard_params`` sharded
+over fsdp and / or tp) the fp32 moments are sharded as their parameter is (the update is
+elementwise). The 8 / 4-bit state is not: its blocks are those of the WHOLE flattened
+tensor, as the JAX package (which quantizes the unsharded tensor) has them, so each rank of
+the parameter's shard group keeps a contiguous range of whole blocks, updates those
+elements from the gathered gradient and parameter, and the group gathers the updated
+ranges back into every rank's slice. The codes, the scales and the update are then the
+unsharded ones, bit for bit (``tests/test_torch_sharding.py``). ``state_dict`` gives the
+state whole (fp32 moments gathered, block ranges concatenated: the unsharded layout) and
+``load_state_dict`` takes it whole, on every rank of the mesh.
 """
 
 from __future__ import annotations
 
 import torch
+
+from llama_x_tpu_torch.parallel.mesh import AXES, all_gather, all_reduce
+from llama_x_tpu_torch.parallel.tensor import gather_now, local_part, sharded_axes, stage_local, whole_shape
 
 
 def trapezoid_schedule(lr: float, n_steps: int, warmup: float = 0.0, decay: float = 0.0):
@@ -69,7 +83,7 @@ def dequantize_state(q: torch.Tensor, scale: torch.Tensor, shape, block: int = _
     if bits == 4:
         lo = (q << 4) >> 4  # int8 shifts are arithmetic: sign-extends the low nibble
         hi = q >> 4
-        q = torch.stack([lo, hi], dim=-1).reshape(q.shape[0], -1)
+        q = torch.stack([lo, hi], dim=-1).reshape(q.shape[0], 2 * q.shape[1])
         qmax = 7.0
     else:
         qmax = 127.0
@@ -86,29 +100,66 @@ def dequantize_state(q: torch.Tensor, scale: torch.Tensor, shape, block: int = _
 # ---------------------------------------------------------------------------
 
 
-def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
-    """sqrt(sum of squares over every tensor), fp32 (optax.global_norm)."""
-    return torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
+def global_norm(grads: list[torch.Tensor], mesh=None, params: list[torch.Tensor] | None = None) -> torch.Tensor:
+    """sqrt(sum of squares over every tensor), fp32 (optax.global_norm). Over a mesh the
+    sum runs over every rank's shards, each replicated tensor counted once (on the ranks at
+    index 0 of the axes it is replicated over); ``params`` give the placement."""
+    if mesh is None or mesh.size == 1:
+        return torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
+    total = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+    coords = mesh.coords()
+    for g, p in zip(grads, params):
+        if all(coords[a] == 0 for a in replicated_axes(p, mesh)):
+            total = total + g.float().pow(2).sum()
+    return torch.sqrt(all_reduce(mesh, total))
+
+
+def replicated_axes(p: torch.Tensor, mesh) -> tuple[str, ...]:
+    held = set(sharded_axes(p, mesh))
+    if stage_local(p):
+        held.add("pp")
+    return tuple(a for a in mesh.axes("mesh") if a not in held)
 
 
 class AdamW:
     """AdamW over ``params`` (a list of tensors updated in place) with fp32 math.
 
     ``learning_rate`` is a float or a schedule step -> float. ``state_bits`` None
-    keeps fp32 moments; 8 or 4 keeps them quantized (``quantize_state``)."""
+    keeps fp32 moments; 8 or 4 keeps them quantized (``quantize_state``). ``mesh``: the
+    mesh the parameters are sharded over (see the module docstring)."""
 
     def __init__(self, params: list[torch.Tensor], learning_rate, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8, weight_decay: float = 0.0, clip_grad_norm: float | None = None,
-                 state_bits: int | None = None):
+                 state_bits: int | None = None, mesh=None):
         if state_bits not in (None, 8, 4):
             raise ValueError(f"state_bits must be None, 8 or 4, got {state_bits}")
         self.params = list(params)
         self.learning_rate = learning_rate
         self.b1, self.b2, self.eps, self.weight_decay = b1, b2, eps, weight_decay
         self.clip_grad_norm, self.state_bits = clip_grad_norm, state_bits
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.count = 0
-        self.mu = [self._pack(torch.zeros(p.shape, dtype=torch.float32, device=p.device)) for p in self.params]
-        self.nu = [self._pack(torch.zeros(p.shape, dtype=torch.float32, device=p.device)) for p in self.params]
+        # the whole-block range each sharded parameter's 8 / 4-bit state covers here
+        self.ranges = [self._range(p) for p in self.params]
+        self.mu = [self._pack(self._zeros(p, r)) for p, r in zip(self.params, self.ranges)]
+        self.nu = [self._pack(self._zeros(p, r)) for p, r in zip(self.params, self.ranges)]
+
+    def _range(self, p: torch.Tensor):
+        """(group axis, n, lo, hi, span) for a sharded parameter with quantized state: this
+        rank's elements [lo, hi) of the whole flattened tensor, ``span`` elements a rank."""
+        if self.state_bits is None or self.mesh is None or not sharded_axes(p, self.mesh):
+            return None
+        axis = "+".join(sharded_axes(p, self.mesh))
+        numel = _numel(whole_shape(p, self.mesh, AXES))
+        n, i = self.mesh.axis_size(axis), self.mesh.index(axis)
+        n_blocks = -(-numel // _BLOCK)
+        span = -(-n_blocks // n) * _BLOCK  # whole blocks a rank
+        return axis, n, min(i * span, numel), min((i + 1) * span, numel), span
+
+    @staticmethod
+    def _zeros(p: torch.Tensor, r) -> torch.Tensor:
+        shape = p.shape if r is None else (r[3] - r[2],)
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
 
     def _pack(self, x: torch.Tensor):
         return x if self.state_bits is None else quantize_state(x, bits=self.state_bits)
@@ -121,26 +172,68 @@ class AdamW:
         return self.learning_rate(self.count) if callable(self.learning_rate) else self.learning_rate
 
     @torch.no_grad()
-    def step(self, grads: list[torch.Tensor]) -> None:
-        """One update from fp32 gradients (one per parameter, in order)."""
+    def step(self, grads: list[torch.Tensor], norm: torch.Tensor | None = None) -> None:
+        """One update from fp32 gradients (one per parameter, in order); ``norm``: their
+        global norm when the caller has it (over a mesh: ``global_norm`` with the mesh)."""
         if self.clip_grad_norm is not None:
-            norm = global_norm(grads)
+            if norm is None:
+                norm = global_norm(grads, self.mesh, self.params)
             # optax.clip_by_global_norm: untouched below the bound, else g / norm * bound
             grads = [torch.where(norm < self.clip_grad_norm, g, g / norm * self.clip_grad_norm) for g in grads]
         lr = self.lr()
         self.count += 1
         c1, c2 = 1 - self.b1**self.count, 1 - self.b2**self.count
         for i, (p, g) in enumerate(zip(self.params, grads)):
+            r = self.ranges[i]
             g = g.float()
+            if r is not None:  # this rank's whole blocks of the gathered tensor
+                pw = gather_now(p, self.mesh, AXES)
+                g = gather_now(g, self.mesh, AXES, like=p).reshape(-1)[r[2]:r[3]]
+                pf = pw.reshape(-1)[r[2]:r[3]].float()
+            else:
+                pf = p.float()
             mu = self.b1 * self._unpack(self.mu[i], g.shape) + (1 - self.b1) * g
             nu = self.b2 * self._unpack(self.nu[i], g.shape) + (1 - self.b2) * g * g
-            pf = p.float()
             update = (mu / c1) / (torch.sqrt(nu / c2) + self.eps) + self.weight_decay * pf
-            p.copy_((pf + (-lr * update)).to(p.dtype))
+            new = (pf + (-lr * update)).to(p.dtype)
+            if r is not None:
+                axis, n, lo, hi, span = r
+                padded = torch.cat([new, new.new_zeros(span - new.numel())])
+                whole = all_gather(self.mesh, padded, axis, 0)[:pw.numel()].reshape(pw.shape)
+                new = local_part(whole, self.mesh, p)
+            p.copy_(new)
             self.mu[i], self.nu[i] = self._pack(mu), self._pack(nu)
 
+    def _whole_state(self, i: int, state):
+        """Moment ``state`` of parameter i as the unsharded optimizer would hold it."""
+        p, r = self.params[i], self.ranges[i]
+        if self.mesh is None:
+            return state
+        if r is None:
+            return state if self.state_bits is not None else gather_now(state, self.mesh, AXES, like=p)
+        axis, n, lo, hi, span = r
+        q, scale = state
+        rows, nb = span // _BLOCK, -(-_numel(whole_shape(p, self.mesh, AXES)) // _BLOCK)
+
+        def blocks(t):
+            pad = t.new_zeros((rows - t.shape[0], *t.shape[1:]))
+            return all_gather(self.mesh, torch.cat([t, pad]), axis, 0)[:nb]
+
+        return blocks(q), blocks(scale)
+
+    def _local_state(self, i: int, whole):
+        p, r = self.params[i], self.ranges[i]
+        if self.mesh is None:
+            return whole
+        if r is None:
+            return whole if self.state_bits is not None else local_part(whole, self.mesh, p)
+        axis, n, lo, hi, span = r
+        first, last = lo // _BLOCK, -(-hi // _BLOCK)
+        return tuple(t[first:last] for t in whole)
+
     def state_dict(self) -> dict:
-        return {"count": self.count, "mu": self.mu, "nu": self.nu}
+        return {"count": self.count, "mu": [self._whole_state(i, s) for i, s in enumerate(self.mu)],
+                "nu": [self._whole_state(i, s) for i, s in enumerate(self.nu)]}
 
     def load_state_dict(self, state: dict) -> None:
         def place(new, old):
@@ -149,15 +242,22 @@ class AdamW:
             return new.to(device=old.device, dtype=old.dtype)
 
         self.count = int(state["count"])
-        self.mu = [place(n, o) for n, o in zip(state["mu"], self.mu)]
-        self.nu = [place(n, o) for n, o in zip(state["nu"], self.nu)]
+        self.mu = [place(self._local_state(i, n), o) for i, (n, o) in enumerate(zip(state["mu"], self.mu))]
+        self.nu = [place(self._local_state(i, n), o) for i, (n, o) in enumerate(zip(state["nu"], self.nu))]
+
+
+def _numel(shape) -> int:
+    n = 1
+    for s in shape:
+        n *= s
+    return n
 
 
 def get_optimizer(name: str, params: list[torch.Tensor], learning_rate, weight_decay: float = 0.0,
-                  clip_grad_norm: float | None = None) -> AdamW:
+                  clip_grad_norm: float | None = None, mesh=None) -> AdamW:
     """The registry: AdamW, AdamW8bit, AdamW4bit, with optional global-norm clipping."""
     bits = {"AdamW": None, "AdamW8bit": 8, "AdamW4bit": 4}
     if name not in bits:
         raise KeyError(name)
     return AdamW(params, learning_rate, weight_decay=weight_decay, clip_grad_norm=clip_grad_norm,
-                 state_bits=bits[name])
+                 state_bits=bits[name], mesh=mesh)

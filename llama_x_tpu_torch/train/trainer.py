@@ -13,14 +13,18 @@ Gradients of the microbatches are summed into fp32 buffers and divided by their
 number: ``.grad`` of a bf16 parameter would accumulate in bf16 and drift from the
 JAX trainer.
 
-Over a mesh (dp x cp ranks, parallel/mesh.py) each rank holds its dp block of the
-microbatch's rows (parallel/sharding.py: ``shard_batch``), and the model its cp slice of
-the sequence, whose loss comes back as the rank's share of the mean over its rows. The
-step scales each dp rank's loss by its label count over the count all-reduced across dp,
-so that the losses of all ranks add up to the mean over the whole microbatch, as on one
-process; the gradients are then all-reduced (summed) over the mesh before the norm and the
-clip, and the logged loss is the sum over the mesh (the label count is the dp sum).
-Every rank then takes the same update.
+Over a mesh (parallel/mesh.py) each rank holds its block of the microbatch's rows over
+the batch axes dp x fsdp (parallel/sharding.py: ``shard_batch``), and the model its cp slice
+of the sequence, whose loss comes back as the rank's share of the mean over its rows. The
+step scales each batch rank's loss by its label count over the count all-reduced across
+dp x fsdp, so that the losses of all ranks add up to the mean over the whole microbatch, as
+on one process. The gradients are then summed where their placement leaves them partial
+(``reduce_gradients``): over dp and cp always (other rows, other positions), over fsdp for a
+tensor not sharded there (a sharded one came back reduce-scattered from its gather's
+backward), over pp for a tensor every stage holds (the embeddings, the head, the stems:
+each stage gives only its own part), never over tp (``copy_to_tp`` completed them in the
+backward). The norm and the clip count each replicated tensor once
+(``train/optim.py:global_norm``); the logged loss is the sum over dp x fsdp x cp.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch
 from torch import nn
 
 from llama_x_tpu_torch.parallel.mesh import Mesh, all_reduce
+from llama_x_tpu_torch.parallel.tensor import sharded_axes, stage_local
 from llama_x_tpu_torch.train.optim import AdamW, global_norm
 
 
@@ -51,10 +56,31 @@ def trainable_parameters(model: nn.Module) -> list[torch.Tensor]:
     return [p for p in model.parameters() if p.requires_grad]
 
 
-def _all_reduce_flat(mesh: Mesh, grads: list[torch.Tensor]) -> list[torch.Tensor]:
-    """The gradients summed over the mesh, through one flat buffer (one collective)."""
-    flat = all_reduce(mesh, torch.cat([g.reshape(-1) for g in grads]))
-    return [t.reshape(g.shape) for t, g in zip(torch.split(flat, [g.numel() for g in grads]), grads)]
+def reduce_axes(p: torch.Tensor, mesh: Mesh) -> str:
+    """The axes over which a parameter's gradient is partial after the backward (see the
+    module docstring), as a combination ("dp+cp", "dp+fsdp+pp", ...)."""
+    axes = ["dp", "cp"]
+    if "fsdp" not in sharded_axes(p, mesh):
+        axes.append("fsdp")
+    if not stage_local(p):
+        axes.append("pp")
+    return "+".join(a for a in ("dp", "fsdp", "pp", "cp") if a in axes)
+
+
+def reduce_gradients(mesh: Mesh, params: list[torch.Tensor], grads: list[torch.Tensor]) -> list[torch.Tensor]:
+    """The gradients summed over each one's ``reduce_axes``, one flat buffer (one
+    collective) per combination of axes."""
+    out = list(grads)
+    groups: dict[str, list[int]] = {}
+    for i, p in enumerate(params):
+        groups.setdefault(reduce_axes(p, mesh), []).append(i)
+    for axes, idx in groups.items():
+        if mesh.axis_size(axes) == 1:
+            continue
+        flat = all_reduce(mesh, torch.cat([grads[i].reshape(-1) for i in idx]), axes)
+        for i, t in zip(idx, torch.split(flat, [grads[i].numel() for i in idx])):
+            out[i] = t.reshape(grads[i].shape)
+    return out
 
 
 def make_train_step(loss_fn: Callable, skip_nonfinite: bool = False, mesh: Mesh | None = None):
@@ -72,7 +98,8 @@ def make_train_step(loss_fn: Callable, skip_nonfinite: bool = False, mesh: Mesh 
     that step instead of poisoning the run; the step count still advances.
 
     mesh: a mesh of more than one rank (see the module docstring); ``batch`` is then this
-    rank's dp block of rows, and ``loss_fn``'s count the label tokens of those rows."""
+    rank's block of rows over dp x fsdp, and ``loss_fn``'s count the label tokens of those
+    rows."""
     distributed = mesh is not None and mesh.size > 1
 
     def train_step(state: TrainState, batch: dict) -> dict:
@@ -85,8 +112,8 @@ def make_train_step(loss_fn: Callable, skip_nonfinite: bool = False, mesh: Mesh 
         for i in range(accum):
             mb = {k: torch.as_tensor(v[i]).to(dev) for k, v in batch.items()}
             loss, n = loss_fn(state.model, mb)
-            if distributed:  # this dp rank's share of the microbatch's mean
-                n_all = all_reduce(mesh, n, "dp")
+            if distributed:  # this batch rank's share of the microbatch's mean
+                n_all = all_reduce(mesh, n, "dp+fsdp")
                 loss = loss * (n.float() / n_all.clamp(min=1).float())
                 n = n_all
             micro = torch.autograd.grad(loss, params, allow_unused=True)
@@ -100,15 +127,15 @@ def make_train_step(loss_fn: Callable, skip_nonfinite: bool = False, mesh: Mesh 
             ntok = ntok + n
         grads = [g / accum for g in grads]
         if distributed:
-            grads = _all_reduce_flat(mesh, grads)
-            loss_sum = all_reduce(mesh, loss_sum)
-        grad_norm = global_norm(grads)
+            grads = reduce_gradients(mesh, params, grads)
+            loss_sum = all_reduce(mesh, loss_sum, "dp+fsdp+cp")
+        grad_norm = global_norm(grads, mesh, params)
 
         skipped = torch.zeros((), dtype=torch.float32, device=dev)
         if skip_nonfinite and not bool(torch.isfinite(grad_norm)):
             skipped = torch.ones((), dtype=torch.float32, device=dev)
         else:
-            state.optimizer.step(grads)
+            state.optimizer.step(grads, norm=grad_norm)
         state.step += 1
         return {"loss": loss_sum / accum, "grad_norm": grad_norm, "n_tokens": ntok, "skipped": skipped}
 

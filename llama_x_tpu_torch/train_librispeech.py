@@ -17,10 +17,12 @@ prefix-LM attention) -> the eager train step.
         --n_steps 4 --log_interval 1 --ckpt_interval 0
 
 Runs on the card unless ``--device cpu``. The weights are random (``--geometry`` or the
-small model, its vocabulary grown to the tokenizer's). ``--mesh '{"dp": D, "cp": C}'`` with
-``--attn_impl ring|ulysses`` runs under ``torch.distributed.run``: every rank runs the
-audio stem whole and keeps its slice of the fused sequence. A mesh with fsdp / pp / tp
-above 1 belongs to slice 5b and raises by name.
+small model, its vocabulary grown to the tokenizer's). ``--mesh`` runs under
+``torch.distributed.run``: with ``'{"dp": D, "cp": C}'`` and ``--attn_impl ring|ulysses``
+every rank runs the audio stem whole and keeps its slice of the fused sequence; fsdp and tp
+shard the parameters; with a pp axis (``--pp_microbatches``) the stem runs outside the
+pipeline, its tokens enter at stage 0 and its gradient is summed over the stages, as the
+JAX trainer's pp branch has it.
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ from llama_x_tpu_torch.data.librispeech import LibriSpeechPacked
 from llama_x_tpu_torch.data.tokenizers import get_tokenizer
 from llama_x_tpu_torch.models import audio as audio_mod
 from llama_x_tpu_torch.models.audio import AudioConfig
-from llama_x_tpu_torch.train.cli import add_common_args, build_model_params, check_supported, run_training, setup_mesh
+from llama_x_tpu_torch.train.cli import (add_common_args, build_model_params, check_supported, place_model,
+                                         pp_microbatch_count, run_training, setup_mesh)
 from llama_x_tpu_torch.train.validate import validate_model
 
 MAX_SEQ_LEN = 4096  # 40 s -> 2000 audio tokens + up to 2096 text tokens
@@ -51,12 +54,28 @@ def synthetic_audio_batches(rng, audio_config, micro_bs, audio_duration, seq_len
         yield {"audio": audio, "tokens": tokens, "labels": labels}
 
 
-def make_loss_fn(prefix_lm: bool):
-    def loss_fn(model, mb):
-        loss = audio_mod.forward(model, mb["audio"], mb["tokens"].long(), labels=mb["labels"], prefix_lm=prefix_lm)
+def make_loss_fn(prefix_lm: bool, args=None, mesh=None):
+    """The audio loss, or with a pp mesh axis the GPipe schedule with the stem's tokens as
+    the prefix (the stem runs outside the pipeline)."""
+    if mesh is None or mesh.axis_size("pp") == 1:
+        def loss_fn(model, mb):
+            loss = audio_mod.forward(model, mb["audio"], mb["tokens"].long(), labels=mb["labels"],
+                                     prefix_lm=prefix_lm)
+            return loss, (mb["labels"] != -100).sum()
+
+        return loss_fn
+    from llama_x_tpu_torch.parallel.pipeline import pipeline_loss
+
+    n_micro = pp_microbatch_count(args, mesh, args.batch_size // args.gradient_accumulation)
+
+    def pp_loss_fn(model, mb):
+        prefix = audio_mod.audio_embed(model.audio_embed, model.audio_config, mb["audio"],
+                                       dtype=model.tok_embeddings.dtype)
+        loss = pipeline_loss(model, mb["tokens"].long(), mb["labels"], mesh, n_micro, prefix_embeds=prefix,
+                             prefix_lm=prefix_lm, reduce_batch=False)
         return loss, (mb["labels"] != -100).sum()
 
-    return loss_fn
+    return pp_loss_fn
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
@@ -96,9 +115,11 @@ def main(argv: list[str] | None = None) -> None:
     model = build_model_params(args, max_seq_len=MAX_SEQ_LEN, audio_config=audio_config,
                                vocab_size=None if tokenizer is None else tokenizer.vocab_size)
     validate_model(model.config, mesh, args, modality="audio")
+    place_model(model, mesh)
     micro_bs = args.batch_size // args.gradient_accumulation
     data_iter = make_data(args, audio_config, micro_bs, model.config.vocab_size, tokenizer)
-    run_training(args, model, data_iter, make_loss_fn(args.prefix_lm), "librispeech", audio_config=audio_config,
+    run_training(args, model, data_iter, make_loss_fn(args.prefix_lm, args, mesh), "librispeech",
+                 audio_config=audio_config,
                  audio_secs_per_step=args.audio_duration * args.batch_size, mesh=mesh)
 
 

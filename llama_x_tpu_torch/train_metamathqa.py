@@ -16,8 +16,13 @@
         --synthetic 64 --n_steps 4 --batch_size 2 --document_mask --max_seq_len 256 --device cpu \
         --mesh '{"cp": 2}' --attn_impl ring
 
-Runs on the card unless ``--device cpu``. Real data, a mesh with fsdp / pp / tp above 1
-and the ``attn_q8`` remat policies belong to later slices and raise by name.
+    # parameter sharding and the pipeline (CPU): --mesh '{"fsdp": 2}', '{"tp": 2}', or GPipe
+    python -m torch.distributed.run --standalone --nproc_per_node 4 -m llama_x_tpu_torch.train_metamathqa \
+        --synthetic 64 --n_steps 4 --batch_size 4 --document_mask --max_seq_len 256 --device cpu \
+        --mesh '{"dp": 2, "pp": 2}' --pp_microbatches 2
+
+Runs on the card unless ``--device cpu``. Real data and the ``attn_q8`` remat policies
+belong to later slices and raise by name.
 """
 
 from __future__ import annotations
@@ -28,13 +33,31 @@ import numpy as np
 
 from llama_x_tpu_torch.data.metamathqa import get_metamathqa
 from llama_x_tpu_torch.models import llama
-from llama_x_tpu_torch.train.cli import add_common_args, build_model_params, check_supported, run_training, setup_mesh
+from llama_x_tpu_torch.train.cli import (add_common_args, build_model_params, check_supported, place_model,
+                                         pp_microbatch_count, run_training, setup_mesh)
 from llama_x_tpu_torch.train.validate import validate_model
 
 
 def loss_fn(model, mb):
     loss = llama.forward(model, mb["inputs"].long(), segment_ids=mb.get("segment_ids"), labels=mb["labels"])
     return loss, (mb["labels"] != -100).sum()
+
+
+def make_loss_fn(args, mesh):
+    """``loss_fn``, or with a pp mesh axis the GPipe schedule over ``pp_microbatch_count``
+    microbatches (parallel/pipeline.py): to the train step just another loss."""
+    if mesh.axis_size("pp") == 1:
+        return loss_fn
+    from llama_x_tpu_torch.parallel.pipeline import pipeline_loss
+
+    n_micro = pp_microbatch_count(args, mesh, args.batch_size // args.gradient_accumulation)
+
+    def pp_loss_fn(model, mb):
+        loss = pipeline_loss(model, mb["inputs"].long(), mb["labels"], mesh, n_micro,
+                             segment_ids=mb.get("segment_ids"), reduce_batch=False)
+        return loss, (mb["labels"] != -100).sum()
+
+    return pp_loss_fn
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
@@ -71,9 +94,10 @@ def main(argv: list[str] | None = None) -> None:
     mesh = setup_mesh(args, "text", args.max_seq_len)
     model = build_model_params(args, max_seq_len=args.max_seq_len)
     validate_model(model.config, mesh, args)
+    place_model(model, mesh)
     data_iter, train_size = make_data(args, model.config.vocab_size)
     print(f"Training dataset size: {train_size:,}")
-    run_training(args, model, data_iter, loss_fn, "metamathqa", mesh=mesh)
+    run_training(args, model, data_iter, make_loss_fn(args, mesh), "metamathqa", mesh=mesh)
 
 
 if __name__ == "__main__":

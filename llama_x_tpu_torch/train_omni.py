@@ -18,10 +18,12 @@ optional prefix-LM attention over every modality token.
         --audio_duration 30 --seq_len_multiple 2324 --max_text_len 2324 --n_steps 4 --log_interval 1 --ckpt_interval 0
 
 Runs on the card unless ``--device cpu``. The weights are random (``--geometry`` or the
-small model). ``--mesh '{"dp": D, "cp": C}'`` with ``--attn_impl ring|ulysses`` runs under
-``torch.distributed.run``: every rank runs both stems whole and keeps its slice of the
-fused sequence. The pipeline-parallel path (a mesh with a ``pp`` axis, slice 5b) raises
-by name.
+small model). ``--mesh`` runs under ``torch.distributed.run``: with ``'{"dp": D, "cp": C}'``
+and ``--attn_impl ring|ulysses`` every rank runs both stems whole and keeps its slice of
+the fused sequence; fsdp and tp shard the parameters; with a pp axis
+(``--pp_microbatches``) both stems run outside the pipeline and their tokens (audio, then
+image: ``omni.forward``'s order) enter at stage 0 as one prefix, as the JAX trainer's pp
+branch has it.
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ from llama_x_tpu_torch.data.vision import make_shapes_sample
 from llama_x_tpu_torch.models import omni as omni_mod
 from llama_x_tpu_torch.models.audio import AudioConfig
 from llama_x_tpu_torch.models.vision import VisionConfig
-from llama_x_tpu_torch.train.cli import add_common_args, build_model_params, check_supported, run_training, setup_mesh
+from llama_x_tpu_torch.train.cli import (add_common_args, build_model_params, check_supported, place_model,
+                                         pp_microbatch_count, run_training, setup_mesh)
 from llama_x_tpu_torch.train.validate import validate_model
 
 
@@ -53,13 +56,37 @@ def synthetic_omni_batches(rng, audio_config, micro_bs, audio_duration, image_si
         yield {"audio": audio, "images": images, "tokens": tokens, "labels": labels}
 
 
-def make_loss_fn(prefix_lm: bool):
-    def loss_fn(model, mb):
-        loss = omni_mod.forward(model, mb.get("audio"), mb.get("images"), mb["tokens"].long(), labels=mb["labels"],
-                                prefix_lm=prefix_lm)
+def make_loss_fn(prefix_lm: bool, args=None, mesh=None):
+    """The omni loss, or with a pp mesh axis the GPipe schedule with both stems' tokens
+    (audio, then image) as one prefix (the stems run outside the pipeline)."""
+    if mesh is None or mesh.axis_size("pp") == 1:
+        def loss_fn(model, mb):
+            loss = omni_mod.forward(model, mb.get("audio"), mb.get("images"), mb["tokens"].long(),
+                                    labels=mb["labels"], prefix_lm=prefix_lm)
+            return loss, (mb["labels"] != -100).sum()
+
+        return loss_fn
+    import torch
+
+    from llama_x_tpu_torch.models.audio import audio_embed
+    from llama_x_tpu_torch.models.vision import patch_embed
+    from llama_x_tpu_torch.parallel.pipeline import pipeline_loss
+
+    n_micro = pp_microbatch_count(args, mesh, args.batch_size // args.gradient_accumulation)
+
+    def pp_loss_fn(model, mb):
+        dtype = model.tok_embeddings.dtype
+        prefixes = []
+        if "audio" in mb:
+            prefixes.append(audio_embed(model.audio_embed, model.audio_config, mb["audio"], dtype=dtype))
+        if "images" in mb:
+            prefixes.append(patch_embed(model.patch_embed, model.vision_config, mb["images"], dtype=dtype))
+        prefix = torch.cat(prefixes, dim=1) if prefixes else None
+        loss = pipeline_loss(model, mb["tokens"].long(), mb["labels"], mesh, n_micro, prefix_embeds=prefix,
+                             prefix_lm=prefix_lm, reduce_batch=False)
         return loss, (mb["labels"] != -100).sum()
 
-    return loss_fn
+    return pp_loss_fn
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
@@ -108,9 +135,10 @@ def main(argv: list[str] | None = None) -> None:
     model = build_model_params(args, max_seq_len=max_seq_len, audio_config=audio_config, vision_config=vision_config,
                                vocab_size=None if tokenizer is None else tokenizer.vocab_size)
     validate_model(model.config, mesh, args, modality="omni")
+    place_model(model, mesh)
     data_iter, has_audio = make_data(args, audio_config, args.batch_size // args.gradient_accumulation,
                                      model.config.vocab_size, tokenizer)
-    run_training(args, model, data_iter, make_loss_fn(args.prefix_lm), "omni", audio_config=audio_config,
+    run_training(args, model, data_iter, make_loss_fn(args.prefix_lm, args, mesh), "omni", audio_config=audio_config,
                  vision_config=vision_config,
                  audio_secs_per_step=args.audio_duration * args.batch_size if has_audio else 0.0, mesh=mesh)
 

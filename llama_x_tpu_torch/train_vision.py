@@ -16,10 +16,11 @@ prepended to the caption (optional prefix-LM attention) -> the eager train step.
         --fused_ce_chunks 4 --prefix_lm --batch_size 8 --n_steps 4 --log_interval 1 --ckpt_interval 0
 
 Runs on the card unless ``--device cpu``. The weights are random (``--geometry`` or the
-small model). ``--mesh '{"dp": D, "cp": C}'`` with ``--attn_impl ring|ulysses`` runs under
-``torch.distributed.run``: every rank runs the patch stem whole and keeps its slice of the
-fused sequence. The pipeline-parallel path (a mesh with a ``pp`` axis, slice 5b) raises
-by name.
+small model). ``--mesh`` runs under ``torch.distributed.run``: with ``'{"dp": D, "cp": C}'``
+and ``--attn_impl ring|ulysses`` every rank runs the patch stem whole and keeps its slice
+of the fused sequence; fsdp and tp shard the parameters; with a pp axis
+(``--pp_microbatches``) the patch stem runs outside the pipeline and its image tokens enter
+at stage 0, as the JAX trainer's pp branch has it.
 """
 
 from __future__ import annotations
@@ -32,16 +33,33 @@ from llama_x_tpu_torch.data.tokenizers import get_tokenizer
 from llama_x_tpu_torch.data.vision import ImageCaptions, synthetic_shapes_batches
 from llama_x_tpu_torch.models import vision as vision_mod
 from llama_x_tpu_torch.models.vision import VisionConfig
-from llama_x_tpu_torch.train.cli import add_common_args, build_model_params, check_supported, run_training, setup_mesh
+from llama_x_tpu_torch.train.cli import (add_common_args, build_model_params, check_supported, place_model,
+                                         pp_microbatch_count, run_training, setup_mesh)
 from llama_x_tpu_torch.train.validate import validate_model
 
 
-def make_loss_fn(prefix_lm: bool):
-    def loss_fn(model, mb):
-        loss = vision_mod.forward(model, mb["images"], mb["tokens"].long(), labels=mb["labels"], prefix_lm=prefix_lm)
+def make_loss_fn(prefix_lm: bool, args=None, mesh=None):
+    """The vision loss, or with a pp mesh axis the GPipe schedule with the patch stem's
+    tokens as the prefix (the stem runs outside the pipeline)."""
+    if mesh is None or mesh.axis_size("pp") == 1:
+        def loss_fn(model, mb):
+            loss = vision_mod.forward(model, mb["images"], mb["tokens"].long(), labels=mb["labels"],
+                                      prefix_lm=prefix_lm)
+            return loss, (mb["labels"] != -100).sum()
+
+        return loss_fn
+    from llama_x_tpu_torch.parallel.pipeline import pipeline_loss
+
+    n_micro = pp_microbatch_count(args, mesh, args.batch_size // args.gradient_accumulation)
+
+    def pp_loss_fn(model, mb):
+        prefix = vision_mod.patch_embed(model.patch_embed, model.vision_config, mb["images"],
+                                        dtype=model.tok_embeddings.dtype)
+        loss = pipeline_loss(model, mb["tokens"].long(), mb["labels"], mesh, n_micro, prefix_embeds=prefix,
+                             prefix_lm=prefix_lm, reduce_batch=False)
         return loss, (mb["labels"] != -100).sum()
 
-    return loss_fn
+    return pp_loss_fn
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
@@ -79,9 +97,10 @@ def main(argv: list[str] | None = None) -> None:
     model = build_model_params(args, max_seq_len=max_seq_len, vision_config=vision_config,
                                vocab_size=tokenizer.vocab_size)
     validate_model(model.config, mesh, args, modality="vision")
+    place_model(model, mesh)
     data_iter = make_data(args, args.batch_size // args.gradient_accumulation, tokenizer)
-    run_training(args, model, data_iter, make_loss_fn(args.prefix_lm), "vision", vision_config=vision_config,
-                 mesh=mesh)
+    run_training(args, model, data_iter, make_loss_fn(args.prefix_lm, args, mesh), "vision",
+                 vision_config=vision_config, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -953,3 +953,40 @@ def test_ring_on_the_card_runs_the_kernels_or_raises(cuda, monkeypatch):
     monkeypatch.setattr(build, "load_library", no_build)
     with pytest.raises(RuntimeError, match="nvcc"):
         ring_attention(q, k, v, mesh, mi)
+
+
+# the tensor-parallel shard shapes at Llama-3.1-8B width (D 4096, 32 / 8 heads of 128, F 14336,
+# V 128256): each rank's projections at tp 2, and the vocabulary-parallel head at tp 2 and 4
+# (V / 4 = 32064 rows, not a multiple of 128)
+TP_K1_SHAPES = [(4096, 2048, 4096), (4096, 512, 4096), (4096, 4096, 2048), (4096, 7168, 4096), (4096, 4096, 7168),
+                (512, 64128, 4096), (512, 32064, 4096)]
+TP_K4_SHAPES = [(4096, 4096, 2048), (4096, 4096, 512), (4096, 4096, 7168), (4096, 2048, 4096), (4096, 7168, 4096),
+                (512, 4096, 64128), (512, 4096, 32064)]
+
+
+@pytest.mark.parametrize("M,N,K", TP_K1_SHAPES)
+def test_int8_mm_at_tp_shard_shapes(cuda, M, N, K):
+    """K1 at each tp rank's shapes (column-parallel N / tp, row-parallel K / tp, the head's
+    vocabulary shard): bit for bit against its plain version under the plan it picks."""
+    g = torch.Generator(device=cuda).manual_seed(N + K)
+    a = torch.randint(-127, 128, (M, K), dtype=torch.int8, device=cuda, generator=g)
+    b = torch.randint(-127, 128, (N, K), dtype=torch.int8, device=cuda, generator=g)
+    rs, cs = torch.rand(M, device=cuda, generator=g), torch.rand(N, device=cuda, generator=g)
+    out_dtype = torch.float32 if N > 16384 else torch.bfloat16
+    got = mm.int8_mm_dequant_nt(a, b, rs, cs, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(got, mm.int8_mm_dequant_nt_plain(a, b, rs, cs, out_dtype=out_dtype)), mm.int8_mm_plan(M, N, K)
+
+
+@pytest.mark.parametrize("M,N,K", TP_K4_SHAPES)
+def test_int8_mm_kn_at_tp_shard_shapes(cuda, M, N, K):
+    """K4 at each tp rank's input gradients (column-parallel K = out / tp, row-parallel
+    N = in / tp) and the CE dH over the vocabulary shard: bit for bit against its plain version."""
+    g = torch.Generator(device=cuda).manual_seed(N + K + 1)
+    a = torch.randint(-127, 128, (M, K), dtype=torch.int8, device=cuda, generator=g)
+    b = torch.randint(-127, 128, (K, N), dtype=torch.int8, device=cuda, generator=g)
+    rs, cs = torch.rand(M, device=cuda, generator=g), torch.rand(N, device=cuda, generator=g)
+    out_dtype = torch.float32 if K > 16384 else torch.bfloat16
+    got = mm.int8_mm_dequant(a, b, rs, cs, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(got, mm.int8_mm_dequant_plain(a, b, rs, cs, out_dtype)), mm.int8_mm_kn_plan(M, N, K)

@@ -276,10 +276,10 @@ def test_build_model_params_with_both_stems():
 
 
 def test_train_omni_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        ttrain_cli.parse_args(["--synthetic", "4", "--mesh", '{"pp": 2}', "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        ttrain_cli.parse_args(["--synthetic", "4", "--pp_microbatches", "4", "--device", "cpu"])
+    """The pp branch (slice 5b) is ported: ``--mesh '{"pp": 2}'`` and ``--pp_microbatches`` parse;
+    a run without data still raises."""
+    args = ttrain_cli.parse_args(["--synthetic", "4", "--mesh", '{"pp": 2}', "--pp_microbatches", "4", "--device", "cpu"])
+    assert args.mesh == {"pp": 2} and args.pp_microbatches == 4
     with pytest.raises(ValueError, match="--dataset_dir"):
         ttrain_cli.parse_args(["--device", "cpu"])
     args = ttrain_cli.parse_args(["--dataset_dir", "corpus"])

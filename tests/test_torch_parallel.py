@@ -2,7 +2,8 @@
 model's routing and the train step over a mesh) against the JAX package on the CPU:
 
 - ``mesh_shape``'s axis inference against JAX's ``make_mesh`` for several device counts,
-  the refusal of fsdp / pp / tp above 1 (slice 5b) and of nccl where ranks share a card;
+  the combined axes of a mesh with fsdp / pp / tp (slice 5b, no longer refused), and the
+  refusal of nccl where ranks share a card;
 - ``validate_launch`` / ``validate_model`` refusing what JAX's refuse, with its messages;
 - the batch split: dp blocks of rows, cp slices of the sequence with labels aligned to
   positions, so no target is lost at a shard boundary;
@@ -81,15 +82,22 @@ def test_mesh_shape_infers_the_axes_as_jax_does(n):
 
 
 def test_later_axes_and_flags_raise_naming_slice_5b():
+    """Slice 5b is ported: a mesh with fsdp, pp or tp above 1 and ``--pp_microbatches`` no
+    longer raise (their refusal is gone); the mesh's combined axes have the JAX layout's
+    sizes and mixed-radix indices, and the flags of slice 2c still raise by name."""
     for shape in (tmesh.mesh_shape(4, dp=1), tmesh.mesh_shape(4, dp=2, pp=2), tmesh.mesh_shape(2, dp=1, tp=2)):
-        with pytest.raises(NotImplementedError, match="slice 5b"):
-            tmesh.refuse_later_axes(shape)
-    tmesh.refuse_later_axes(tmesh.mesh_shape(4, dp=2, cp=2))
+        for rank in range(int(np.prod(list(shape.values())))):
+            mesh = tmesh.Mesh(shape, rank, None)
+            c = mesh.coords()
+            assert mesh.index("dp+fsdp") == c["dp"] * shape["fsdp"] + c["fsdp"]
+            assert mesh.axis_size("dp+fsdp") == shape["dp"] * shape["fsdp"]
+            assert mesh.axis_size("mesh") == mesh.size and mesh.index("mesh") == rank
     parser = argparse.ArgumentParser()
     tcli.add_common_args(parser)
     for argv in (["--mesh", '{"fsdp": 2}'], ["--mesh", '{"dp": 2, "tp": 2}'], ["--pp_microbatches", "4"]):
-        with pytest.raises(NotImplementedError, match="slice 5b"):
-            tcli.check_supported(parser.parse_args(["--synthetic", "4", *argv]))
+        tcli.check_supported(parser.parse_args(["--synthetic", "4", *argv]))
+    with pytest.raises(NotImplementedError, match="slice 2c"):
+        tcli.check_supported(parser.parse_args(["--synthetic", "4", "--mesh", '{"tp": 2}', "--remat_policy", "attn_q8"]))
     tcli.check_supported(parser.parse_args(["--synthetic", "4", "--mesh", '{"dp": 2, "cp": 2}', "--attn_impl", "ring"]))
     tcli.check_supported(parser.parse_args(["--synthetic", "4", "--mesh", '{"cp": 2}', "--attn_impl", "ulysses"]))
 
@@ -146,6 +154,9 @@ VALIDATE_CASES = [
     (dict(cp=4), _args(attn_impl="ulysses")),
     (dict(cp=8), _args(attn_impl="ulysses")),
     (dict(dp=2, cp=2), _args(attn_impl="ring", batch_size=2)),
+    # slice 5b: pp and tp (num_layers % pp, dropout with pp, ring with pp, num_kv_heads % tp)
+    (dict(pp=2), _args()), (dict(pp=4), _args()), (dict(tp=2), _args()), (dict(dp=2, tp=2), _args()),
+    (dict(cp=2, pp=2), _args(attn_impl="ring")), (dict(dp=2, pp=2), _args(batch_size=2)),
 ]
 
 

@@ -179,7 +179,12 @@ def _args(*argv):
     ([], "slice 2b"),  # no --synthetic: real data
 ])
 def test_cli_refuses_later_slices_by_name(flags, slice_name):
+    """Flags of slices still to port raise by name; slice 5b's (fsdp / tp / pp meshes,
+    ``--pp_microbatches``) are ported and pass."""
     args = _args(*(flags if not flags else ["--synthetic", "8", *flags]))
+    if slice_name == "slice 5b":
+        tcli.check_supported(args)
+        return
     with pytest.raises(NotImplementedError, match=slice_name):
         tcli.check_supported(args)
 

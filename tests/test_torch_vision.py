@@ -325,8 +325,9 @@ def test_build_model_params_with_a_patch_stem_at_a_geometry():
 
 
 def test_train_vision_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        ttrain_cli.parse_args(["--synthetic", "4", "--mesh", '{"pp": 2}', "--device", "cpu"])
+    """The pp branch (slice 5b) is ported: ``--mesh '{"pp": 2}'`` parses; a run without data
+    still raises."""
+    assert ttrain_cli.parse_args(["--synthetic", "4", "--mesh", '{"pp": 2}', "--device", "cpu"]).mesh == {"pp": 2}
     assert ttrain_cli.parse_args(["--dataset_dir", "x", "--model", "m", "--device", "cpu"]).model == "m"  # slice 3
     with pytest.raises(ValueError, match="--dataset_dir"):
         ttrain_cli.parse_args(["--device", "cpu"])
