@@ -70,9 +70,12 @@ no result line):
    (2000 audio tokens prepended to 2096 text tokens), prefix-LM attention,
    ``remat_policy="flash_q8s"``, microbatch 1, AdamW 1e-4, 4 steps on one repeated batch,
    the launch counts held to what the policy must give, one profiled step, then the same
-   step under ``full``, ``flash_proj`` and without checkpointing;
+   step under ``full``, ``flash_proj``, without checkpointing, and under the int8-residual
+   attention ``attn_q8`` / ``attn_q8s`` (3 steps each, launches held: no K1 in the attention
+   backward; best step, positions/s and peak beside flash_q8s's; one profiled attn_q8s step
+   with the rowwise quantizer's device time);
 9. audio kernel path against plain path on a 2-layer cut with ``attn_dropout=0.1`` and
-   fixed seeds;
+   fixed seeds, and on a 2-layer cut under ``attn_q8s``;
 10. the vision main path: one 8B QLoRA trunk with both stems is built for phases 10 to
    12; the vision step through ``train_vision``'s functions (8 canvases of 224, patch
    14: 272 image tokens before 32 caption bytes, S 304, prefix-LM, remat ``full``, fused
@@ -91,6 +94,15 @@ no result line):
    of WAV files written here, 2 steps on a 2-layer cut of the 8B geometry;
 14. the four new entry points (``train_vision``, ``train_omni``, ``eval_vision``,
    ``eval_librispeech``) called as a user calls them, at their smoke sizes;
+14a. the learned-task entry points (``wer_synthetic``, ``vision_synthetic``, ``omni_synthetic``,
+   ``int8_bwd_quality``, ``int8_head_quality``) through their own ``main``, 30 steps each with
+   heads of 64 in bf16, the checkpoint round trip and 4 held-out samples: the loss falls, the
+   kernels of each run launch (K2 / K5 / K3; K1 / K4 / K2 / K5), the artifacts go to a temporary
+   directory (the full runs are calls of their own);
+14b. the trainer pieces: ``train_metamathqa`` from a MetaMathQA token cache written to a
+   temporary directory (real-data path), 7 QLoRA steps at 8B width cut to 2 layers through
+   the prefetched step batches, ``--profile`` (its trace of steps 5 and 6 must name K1's and
+   K2's kernels), then ``generate_cli --resume`` on that run with ``--template alpaca``;
 15. context parallelism: the text QLoRA step of phase 5 at Llama-3.1-8B width with its
    depth cut to 4 layers, S 8192 of packed documents crossing the shard boundary, at cp 2:
    two spawned processes share the one card over gloo (asked for by name: NCCL refuses two
@@ -126,6 +138,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import io
 import json
 import math
 import subprocess
@@ -1775,11 +1788,13 @@ def expected_launches(policy: str, layers: int, ce_chunks: int) -> dict:
     half's wq, wk, wv and wo (only the flash output is kept there: 4 L), and its MLP,
     outside the checkpoint, reruns nothing but one w3 GEMM for the h3 it did not keep
     (1 L): 5 L, fewer than "full" by the w1 and w2 recomputes (2 L); without checkpointing
-    ("none") nothing runs again.
+    ("none") nothing runs again; "attn_q8" keeps int8 q / k / v / out, h1 and h3 and reruns
+    nothing (0), "attn_q8s" reruns only the w3 GEMM of its MLP (1 L): no GEMM of the
+    attention runs in its backward.
     K4 (KN GEMM): one input gradient per projection and one dH per CE chunk: 7 L + C.
     K2: one forward per layer, and a second one in the recompute only under "full".
     K5: one backward per layer."""
-    recompute = {"full": 7, "flash_proj": 2, "flash_q8s": 5, "none": 0}[policy]
+    recompute = {"full": 7, "flash_proj": 2, "flash_q8s": 5, "attn_q8": 0, "attn_q8s": 1, "none": 0}[policy]
     return {"int8_mm_dequant_nt": (7 + recompute) * layers + 2 * ce_chunks,
             "int8_mm_dequant": 7 * layers + ce_chunks,
             "flash_attention": (2 if policy == "full" else 1) * layers,
@@ -1878,9 +1893,10 @@ def phase_audio() -> dict:
     del prof
 
     # the same step under the policy the text slice used, under the named-save policy that
-    # keeps every D-wide projection output, and without checkpointing at all: one line each
-    # (the schedule has run out, so the weights stand still and every step does the same work)
-    for policy in ("full", "flash_proj", "none", "flash_q8s"):
+    # keeps every D-wide projection output, without checkpointing at all, and under the
+    # int8-residual attention: one line each (the schedule has run out, so the weights stand
+    # still and every step does the same work)
+    for policy in ("full", "flash_proj", "none", "flash_q8s", "attn_q8", "attn_q8s"):
         model.config = model.config.replace(activation_checkpointing=policy != "none",
                                             remat_policy="full" if policy == "none" else policy)
         torch.cuda.empty_cache()
@@ -1892,8 +1908,28 @@ def phase_audio() -> dict:
         runs[f"{policy} (second pass)" if policy == "flash_q8s" else policy] = dict(steps=psteps, peak_mem_gb=ppeak)
         log(f"    POLICY {policy}: step {best:.3f} s (best of 2 after one), {positions / best:.0f} positions/s, "
             f"peak memory {ppeak:.2f} GB, launches per step {psteps[-1]['launches']}")
+        if policy.startswith("attn_q8"):
+            for r in psteps:
+                for k, v in r["launches"].items():
+                    launches[k] += v
+    q8 = {p: min(r["seconds"] for r in runs[p]["steps"][1:]) for p in ("flash_q8s (second pass)", "attn_q8", "attn_q8s")}
+    log("    int8-residual attention against flash_q8s (best step, positions/s, peak): " + "; ".join(
+        f"{p.split()[0]} {t:.3f} s, {positions / t:.0f}/s, {runs[p]['peak_mem_gb']:.2f} GB" for p, t in q8.items()))
+    with labelled_quantizers(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    q8_prof = summarize_profile(prof, wall_ms, 1, "audio training (attn_q8s)", "step")
+    q_ms, q_calls = label_device_ms(prof, QUANTIZE_LABEL)
+    q8_prof["quantize_int8_rowwise_ms_per_step"], q8_prof["quantize_int8_rowwise_calls_per_step"] = q_ms, q_calls
+    log(f"      rowwise quantizer under attn_q8s: {q_calls} calls/step, device "
+        + ("not measured (the trace ties no device time to its ranges)" if q_ms is None else f"{q_ms:.3f} ms/step"))
+    del prof
     two_path = compare_audio_paths(model, batch)
-    return dict(flags=AUDIO_FLAGS, launches=launches, runs=runs, profile=prof_rec, two_path=two_path)
+    q8_two_path = compare_q8_audio_paths(model, batch)
+    return dict(flags=AUDIO_FLAGS, launches=launches, runs=runs, profile=prof_rec, attn_q8s_profile=q8_prof,
+                two_path=two_path, attn_q8s_two_path=q8_two_path)
 
 
 def compare_audio_paths(model, batch) -> dict:
@@ -1919,6 +1955,22 @@ def compare_audio_paths(model, batch) -> dict:
         raise AssertionError("dropout changed nothing")
     res["loss_without_dropout"] = no_drop
     return res
+
+
+def compare_q8_audio_paths(model, batch) -> dict:
+    """Kernel path against plain path on a 2-layer cut of the audio step under attn_q8s
+    (no dropout: with dropout the policy falls back to flash_q8s)."""
+    import torch
+
+    from llama_x_tpu_torch.models import audio as audio_mod
+
+    cut = cut_of(model, remat_policy="attn_q8s", activation_checkpointing=True)
+    mb = {k: torch.as_tensor(v[0]).cuda() for k, v in batch.items()}
+
+    def loss_of(m):
+        return audio_mod.forward(m, mb["audio"], mb["tokens"].long(), labels=mb["labels"], prefix_lm=True)
+
+    return compare_grad_paths(cut, loss_of, "audio (prefix-LM, attn_q8s)")
 
 
 # ---------------------------------------------------------------------------
@@ -2318,6 +2370,111 @@ def phase_entry_points() -> dict:
         raise AssertionError(f"the entry points never launched {missing}: {counts}")
     log(f"    {time.perf_counter() - t0:.1f} s; launches {counts}")
     return dict(launches=counts, eval_vision=vis, eval_librispeech=ls)
+
+
+LEARNED_TASKS = [  # (entry point, kernels its run must launch): K2 / K5 train, K3 decodes; QLoRA adds K1 / K4
+    ("wer_synthetic", ("flash_attention", "flash_attention_bwd", "decode_attention")),
+    ("vision_synthetic", ("flash_attention", "flash_attention_bwd", "decode_attention")),
+    ("omni_synthetic", ("flash_attention", "flash_attention_bwd", "decode_attention")),
+    ("int8_bwd_quality", TRAIN_KERNELS),
+    ("int8_head_quality", TRAIN_KERNELS),
+]
+LEARNED_TASK_STEPS = 30
+
+
+def phase_learned_tasks() -> dict:
+    """The five learned-task entry points through their own ``main`` at a short cut: 30 steps
+    (heads of 64 in bf16), the checkpoint round trip and 4 held-out samples for the three
+    learned tasks; the loss must fall, the kernels of each run launch, and every artifact is
+    written under a temporary directory."""
+    import importlib
+    import tempfile
+
+    log(f"[learned tasks] wer / vision / omni_synthetic and int8_bwd / head_quality, {LEARNED_TASK_STEPS} steps each "
+        "(the full runs are calls of their own: README)")
+    out, total = {}, {k: 0 for k in counted()}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, need in LEARNED_TASKS:
+            entry = importlib.import_module(f"llama_x_tpu_torch.{name}")
+            reset_counts()
+            t0 = time.perf_counter()
+            if name.startswith("int8"):
+                art = entry.main(["--steps", str(LEARNED_TASK_STEPS), "--out", f"{tmp}/{name}/quality.json"])
+                curve = art[next(k for k in art if k.startswith("curve_"))]
+                first, last, written = curve[0], curve[-1], Path(tmp, name, "quality.json")
+            else:
+                flag = "--eval_utts" if name == "wer_synthetic" else "--eval_samples"
+                art = entry.main(["--steps", str(LEARNED_TASK_STEPS), flag, "4", "--out_dir", f"{tmp}/{name}"])
+                first, last = art["losses_every_50"][0], art["final_loss"]
+                written = next(Path(tmp, name).glob("*.json"))
+            counts = read_counts()
+            seconds = time.perf_counter() - t0
+            missing = [k for k in need if counts[k] == 0]
+            if missing or not last < first or not written.exists() or art["model"]["head_dim"] != 64:
+                raise AssertionError(f"{name}: missing launches {missing}, loss {first} -> {last}, {written}")
+            for k in total:
+                total[k] += counts[k]
+            log(f"    {name}: loss {first:.4f} -> {last:.4f} in {seconds:.1f} s; launches "
+                f"{ {k: v for k, v in counts.items() if v} }")
+            out[name] = dict({k: v for k, v in art.items() if not k.startswith(("curve", "losses", "task", "launches"))},
+                             seconds=seconds, loss_first=first, loss_last=last, launches=counts)
+    return dict(tasks=out, launches=total)
+
+
+PIECES_FLAGS = [
+    "--geometry", "8b", "--synthetic_config", '{"num_layers": 2}', "--quantize", "int8",
+    "--quantize_kwargs", '{"dynamic_int8_act": true, "dynamic_int8_bwd": true, "int8_head": true}',
+    "--adapter", "lora", "--freeze_prefixes", "tok_embeddings", "output", "norm", "--activation_checkpointing",
+    "--remat_policy", "flash_q8s", "--fused_ce_chunks", "8", "--document_mask", "--max_seq_len", "1024",
+    "--batch_size", "2", "--n_steps", "7", "--lr", "1e-4", "--log_interval", "1", "--ckpt_interval", "0", "--profile",
+]
+# the kernels' names in a trace (csrc/int8_mm.cu's two K1 paths; csrc/flash_attention.cu)
+TRACE_NAMES = {"int8_mm_dequant_nt": ("int8_mm_nt_wgmma_kernel", "int8_mm_nt_stream_kernel"),
+               "flash_attention": ("flash_fwd_kernel",)}
+
+
+def phase_trainer_pieces() -> dict:
+    """``train_metamathqa`` on real data: a byte-tokenized MetaMathQA token cache written to a
+    temporary directory, 7 QLoRA steps at Llama-3.1-8B width cut to 2 layers through the
+    prefetched step batches, with ``--profile`` (its trace of steps 5 and 6 must name the K1
+    and K2 kernels); then ``generate_cli --resume`` on that run with ``--template alpaca``."""
+    import tempfile
+
+    from llama_x_tpu_torch import generate_cli, train_metamathqa
+    from llama_x_tpu_torch.data.metamathqa import PROMPT_TEMPLATE, tokenize_metamathqa
+    from llama_x_tpu_torch.data.tokenizers import get_tokenizer
+
+    log("[trainer pieces] train_metamathqa from a token cache (8B width, 2 layers, 7 steps, --profile), "
+        "then generate_cli --template alpaca")
+    records = [{"query": f"Tom has {i} apples and buys {i + 3} more. How many apples does he have?",
+                "response": f"Tom has {i} + {i + 3} = {2 * i + 3} apples. The answer is: {2 * i + 3}"}
+               for i in range(64)]
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        tokenize_metamathqa(get_tokenizer("byte"), "byte", 1024, tmp, records=records)
+        reset_counts()
+        t0 = time.perf_counter()
+        train_metamathqa.main(PIECES_FLAGS)
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        (run,) = (Path(tmp) / "runs" / "metamathqa").iterdir()
+        recs = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+        traces = list((run / "profile").glob("*.json"))
+        text = traces[0].read_text() if traces else ""
+        named = {k: any(n in text for n in names) for k, names in TRACE_NAMES.items()}
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            generate_cli.main(["--resume", str(run), "--prompt", "What is 2+2?", "--max_new_tokens", "8",
+                               "--template", "alpaca"])
+    missing = [k for k in TRAIN_KERNELS if counts[k] == 0]
+    if missing or [r["step"] for r in recs] != list(range(7)) or not all(math.isfinite(r["loss"]) for r in recs):
+        raise AssertionError(f"the token-cache run: missing launches {missing}, records {recs}")
+    if len(traces) != 1 or not all(named.values()):
+        raise AssertionError(f"the --profile trace: {traces}, kernels named {named}")
+    if PROMPT_TEMPLATE.format(query="What is 2+2?") not in said.getvalue():
+        raise AssertionError(f"generate_cli --template alpaca printed {said.getvalue()!r}")
+    log(f"    7 steps in {seconds:.1f} s (model build, profile, checkpoint included): losses "
+        f"{[round(r['loss'], 4) for r in recs]}; trace {traces[0].name} ({len(text) / 1e6:.1f} MB) names {named}; "
+        f"launches {counts}")
+    return dict(flags=PIECES_FLAGS, seconds=seconds, launches=counts, records=recs, trace_names=named)
 
 
 # ---------------------------------------------------------------------------
@@ -3146,6 +3303,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     runs["real_data"] = timer("real data", phase_real_data())
     runs["entry_points"] = timer("entry points", phase_entry_points())
+    runs["learned_tasks"] = timer("learned tasks", phase_learned_tasks())
+    runs["trainer_pieces"] = timer("trainer pieces", phase_trainer_pieces())
     gc.collect()
     torch.cuda.empty_cache()
     runs["cp"] = timer("cp", phase_cp())

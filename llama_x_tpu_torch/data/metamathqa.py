@@ -11,18 +11,69 @@ Two batching modes:
   kernels read directly (``MaskInfo.segment_ids``). Segment id 0 is padding; real
   documents count from 1.
 
-Every consumer passes ``tokens_list`` (tests, synthetic data). Tokenizing the real
-dataset needs its files and the llama2 / llama3 tokenizers' files, which the
-repository does not hold: that path is not ported yet and raises.
+Real data is read from the token cache, as in the JAX package: an ``.npz`` of the
+tokenized samples (flat and offsets) keyed by tokenizer and ``max_seq_len``
+(``cache_path``), written once by ``tokenize_metamathqa``. On a cache miss the JAX package
+downloads the dataset (``datasets.load_dataset``); the port downloads nothing: it writes the
+cache from the records it is handed (``{"query", "response"}`` dicts) and otherwise raises,
+naming the file and the dataset. Tests and synthetic data pass ``tokens_list`` instead.
 """
 
 from __future__ import annotations
 
+import os
+from pathlib import Path
+
 import numpy as np
+
+DATASET = "meta-math/MetaMathQA"
+PROMPT_TEMPLATE = (
+    "Below is an instruction that describes a task. "
+    "Write a response that appropriately completes the request.\n\n"
+    "### Instruction:\n{query}\n\n"
+    "### Response: Let's think step by step."
+)
 
 
 def next_multiple(x: int, n: int) -> int:
     return (x + n - 1) // n * n
+
+
+def cache_path(tokenizer_name: str, max_seq_len: int, cache_dir: str | Path = ".") -> Path:
+    """The token cache of one tokenizer and length (samples are truncated when tokenized,
+    so the length is part of the key)."""
+    return Path(cache_dir) / f"metamathqa_{tokenizer_name}_s{max_seq_len}.npz"
+
+
+def tokenize_metamathqa(tokenizer, tokenizer_name: str, max_seq_len: int, cache_dir: str | Path = ".",
+                        records=None) -> list[np.ndarray]:
+    """The tokenized samples from the cache; on a miss, ``records`` (an iterable of
+    {"query", "response"} dicts) tokenized as prompt + answer, truncated to max_seq_len + 1,
+    and written to the cache (to a temporary name, then ``os.replace``). Without records a
+    miss raises: the port does not download the dataset."""
+    cache = cache_path(tokenizer_name, max_seq_len, cache_dir)
+    if cache.exists():
+        with np.load(cache, allow_pickle=False) as z:
+            flat, offsets = z["flat"], z["offsets"]
+        return [flat[offsets[i]: offsets[i + 1]] for i in range(len(offsets) - 1)]
+    if records is None:
+        raise FileNotFoundError(
+            f"no MetaMathQA token cache {cache}: the JAX package downloads {DATASET} to write it, the port "
+            "downloads nothing; write it from local records (data/metamathqa.py: tokenize_metamathqa(records=)) "
+            "or pass --synthetic N")
+    tokens_list = []
+    for ex in records:
+        prompt = PROMPT_TEMPLATE.format(query=ex["query"])
+        toks = list(tokenizer(prompt, add_bos=True)) + list(tokenizer(" " + ex["response"], add_eos=True))
+        tokens_list.append(np.asarray(toks[: max_seq_len + 1], np.int32))
+    flat = np.concatenate(tokens_list)
+    offsets = np.zeros(len(tokens_list) + 1, np.int64)
+    np.cumsum([len(t) for t in tokens_list], out=offsets[1:])
+    tmp = f"{cache}.tmp{os.getpid()}"
+    with open(tmp, "wb") as f:
+        np.savez(f, flat=flat, offsets=offsets)
+    os.replace(tmp, cache)
+    return tokens_list
 
 
 def iter_padding(tokens_list: list[np.ndarray], batch_size: int, seq_len_multiple: int = 256,
@@ -88,13 +139,12 @@ def iter_packed(tokens_list: list[np.ndarray], seq_len: int, batch_rows: int = 1
 
 def get_metamathqa(tokenizer_name: str, document_mask: bool, batch_size: int, max_seq_len: int,
                    seq_len_multiple: int = 256, tokens_list: list[np.ndarray] | None = None, seed: int = 0,
-                   num_shards: int = 1, shard_index: int = 0):
-    """Returns (iterator, dataset_size) over ``tokens_list``."""
+                   num_shards: int = 1, shard_index: int = 0, cache_dir: str | Path = "."):
+    """Returns (iterator, dataset_size) over ``tokens_list``, or without it over the token
+    cache of ``tokenizer_name`` in ``cache_dir`` (a miss raises, naming the file)."""
     if tokens_list is None:
-        raise NotImplementedError(
-            "tokenizing the MetaMathQA dataset needs its files and a llama2 / llama3 tokenizer model, which "
-            "the repository does not hold; pass tokens_list (real-data tokenization comes with slice 2b)"
-        )
+        # the tokenizer runs only to write a cache, which needs records: a miss raises first
+        tokens_list = tokenize_metamathqa(None, tokenizer_name, max_seq_len, cache_dir)
     if document_mask:
         it = iter_packed(tokens_list, max_seq_len, batch_rows=batch_size, seed=seed, num_shards=num_shards,
                          shard_index=shard_index)

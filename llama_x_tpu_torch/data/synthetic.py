@@ -34,3 +34,21 @@ def counting_samples(n: int, seed: int, max_chars: int, lo: int = 1, hi: int = 5
 def counting_tokens(n: int, seed: int, max_chars: int, tok) -> list[np.ndarray]:
     """Byte-tokenized counting samples for get_metamathqa(tokens_list=...)."""
     return [np.asarray(tok(s, add_bos=True), np.int32) for s in counting_samples(n, seed, max_chars)]
+
+
+def counting_prompt(rng: np.random.Generator, n_chars: int = 24, lo: int = 1, hi: int = 5000) -> str:
+    """A held-out prefix whose continuation is deterministic (bench prompts)."""
+    return counting_text(int(rng.integers(lo, hi)), n_chars)
+
+
+def counting_accuracy(prompt: str, completion: str, n_check: int = 64) -> float:
+    """Fraction of the first n_check completion chars matching the true continuation
+    (quality gate for the trained pair; robust to completions shorter than n_check)."""
+    start = int(prompt.split(",")[0])  # the true continuation follows from the first number
+    full = counting_text(start, len(prompt) + n_check + 16)
+    want = full[len(prompt): len(prompt) + n_check]
+    got = completion[:n_check]
+    if not got:
+        return 0.0
+    k = min(len(got), len(want))
+    return sum(a == b for a, b in zip(got[:k], want[:k])) / max(k, 1)

@@ -132,6 +132,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--no_eos", action="store_true", help="ignore eos, always emit max_new_tokens")
     parser.add_argument("--kv_dtype", default="bf16", choices=["bf16", "int8"])
     parser.add_argument("--batch", action="store_true", help="all prompts in ONE ragged batch (not with a draft)")
+    parser.add_argument("--template", choices=["alpaca"],
+                        help="wrap each prompt in the training prompt template (alpaca: the MetaMathQA SFT format, "
+                             "data/metamathqa.py)")
     parser.add_argument("--stream", action="store_true", help="print tokens as they decode (not with --batch or a draft)")
     return parser
 
@@ -155,6 +158,10 @@ def main(argv: list[str] | None = None) -> None:
         prompts += [line.rstrip("\n") for line in sys.stdin if line.strip()]
     if not prompts:
         parser.error("no prompts: pass --prompt (repeatable) or --stdin")
+    if args.template == "alpaca":
+        from llama_x_tpu_torch.data.metamathqa import PROMPT_TEMPLATE
+
+        prompts = [PROMPT_TEMPLATE.format(query=p) for p in prompts]
 
     device = resolve_device(args.device)
     tok = get_tokenizer(args.tokenizer, args.tokenizer_path)

@@ -24,8 +24,14 @@ keeps the block's input only; the named-save policies ("dots", "dots_flash", "fl
 ``SaveStore`` (ops/remat.py), so that the recompute launches no kernel for them; the
 q8 policies ("flash_q8", ... "flash_proj_q8s") checkpoint the attention half only and
 run the MLP outside as ``feed_forward_q8``, an ``autograd.Function`` whose residuals
-are the block's hidden state and h1 (and h3) as rowwise int8. ``attn_q8`` /
-``attn_q8s`` (the int8-residual attention) are not ported yet and raise.
+are the block's hidden state and h1 (and h3) as rowwise int8; ``attn_q8`` /
+``attn_q8s`` checkpoint nothing: the attention half is ``attention_q8``, an
+``autograd.Function`` whose residuals are the hidden state, the post-RoPE q / k / v and
+the flash output as rowwise int8 (plus lse), and whose backward runs no GEMM again, and the
+MLP half is ``feed_forward_q8`` (h1 and h3, or h1 alone). With attention dropout they fall
+back to ``flash_q8`` / ``flash_q8s``; with context parallelism they raise (``trunk``). A
+pipeline stage (``trunk(stage=True)``) checkpoints each block whole under the policy's base
+(``base_policy``), as the JAX stage does.
 
 Context parallelism (``attn_impl`` "ring" / "ulysses", without a cache): the ambient mesh's
 "cp" axis (parallel/mesh.py: ``use_mesh``) splits the sequence. ``forward`` and the
@@ -470,6 +476,11 @@ def feed_forward(ff: FeedForward, config: LlamaConfig, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def _deq_rows(q: torch.Tensor, s: torch.Tensor, dtype, shape) -> torch.Tensor:
+    """Rowwise int8 codes and their scales back to ``dtype``, reshaped to ``shape``."""
+    return (q.float() * s.float()[:, None]).to(dtype).reshape(shape)
+
+
 class _FeedForwardQ8(torch.autograd.Function):
     """ffn_norm + SwiGLU of one block with int8 residuals. ``params`` are the trainable
     tensors of the norm and the three linears, passed so that autograd routes their
@@ -496,18 +507,14 @@ class _FeedForwardQ8(torch.autograd.Function):
         h, q1, s1, *third = ctx.saved_tensors
         blk, kw = ctx.blk, ctx.kw
         ff, norm = blk.feed_forward, blk.ffn_norm
-        lead, F = h.shape[:-1], q1.shape[-1]
-
-        def deq(q, s):
-            return (q.float() * s.float()[:, None]).to(h.dtype).reshape(*lead, F)
-
+        shape = (*h.shape[:-1], q1.shape[-1])
         with torch.enable_grad():
             hg = h.detach().requires_grad_(True)
             x_graph = norm(hg)
         x_ = x_graph.detach()
-        h1 = deq(q1, s1)
+        h1 = _deq_rows(q1, s1, h.dtype, shape)
         # q8s: h3 was not kept; one w3 GEMM gives its exact forward value again
-        h3 = deq(*third) if third else apply_linear(x_, ff.w3, **kw)
+        h3 = _deq_rows(*third, h.dtype, shape) if third else apply_linear(x_, ff.w3, **kw)
         sig = torch.sigmoid(h1)
         silu_h1 = h1 * sig
         dprod, grads2 = linear_vjp(ff.w2, silu_h1 * h3, g, **kw)
@@ -530,11 +537,103 @@ def feed_forward_q8(blk: Block, config: LlamaConfig, h: torch.Tensor) -> torch.T
     residuals (``config.remat_policy`` ends in "_q8" or "_q8s"). The norm is folded in so
     that the only full-width residual is h itself; it is recomputed in the backward."""
     ff = blk.feed_forward
-    named = [("ffn_norm", "scale", blk.ffn_norm.scale)]
-    named += [(owner, n, p) for owner in ("w1", "w2", "w3") for n, p in getattr(ff, owner).named_parameters()]
-    named = [(owner, n, p) for owner, n, p in named if p.requires_grad]
-    keys = tuple((owner, n) for owner, n, _ in named)
-    return _FeedForwardQ8.apply(blk, config, keys, h, *(p for _, _, p in named))
+    keys, params = _trainable([("ffn_norm", blk.ffn_norm)] + [(n, getattr(ff, n)) for n in ("w1", "w2", "w3")])
+    return _FeedForwardQ8.apply(blk, config, keys, h, *params)
+
+
+# ---------------------------------------------------------------------------
+# int8-residual attention (the "attn_q8" / "attn_q8s" remat policies)
+#
+# Under the checkpointed q8 policies the backward still reruns the q / k / v (and wo)
+# int8 GEMMs to rebuild the flash kernel's inputs. attention_q8 keeps the post-RoPE q / k
+# / v and the flash output as rowwise int8 instead, and its backward runs wo's vjp, the
+# flash backward on the dequantized residuals, the inverse RoPE rotation, the q / k / v
+# vjps and rms_norm's vjp: no GEMM of the forward runs again. The JAX package measured it
+# slower than flash_q8s on its chip (llama_x_tpu/models/llama.py:447-454); it is a
+# supported variant, not a default.
+# ---------------------------------------------------------------------------
+
+
+def _trainable(owners) -> tuple[tuple, list]:
+    """(keys, tensors) of the trainable tensors of ``owners`` ((name, module) pairs), keyed
+    as (owner name, tensor name)."""
+    named = [(owner, n, p) for owner, mod in owners for n, p in mod.named_parameters() if p.requires_grad]
+    return tuple((owner, n) for owner, n, _ in named), [p for _, _, p in named]
+
+
+class _AttentionQ8(torch.autograd.Function):
+    """attention_norm + GQA attention of one block with int8 residuals (the JAX
+    ``_make_attention_q8``). ``params`` are the trainable tensors of the norm and the four
+    linears, passed so that autograd routes their gradients; ``keys`` names them."""
+
+    @staticmethod
+    def forward(ctx, blk, config, keys, h, rope, mask_info, *params):
+        attn = blk.attention
+        kw = dict(dynamic_int8_act=config.dynamic_int8_act, dynamic_int8_bwd=config.dynamic_int8_bwd)
+        B, S, _ = h.shape
+        D = config.head_dim
+        x = blk.attention_norm(h)
+        q, k, v = apply_linear_grouped(x, (attn.wq, attn.wk, attn.wv), **kw)
+        q = apply_rope(q.reshape(B, S, -1, D), rope)
+        k = apply_rope(k.reshape(B, S, -1, D), rope)
+        v = v.reshape(B, S, -1, D)
+        out, lse = fa.flash_fwd_with_lse(q, k, v, mask_info)
+        flat = out.reshape(B * S, -1)
+        o = apply_linear(flat.reshape(B, S, -1), attn.wo, **kw)
+        # q / k / v rows are one head's D (local under tp); the flash output's rows are
+        # wo's input, which tp shards on the last axis: their absmax spans the row
+        kept = [h, lse]
+        for t in (q, k, v):
+            kept += quantize_int8_rowwise(t.reshape(-1, D))
+        kept += quantize_int8_rowwise(flat, tp_rows(placement(attn.wo), "row"))
+        ctx.save_for_backward(*kept)
+        ctx.blk, ctx.kw, ctx.keys, ctx.rope, ctx.mask_info = blk, kw, keys, rope, mask_info
+        ctx.shapes = (q.shape, k.shape, v.shape)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        h, lse, qi, qs, ki, ks, vi, vs, ai, as_ = ctx.saved_tensors
+        blk, kw, rope = ctx.blk, ctx.kw, ctx.rope
+        attn, norm = blk.attention, blk.attention_norm
+        B, S, _ = h.shape
+        dt = h.dtype
+        q_shape, k_shape, v_shape = ctx.shapes
+        q, k, v = (_deq_rows(i, s_, dt, shp) for i, s_, shp in ((qi, qs, q_shape), (ki, ks, k_shape),
+                                                                 (vi, vs, v_shape)))
+        out = _deq_rows(ai, as_, dt, q_shape)
+        dattn, grads_o = linear_vjp(attn.wo, out.reshape(B, S, -1), g, **kw)
+        dq, dk, dv = fa.flash_bwd_from_res(q, k, v, out, lse, dattn.reshape(q_shape), ctx.mask_info)
+        # RoPE is a rotation, linear in q / k: its vjp does not read the primal, so taking it
+        # at the dequantized values is exact
+        with torch.enable_grad():
+            qg, kg = q.detach().requires_grad_(True), k.detach().requires_grad_(True)
+            dq, dk = torch.autograd.grad([apply_rope(qg, rope), apply_rope(kg, rope)], [qg, kg], [dq, dk])
+            hg = h.detach().requires_grad_(True)
+            x_graph = norm(hg)
+        x_ = x_graph.detach()
+        dx, by_key = None, {("wo", n): t for n, t in grads_o.items()}
+        for name, d in (("wq", dq), ("wk", dk), ("wv", dv)):
+            dxi, grads = linear_vjp(getattr(attn, name), x_, d.reshape(B, S, -1), **kw)
+            dx = dxi if dx is None else dx + dxi
+            by_key.update({(name, n): t for n, t in grads.items()})
+        norm_params = [norm.scale] if norm.scale.requires_grad else []
+        dh, *dscale = torch.autograd.grad(x_graph, [hg] + norm_params, dx)
+        if dscale:
+            by_key[("attention_norm", "scale")] = dscale[0]
+        return (None, None, None, dh, None, None, *(by_key.get(key) for key in ctx.keys))
+
+
+def attention_q8(blk: Block, config: LlamaConfig, h: torch.Tensor, rope: torch.Tensor,
+                 mask_info: MaskInfo) -> torch.Tensor:
+    """attention_norm + GQA attention on the pre-norm hidden state ``h`` with rowwise-int8
+    backward residuals (post-RoPE q / k / v and the flash output; no GEMM recompute in the
+    backward). Training only: no cache, no dropout, no context parallelism (``trunk`` falls
+    back or raises)."""
+    attn = blk.attention
+    keys, params = _trainable([("attention_norm", blk.attention_norm)]
+                              + [(n, getattr(attn, n)) for n in ("wq", "wk", "wv", "wo")])
+    return _AttentionQ8.apply(blk, config, keys, h, rope, mask_info, *params)
 
 
 # q8 policies: the attention half keeps the mapped policy's saves; the MLP runs outside
@@ -543,17 +642,24 @@ _Q8_POLICIES = {
     "flash_q8": "flash", "flash_qkv_q8": "flash_qkv", "flash_proj_q8": "flash_proj",
     "flash_q8s": "flash", "flash_qkv_q8s": "flash_qkv", "flash_proj_q8s": "flash_proj",
 }
-_ATTN_Q8_POLICIES = ("attn_q8", "attn_q8s")
+# attention_q8 + feed_forward_q8, no checkpoint at all; the values are the checkpointed
+# fallback where attention_q8 cannot apply (dropout)
+_ATTN_Q8_POLICIES = {"attn_q8": "flash_q8", "attn_q8s": "flash_q8s"}
 REMAT_POLICIES = (*rm.POLICY_SAVES, *_Q8_POLICIES, *_ATTN_Q8_POLICIES)
 
 
 def check_remat_policy(policy: str) -> None:
-    """Raise for a policy the port does not know or has not ported yet."""
-    if policy in _ATTN_Q8_POLICIES:
-        raise NotImplementedError(
-            f"remat_policy={policy!r}: the int8-residual attention (attention_q8) is not ported yet (slice 2c)")
+    """Raise for a policy the port does not know."""
     if policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {policy!r}; one of {REMAT_POLICIES}")
+
+
+def base_policy(policy: str) -> str:
+    """The named-save policy under which a caller that checkpoints whole blocks (a
+    pipeline stage) runs ``policy``: the q8 families map to their base, as the JAX
+    ``remat_policy`` maps them (attn_q8 -> flash_q8 -> flash)."""
+    policy = _ATTN_Q8_POLICIES.get(policy, policy)
+    return _Q8_POLICIES.get(policy, policy)
 
 
 def block(blk: Block, config: LlamaConfig, x: torch.Tensor, rope: torch.Tensor, mask_info: MaskInfo,
@@ -583,17 +689,27 @@ def layer_seeds(dropout_seeds, num_layers: int) -> list:
 
 def trunk(model: Llama, x: torch.Tensor, mask_info: MaskInfo, kv_cache=None,
           input_pos: torch.Tensor | None = None, prefill: bool = False, dropout_seeds=None,
-          layers: range | None = None):
+          layers: range | None = None, stage: bool = False):
     """Run every layer (``layers``: these of them, a pipeline stage's). x [B, S, D]
     embeddings. Returns (x, kv_cache); the cache (a pair of [L, B, n_kv, S, hd] tensors,
     or of (int8, scale) pairs) is updated in place and returned. Without a cache and with
     ``activation_checkpointing``, each block (under a q8 policy: its attention half) keeps
-    its input and what ``remat_policy`` names, and the rest is recomputed in the backward."""
+    its input and what ``remat_policy`` names, and the rest is recomputed in the backward;
+    under attn_q8 / attn_q8s no block is checkpointed (``attention_q8`` and
+    ``feed_forward_q8``). ``stage``: a pipeline stage's layers, each block checkpointed
+    whole under ``base_policy`` (the JAX ``pipeline._stage_trunk``)."""
     config = model.config
     layers = range(config.num_layers) if layers is None else layers
     if any(not isinstance(model.layers[i], Block) for i in layers):
         raise ValueError("this rank holds one pipeline stage's layers: run the model through "
                          "parallel/pipeline.py:pipeline_loss")
+    remat = kv_cache is None and config.activation_checkpointing and torch.is_grad_enabled()
+    policy = config.remat_policy
+    if remat:
+        check_remat_policy(policy)
+        if policy in _ATTN_Q8_POLICIES and config.attn_impl in CP_IMPLS:
+            raise ValueError(f"remat_policy={policy!r} does not combine with attn_impl={config.attn_impl!r}: "
+                             "attention_q8 runs the flash kernels on this rank's rows only")
     if input_pos is not None:
         rope = model.rope
     else:  # a context-parallel rank's rows sit at their global positions
@@ -601,12 +717,12 @@ def trunk(model: Llama, x: torch.Tensor, mask_info: MaskInfo, kv_cache=None,
         start = cp.sequence_start(mesh, x.shape[1]) if mesh is not None else 0
         rope = model.rope[start: start + x.shape[1]]
     seeds = layer_seeds(dropout_seeds, config.num_layers)
-    remat = kv_cache is None and config.activation_checkpointing and torch.is_grad_enabled()
-    policy = config.remat_policy
-    if remat:
-        check_remat_policy(policy)
-    q8 = policy in _Q8_POLICIES
-    keep = rm.POLICY_SAVES[_Q8_POLICIES[policy] if q8 else policy] if remat else ()
+    if stage:
+        policy = base_policy(policy)
+    attn_q8 = remat and policy in _ATTN_Q8_POLICIES and dropout_seeds is None
+    policy = _ATTN_Q8_POLICIES.get(policy, policy)  # the dropout fallback (and attn_q8's MLP family)
+    q8 = remat and policy in _Q8_POLICIES
+    keep = rm.POLICY_SAVES[_Q8_POLICIES.get(policy, policy)] if remat else ()
     B, S = x.shape[:2]
     offsets = None
     if (kv_cache is not None and not prefill and x.is_cuda and not _decode_kernel_fits(mask_info, S)
@@ -624,6 +740,10 @@ def trunk(model: Llama, x: torch.Tensor, mask_info: MaskInfo, kv_cache=None,
 
     for layer in layers:
         blk = model.layers[layer]
+        if attn_q8:
+            x = x + attention_q8(blk, config, x, rope, mask_info)
+            x = x + feed_forward_q8(blk, config, x)
+            continue
         if remat:
             x = checkpoint(region, x, blk, rm.SaveStore(keep), seeds[layer], use_reentrant=False,
                            preserve_rng_state=False)

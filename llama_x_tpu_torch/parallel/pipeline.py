@@ -28,6 +28,11 @@ sums the embeddings' and the head's (``train/trainer.py:reduce_axes``). ``prefix
 the prefix attend bidirectionally. Packed ``segment_ids``, tied embeddings, the fused CE
 and a dp / fsdp axis (each batch rank pipelines its own rows) work as in JAX; attention
 dropout and context-parallel attention do not combine with pp (``train/validate.py``).
+
+Under ``activation_checkpointing`` a stage checkpoints each block whole under the remat
+policy's base (``llama.base_policy``: the q8 and attn_q8 families map to the named-save
+policy beneath them), as the JAX ``_stage_trunk`` runs ``llama.block`` under
+``llama.remat_policy``: no int8 residual in a stage's MLP or attention.
 """
 
 from __future__ import annotations
@@ -90,7 +95,7 @@ class _Pipeline(torch.autograd.Function):
                 else:
                     x_in = recv(mesh, [run.shape(m, like)], "pp", s - 1, tag=m)[0].detach().requires_grad_(True)
                     x = x_in
-                y, _ = llama.trunk(model, x, run.mask(m), layers=run.layers)
+                y, _ = llama.trunk(model, x, run.mask(m), layers=run.layers, stage=True)
                 if last:
                     lab = run.lab[m]
                     n = (lab != IGNORE_INDEX).sum()

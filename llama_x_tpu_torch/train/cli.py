@@ -1,13 +1,14 @@
 """Shared trainer plumbing for the command-line entry points (port of
 llama_x_tpu/train/cli.py): the common flags, model construction with the quantize ->
 adapt -> freeze composition (with an audio stem, a patch-embed stem or both for the
-multimodal trainers), the model config beside the checkpoints, optimizer set-up and
-step-batch assembly.
+multimodal trainers), the model config beside the checkpoints, optimizer set-up,
+step-batch assembly and its prefetch onto the device (``prefetch``, ``device_batches``).
 
-Flags of the JAX trainer that belong to later slices of the port are accepted by the
-parser and refused with the slice's name, never ignored: the ``attn_q8`` / ``attn_q8s``
-remat policies (slice 2c) and real MetaMathQA text (its files are not in the repository).
-``--model`` reads a local HF checkpoint directory (models/hf.py).
+Real MetaMathQA text is read from its token cache (data/metamathqa.py); a missing cache is
+refused by name (``check_supported``). ``--model`` reads a local HF checkpoint directory
+(models/hf.py). ``--profile`` traces steps 5 and 6 (train/metrics.py: ``Profiler``) and cuts
+the run to 10 steps, as the JAX trainers do; ``--project`` names a wandb project, used where
+wandb can be imported.
 
 Parallelism: ``--mesh '{"dp": D, "fsdp": F, "pp": P, "cp": C, "tp": T}'`` under
 ``torch.distributed.run`` (D x F x P x C x T processes; ``--attn_impl ring`` or ``ulysses``
@@ -24,6 +25,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import queue
+import threading
 from datetime import datetime
 from pathlib import Path
 
@@ -70,6 +73,9 @@ def add_common_args(parser: argparse.ArgumentParser):
     parser.add_argument("--ckpt_interval", type=int, default=1000)
     parser.add_argument("--log_interval", type=int, default=50)
     parser.add_argument("--run_name")
+    parser.add_argument("--project", help="a wandb project (logged there where wandb can be imported)")
+    parser.add_argument("--profile", action="store_true",
+                        help="trace steps 5 and 6 into <run>/profile (torch.profiler); the run stops after 10 steps")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--skip_nonfinite", action="store_true", help="suppress updates on NaN/Inf grads")
     parser.add_argument("--resume", help="a run directory or step directory of this trainer's checkpoints")
@@ -100,18 +106,18 @@ def add_common_args(parser: argparse.ArgumentParser):
                              "default: the small model")
 
 
-def check_supported(args, real_data: str | None = "MetaMathQA data (slice 2b)") -> None:
-    """Refuse, by name, what later slices of the port bring. ``real_data``: the
-    trainer's real dataset where the port cannot read it yet (it needs files the
-    repository does not hold), or None where ``--dataset_dir`` reads it."""
-    later = []
-    if args.remat_policy in ("attn_q8", "attn_q8s"):
-        later.append(f"--remat_policy {args.remat_policy} (the int8-residual attention: slice 2c)")
-    if not args.synthetic and real_data is not None:
-        later.append(f"real {real_data}: needs dataset files the repository does not hold; pass --synthetic N")
-    if later:
-        raise NotImplementedError("not ported yet: " + "; ".join(later))
-    if real_data is None and not (args.synthetic or args.dataset_dir):
+def check_supported(args, real_data: Path | None = None) -> None:
+    """Refuse, by name, a real dataset the trainer cannot read. ``real_data``: the token
+    cache the trainer reads its real dataset from (train_metamathqa), which must exist, or
+    None where ``--dataset_dir`` reads it. ``--synthetic`` needs neither."""
+    if args.synthetic:
+        return
+    if real_data is not None:
+        if not Path(real_data).exists():
+            raise FileNotFoundError(f"no token cache {real_data} for the real dataset: the port downloads nothing "
+                                    "(data/metamathqa.py: tokenize_metamathqa writes it from local records); "
+                                    "pass --synthetic N")
+    elif not args.dataset_dir:
         raise ValueError("--dataset_dir required (or --synthetic N)")
 
 
@@ -291,22 +297,82 @@ def assemble_step_batch(micro_batches: list[dict], pad_values: dict | None = Non
     return out
 
 
+def prefetch(it, depth: int = 2):
+    """Draw ``it`` on a background thread, ``depth`` items ahead, so that batch assembly and
+    the device copy overlap the running step. An exception of the producer crosses to the
+    consumer and is raised there (a bare end marker would turn a failure of the data
+    pipeline into a silent end of data)."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    end = object()
+
+    def worker():
+        try:
+            for item in it:
+                q.put(item)
+            q.put(end)
+        except BaseException as e:  # noqa: BLE001 - handed to the consumer, which raises it
+            q.put(e)
+
+    threading.Thread(target=worker, daemon=True).start()
+    while True:
+        item = q.get()
+        if item is end:
+            return
+        if isinstance(item, BaseException):
+            raise item
+        yield item
+
+
+def device_batches(batches, device, depth: int = 2):
+    """The step batches of ``batches`` (dicts of numpy arrays) as tensors on ``device``,
+    prefetched ``depth`` ahead on a background thread (``prefetch``). On the card each array is
+    pinned and copied with ``non_blocking`` on a side stream; the consumer's stream waits on the
+    copy's event and ``record_stream`` keeps the buffers alive for it, so the copy of the next
+    batch overlaps the current step instead of queueing behind it on the default stream."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        yield from prefetch(({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in b.items()} for b in batches),
+                            depth)
+        return
+    stream = torch.cuda.Stream(device)
+
+    def copies():
+        for b in batches:
+            with torch.cuda.stream(stream):
+                out = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory().to(device, non_blocking=True)
+                       for k, v in b.items()}
+                done = torch.cuda.Event()
+                done.record(stream)
+            yield out, done
+
+    for out, done in prefetch(copies(), depth):
+        current = torch.cuda.current_stream(device)
+        current.wait_event(done)
+        for t in out.values():
+            t.record_stream(current)
+        yield out
+
+
 def run_training(args, model, data_iter, loss_fn, task: str, audio_config=None, vision_config=None,
                  audio_secs_per_step: float = 0.0, mesh: Mesh | None = None) -> None:
     """The trainers' loop (the JAX trainers' ``main`` after their set-up): optimizer,
     ``--resume``, the run directory with its model config, metrics every
     ``--log_interval`` steps, checkpoints every ``--ckpt_interval`` steps and at the end.
     ``data_iter`` yields microbatches; the label-token count is summed on the device
-    between log points, so no step reads back. Over a ``mesh`` of several ranks every rank
-    draws the same step batch and trains on its dp block of rows inside ``use_mesh``; rank 0
-    alone writes the run directory, its metrics and checkpoints."""
+    between log points, so no step reads back. The step batches (accumulation microbatches
+    assembled, this rank's rows, on the device) are prefetched two ahead (``device_batches``).
+    Over a ``mesh`` of several ranks every rank draws the same step batch and trains on its dp
+    block of rows inside ``use_mesh``; rank 0 alone writes the run directory, its metrics, the
+    profile and checkpoints."""
     from llama_x_tpu_torch.parallel.mesh import use_mesh
     from llama_x_tpu_torch.train.checkpoint import latest_checkpoint, restore_checkpoint, save_checkpoint
-    from llama_x_tpu_torch.train.metrics import RunLogger, Throughput, device_memory_stats
+    from llama_x_tpu_torch.train.metrics import Profiler, RunLogger, Throughput, device_memory_stats
     from llama_x_tpu_torch.train.trainer import TrainState, make_train_step
 
     mesh = mesh or make_mesh()
     lead = mesh.rank == 0
+    if args.profile:
+        args.n_steps = min(args.n_steps, 10)
     optimizer, schedule = setup_optimizer(args, model)
     state = TrainState(model, optimizer)
     train_step = make_train_step(loss_fn, skip_nonfinite=args.skip_nonfinite, mesh=mesh)
@@ -315,16 +381,25 @@ def run_training(args, model, data_iter, loss_fn, task: str, audio_config=None, 
         restore_checkpoint(path, state)
         print(f"resumed from {path} at step {state.step}")
 
+    profiler = None
     if lead:
         save_dir = make_save_dir(task, args.run_name)
         save_model_config(save_dir, model.config, audio_config, vision_config)
-        logger = RunLogger(save_dir, config=vars(args))
+        logger = RunLogger(save_dir, config=vars(args), project=args.project, run_name=args.run_name)
+        if args.profile:
+            profiler = Profiler(save_dir / "profile", model.device)
+
+    def step_batches():
+        while True:
+            micro = [next(data_iter) for _ in range(args.gradient_accumulation)]
+            yield shard_batch(assemble_step_batch(micro, pad_values={"labels": -100}), mesh)
+
+    batch_iter = device_batches(step_batches(), model.device)
     meter = Throughput()
     tok_acc, audio_acc = 0, 0.0
     while state.step < args.n_steps:
         step = state.step
-        micro = [next(data_iter) for _ in range(args.gradient_accumulation)]
-        batch = shard_batch(assemble_step_batch(micro, pad_values={"labels": -100}), mesh)
+        batch = next(batch_iter)
         with use_mesh(mesh):
             metrics = train_step(state, batch)
         tok_acc = tok_acc + metrics["n_tokens"]
@@ -340,7 +415,11 @@ def run_training(args, model, data_iter, loss_fn, task: str, audio_config=None, 
             print(f"step {step}: loss {log['loss']:.4f}")
         if args.ckpt_interval > 0 and state.step % args.ckpt_interval == 0:
             save_checkpoint(save_dir if lead else None, state, state.step)
+        if profiler is not None:
+            profiler.step()
 
+    if profiler is not None:
+        profiler.close()
     save_checkpoint(save_dir if lead else None, state, state.step)
     if lead:
         logger.finish()

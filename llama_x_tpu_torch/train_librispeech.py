@@ -36,7 +36,7 @@ from llama_x_tpu_torch.data.tokenizers import get_tokenizer
 from llama_x_tpu_torch.models import audio as audio_mod
 from llama_x_tpu_torch.models.audio import AudioConfig
 from llama_x_tpu_torch.train.cli import (add_common_args, build_model_params, check_supported, place_model,
-                                         pp_microbatch_count, run_training, setup_mesh)
+                                         pp_microbatch_count, prefetch, run_training, setup_mesh)
 from llama_x_tpu_torch.train.validate import validate_model
 
 MAX_SEQ_LEN = 4096  # 40 s -> 2000 audio tokens + up to 2096 text tokens
@@ -85,6 +85,8 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     parser.add_argument("--audio_duration", type=float, default=40.0)
     parser.add_argument("--seq_len_multiple", type=int, default=128)
     parser.add_argument("--prefix_lm", action="store_true", help="bidirectional attention over the audio prefix")
+    parser.add_argument("--n_workers", type=int, default=4,
+                        help="accepted as the JAX trainer accepts it; the loader is prefetched on a thread")
     args = parser.parse_args(argv)
     check_supported(args, real_data=None)
     audio_tokens = AudioConfig().num_audio_tokens(int(args.audio_duration * AudioConfig().sample_rate))
@@ -104,7 +106,7 @@ def make_data(args, audio_config: AudioConfig, micro_bs: int, vocab_size: int | 
                            seq_len_multiple=args.seq_len_multiple, batch_size=micro_bs,
                            sample_rate=audio_config.sample_rate, seed=args.seed)
     print(f"Training dataset size: {len(ds.samples):,} utterances")
-    return iter(ds)
+    return prefetch(iter(ds), depth=4)
 
 
 def main(argv: list[str] | None = None) -> None:

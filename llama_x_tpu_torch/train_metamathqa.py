@@ -21,8 +21,12 @@
         --synthetic 64 --n_steps 4 --batch_size 4 --document_mask --max_seq_len 256 --device cpu \
         --mesh '{"dp": 2, "pp": 2}' --pp_microbatches 2
 
-Runs on the card unless ``--device cpu``. Real data and the ``attn_q8`` remat policies
-belong to later slices and raise by name.
+    # real MetaMathQA from its token cache metamathqa_<tokenizer>_s<max_seq_len>.npz in the
+    # working directory (data/metamathqa.py: tokenize_metamathqa writes it); a trace of steps 5-6
+    python -m llama_x_tpu_torch.train_metamathqa --max_seq_len 512 --n_steps 10 --batch_size 4 --profile
+
+Runs on the card unless ``--device cpu``. Without ``--synthetic`` a missing token cache
+raises, naming the file: the port downloads nothing.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import argparse
 
 import numpy as np
 
-from llama_x_tpu_torch.data.metamathqa import get_metamathqa
+from llama_x_tpu_torch.data.metamathqa import cache_path, get_metamathqa
 from llama_x_tpu_torch.models import llama
 from llama_x_tpu_torch.train.cli import (add_common_args, build_model_params, check_supported, place_model,
                                          pp_microbatch_count, run_training, setup_mesh)
@@ -67,13 +71,18 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     parser.add_argument("--max_seq_len", type=int, default=1024)
     parser.add_argument("--seq_len_multiple", type=int, default=256)
     args = parser.parse_args(argv)
-    check_supported(args)
+    check_supported(args, real_data=cache_path(args.tokenizer, args.max_seq_len))
     return args
 
 
 def make_data(args, vocab_size: int):
-    """(iterator over microbatches, dataset size) of the ``--synthetic`` samples."""
+    """(iterator over microbatches, dataset size): the ``--synthetic`` samples, or the real
+    samples of the token cache in the working directory (every rank of a mesh draws the same
+    step batch, and ``shard_batch`` gives each its rows)."""
     micro_bs = args.batch_size // args.gradient_accumulation
+    if not args.synthetic:
+        return get_metamathqa(args.tokenizer, args.document_mask, micro_bs, args.max_seq_len, args.seq_len_multiple,
+                              seed=args.seed)
     if args.synthetic_task == "count":
         from llama_x_tpu_torch.data.synthetic import counting_tokens
         from llama_x_tpu_torch.data.tokenizers import get_tokenizer

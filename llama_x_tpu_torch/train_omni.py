@@ -38,7 +38,7 @@ from llama_x_tpu_torch.models import omni as omni_mod
 from llama_x_tpu_torch.models.audio import AudioConfig
 from llama_x_tpu_torch.models.vision import VisionConfig
 from llama_x_tpu_torch.train.cli import (add_common_args, build_model_params, check_supported, place_model,
-                                         pp_microbatch_count, run_training, setup_mesh)
+                                         pp_microbatch_count, prefetch, run_training, setup_mesh)
 from llama_x_tpu_torch.train.validate import validate_model
 
 
@@ -124,7 +124,7 @@ def make_data(args, audio_config: AudioConfig, micro_bs: int, vocab_size: int, t
                       seq_len_multiple=args.seq_len_multiple, batch_size=micro_bs,
                       sample_rate=audio_config.sample_rate, max_text_len=args.max_text_len, seed=args.seed)
     print(f"Training dataset size: {len(ds.records):,} (audio={ds.has_audio}, image={ds.has_image})")
-    return iter(ds), ds.has_audio
+    return prefetch(iter(ds), depth=4), ds.has_audio
 
 
 def main(argv: list[str] | None = None) -> None:

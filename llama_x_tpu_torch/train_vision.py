@@ -34,7 +34,7 @@ from llama_x_tpu_torch.data.vision import ImageCaptions, synthetic_shapes_batche
 from llama_x_tpu_torch.models import vision as vision_mod
 from llama_x_tpu_torch.models.vision import VisionConfig
 from llama_x_tpu_torch.train.cli import (add_common_args, build_model_params, check_supported, place_model,
-                                         pp_microbatch_count, run_training, setup_mesh)
+                                         pp_microbatch_count, prefetch, run_training, setup_mesh)
 from llama_x_tpu_torch.train.validate import validate_model
 
 
@@ -84,7 +84,7 @@ def make_data(args, micro_bs: int, tokenizer):
     ds = ImageCaptions(args.dataset_dir, tokenizer, image_size=args.image_size, seq_len_multiple=args.seq_len_multiple,
                        batch_size=micro_bs, max_text_len=args.max_text_len, seed=args.seed)
     print(f"Training dataset size: {len(ds.samples):,}")
-    return iter(ds)
+    return prefetch(iter(ds), depth=4)
 
 
 def main(argv: list[str] | None = None) -> None:

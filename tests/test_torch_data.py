@@ -483,9 +483,9 @@ def test_train_vision_and_omni_read_a_dataset_dir(tmp_path, monkeypatch):
 
 
 def test_check_supported_refuses_only_what_is_missing():
-    """--tokenizer and --tokenizer_path pass, and so do a dp x cp --mesh with ring / ulysses
-    and --model; a --mesh with fsdp / pp / tp above 1, --pp_microbatches and attn_q8(s)
-    raise by name; real text data names MetaMathQA."""
+    """--tokenizer and --tokenizer_path pass, and so do a dp x cp --mesh with ring / ulysses,
+    --model, a --mesh with fsdp / pp / tp above 1, --pp_microbatches and attn_q8(s); real text
+    data needs its token cache and raises naming the file where there is none."""
     import argparse
 
     from llama_x_tpu_torch.train import cli
@@ -502,11 +502,13 @@ def test_check_supported_refuses_only_what_is_missing():
     cli.check_supported(args("--synthetic", "4", "--mesh", '{"dp": 2, "cp": 2}', "--attn_impl", "ulysses"))
     for flags in (["--mesh", '{"pp": 2}'], ["--pp_microbatches", "2"], ["--mesh", '{"dp": 2, "fsdp": 2}']):
         cli.check_supported(args("--synthetic", "4", *flags))  # slice 5b: ported
-    with pytest.raises(NotImplementedError, match="slice 2c"):
-        cli.check_supported(args("--synthetic", "4", "--remat_policy", "attn_q8"))
+    cli.check_supported(args("--synthetic", "4", "--remat_policy", "attn_q8"))  # slice 2c: ported
     cli.check_supported(args("--synthetic", "4", "--model", "m"))  # HF import: slice 3, ported
-    with pytest.raises(NotImplementedError, match="MetaMathQA"):
-        cli.check_supported(args("--tokenizer", "llama3"))
+    from llama_x_tpu_torch.data.metamathqa import cache_path
+
+    missing = cache_path("llama3", 1024, str(Path(__file__).parent / "no_such_dir"))
+    with pytest.raises(FileNotFoundError, match="metamathqa_llama3_s1024.npz"):
+        cli.check_supported(args("--tokenizer", "llama3"), real_data=missing)
     with pytest.raises(ValueError, match="--dataset_dir"):
         cli.check_supported(args(dataset=True), real_data=None)
 

@@ -780,7 +780,7 @@ def test_flash_probe_kernel_matches_plain(cuda, S, D, bq, bk, prefix):
         fp.flash_probe(q, k, v, bq, S // 2 + 64, prefix)  # bk does not divide S
 
 
-@pytest.mark.parametrize("policy", ["flash_q8s", "flash_proj"])
+@pytest.mark.parametrize("policy", ["flash_q8s", "flash_proj", "attn_q8", "attn_q8s"])
 def test_audio_train_entry_point_runs_on_the_card(cuda, tmp_path, monkeypatch, policy):
     """``train_librispeech.main`` itself on a small QLoRA model with a stem: 2 s of audio
     (100 audio tokens) before 64 text tokens, prefix-LM, a saving remat policy; K1, K2, K4
@@ -854,6 +854,39 @@ def test_vision_and_omni_train_entry_points_run_on_the_card(cuda, tmp_path, monk
     assert [r["step"] for r in recs] == [0, 1] and all(math.isfinite(r["loss"]) for r in recs)
 
 
+TRAINER_FLAGS = {  # each trainer's small QLoRA run: (task directory, its own flags)
+    "train_metamathqa": ("metamathqa", ["--synthetic", "16", "--document_mask", "--max_seq_len", "256",
+                                        "--batch_size", "2"]),
+    "train_librispeech": ("librispeech", ["--synthetic", "8", "--audio_duration", "2", "--seq_len_multiple", "64",
+                                          "--batch_size", "2", "--prefix_lm"]),
+    "train_vision": ("vision", ["--synthetic", "16", "--batch_size", "4", "--image_size", "32", "--patch_size", "8",
+                                "--prefix_lm"]),
+    "train_omni": ("omni", ["--synthetic", "8", "--audio_duration", "1", "--seq_len_multiple", "64", "--batch_size",
+                            "2", "--image_size", "32", "--patch_size", "8", "--prefix_lm"]),
+}
+
+
+@pytest.mark.parametrize("entry_name", list(TRAINER_FLAGS))
+def test_every_trainer_takes_attn_q8s_on_the_card(cuda, tmp_path, monkeypatch, entry_name):
+    """Each trainer's ``main`` under ``--remat_policy attn_q8s`` on a small QLoRA model: K1, K2,
+    K4 and K5 launch, one flash forward and one backward per layer and step, finite losses."""
+    import importlib
+    import json
+
+    entry = importlib.import_module(f"llama_x_tpu_torch.{entry_name}")
+    task, extra = TRAINER_FLAGS[entry_name]
+    monkeypatch.chdir(tmp_path)
+    counters = (mm.int8_mm_dequant_nt, mm.int8_mm_dequant, fa.flash_fwd_with_lse, fa.flash_bwd_from_res)
+    before = [c.launches for c in counters]
+    entry.main([*extra, "--remat_policy", "attn_q8s", *[f for f in SMALL_QLORA if f != "--prefix_lm"]])
+    after = [c.launches for c in counters]
+    assert all(a > b for a, b in zip(after, before))
+    assert after[2] - before[2] == after[3] - before[3] == 2 * 2  # layers x steps (one microbatch a step)
+    (run,) = (tmp_path / "runs" / task).iterdir()
+    recs = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in recs] == [0, 1] and all(math.isfinite(r["loss"]) for r in recs)
+
+
 def test_eval_entry_points_decode_through_the_kernels(cuda):
     """``eval_vision`` and ``eval_librispeech`` with ``--synthetic``: the prefill with the
     modality prefix through K2, every new token through K3."""
@@ -886,6 +919,27 @@ def test_flash_kernels_at_the_vision_and_omni_prefixes(cuda, B, S, prefix):
     for a, b in zip(got, want):
         atol, rtol = fa.flash_bwd_tolerance(b)
         assert bool(((a.float() - b.float()).abs() <= atol + rtol * b.float().abs()).all())
+
+
+@pytest.mark.parametrize("S,prefix", [(107, 75), (112, 72), (162, 122)])
+def test_flash_kernels_at_the_learned_task_shapes(cuda, S, prefix):
+    """K2 and K5 at the learned tasks' training shapes on the card (B 16, 4 / 2 heads of 64,
+    prefix-LM): wer_synthetic's 75 audio + 32 text positions, vision_synthetic's 72 image +
+    40 text, omni_synthetic's 50 audio + 72 image + 40 text (two kv tiles, the prefix ending
+    inside the first)."""
+    B = 16
+    g = torch.Generator(device=cuda).manual_seed(S)
+    mk = lambda h: torch.randn(B, S, h, 64, device=cuda, generator=g).to(torch.bfloat16)  # noqa: E731
+    q, k, v, do = mk(4), mk(2), mk(2), mk(4)
+    mi = MaskInfo(causal=True, prefix_len=torch.full((B,), prefix, dtype=torch.int32, device=cuda))
+    out, lse = fa.flash_fwd_with_lse(q, k, v, mi)
+    ref, ref_lse = fa.flash_fwd_plain(q, k, v, mi)
+    _assert_k2_close(out, ref)
+    assert _max_err(lse, ref_lse) <= 2e-3
+    got = fa.flash_bwd_from_res(q, k, v, out, lse, do, mi)
+    want = fa.flash_bwd_plain(q, k, v, out, lse, do, mi)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _assert_k5_close(f"S={S} prefix={prefix} {name}", a, b)
 
 
 RING_MASKS = ["causal", "doc", "prefix", "prefix past the shard", "noncausal"]
@@ -990,3 +1044,96 @@ def test_int8_mm_kn_at_tp_shard_shapes(cuda, M, N, K):
     got = mm.int8_mm_dequant(a, b, rs, cs, out_dtype=out_dtype)
     torch.cuda.synchronize()
     assert torch.equal(got, mm.int8_mm_dequant_plain(a, b, rs, cs, out_dtype)), mm.int8_mm_kn_plan(M, N, K)
+
+
+def _attn_q8_model(policy: str, layers: int = 2, chunks: int = 2):
+    """A QLoRA text model of width 256 with heads of 64 in bf16 (int8 base, dynamic int8
+    activations and input gradients, int8 head, fused CE) under ``policy``, and one microbatch
+    of packed rows; lora_b drawn live so that every adapter gradient is."""
+    from llama_x_tpu_torch import train_metamathqa as entry
+    from llama_x_tpu_torch.train import cli
+
+    args = entry.parse_args([
+        "--synthetic", "16", "--synthetic_task", "count", "--quantize", "int8", "--quantize_kwargs",
+        '{"dynamic_int8_act": true, "dynamic_int8_bwd": true, "int8_head": true}', "--adapter", "lora",
+        "--freeze_prefixes", "tok_embeddings", "output", "norm", "--activation_checkpointing",
+        "--remat_policy", policy, "--fused_ce_chunks", str(chunks), "--document_mask", "--max_seq_len", "512",
+        "--batch_size", "2", "--synthetic_config",
+        f'{{"num_layers": {layers}, "embed_dim": 256, "head_dim": 64, "num_heads": 4, "num_kv_heads": 2}}',
+    ])
+    model = cli.build_model_params(args, max_seq_len=args.max_seq_len)
+    g = torch.Generator(device=model.device).manual_seed(3)
+    for blk in model.layers:
+        for lin in (*blk.attention.children(), *blk.feed_forward.children()):
+            lin.lora_b.data.copy_(torch.randn(lin.lora_b.shape, generator=g, device=model.device) * 0.05)
+    data_iter, _ = entry.make_data(args, model.config.vocab_size)
+    mb = {k: torch.as_tensor(v).cuda() for k, v in next(data_iter).items()}
+    return model, mb, entry.loss_fn
+
+
+@pytest.mark.parametrize("policy", ["attn_q8", "attn_q8s"])
+def test_attn_q8_launches_of_one_microbatch(cuda, policy):
+    """One microbatch's forward + backward under attn_q8 / attn_q8s at L layers and C CE
+    chunks: K1 7 L + 2 C (attn_q8s: 8 L, one w3 GEMM again), K4 7 L + C, K2 and K5 once a
+    layer: no GEMM of the attention runs again in its backward."""
+    model, mb, loss_fn = _attn_q8_model(policy, layers=3, chunks=2)
+    L, C = 3, 2
+    counters = (mm.int8_mm_dequant_nt, mm.int8_mm_dequant, fa.flash_fwd_with_lse, fa.flash_bwd_from_res)
+    before = [c.launches for c in counters]
+    params = [p for p in model.parameters() if p.requires_grad]
+    torch.autograd.grad(loss_fn(model, mb)[0], params)
+    torch.cuda.synchronize()
+    got = [c.launches - b for c, b in zip(counters, before)]
+    assert got == [(7 + (policy == "attn_q8s")) * L + 2 * C, 7 * L + C, L, L]
+
+
+def test_attn_q8s_kernel_path_matches_plain_on_a_two_layer_cut(cuda, monkeypatch):
+    """Loss and adapter gradients of one microbatch under attn_q8s through K1 / K4 / K2 / K5
+    and through their plain versions, at chip_smoke.py's compare_grad_paths tolerances: the
+    loss within 2^-10 of its size, each adapter gradient within 2^-6 of its norm (relative
+    L2)."""
+    model, mb, loss_fn = _attn_q8_model("attn_q8s")
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad and "lora_" in n]
+
+    def run():
+        loss = loss_fn(model, mb)[0]
+        return float(loss.detach()), torch.autograd.grad(loss, [p for _, p in named])
+
+    loss_k, grads_k = run()
+    for mod, name, fn in [(mm, "int8_mm_dequant_nt", mm.int8_mm_dequant_nt_plain),
+                          (mm, "int8_mm_dequant", mm.int8_mm_dequant_plain),
+                          (fa, "_forward_impl", fa.flash_fwd_plain), (fa, "flash_bwd_from_res", fa.flash_bwd_plain)]:
+        monkeypatch.setattr(mod, name, fn)
+    loss_p, grads_p = run()
+    assert math.isfinite(loss_k) and abs(loss_k - loss_p) <= 2**-10 * abs(loss_p)
+    for (name, _), a, b in zip(named, grads_k, grads_p):
+        rel = float((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30))
+        assert rel <= 2**-6, (name, rel)
+
+
+@pytest.mark.parametrize("tool", ["wer_synthetic", "vision_synthetic", "omni_synthetic", "int8_bwd_quality",
+                                  "int8_head_quality"])
+def test_learned_task_entry_points_run_on_the_card(cuda, tmp_path, tool):
+    """Each learned-task entry point at a few steps through its own ``main``: heads of 64 in
+    bf16, the loss falls, its artifact names the card, and the kernels of its path launch
+    (K2 / K5 to train, K3 to decode; K1 / K4 for the QLoRA quality studies)."""
+    import importlib
+
+    from llama_x_tpu_torch.ops import decode_attention as da
+
+    entry = importlib.import_module(f"llama_x_tpu_torch.{tool}")
+    counters = {"K1": mm.int8_mm_dequant_nt, "K4": mm.int8_mm_dequant, "K2": fa.flash_fwd_with_lse,
+                "K5": fa.flash_bwd_from_res, "K3": da.decode_attention}
+    before = {k: c.launches for k, c in counters.items()}
+    if tool.startswith("int8"):
+        art = entry.main(["--steps", "12", "--out", str(tmp_path / "quality.json")])
+        curve = art[next(k for k in art if k.startswith("curve_"))]
+        assert curve[-1] < curve[0]
+        need = ("K1", "K4", "K2", "K5")
+    else:
+        flag = "--eval_utts" if tool == "wer_synthetic" else "--eval_samples"
+        art = entry.main(["--steps", "12", flag, "2", "--out_dir", str(tmp_path)])
+        assert art["final_loss"] < art["losses_every_50"][0]
+        need = ("K2", "K5", "K3")
+    assert art["model"]["head_dim"] == 64 and art["device"] == torch.cuda.get_device_name(0)
+    assert all(counters[k].launches > before[k] for k in need), {k: counters[k].launches - before[k] for k in need}

@@ -224,3 +224,41 @@ def test_pipeline_audio_trainer_step(dp2pp2):
                                 labels=jnp.asarray(labels), prefix_lm=True))
     for r in dp2pp2[1]:
         np.testing.assert_allclose(r[1]["loss"][0], want, rtol=1e-5)
+
+
+Q8_PP_POLICIES = ["flash_q8s", "attn_q8s"]
+
+
+@pytest.fixture(scope="module")
+def pp2_q8(tmp_path_factory):
+    """The 4-layer float model's pipeline loss and gradients at pp 2 under each q8 policy,
+    in one set of two processes."""
+    _, params, tokens, labels, kw = _setup(num_layers=4, B=4, S=32)
+    cases = [_case(params, dict(kw, activation_checkpointing=True, remat_policy=p), tokens, labels, 2, grads=True)
+             for p in Q8_PP_POLICIES]
+    return run_ranks(dict(kind="pipeline", world=2, mesh=dict(pp=2), cases=cases),
+                     tmp_path_factory.mktemp("ppq8"), timeout=240)[0]
+
+
+@pytest.mark.parametrize("policy", Q8_PP_POLICIES)
+def test_pipeline_q8_policy_matches_the_jax_stage(policy, pp2_q8):
+    """A pipeline stage runs each block checkpointed whole under the policy's base, as the
+    JAX ``_stage_trunk`` does under ``llama.remat_policy``: no int8 residual in the stage
+    (flash_q8s's h1, attn_q8s's q / k / v / out), so the loss and every gradient equal the
+    JAX ``pipeline_loss`` at pp 2 under the same policy at the file's fp32 tolerances."""
+    from jax.sharding import Mesh
+
+    from llama_x_tpu.parallel.pipeline import pipeline_loss as jpipeline_loss
+
+    config, params, tokens, labels, _ = _setup(num_layers=4, B=4, S=32)
+    config = config.replace(activation_checkpointing=True, remat_policy=policy)
+    mesh = Mesh(np.asarray(jax.devices()[:2]), ("pp",))
+    loss, g_ref = jax.jit(jax.value_and_grad(
+        lambda p: jpipeline_loss(p, config, jnp.asarray(tokens), jnp.asarray(labels), mesh, 2)))(params)
+    res = pp2_q8[Q8_PP_POLICIES.index(policy)]
+    np.testing.assert_allclose(res["loss"], float(loss), rtol=1e-5)
+    got = _jax_named(res["grads"])
+    want = dict(named_leaves(g_ref))
+    assert set(got) == set(want)
+    for n, w in want.items():
+        np.testing.assert_allclose(got[n], np.asarray(w), err_msg=f"{n} ({policy})", **JAX_TOL)

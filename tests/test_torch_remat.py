@@ -249,11 +249,13 @@ def test_linear_vjp_is_the_backward_of_apply_linear(kind, int8_bwd, counted):
 
 
 def test_attn_q8_is_refused_by_name_everywhere():
+    """Every policy the trainers offer is accepted (attn_q8 / attn_q8s since they were
+    ported, tests/test_torch_attn_q8.py), and a name outside them raises ValueError."""
     from llama_x_tpu_torch.train import cli
 
-    for policy in ("attn_q8", "attn_q8s"):
-        with pytest.raises(NotImplementedError, match="slice 2c"):
-            tllama.check_remat_policy(policy)
     assert set(cli.REMAT_POLICIES) == set(NAMED) | set(Q8) | {"full", "attn_q8", "attn_q8s"}
-    for policy in ["full", *NAMED, *Q8]:
+    for policy in cli.REMAT_POLICIES:
         tllama.check_remat_policy(policy)
+    for policy in ("attn_q9", "dots_proj"):
+        with pytest.raises(ValueError, match="unknown remat_policy"):
+            tllama.check_remat_policy(policy)

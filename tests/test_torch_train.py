@@ -151,16 +151,22 @@ def test_activation_checkpointing_gives_the_same_gradients(mode):
 
 
 @pytest.mark.parametrize("policy,exc,match", [
-    ("attn_q8", NotImplementedError, "slice 2c"), ("attn_q8s", NotImplementedError, "slice 2c"),
+    ("attn_q8", ValueError, "does not combine with attn_impl='ring'"),
+    ("attn_q8s", ValueError, "does not combine with attn_impl='ring'"),
     ("flash_q9", ValueError, "unknown remat_policy"), ("dots_proj", ValueError, "unknown remat_policy"),
 ])
 def test_other_remat_policies_are_refused_by_name(policy, exc, match):
-    """The named-save and q8 policies are ported (tests/test_torch_remat.py); the
-    int8-residual attention raises naming its slice, and an unknown name raises too."""
+    """Every policy of ``REMAT_POLICIES`` is ported (tests/test_torch_remat.py,
+    tests/test_torch_attn_q8.py); the int8-residual attention raises by name where it cannot
+    apply (context-parallel attention, here over a mesh of one rank), and an unknown name
+    raises too."""
+    from llama_x_tpu_torch.parallel.mesh import make_mesh, use_mesh
+
     _, _, _, model = _pair("full")
-    model.config = model.config.replace(activation_checkpointing=True, remat_policy=policy)
+    model.config = model.config.replace(activation_checkpointing=True, remat_policy=policy,
+                                        attn_impl="ring" if policy.startswith("attn_q8") else model.config.attn_impl)
     tokens, labels, seg = _batch(2)
-    with pytest.raises(exc, match=match):
+    with use_mesh(make_mesh()), pytest.raises(exc, match=match):
         tllama.forward(model, torch.from_numpy(tokens).long(), labels=torch.from_numpy(labels))
 
 

@@ -109,7 +109,7 @@ def test_low_bit_state_round_trip_matches_jax(bits):
 
 
 @pytest.mark.parametrize("mode", ["packed", "padding"])
-def test_data_iterators_yield_the_jax_batches(mode):
+def test_data_iterators_yield_the_jax_batches(mode, tmp_path):
     rng = np.random.default_rng(0)
     toks = [rng.integers(1, 300, rng.integers(8, 90)).astype(np.int32) for _ in range(37)]
     kw = dict(tokens_list=toks, seed=5)
@@ -124,8 +124,8 @@ def test_data_iterators_yield_the_jax_batches(mode):
     want = jsynth.counting_tokens(5, 3, 40, jget_tokenizer("byte", None))
     got = tsynth.counting_tokens(5, 3, 40, tget_tokenizer("byte"))
     assert all(np.array_equal(a, b) for a, b in zip(want, got))
-    with pytest.raises(NotImplementedError, match="slice 2b"):
-        tdata.get_metamathqa("llama3", True, 1, 128)
+    with pytest.raises(FileNotFoundError, match="metamathqa_llama3_s128.npz"):  # no token cache, no download
+        tdata.get_metamathqa("llama3", True, 1, 128, cache_dir=tmp_path)
 
 
 @pytest.mark.parametrize("adapter", ["lora", "dora"])
@@ -179,14 +179,17 @@ def _args(*argv):
     ([], "slice 2b"),  # no --synthetic: real data
 ])
 def test_cli_refuses_later_slices_by_name(flags, slice_name):
-    """Flags of slices still to port raise by name; slice 5b's (fsdp / tp / pp meshes,
-    ``--pp_microbatches``) are ported and pass."""
+    """Every slice's flags are ported and pass: slice 5b's (fsdp / tp / pp meshes,
+    ``--pp_microbatches``) and slice 2c's ``attn_q8s``; real MetaMathQA text (slice 2b) is read
+    from its token cache, and a missing cache raises naming the file."""
+    from llama_x_tpu_torch.data.metamathqa import cache_path
+
     args = _args(*(flags if not flags else ["--synthetic", "8", *flags]))
-    if slice_name == "slice 5b":
+    if slice_name != "slice 2b":
         tcli.check_supported(args)
         return
-    with pytest.raises(NotImplementedError, match=slice_name):
-        tcli.check_supported(args)
+    with pytest.raises(FileNotFoundError, match="metamathqa_byte_s1024.npz"):
+        tcli.check_supported(args, real_data=cache_path("byte", 1024, "no_such_dir"))
 
 
 def test_cli_takes_model_since_slice_3():
