@@ -32,8 +32,12 @@ no result line):
 3. serving main path: ``generate`` at Llama-3.1-8B width (32 layers) from seeded
    on-device weights, B 4, ragged byte-tokenized prompts padded to 512, 64 new
    tokens: bf16 weights with a bf16 cache, then int8 weights with dynamic int8
-   activations and an int8 cache; each run's kernel launch counts are reset before it
-   and must be non-zero after it;
+   activations and an int8 cache; each decode step one replay of the captured CUDA graph
+   (models/decode_graph.py; capture + instantiate seconds and the pool's memory printed);
+   each run's kernel launch counts are reset before it and must be non-zero after it;
+   three timed requests (the spread of decode tok/s), then the eager loop on the same batch
+   as the reference: tokens equal (else the near-tie rule, counted), launches equal, and
+   wall against device-busy per step of both (profiler);
 4. kernel path against plain path: on a 2-layer cut of the same weights, prefill and
    first-decode logits of the kernels and of their plain versions agree;
 3a. continuous serving on the first 8 of the 32 layers of phase 3's int8 model (a depth cut,
@@ -43,7 +47,9 @@ no result line):
    extend them), TTFT / inter-token latency p50 and p99, tokens/s, prefix hits, the launches
    of K1, K2 (self and offsets) and K3, every row against an unbatched ``generate`` under
    the near-tie rule (a divergence only where the two tokens lie within K2's tolerance of
-   each other in the unbatched logits of that step, counted);
+   each other in the unbatched logits of that step, counted); each decode step a replay of
+   the captured step, then the same traffic through the eager loop beside it (TTFT, ITL,
+   tokens/s, the busy share of a wave; its rows against the graph's);
 3b. speculative serving: the same 8-layer int8 target (bf16 cache) and an untrained 4-layer draft
    of width 1024, gamma 4 (verify on K3) and gamma 8 (verify on K2's offsets form), the
    acceptance rate, every row against plain greedy under the near-tie rule;
@@ -916,17 +922,11 @@ def phase_kernels():
 
 
 def counted():
-    from llama_x_tpu_torch.ops import decode_attention as da
-    from llama_x_tpu_torch.ops import flash_attention as fa
-    from llama_x_tpu_torch.ops import flash_probe as fp
-    from llama_x_tpu_torch.ops import int8_mm as mm
+    """The counted wrappers by name (ops/launches.py), every module that defines one imported."""
+    from llama_x_tpu_torch.ops import decode_attention, flash_attention, flash_probe, int8_mm  # noqa: F401
+    from llama_x_tpu_torch.ops import launches
 
-    return {"int8_mm_dequant_nt": mm.int8_mm_dequant_nt, "int8_mm_dequant": mm.int8_mm_dequant,
-            "flash_attention": fa.flash_fwd_with_lse, "flash_attention_offsets": fa.flash_fwd_offsets,
-            "flash_attention_bwd": fa.flash_bwd_from_res,
-            "flash_attention_ring": fa.flash_fwd_ring, "flash_attention_bwd_ring": fa.flash_bwd_ring,
-            "flash_probe": fp.flash_probe,
-            "decode_attention": da.decode_attention, "decode_attention_int8": da.decode_attention_int8}
+    return dict(launches.COUNTED)
 
 
 def reset_counts():
@@ -936,6 +936,53 @@ def reset_counts():
 
 def read_counts() -> dict:
     return {name: fn.launches for name, fn in counted().items()}
+
+
+def device_kernels(prof) -> list[str]:
+    """The name of every device activity of a torch.profiler trace, one per kernel (the raw
+    events: parsing a trace of 10^5 kernels into the profiler's tree takes seconds)."""
+    import torch
+
+    return [e.name() for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA]
+
+
+TRACE_ATTEMPTS = 3
+
+
+def traced(what: str, fn, cpu: bool = False) -> dict:
+    """``fn()`` with the counts reset just before and read just after, under torch.profiler
+    (CUDA activity, which sees every thread's launches; ``cpu``: host activity too), the
+    counts (a graph replay's credits included) held to the kernels of the device trace
+    (``launches.check_trace``; K3's merge kernels beside them). A trace of graph replays can
+    lose a run of records of every kind of kernel (diagnostics/trace_records.py), but it never
+    shows a kernel that did not run: where it shows fewer than counted, ``fn`` runs again, up
+    to TRACE_ATTEMPTS times; more than counted, or fewer every time, fails.
+    -> {"result", "launches", "traced", "prof", "wall_ms", "attempts"}"""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from llama_x_tpu_torch.ops import launches
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        torch.cuda.synchronize()
+        reset_counts()
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            result = fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+        names = device_kernels(prof)
+        seen = launches.traced_counts(names)
+        want = {group: sum(counts[n] for n in group.split(" + ")) for group in seen}
+        if seen == want or attempt == TRACE_ATTEMPTS or any(seen[g] > want[g] for g in seen):
+            traced_ = launches.check_trace(names, counts, what)
+            traced_["K3 merge"] = sum("decode_merge_kernel" in n for n in names)
+            return dict(result=result, launches=counts, traced=traced_, prof=prof, wall_ms=wall_ms, attempts=attempt)
+        lost = {g: want[g] - seen[g] for g in seen if seen[g] != want[g]}
+        log(f"    {what}: the trace lost kernels {lost} of {len(names)} device records; again")
 
 
 @contextlib.contextmanager
@@ -982,61 +1029,131 @@ def ragged_prompts(B: int = 4, P: int = 512):
 NEW_TOKENS = 64
 
 
-def drive_generate(model, prompt, lens, cache_dtype, need: list[str]) -> dict:
-    """The main path: ``generate`` on the ragged batch; counts reset just before and
-    read just after; prefill timed apart through ``prefill_start``."""
+GRAPH_RUNS = 3  # timed graph requests of each kind: the spread of decode tok/s
+
+
+def timed_request(model, prompt, lens, cache_dtype, eager: bool) -> dict:
+    """One request as ``generate`` makes it, ``prefill_start`` then ``decode_chunk`` of
+    NEW_TOKENS - 1 steps, each timed apart on the host clock after a synchronize (decode
+    tok/s from the decode alone); counts reset just before and read just after, peak memory
+    from a reset."""
     import torch
 
-    from llama_x_tpu_torch.models.generate import generate, prefill_start
+    from llama_x_tpu_torch.models.generate import decode_chunk, prefill_start
 
-    generate(model, prompt, max_new_tokens=2, prompt_lens=lens, cache_dtype=cache_dtype)  # warm-up
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    prefill_start(model, prompt, prompt_lens=lens, cache_dtype=cache_dtype, max_new_tokens=NEW_TOKENS)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    out = generate(model, prompt, max_new_tokens=NEW_TOKENS, prompt_lens=lens, cache_dtype=cache_dtype)
+    first, state = prefill_start(model, prompt, prompt_lens=lens, cache_dtype=cache_dtype, max_new_tokens=NEW_TOKENS,
+                                 eager=eager)
     torch.cuda.synchronize()
-    total_s = time.perf_counter() - t0
-    counts = read_counts()
+    t1 = time.perf_counter()
+    rest, _ = decode_chunk(model, state, NEW_TOKENS - 1, eager=eager)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    B = prompt.shape[0]
+    return dict(out=torch.cat([first[:, None], rest], dim=1), launches=read_counts(), prefill_ms=(t1 - t0) * 1e3,
+                total_s=t2 - t0, decode_tok_s=B * (NEW_TOKENS - 1) / (t2 - t1),
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def drive_generate(model, prompt, lens, cache_dtype, need: list[str]) -> dict:
+    """The main path: ``generate`` on the ragged batch, each decode step a replay of the
+    captured step (the warm-up captures it), under torch.profiler: its launches are the
+    wrappers' counts (the replays' credits included), held to the kernels of the device
+    trace. Then GRAPH_RUNS timed requests (``timed_request``) and the eager loop on the same
+    batch as the reference: the same tokens (bit for bit expected; else every differing row
+    under the near-tie rule, counted) and the same launches."""
+    import torch
+
+    from llama_x_tpu_torch.models import decode_graph as dg
+    from llama_x_tpu_torch.models.generate import generate
+
+    generate(model, prompt, max_new_tokens=2, prompt_lens=lens, cache_dtype=cache_dtype)  # warm-up and capture
+    generate(model, prompt, max_new_tokens=2, prompt_lens=lens, cache_dtype=cache_dtype, eager=True)
+    main = traced("generate through the captured step",
+                  lambda: generate(model, prompt, max_new_tokens=NEW_TOKENS, prompt_lens=lens, cache_dtype=cache_dtype))
+    out, counts = main["result"], main["launches"]
     B = prompt.shape[0]
     if tuple(out.shape) != (B, NEW_TOKENS) or int(out.min()) < 0 or int(out.max()) >= model.config.vocab_size:
         raise AssertionError(f"generate returned {tuple(out.shape)} in [{int(out.min())}, {int(out.max())}]")
     missing = [k for k in need if counts[k] == 0]
     if missing:
         raise AssertionError(f"the main path never launched {missing}: {counts}")
-    decode_s = total_s - prefill_s
-    res = dict(B=B, prompt=int(prompt.shape[1]), new_tokens=NEW_TOKENS, launches=counts, total_s=total_s,
-               prefill_ms=prefill_s * 1e3, decode_tok_s=B * (NEW_TOKENS - 1) / decode_s,
-               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    log(f"    generate B={B} P={prompt.shape[1]} +{NEW_TOKENS}: total {total_s:.3f} s, prefill "
-        f"{res['prefill_ms']:.1f} ms, decode {res['decode_tok_s']:.1f} tok/s, peak {res['peak_mem_gb']:.2f} GB")
-    log(f"    launches {counts}")
+    runs = [timed_request(model, prompt, lens, cache_dtype, False) for _ in range(GRAPH_RUNS)]
+    eager = timed_request(model, prompt, lens, cache_dtype, True)
+    for r in runs + [eager]:
+        if r["launches"] != counts:
+            raise AssertionError(f"launches differ between requests: {r['launches']} against {counts}")
+    for r in runs:
+        if not torch.equal(r["out"], out):
+            raise AssertionError("two graph requests of one batch gave different tokens")
+    divergences = []
+    for i in range(B):
+        if not torch.equal(out[i], eager["out"][i]):
+            ids = prompt[i, : int(lens[i])].tolist()
+            c = check_served_row(model, ids, out[i].tolist(), cache_dtype, other=eager["out"][i].tolist())
+            divergences.append((i, c["diverged_at"], c.get("margin"), c.get("tol")))
+    tok_s = [r["decode_tok_s"] for r in runs]
+    graph = dg.stats(model)
+    if graph["captures"] != 1 or graph["replays"] < (GRAPH_RUNS + 1) * (NEW_TOKENS - 1):
+        raise AssertionError(f"generate did not decode through one captured graph: {graph}")
+    main_run = runs[0]
+    res = dict(B=B, prompt=int(prompt.shape[1]), new_tokens=NEW_TOKENS, launches=counts, traced=main["traced"],
+               total_s=main_run["total_s"], prefill_ms=main_run["prefill_ms"], decode_tok_s=tok_s[0],
+               decode_tok_s_runs=tok_s, peak_mem_gb=main_run["peak_mem_gb"],
+               eager={k: eager[k] for k in ("total_s", "prefill_ms", "decode_tok_s", "peak_mem_gb")},
+               tokens_equal_eager=not divergences, near_tie_divergences=divergences, captures=graph["captures"],
+               capture_s=graph["capture_s"], pool_mb=[b / 1e6 for b in graph["pool_bytes"]],
+               buffer_sets=graph["slots"], buffer_sets_gb=graph["slot_bytes"] / 1e9)
+    log(f"    generate B={B} P={prompt.shape[1]} +{NEW_TOKENS}, graph: launches {counts}, equal to the device trace "
+        f"{main['traced']}")
+    prefill_ms = ", ".join(f"{r['prefill_ms']:.1f}" for r in runs)
+    log(f"    {GRAPH_RUNS} timed requests: prefill {prefill_ms} ms, decode "
+        f"{', '.join(f'{t:.1f}' for t in tok_s)} tok/s, peak {main_run['peak_mem_gb']:.2f} GB; capture + "
+        f"instantiate {', '.join(f'{t:.3f}' for t in graph['capture_s'])} s, pool "
+        f"{', '.join(f'{b / 1e6:.1f}' for b in graph['pool_bytes'])} MB; {graph['slots']} buffer set(s) held between "
+        f"requests, {res['buffer_sets_gb']:.3f} GB")
+    log(f"    eager loop: prefill {eager['prefill_ms']:.1f} ms, decode {eager['decode_tok_s']:.1f} tok/s, peak "
+        f"{eager['peak_mem_gb']:.2f} GB; tokens {'equal bit for bit' if not divergences else f'part at near-ties {divergences}'}"
+        "; launches equal")
     res["decode_profile"] = profile_decode(model, prompt, lens, cache_dtype)
+    res["eager_decode_profile"] = profile_decode(model, prompt, lens, cache_dtype, steps=3, eager=True)
     return res
 
 
-def profile_decode(model, prompt, lens, cache_dtype, steps: int = 4) -> dict:
+def profile_decode(model, prompt, lens, cache_dtype, steps: int = 8, eager: bool = False) -> dict:
     """Device busy share and the kernels that take the device time over a few decode
-    steps (torch.profiler, CUDA activity); host wall time around the same window."""
+    steps (torch.profiler, CUDA activity), replays of the captured step or (``eager``) the
+    eager loop; host wall time around the same window, and the launches of the window held
+    to its trace. The profiler's tracing costs the host time for every kernel, a graph's
+    nodes too, so the same steps are also timed without it just before, and the busy share
+    is given against that wall as well."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from llama_x_tpu_torch.models.generate import decode_chunk, prefill_start
 
-    _, state = prefill_start(model, prompt, prompt_lens=lens, cache_dtype=cache_dtype, max_new_tokens=NEW_TOKENS)
-    _, state = decode_chunk(model, state, 1)
+    _, state = prefill_start(model, prompt, prompt_lens=lens, cache_dtype=cache_dtype, max_new_tokens=NEW_TOKENS,
+                             eager=eager)
+    _, state = decode_chunk(model, state, 1, eager=eager)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        decode_chunk(model, state, steps)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    return summarize_profile(prof, wall_ms, steps, "decode", "step")
+    t0 = time.perf_counter()
+    decode_chunk(model, state, steps, eager=eager)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3 / steps
+    what = "eager decode" if eager else "graph decode"
+    win = traced(what, lambda: decode_chunk(model, state, steps, eager=eager), cpu=True)
+    counts = win["launches"]
+    res = summarize_profile(win["prof"], win["wall_ms"], steps, what, "step")
+    res["launches_per_step"] = {k: v / steps for k, v in counts.items() if v}
+    res["wall_ms_per_step_unprofiled"] = plain_ms
+    res["device_busy_share_unprofiled"] = res["device_busy_ms_per_step"] / plain_ms
+    log(f"      without the profiler: {plain_ms:.2f} ms/step wall, busy share "
+        f"{res['device_busy_share_unprofiled']:.3f} (the profiled busy time over it)")
+    traced_per_step = {k: v / steps for k, v in win["traced"].items() if v}
+    log(f"      launches a step {res['launches_per_step']}, equal to the device trace {traced_per_step}")
+    return res
 
 
 # device items of a trace by the substring of their name: the port's kernels, then PyTorch's own
@@ -1307,16 +1424,52 @@ def need_launches(counts: dict, need: list[str], what: str):
         raise AssertionError(f"{what} never launched {missing}: {counts}")
 
 
+def serve_waves(sched, prompts: list, new_tokens: list) -> dict:
+    """The continuous phase's traffic through ``sched``: a warm-up row (the paths' first calls,
+    the decode step's capture), then ``prompts`` in four waves of four 0.25 s apart, counts
+    reset just before; -> the handles, the timelines, wall and counts."""
+    import torch
+
+    from llama_x_tpu_torch.data.tokenizers import ByteTokenizer
+
+    warm = sched.submit(byte_prompt(ByteTokenizer(), 99, 40), max_tokens=4)
+    if not warm.event.wait(600) or warm.error is not None:
+        raise AssertionError(f"warm-up failed: {warm.error}")
+    hits0, disp0, chunks0 = sched.prefix_hits, sched.prefill_dispatches, sched.dispatches
+    torch.cuda.synchronize()
+    reset_counts()
+    lines, handles = [], []
+    t0 = time.perf_counter()
+    for w in range(4):
+        for i in range(4 * w, 4 * w + 4):
+            lines.append(_Timeline())
+            handles.append(sched.submit(prompts[i], max_tokens=new_tokens[i], stream_q=lines[-1]))
+        if w < 3:
+            time.sleep(0.25)
+    for h in handles:
+        if not h.event.wait(900) or h.error is not None:
+            raise AssertionError(f"a request failed: {h.error}")
+    wall = time.perf_counter() - t0
+    total = sum(len(h.tokens) for h in handles)
+    return dict(handles=handles, wall_s=wall, tokens_per_s=total / wall, new_tokens=total, launches=read_counts(),
+                prefix_hits=sched.prefix_hits - hits0, prefill_dispatches=sched.prefill_dispatches - disp0,
+                decode_dispatches=sched.dispatches - chunks0, **latency_stats(lines))
+
+
 def phase_continuous(model) -> dict:
     """Continuous batching at 8B width (int8 weights + dynamic int8 act, int8 KV): 8 slots,
     16-step decode chunks, chunked prefill of 512, a prefix cache of 4. 16 byte-token
     requests in four waves of four 0.25 s apart: 8 prompts of 130 to 1500 tokens, then 8
     follow-ups that extend one of them by 64 to 200 tokens (prefix hits); 32 to 64 new
-    tokens each, greedy. Every row is held to an unbatched ``generate`` of its prompt and to
-    its unbatched reference at every step, under the near-tie rule (``check_served_row``)."""
+    tokens each, greedy. Each decode step is a replay of the captured step. Every row is held
+    to an unbatched ``generate`` of its prompt and to its unbatched reference at every step,
+    under the near-tie rule (``check_served_row``). Then the same traffic with the eager loop
+    (``eager=True``) beside it: TTFT, ITL, tokens/s and the busy share of a wave, its rows
+    against the graph's (near-tie rule where they differ)."""
     import torch
 
     from llama_x_tpu_torch.data.tokenizers import ByteTokenizer
+    from llama_x_tpu_torch.models import decode_graph as dg
     from llama_x_tpu_torch.serve.continuous import ContinuousScheduler
 
     tok = ByteTokenizer()
@@ -1329,74 +1482,70 @@ def phase_continuous(model) -> dict:
     follow = [bases[j] + byte_prompt(tok, 100 + j, ext[j] + 1)[1:] for j in (4, 5, 6, 7, 0, 1, 2, 3)]
     prompts = bases + follow
     new_tokens = [32 + (7 * i) % 33 for i in range(16)]
-    sched = ContinuousScheduler(model, n_slots=8, chunk_size=16, prompt_multiple=64, cache_dtype=cache,
-                                prefill_chunk=512, prefix_cache=4, seed=0)
-    try:
-        warm = sched.submit(byte_prompt(tok, 99, 40), max_tokens=4)  # the paths' first calls (cuBLAS handles)
-        if not warm.event.wait(600) or warm.error is not None:
-            raise AssertionError(f"warm-up failed: {warm.error}")
-        hits0, disp0, chunks0 = sched.prefix_hits, sched.prefill_dispatches, sched.dispatches
-        torch.cuda.synchronize()
-        reset_counts()
-        lines, handles = [], []
-        t0 = time.perf_counter()
-        for w in range(4):
-            for i in range(4 * w, 4 * w + 4):
-                lines.append(_Timeline())
-                handles.append(sched.submit(prompts[i], max_tokens=new_tokens[i], stream_q=lines[-1]))
-            if w < 3:
-                time.sleep(0.25)
-        for h in handles:
-            if not h.event.wait(900) or h.error is not None:
-                raise AssertionError(f"a request failed: {h.error}")
-        wall = time.perf_counter() - t0
-        counts = read_counts()
-        hits, dispatches = sched.prefix_hits - hits0, sched.prefill_dispatches - disp0
-        chunks = sched.dispatches - chunks0
-        profile = profile_arrivals(sched, [byte_prompt(tok, 300 + i, 300 + 100 * i) for i in range(8)], 32)
-    finally:
-        sched.close()
-    need_launches(counts, ["int8_mm_dequant_nt", "flash_attention", "flash_attention_offsets", "decode_attention_int8"],
-                  "continuous serving")
-    if hits == 0:
-        raise AssertionError("no prefix-cache hit in the follow-up requests")
-    total = sum(len(h.tokens) for h in handles)
-    res = dict(requests=16, prompt_tokens=sum(map(len, prompts)), new_tokens=total, wall_s=wall, tokens_per_s=total / wall,
-               prefix_hits=hits, prefix_tokens_reused=sched.prefix_tokens_reused, prefill_dispatches=dispatches,
-               decode_dispatches=chunks, launches=counts, profile=profile, **latency_stats(lines))
-    log(f"    {total} tokens in {wall:.2f} s: {total / wall:.1f} tok/s; TTFT p50 {res['ttft_ms_p50']:.1f} ms, p99 "
-        f"{res['ttft_ms_p99']:.1f} ms; ITL p50 {res['itl_ms_p50']:.2f} ms, p99 {res['itl_ms_p99']:.2f} ms; prefix hits "
-        f"{hits} ({sched.prefix_tokens_reused} tokens reused), prefill chunks {dispatches}, decode chunks {chunks}")
-    log(f"    launches {counts}")
+    wave = [byte_prompt(tok, 300 + i, 300 + 100 * i) for i in range(8)]
+    served = {}
+    for eager in (False, True):
+        sched = ContinuousScheduler(model, n_slots=8, chunk_size=16, prompt_multiple=64, cache_dtype=cache,
+                                    prefill_chunk=512, prefix_cache=4, seed=0, eager=eager)
+        try:
+            run = serve_waves(sched, prompts, new_tokens)
+            if not eager:  # the graph's wave: the eager loop is timed, not traced
+                run["profile"] = profile_arrivals(sched, wave, 32)
+            run["prefix_tokens_reused"] = sched.prefix_tokens_reused
+        finally:
+            sched.close()
+        what = "eager loop" if eager else "graph"
+        log(f"    {what}: {run['new_tokens']} tokens in {run['wall_s']:.2f} s: {run['tokens_per_s']:.1f} tok/s; TTFT p50 "
+            f"{run['ttft_ms_p50']:.1f} ms, p99 {run['ttft_ms_p99']:.1f} ms; ITL p50 {run['itl_ms_p50']:.2f} ms, p99 "
+            f"{run['itl_ms_p99']:.2f} ms; prefix hits {run['prefix_hits']} ({run['prefix_tokens_reused']} tokens "
+            f"reused), prefill chunks {run['prefill_dispatches']}, decode chunks {run['decode_dispatches']}")
+        log(f"    launches {run['launches']}")
+        need_launches(run["launches"], ["int8_mm_dequant_nt", "flash_attention", "flash_attention_offsets",
+                                        "decode_attention_int8"], f"continuous serving ({what})")
+        if run["prefix_hits"] == 0:
+            raise AssertionError("no prefix-cache hit in the follow-up requests")
+        served[what] = run
+    graph, eager = served["graph"], served["eager loop"]
+    if dg.stats(model)["captures"] < 1:
+        raise AssertionError("the scheduler's decode chunks did not run through a captured graph")
+    res = dict(requests=16, prompt_tokens=sum(map(len, prompts)), captures=dg.stats(model)["captures"],
+               **{k: v for k, v in graph.items() if k != "handles"},
+               eager={k: v for k, v in eager.items() if k != "handles"})
     # every row against its unbatched reference at every step and against an unbatched generate
     checks = [check_served_row(model, p, h.tokens, cache, unbatched_generate(model, p, len(h.tokens), cache))
-              for p, h in zip(prompts, handles)]
+              for p, h in zip(prompts, graph["handles"])]
     res["rows"] = checks
     res["near_tie_divergences"] = sum(c["diverged_at"] is not None for c in checks)
+    total = graph["new_tokens"]
     log(f"    every row a greedy decode of its prompt step by step (unbatched reference logits; tokens off the "
         f"argmax but within the tolerance: {sum(c['off_argmax'] for c in checks)} of {total}); against an unbatched "
         f"generate: {16 - res['near_tie_divergences']} rows equal, {res['near_tie_divergences']} part at a near-tie "
         f"{[(c['diverged_at'], round(c['margin'], 5), round(c['tol'], 5)) for c in checks if c['diverged_at'] is not None]}")
+    eager_rows = [check_served_row(model, p, e.tokens, cache, g.tokens)
+                  for p, g, e in zip(prompts, graph["handles"], eager["handles"]) if e.tokens != g.tokens]
+    res["eager_rows_differing"] = len(eager_rows)
+    log(f"    the eager loop's rows: {16 - len(eager_rows)} equal the graph's, {len(eager_rows)} part at a near-tie")
     return res
 
 
 def profile_arrivals(sched, prompts: list, new_tokens: int) -> dict:
     """Where the device time goes while a scheduler admits and decodes: one wave of
     ``prompts`` arriving together, under torch.profiler (CUDA activity, which sees the
-    worker thread's launches), from the first submit to the last row's end."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    worker thread's launches), from the first submit to the last row's end; counts reset
+    just before, and the wave's launches (the decode replays' credits among them) held to
+    the device trace."""
+    def wave():
         handles = [sched.submit(p, max_tokens=new_tokens) for p in prompts]
         for h in handles:
             if not h.event.wait(600) or h.error is not None:
                 raise AssertionError(f"a profiled request failed: {h.error}")
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    return summarize_profile(prof, wall_ms, 1, f"arrivals ({len(prompts)} requests, {new_tokens} tokens each)", "wave")
+
+    what = f"arrivals ({len(prompts)} requests, {new_tokens} tokens each)"
+    win = traced(what, wave)
+    res = summarize_profile(win["prof"], win["wall_ms"], 1, what, "wave")
+    res.update(launches=win["launches"], traced=win["traced"])
+    log(f"      the wave's launches {win['launches']}, equal to the device trace {win['traced']}")
+    return res
 
 
 # the serving phases' depth: the first 8 of the 8B model's 32 layers, at full width, which
@@ -1501,13 +1650,12 @@ def phase_hf_and_http(model) -> dict:
             raise AssertionError("the HF round trip changed a tensor")
         del back, ours, theirs
         log(f"    {size / 1e9:.3f} GB written in {save_s:.1f} s, read back in {load_s:.1f} s; every tensor bit for bit")
-        reset_counts()
-        generate_cli.main(["--model", tmp, "--device", "cuda", "--prompt", "The capital of France is", "--prompt",
-                           "Speculative decoding drafts", "--max_new_tokens", "16", "--no_eos"])
-        torch.cuda.synchronize()
-        counts = read_counts()
+        tr = traced("generate_cli --model", lambda: generate_cli.main([
+            "--model", tmp, "--device", "cuda", "--prompt", "The capital of France is", "--prompt",
+            "Speculative decoding drafts", "--max_new_tokens", "16", "--no_eos"]))
+        counts = tr["launches"]
     need_launches(counts, ["flash_attention", "decode_attention"], "generate_cli --model")
-    runs["hf_cli"] = dict(gb=size / 1e9, save_s=save_s, load_s=load_s, launches=counts)
+    runs["hf_cli"] = dict(gb=size / 1e9, save_s=save_s, load_s=load_s, launches=counts, traced=tr["traced"])
     del cut
     torch.cuda.empty_cache()
 
@@ -1539,19 +1687,22 @@ def phase_hf_and_http(model) -> dict:
     answers = {}
     try:
         warm = json.loads(post({"prompt": "warm-up", "max_tokens": 4}))
-        served.clear()
-        reset_counts()
-        t0 = time.perf_counter()
-        threads = [threading.Thread(target=lambda i=i: answers.__setitem__(i, json.loads(post(
-            {"prompt": texts[i], "max_tokens": 24})))) for i in range(4)]
-        for t in threads:
-            t.start()
-        chat = post({"messages": [{"role": "user", "content": "Say something about Hopper."}], "max_tokens": 24,
-                     "stream": True}, "/v1/chat/completions")
-        for t in threads:
-            t.join()
-        wall = time.perf_counter() - t0
-        counts = read_counts()
+
+        def five_answers() -> str:
+            served.clear()
+            answers.clear()
+            threads = [threading.Thread(target=lambda i=i: answers.__setitem__(i, json.loads(post(
+                {"prompt": texts[i], "max_tokens": 24})))) for i in range(4)]
+            for t in threads:
+                t.start()
+            chat = post({"messages": [{"role": "user", "content": "Say something about Hopper."}], "max_tokens": 24,
+                         "stream": True}, "/v1/chat/completions")
+            for t in threads:
+                t.join()
+            return chat
+
+        tr = traced("the HTTP server", five_answers)  # the engine's decode steps are graph replays
+        chat, counts, wall = tr["result"], tr["launches"], tr["wall_ms"] / 1e3
         events = [json.loads(line[6:]) for line in chat.splitlines() if line.startswith("data: ") and line != "data: [DONE]"]
         if not chat.rstrip().endswith("data: [DONE]") or "finish_reason" not in events[-1]["choices"][0]:
             raise AssertionError(f"the streamed chat answer is incomplete: {chat[-300:]}")
@@ -1578,13 +1729,13 @@ def phase_hf_and_http(model) -> dict:
     need_launches(counts, ["int8_mm_dequant_nt", "flash_attention", "flash_attention_offsets", "decode_attention_int8"],
                   "the HTTP server")
     streamed = "".join(c["delta"].get("content", "") for e in events for c in e["choices"])
-    runs["http"] = dict(requests=5, wall_s=wall, launches=counts, rows=checks, warm=warm["choices"][0]["finish_reason"],
+    runs["http"] = dict(requests=5, wall_s=wall, launches=counts, traced=tr["traced"], rows=checks, warm=warm["choices"][0]["finish_reason"],
                         near_tie_divergences=sum(c["diverged_at"] is not None for c in checks),
                         finish_reasons=[answers[i]["choices"][0]["finish_reason"] for i in range(4)]
                         + [events[-1]["choices"][0]["finish_reason"]])
     log(f"    5 answers in {wall:.2f} s, finish reasons {runs['http']['finish_reasons']}; streamed chat text "
         f"{len(streamed)} characters; rows equal to a second serving but at "
-        f"{runs['http']['near_tie_divergences']} near-ties; launches {counts}")
+        f"{runs['http']['near_tie_divergences']} near-ties; launches {counts}, equal to the device trace {tr['traced']}")
     return runs
 
 
@@ -2199,10 +2350,11 @@ def compare_prefix_decode_paths(model, prefix, bos, tag: str) -> dict:
 EVAL_NEW_TOKENS = 16
 
 
-def timed_eval(tag: str, model, prefix, decode_fn) -> dict:
+def timed_eval(tag: str, model, prefix, decode_fn) -> tuple[dict, list]:
     """One evaluation batch through its entry point's function: a warm-up, the prefill
     timed apart through ``prefill_start``, then the whole call with the counts reset just
-    before it and read just after; K1, K2 and K3 must launch."""
+    before it and read just after; K1, K2 and K3 must launch. The call again under the
+    profiler: the same texts, and the same counts, held to its device trace. -> (record, texts)"""
     import torch
 
     from llama_x_tpu_torch.models.generate import prefill_start
@@ -2228,10 +2380,14 @@ def timed_eval(tag: str, model, prefix, decode_fn) -> dict:
     res = dict(B=B, prefix=int(prefix.shape[1]), new_tokens=EVAL_NEW_TOKENS, launches=counts, total_s=total_s,
                prefill_ms=prefill_s * 1e3, decode_tok_s=B * (EVAL_NEW_TOKENS - 1) / (total_s - prefill_s),
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    tr = traced(f"the {tag} evaluation", lambda: decode_fn(EVAL_NEW_TOKENS))  # again, its decode steps replays
+    if tr["launches"] != counts or tr["result"] != hyps:
+        raise AssertionError(f"the traced {tag} evaluation launched {tr['launches']} against {counts}, or other texts")
+    res["traced"] = tr["traced"]
     log(f"    {tag}: B {B}, prefix {prefix.shape[1]} + bos, +{EVAL_NEW_TOKENS}: total {total_s:.3f} s, prefill "
         f"{res['prefill_ms']:.1f} ms, decode {res['decode_tok_s']:.1f} tok/s, peak {res['peak_mem_gb']:.2f} GB; "
-        f"launches {counts}")
-    return res
+        f"launches {counts}, equal to the device trace of the same call {tr['traced']}")
+    return res, hyps
 
 
 def phase_evals(trunk) -> dict:
@@ -2263,8 +2419,7 @@ def phase_evals(trunk) -> dict:
     images = torch.from_numpy(np.stack([im for im, _ in samples]))
     with torch.inference_mode():
         prefix = vision_mod.patch_embed(model.patch_embed, model.vision_config, images.cuda())
-    res = timed_eval("captions", model, prefix, lambda n: eval_vis.caption_batch(model, images, tok, n, True))
-    hyps = eval_vis.caption_batch(model, images, tok, EVAL_NEW_TOKENS, True)
+    res, hyps = timed_eval("captions", model, prefix, lambda n: eval_vis.caption_batch(model, images, tok, n, True))
     res["score"] = eval_vis._score([c for _, c in samples], hyps)
     log(f"    captions score {json.dumps(res['score'])}; first caption {hyps[0]!r}")
     res["two_path"] = compare_prefix_decode_paths(model, prefix, torch.full((8, 1), 256, device="cuda"), "captions")
@@ -2276,8 +2431,8 @@ def phase_evals(trunk) -> dict:
         prefix = audio_mod.audio_embed(model.audio_embed, model.audio_config, audio.cuda())
     if prefix.shape[1] != 1000:
         raise AssertionError(f"20 s of audio is 1000 audio tokens, got {prefix.shape[1]}")
-    res = timed_eval("transcripts", model, prefix, lambda n: eval_ls.transcribe_batch(model, audio, tok, n, True))
-    hyps = eval_ls.transcribe_batch(model, audio, tok, EVAL_NEW_TOKENS, True)
+    res, hyps = timed_eval("transcripts", model, prefix,
+                           lambda n: eval_ls.transcribe_batch(model, audio, tok, n, True))
     res["score"] = {"wer": wer(["synthetic reference text"] * 4, hyps), "n_utts": 4}
     log(f"    transcripts score {json.dumps(res['score'])}")
     res["two_path"] = compare_prefix_decode_paths(model, prefix, torch.full((4, 1), 256, device="cuda"),
@@ -3029,16 +3184,17 @@ def p5b_serve_rank(rank: int, dev) -> dict:
     mesh = make_mesh(tp=2)
     model = shard_params(p5b_serving_model(dev), mesh)
     prompt, lens = ragged_prompts()
-    generate(model, prompt, max_new_tokens=2, prompt_lens=lens, cache_dtype=torch.int8)  # warm-up
+    # a model on a mesh decodes eagerly: gloo's collectives go through host memory, no graph captures them
+    generate(model, prompt, max_new_tokens=2, prompt_lens=lens, cache_dtype=torch.int8, eager=True)  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    prefill_start(model, prompt, prompt_lens=lens, cache_dtype=torch.int8, max_new_tokens=P5B_SERVE_NEW)
+    prefill_start(model, prompt, prompt_lens=lens, cache_dtype=torch.int8, max_new_tokens=P5B_SERVE_NEW, eager=True)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     reset_counts()
     mesh.comm.reset()
     t0 = time.perf_counter()
-    out = generate(model, prompt, max_new_tokens=P5B_SERVE_NEW, prompt_lens=lens, cache_dtype=torch.int8)
+    out = generate(model, prompt, max_new_tokens=P5B_SERVE_NEW, prompt_lens=lens, cache_dtype=torch.int8, eager=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()

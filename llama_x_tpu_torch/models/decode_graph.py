@@ -1,0 +1,306 @@
+"""Decode steps as captured CUDA graphs: the port's counterpart of the JAX package's
+jitted ``lax.scan`` over single-token steps (llama_x_tpu/models/generate.py: the whole
+generation is one compiled program; ``decode_chunk``; llama_x_tpu/serve/continuous.py:
+``decode_rows``, jitted with its state donated).
+
+A step body reads and writes only static buffers: the KV cache, the last token, the
+position, the done mask (for the scheduler's rows also the tokens emitted, the per-row
+sampling tensors, stop tokens and budgets) and a ring of the tokens each step emits with
+its write index on the device. What the body allocates comes from the graph's private
+memory pool during capture (the kernels' split-K and split-KV partials among it), so on the
+card one step is one ``CUDAGraph.replay()``: no Python, no per-kernel dispatch.
+
+- Keys, ``jax.jit``'s static arguments: the address, shape and dtype of every static buffer
+  (so B, uniform or ragged positions, the cache type and which buffers), and what the
+  caller names static (``generate``'s temperature, top_k, top_p, min_p, eos_id and pad_id;
+  the scheduler's pad_id, its sampling tensors being buffers). A model keeps at most
+  ``MAX_GRAPHS`` graphs, the least recently used dropped with its pool.
+- Buffers for ``generate``: a prefill writes a cache the graph then reads at its captured
+  address, so the runner keeps ``MAX_SLOTS`` buffer sets per model, one per (B, uniform or
+  ragged, cache type), and a prefill writes into its set in place; the memory stays held
+  between requests (at 8B width, B 4 and 4096 positions a bf16 cache is 2.15 GB). A new
+  prefill on a set supersedes the state an earlier one handed out (``DecodeState.lease``),
+  as JAX's donation does: decoding the old one raises.
+- Weights: a graph reads them at their captured addresses. Each call fingerprints the model
+  (its config and the address of every parameter and buffer) once; when that changes (a
+  ``load_state_dict(assign=True)``, a LoRA merge, an HF import, ``set_max_seq_len``) the
+  model's graphs and buffer sets are dropped and the next call captures again. Updates in
+  place (an optimizer step) keep the addresses, and a replay reads the new values.
+- Capture: the first call of a key runs its first step eagerly on a side stream (every lazy
+  allocation, cuBLAS workspace and ``cudaFuncSetAttribute`` happens there, and the step is
+  a real one), then captures the body on that stream with ``capture_error_mode=
+  "thread_local"``: the scheduler's and the HTTP server's worker threads capture while
+  other threads run. The kernel wrappers launch on the current stream, so they follow the
+  capture; kernel arguments, the TMA descriptors among them (``CUtensorMap`` passed as
+  ``__grid_constant__``), are copied into the graph's nodes by value.
+- Sampling draws from a ``torch.Generator``. A graph draws from a generator of the runner's,
+  registered with the graph; its seed and Philox offset are set from the caller's generator
+  before the replays and handed back after, so the replays advance the offset exactly as
+  the eager steps do and draw the same bits.
+- Launch counts: a wrapper counts where it launches its kernel (ops/launches.py). At a
+  capture nothing launches: the wrappers' launches on the capturing stream go to the
+  capture's tally, and every replay credits each wrapper with its tally. chip_smoke.py
+  holds the credited counts to the kernels a profiler trace of the replays shows.
+- No fallback: on the card a capture or a replay that fails raises with the step's name. The
+  eager loop (the same body, launched op by op) runs only where the caller asks for it
+  (``eager=True``) or on CPU tensors, where there is no graph and the body runs over the
+  same static buffers, so the CPU tests see the aliasing a replay has.
+- A model placed on a mesh (tensor-parallel serving over gloo) refuses the graph by name: its
+  collectives go through host memory and cannot be captured. It decodes with ``eager=True``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from collections import OrderedDict
+
+import torch
+
+from llama_x_tpu_torch.models import llama
+from llama_x_tpu_torch.ops import launches
+from llama_x_tpu_torch.parallel.tensor import mesh_of
+
+MAX_GRAPHS = 8  # captured steps kept per model
+MAX_SLOTS = 2  # generate's buffer sets kept per model
+
+
+def cache_tensors(kv_cache) -> list[torch.Tensor]:
+    """Every tensor of a cache (bf16 tensors, or int8 (data, scale) pairs)."""
+    return [t for side in kv_cache for t in (side if isinstance(side, tuple) else (side,))]
+
+
+@dataclasses.dataclass(eq=False)
+class DecodeState:
+    """What ``decode_chunk`` carries between calls, the JAX package's (kv_cache, tok, pos,
+    done), each tensor written in place: the cache, the last token [B], the position (0-d:
+    every row at one depth; [B]: ragged), the done mask [B], and the ring of emitted tokens
+    [B, max_seq_len] with its write index [1]. ``slot``: the runner's buffer set this state
+    leases (None: the state owns its buffers) at lease number ``lease``."""
+
+    cache: tuple
+    tok: torch.Tensor
+    pos: torch.Tensor
+    done: torch.Tensor
+    ring: torch.Tensor
+    at: torch.Tensor
+    slot: DecodeState | None = None
+    lease: int = 0
+
+    def buffers(self) -> tuple[torch.Tensor, ...]:
+        return (*cache_tensors(self.cache), self.tok, self.pos, self.done, self.ring, self.at)
+
+
+def new_state(model: llama.Llama, batch: int, ragged: bool, cache_dtype) -> DecodeState:
+    """Fresh buffers for a decode of ``batch`` rows on the model's device."""
+    dev = model.device
+    zeros = lambda *shape, dtype=torch.int64: torch.zeros(shape, dtype=dtype, device=dev)  # noqa: E731
+    cache = llama.init_kv_cache(model.config, batch, dtype=cache_dtype, device=dev,
+                                kv_heads=llama.local_kv_heads(model))
+    return DecodeState(cache, zeros(batch), zeros(batch) if ragged else zeros(), zeros(batch, dtype=torch.bool),
+                       zeros(batch, model.config.max_seq_len), zeros(1))
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Where a step is captured and replayed: CUDA tensors."""
+    return t.is_cuda
+
+
+def refuse_mesh(model: llama.Llama, name: str) -> None:
+    if mesh_of(model) is not None:
+        raise ValueError(f"{name}: the model is placed on a mesh, whose collectives go through host memory and "
+                         "cannot be captured in a CUDA graph; decode it with eager=True")
+
+
+class Captured:
+    """One step recorded by ``capture()`` (which returns an object with ``replay()``), with
+    the launches each replay runs (``credits``: {wrapper: launches}, the capture's tally)."""
+
+    def __init__(self, capture):
+        with launches.tally() as tally:
+            self.graph = capture()
+        self.credits = dict(tally)
+
+    def replay(self, n: int) -> None:
+        for _ in range(n):
+            self.graph.replay()
+            for fn, k in self.credits.items():
+                fn.launches += k
+
+
+def _key_of(buffers) -> tuple:
+    return tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in buffers)
+
+
+def _fingerprint(model: llama.Llama) -> tuple:
+    return (model.config, tuple(t.data_ptr() for t in model.parameters()),
+            tuple(t.data_ptr() for t in model.buffers()))
+
+
+class _Entry:
+    """A captured step and the addresses of the buffers it reads and writes."""
+
+    def __init__(self, captured: Captured, ptrs: set):
+        self.captured, self.ptrs = captured, ptrs
+
+
+class Runner:
+    """A model's captured steps and ``generate``'s buffer sets (``runner_of``)."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.fingerprint = None
+        self.graphs: OrderedDict[tuple, _Entry] = OrderedDict()
+        self.slots: OrderedDict[tuple, DecodeState] = OrderedDict()
+        self.streams: dict = {}  # device -> the side stream of warm-up and capture
+        self.generators: dict = {}  # device -> the generator the graphs draw from
+        self.captures = 0  # steps captured (on the CPU: none)
+        self.replays = 0
+        self.capture_s: list[float] = []  # capture + instantiate of each, seconds
+        self.pool_bytes: list[int] = []  # device memory each capture's pool reserved
+
+    def check(self, model: llama.Llama) -> None:
+        """Drop every graph and buffer set when the weights moved (once per call)."""
+        fp_now = _fingerprint(model)
+        with self.lock:
+            if fp_now != self.fingerprint:
+                self.graphs.clear()
+                self.slots.clear()
+                self.fingerprint = fp_now
+
+    def lease(self, model: llama.Llama, batch: int, ragged: bool, cache_dtype) -> DecodeState:
+        """``generate``'s buffer set for (B, ragged, cache dtype), made on first use, handed
+        out under a new lease number (which supersedes every earlier one)."""
+        key = (batch, ragged, cache_dtype)
+        with self.lock:
+            slot = self.slots.pop(key, None)
+            if slot is None:
+                slot = new_state(model, batch, ragged, cache_dtype)
+            self.slots[key] = slot
+            while len(self.slots) > MAX_SLOTS:
+                _, old = self.slots.popitem(last=False)
+                freed = {t.data_ptr() for t in old.buffers()}
+                for k in [k for k, e in self.graphs.items() if e.ptrs & freed]:
+                    del self.graphs[k]
+            slot.lease += 1
+            return dataclasses.replace(slot, slot=slot, lease=slot.lease)
+
+    def replay(self, model, name: str, buffers, key: tuple, body, n: int, generator, draws: bool) -> None:
+        """``n`` steps on the card: the captured graph of ``key`` replayed, captured first
+        (after one eager step) where the runner has none."""
+        dev = buffers[0].device
+        full_key = (name, key, _key_of(buffers))
+        src = own = generator
+        if draws:  # the graphs draw from the runner's generator, set from the caller's
+            src = generator if generator is not None else torch.cuda.default_generators[dev.index]
+            if dev not in self.generators:
+                self.generators[dev] = torch.Generator(device=dev)
+            own = self.generators[dev]
+            own.set_state(src.get_state())
+        with self.lock:
+            entry = self.graphs.get(full_key)
+            if entry is not None:
+                self.graphs.move_to_end(full_key)
+        if entry is None:
+            entry = self._capture(model, name, buffers, body, own, draws)
+            n -= 1
+            with self.lock:
+                self.graphs[full_key] = entry
+                while len(self.graphs) > MAX_GRAPHS:
+                    self.graphs.popitem(last=False)
+        try:
+            entry.captured.replay(n)
+        except RuntimeError as e:
+            raise RuntimeError(f"{name}: CUDA graph replay failed: {e}") from e
+        self.replays += n
+        if draws:
+            src.set_state(own.get_state())
+
+    def _capture(self, model, name, buffers, body, own, draws) -> _Entry:
+        """One eager step on the side stream, then the body captured there."""
+        dev = buffers[0].device
+        if dev not in self.streams:
+            self.streams[dev] = torch.cuda.Stream(dev)
+        stream = self.streams[dev]
+        current = torch.cuda.current_stream(dev)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            body(model, own)  # the first step, eager: warm-up and a real step
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()  # so that the reserved memory's growth is the pool's
+        reserved = torch.cuda.memory_reserved(dev)
+
+        def capture():
+            graph = torch.cuda.CUDAGraph()
+            if draws:
+                graph.register_generator_state(own)
+            with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+                body(model, own)
+            return graph
+
+        t0 = time.perf_counter()
+        try:
+            captured = Captured(capture)
+        except RuntimeError as e:
+            raise RuntimeError(f"{name}: CUDA graph capture failed: {e}") from e
+        capture_s = time.perf_counter() - t0
+        current.wait_stream(stream)
+        self.captures += 1
+        self.capture_s.append(capture_s)
+        self.pool_bytes.append(torch.cuda.memory_reserved(dev) - reserved)
+        return _Entry(captured, {t.data_ptr() for t in buffers})
+
+
+_runners_lock = threading.Lock()
+
+
+def runner_of(model: llama.Llama) -> Runner:
+    """The model's runner, made on first use and kept on the model."""
+    with _runners_lock:
+        runner = model.__dict__.get("_decode_runner")
+        if runner is None:
+            runner = model.__dict__["_decode_runner"] = Runner()
+    return runner
+
+
+def lease(model: llama.Llama, batch: int, ragged: bool, cache_dtype) -> DecodeState:
+    """``generate``'s static buffers for a request (the caller refuses a mesh first)."""
+    runner = runner_of(model)
+    runner.check(model)
+    return runner.lease(model, batch, ragged, cache_dtype)
+
+
+def run(model: llama.Llama, name: str, buffers, key: tuple, body, n: int, generator, *, eager: bool,
+        draws: bool) -> None:
+    """``n`` steps of ``body(model, generator)``, a step that reads and writes only
+    ``buffers`` (in place) and depends besides on ``key`` alone. ``eager``: the body launched
+    op by op. Otherwise on the card a replay of its captured graph each step; on CPU
+    tensors the body over the same buffers. ``draws``: the body samples from the generator."""
+    if n <= 0:
+        return
+    if not eager:
+        refuse_mesh(model, name)
+        runner = runner_of(model)
+        runner.check(model)
+        if on_card(buffers[0]):
+            runner.replay(model, name, buffers, key, body, n, generator, draws)
+            return
+    for _ in range(n):
+        body(model, generator)
+
+
+def release(model: llama.Llama) -> None:
+    """Drop the model's runner: its graphs (with their pools), buffer sets and counts."""
+    with _runners_lock:
+        model.__dict__.pop("_decode_runner", None)
+
+
+def stats(model: llama.Llama) -> dict:
+    """Captures, replays, graphs and buffer sets held, the bytes the sets hold between
+    requests, and each capture's seconds and pool bytes."""
+    runner = runner_of(model)
+    held = sum(t.nbytes for slot in runner.slots.values() for t in slot.buffers())
+    return dict(captures=runner.captures, replays=runner.replays, graphs=len(runner.graphs),
+                slots=len(runner.slots), slot_bytes=held, capture_s=list(runner.capture_s),
+                pool_bytes=list(runner.pool_bytes))

@@ -25,6 +25,7 @@ import functools
 
 import torch
 
+from llama_x_tpu_torch.ops import launches
 from llama_x_tpu_torch.utils import build
 
 _NEG_INF = -1e30
@@ -184,13 +185,14 @@ def _launch(q, k, v, k_scale, v_scale, kv_len, scale, quantized, counter):
     splits, split_len = decode_split_plan(S_max, B, Hkv)
     rows = Sq * (Hq // Hkv)
     acc_ptr = ml_ptr = None
-    if splits > 1:  # f32 partials (acc, then m and l) that the merge kernel combines: one count a call
+    if splits > 1:  # f32 partials (acc, then m and l) that the merge kernel combines: one count a call;
+        # under a CUDA graph's capture they come from the graph's pool
         n_acc = B * Hkv * splits * rows * D
         part = torch.empty(n_acc + 2 * B * Hkv * splits * rows, dtype=torch.float32, device=q.device)
         acc_ptr, ml_ptr = part.data_ptr(), part.data_ptr() + 4 * n_acc
     lib = build.load_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    counter.launches += 1
+    launches.add(counter)
     build.check(
         lib.lxt_decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -217,5 +219,5 @@ def decode_attention_int8(q, k_i8, k_scale, v_i8, v_scale, kv_len, scale: float)
     return _launch(q.contiguous(), k_i8, v_i8, k_scale, v_scale, kv_len, scale, True, decode_attention_int8)
 
 
-decode_attention.launches = 0
-decode_attention_int8.launches = 0
+launches.counted("decode_attention", decode_attention, r"decode_kernel<false")
+launches.counted("decode_attention_int8", decode_attention_int8, r"decode_kernel<true")

@@ -64,6 +64,7 @@ from typing import NamedTuple
 import torch
 
 from llama_x_tpu_torch.ops.attention import MaskInfo, make_attention_mask
+from llama_x_tpu_torch.ops import launches
 from llama_x_tpu_torch.utils import build
 
 _NEG_INF = -1e30
@@ -339,7 +340,7 @@ def _launch(q, k, v, mi: MaskInfo, scale: float, dropout: Dropout | None = None,
         return out, lse
     lib = build.load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    (counter or flash_fwd_with_lse).launches += 1
+    launches.add(counter or flash_fwd_with_lse)
     build.check(
         lib.lxt_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(qseg), _ptr(kseg), _ptr(qrange), _ptr(krange),
@@ -456,7 +457,7 @@ def _launch_bwd(q, k, v, out, lse, do, mi: MaskInfo, scale: float, dropout: Drop
         return dq, dk, dv
     lib = build.load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    (flash_bwd_from_res if ring is None else flash_bwd_ring).launches += 1
+    launches.add(flash_bwd_from_res if ring is None else flash_bwd_ring)
     build.check(
         lib.lxt_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
@@ -481,7 +482,7 @@ def flash_bwd_from_res(q, k, v, out, lse, do, mask_info: MaskInfo | None = None,
     return _launch_bwd(q, k, v, out, lse, do, mi, 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale, dropout)
 
 
-flash_bwd_from_res.launches = 0
+launches.counted("flash_attention_bwd", flash_bwd_from_res, r"flash_bwd_dkv_kernel<\d+, \w+, false>")
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -522,7 +523,7 @@ def flash_fwd_with_lse(q, k, v, mask_info: MaskInfo | None = None, scale: float 
     return _FlashAttention.apply(q, k, v, mask_info, scale, dropout, preset)
 
 
-flash_fwd_with_lse.launches = 0
+launches.counted("flash_attention", flash_fwd_with_lse, r"flash_fwd_kernel<\d+, \w+, false>")
 
 
 def flash_attention(q, k, v, mask_info: MaskInfo | None = None, scale: float | None = None,
@@ -577,7 +578,7 @@ def flash_fwd_ring(q, k, v, mask_info: MaskInfo, q_offset: int, kv_offset: int, 
     return _launch(q, k, v, mask_info, scale, None, (q_offset, kv_offset), counter=flash_fwd_ring)
 
 
-flash_fwd_ring.launches = 0
+launches.counted("flash_attention_ring", flash_fwd_ring, r"flash_fwd_kernel<\d+, \w+, false>")
 
 
 def flash_bwd_ring_plain(q, k, v, out, lse, do, delta, mask_info: MaskInfo, q_offset: int, kv_offset: int,
@@ -607,7 +608,7 @@ def flash_bwd_ring(q, k, v, out, lse, do, delta, accumulators, mask_info: MaskIn
                 ring=(delta.contiguous(), *accumulators))
 
 
-flash_bwd_ring.launches = 0
+launches.counted("flash_attention_bwd_ring", flash_bwd_ring, r"flash_bwd_dkv_kernel<\d+, \w+, true>")
 
 
 # ---------------------------------------------------------------------------
@@ -681,7 +682,7 @@ def _launch_offsets(q, k, v, q_offset, kv_offset, kv_len, scale: float):
         return out, lse
     lib = build.load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    flash_fwd_offsets.launches += 1
+    launches.add(flash_fwd_offsets)
     build.check(
         lib.lxt_flash_attention_fwd_offsets(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_off.data_ptr(), kv_off.data_ptr(), lens.data_ptr(),
@@ -704,7 +705,7 @@ def flash_fwd_offsets(q, k, v, q_offset, kv_offset, kv_len, scale: float | None 
     return _launch_offsets(q, k, v, q_offset, kv_offset, kv_len, scale)
 
 
-flash_fwd_offsets.launches = 0
+launches.counted("flash_attention_offsets", flash_fwd_offsets, r"flash_fwd_kernel<\d+, \w+, true>")
 
 
 def dequant_live(data: torch.Tensor, scale: torch.Tensor, n: int) -> torch.Tensor:

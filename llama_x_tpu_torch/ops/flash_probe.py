@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from llama_x_tpu_torch.ops.flash_attention import _check_qkv
+from llama_x_tpu_torch.ops import launches
 from llama_x_tpu_torch.utils import build
 
 _TILE = 64  # bq and bk are multiples of this: a consumer warpgroup's 64 rows lie in one q block
@@ -96,7 +97,7 @@ def flash_probe(q, k, v, bq: int = 256, bk: int = 1024, prefix: int = 0):
         return out
     lib = build.load_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    flash_probe.launches += 1
+    launches.add(flash_probe)
     build.check(
         lib.lxt_flash_probe(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, Hq, Hkv, D,
                             int(bq), int(bk), int(prefix), stream),
@@ -105,7 +106,7 @@ def flash_probe(q, k, v, bq: int = 256, bk: int = 1024, prefix: int = 0):
     return out
 
 
-flash_probe.launches = 0
+launches.counted("flash_probe", flash_probe, r"flash_probe_kernel")
 
 
 def probe_tolerance(ref: torch.Tensor) -> tuple[float, float]:

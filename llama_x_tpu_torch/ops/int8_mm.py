@@ -36,6 +36,7 @@ import functools
 
 import torch
 
+from llama_x_tpu_torch.ops import launches
 from llama_x_tpu_torch.utils import build
 
 # the int32 sum of K products of int8 values in [-127, 127] cannot overflow up to here;
@@ -198,6 +199,7 @@ def kn_accumulator_coords(wg: int, tid: int, i: int, e: int) -> tuple[int, int]:
 
 
 _counters: dict = {}
+_retired_counters: list = []  # replaced counter buffers, kept: a captured graph may hold their address
 _sms: dict = {}
 
 
@@ -210,9 +212,12 @@ def _sm_count(device) -> int:
 def _tile_counters(device, n: int) -> torch.Tensor:
     """The split-K arrival counters of K1 and K4 on ``device``: zeros, and every launch leaves them
     at zero (the last split of a tile resets its own). One launch at a time uses them:
-    the port runs its kernels on one stream."""
+    the port runs its kernels on one stream. A launch captured in a CUDA graph keeps the
+    buffer's address, so a buffer that a larger one replaces is never freed."""
     buf = _counters.get(device)
     if buf is None or buf.numel() < n:
+        if buf is not None:
+            _retired_counters.append(buf)
         buf = _counters[device] = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
     return buf
 
@@ -263,12 +268,12 @@ def _launch(wrapper, entry: str, a_i8, b_i8, b_nk: bool, row_scale, col_scale, o
         tiles = _cdiv(M, bm) * _cdiv(N, KN_BN)
         args += [bm]
     part = counters = None
-    if splits > 1:
+    if splits > 1:  # under a CUDA graph's capture this comes from the graph's pool
         part = torch.empty((splits, M, N), dtype=torch.int32, device=a.device)
         counters = _tile_counters(a.device, tiles)
     args += [splits, part.data_ptr() if part is not None else None,
              counters.data_ptr() if counters is not None else None]
-    wrapper.launches += 1
+    launches.add(wrapper)
     build.check(getattr(lib, entry)(*args, stream), wrapper.__name__)
     return out
 
@@ -282,7 +287,7 @@ def int8_mm_dequant_nt(a_i8, b_nk_i8, row_scale, col_scale, out_dtype=torch.bflo
                    plan)
 
 
-int8_mm_dequant_nt.launches = 0
+launches.counted("int8_mm_dequant_nt", int8_mm_dequant_nt, r"int8_mm_nt_(stream|wgmma)_kernel")
 
 
 def int8_mm_dequant_plain(a_i8, b_kn_i8, row_scale, col_scale, out_dtype=torch.bfloat16):
@@ -306,7 +311,7 @@ def int8_mm_dequant(a_i8, b_kn_i8, row_scale, col_scale, out_dtype=torch.bfloat1
                    plan)
 
 
-int8_mm_dequant.launches = 0
+launches.counted("int8_mm_dequant", int8_mm_dequant, r"int8_mm_kn_kernel")
 
 
 def wgmma_check_s8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

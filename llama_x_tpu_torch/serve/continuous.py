@@ -17,7 +17,9 @@ boundaries (port of llama_x_tpu/serve/continuous.py).
 - Decoding is a chunk of single-token steps over every slot with every per-request
   quantity held as an [n_slots] tensor: sampling parameters, stop token, token budget and
   the done mask. Nothing in a step reads back from the device; the host syncs once per
-  chunk, when it collects the chunk's tokens.
+  chunk, when it collects the chunk's tokens. On the card each step is one replay of the
+  step's captured CUDA graph (models/decode_graph.py), the state and the per-row tensors its
+  static buffers.
 - Between chunks the host appends each row's new tokens (the freeze is monotone, so a
   row's new tokens are a prefix of its chunk row of length emitted_after -
   emitted_before), streams them, frees finished slots and admits queued rows.
@@ -36,7 +38,9 @@ import threading
 
 import torch
 
+from llama_x_tpu_torch.models import decode_graph as dg
 from llama_x_tpu_torch.models import llama
+from llama_x_tpu_torch.models.decode_graph import cache_tensors
 from llama_x_tpu_torch.models.generate import gumbel_argmax
 from llama_x_tpu_torch.ops.attention import MaskInfo
 from llama_x_tpu_torch.utils.device import resolve_device
@@ -54,7 +58,7 @@ def filter_logits_rows(logits: torch.Tensor, temperature: torch.Tensor, top_k: t
     min-p relative to the row max, then the nucleus keeps the smallest prefix whose mass
     reaches top_p (the top token always)."""
     B, V = logits.shape
-    neg_inf = torch.tensor(float("-inf"), device=logits.device)
+    neg_inf = float("-inf")  # a Python scalar: no host-to-device copy (a captured step takes none)
     lg = logits.float() / temperature.float().clamp(min=1e-6)[:, None]
     desc = torch.sort(lg, dim=-1, descending=True).values
     k = torch.where(top_k > 0, top_k, torch.full_like(top_k, V)).clamp(1, V).long()
@@ -66,7 +70,7 @@ def filter_logits_rows(logits: torch.Tensor, temperature: torch.Tensor, top_k: t
     probs = torch.softmax(desc, dim=-1)
     cum = torch.cumsum(probs, dim=-1)
     keep = (cum - probs) < top_p.float()[:, None]
-    cutoff = torch.where(keep, desc, torch.tensor(float("inf"), device=logits.device)).amin(dim=-1, keepdim=True)
+    cutoff = torch.where(keep, desc, float("inf")).amin(dim=-1, keepdim=True)
     return torch.where((top_p < 1.0)[:, None] & (lg < cutoff), neg_inf, lg)
 
 
@@ -90,24 +94,21 @@ def sampling_tensors(rows: list[tuple], device) -> tuple[torch.Tensor, ...]:
 
 # ---------------------------------------------------------------------------
 # device programs: admission, chunked prefill and the multi-row decode chunk
-# state: (kv_cache, tok [N], pos [N], done [N] bool, emitted [N]), all int64 but done
+# state: (kv_cache, tok [N], pos [N], done [N] bool, emitted [N], ring [N, S_max], at [1]),
+# all int64 but done: the static buffers of the captured decode step, written in place
 # ---------------------------------------------------------------------------
 
 
 def init_state(config: llama.LlamaConfig, n_slots: int, cache_dtype=torch.bfloat16, device=None,
                kv_heads: int | None = None):
     """The scheduler's state over ``n_slots`` lanes; ``kv_heads``: a tensor-parallel rank's
-    local kv heads (``llama.local_kv_heads``)."""
+    local kv heads (``llama.local_kv_heads``). ``ring`` holds each decode chunk's tokens,
+    ``at`` its write index."""
     dev = resolve_device(device)
-    zeros = lambda: torch.zeros(n_slots, dtype=torch.int64, device=dev)  # noqa: E731
+    zeros = lambda *shape: torch.zeros(shape or (n_slots,), dtype=torch.int64, device=dev)  # noqa: E731
     return (llama.init_kv_cache(config, n_slots, dtype=cache_dtype, device=dev, kv_heads=kv_heads), zeros(), zeros(),
-            torch.ones(n_slots, dtype=torch.bool, device=dev), zeros())  # empty slots are "done"
-
-
-def cache_tensors(kv_cache) -> list[torch.Tensor]:
-    """Every tensor of a cache (both cache forms: bf16 tensors, int8 (data, scale) pairs),
-    each with the batch at axis 1 and the position at axis 3."""
-    return [t for side in kv_cache for t in (side if isinstance(side, tuple) else (side,))]
+            torch.ones(n_slots, dtype=torch.bool, device=dev), zeros(),  # empty slots are "done"
+            zeros(n_slots, config.max_seq_len), zeros(1))
 
 
 def lane(kv_cache, slot: int):
@@ -130,7 +131,7 @@ def copy_positions(dst_cache, src_cache, n: int) -> None:
 
 
 def _activate_row(state, slot: int, first: torch.Tensor, total: int, eos_id: int) -> None:
-    _, tok, pos, done, emitted = state
+    tok, pos, done, emitted = state[1:5]
     tok[slot] = first
     pos[slot] = total
     done[slot] = first == eos_id
@@ -219,30 +220,48 @@ def slice_prefix(kv_cache, slot: int, p0: int):
     return one(kv_cache[0]), one(kv_cache[1])
 
 
+def _rows_step(model: llama.Llama, state, generator, params, pad_id: int) -> None:
+    """One decode step over every slot, in place (the body a graph captures)."""
+    kv_cache, tok, pos, done, emitted, ring, at = state
+    temperature, top_k, top_p, min_p, eos_ids, budget = params
+    S_max = model.config.max_seq_len
+    x = llama.embed(model, tok[:, None])
+    mask = MaskInfo(causal=True, q_positions=pos[:, None], kv_len=pos + 1)
+    h, _ = llama.trunk(model, x, mask, kv_cache, input_pos=pos[:, None])
+    nxt = sample_logits_rows(llama.head(model, h)[:, 0], temperature, top_k, top_p, min_p, generator)
+    nxt = torch.where(done, pad_id, nxt)
+    new_emitted = emitted + (~done).long()
+    new_pos = torch.where(done, pos, torch.clamp(pos + 1, max=S_max - 1))
+    new_done = done | (nxt == eos_ids) | (new_emitted >= budget) | (pos + 1 >= S_max)
+    ring.index_copy_(1, at, nxt[:, None])
+    at += 1
+    tok.copy_(nxt)
+    pos.copy_(new_pos)
+    done.copy_(new_done)
+    emitted.copy_(new_emitted)
+
+
 @torch.inference_mode()
 def decode_rows(model: llama.Llama, state, n_steps: int, generator: torch.Generator | None, temperature, top_k,
-                top_p, min_p, eos_ids, budget, pad_id: int = 0):
-    """``n_steps`` decode steps over every slot -> (tokens [N, n_steps], new state). Reads
-    nothing back from the device.
+                top_p, min_p, eos_ids, budget, pad_id: int = 0, eager: bool = False):
+    """``n_steps`` decode steps over every slot -> (tokens [N, n_steps], state). Reads
+    nothing back from the device. On the card each step is one replay of the step's
+    captured graph over the state and the six per-row tensors (captured on the first call
+    with these buffers: pass the same tensors each chunk); ``eager``: launched op by op.
+    The state is updated in place and the tokens are a view of its ring, which the next
+    call overwrites.
 
     A row freezes (monotonically) when it emits its stop token, exhausts its budget or
     fills the cache; frozen and empty slots ride along emitting ``pad_id`` and hold their
     position, so the decode kernel's window of a dead lane does not grow."""
-    kv_cache, tok, pos, done, emitted = state
-    S_max = model.config.max_seq_len
-    toks = []
-    for _ in range(n_steps):
-        x = llama.embed(model, tok[:, None])
-        mask = MaskInfo(causal=True, q_positions=pos[:, None], kv_len=pos + 1)
-        h, _ = llama.trunk(model, x, mask, kv_cache, input_pos=pos[:, None])
-        nxt = sample_logits_rows(llama.head(model, h)[:, 0], temperature, top_k, top_p, min_p, generator)
-        nxt = torch.where(done, torch.full_like(nxt, pad_id), nxt)
-        emitted = emitted + (~done).long()
-        new_pos = torch.where(done, pos, torch.clamp(pos + 1, max=S_max - 1))
-        done = done | (nxt == eos_ids) | (emitted >= budget) | (pos + 1 >= S_max)
-        toks.append(nxt)
-        tok, pos = nxt, new_pos
-    return torch.stack(toks, dim=1), (kv_cache, tok, pos, done, emitted)
+    ring, at = state[5], state[6]
+    if n_steps > ring.shape[1]:
+        raise ValueError(f"{n_steps} steps exceed the model's {ring.shape[1]} positions")
+    params = (temperature, top_k, top_p, min_p, eos_ids, budget)
+    at.zero_()
+    dg.run(model, "decode_rows step", (*cache_tensors(state[0]), *state[1:], *params), (pad_id,),
+           lambda m, gen: _rows_step(m, state, gen, params, pad_id), n_steps, generator, eager=eager, draws=True)
+    return ring[:, :n_steps], state
 
 
 # ---------------------------------------------------------------------------
@@ -287,14 +306,20 @@ class ContinuousScheduler:
     and loops: admit queued rows into free slots -> one prefill chunk per admitting slot
     (chunked prefill) -> one decode chunk over all slots -> deliver tokens and free
     finished slots (one chunk later: the chunk in flight is collected after the next one
-    is dispatched, so the host queues work while the device computes). Counters:
+    is dispatched, so the host queues work while the device computes). On the card each
+    decode step is one replay of ``decode_rows``' captured graph over the state and the six
+    per-row tensors (static buffers, filled from pinned host memory each chunk);
+    ``eager``: the steps launched op by op. A dispatched chunk's tokens, emitted counts and
+    done mask are copied out (to pinned host memory on the card) before the next dispatch
+    overwrites them, and its collection waits for that copy alone. Counters:
     ``dispatches`` (decode chunks), ``admissions``, ``prefill_dispatches`` (prefill
     chunks), ``prefix_hits`` and ``prefix_tokens_reused``."""
 
     def __init__(self, model: llama.Llama, *, n_slots: int = 8, chunk_size: int = 16, prompt_multiple: int = 64,
                  cache_dtype=torch.bfloat16, pad_id: int = 0, seed: int = 0, prefix_cache: int = 0,
-                 prefill_chunk: int = 0):
+                 prefill_chunk: int = 0, eager: bool = False):
         self.model, self.config = model, model.config
+        self.eager = eager
         self.device = model.device
         self.n_slots, self.chunk_size = n_slots, chunk_size
         self.prompt_multiple = prompt_multiple
@@ -318,6 +343,14 @@ class ContinuousScheduler:
         self.eos = [-1] * n_slots
         self.budget = [1] * n_slots
         self.emitted_seen = [0] * n_slots  # host copy of emitted
+        # the per-row tensors each chunk reads, (temperature, top_p, min_p) f32 and
+        # (top_k, eos, budget) int64, on the device at fixed addresses, and two host copies
+        # in turn (pinned on the card): the host fills one while the other's copy may be queued
+        self.row_params = (torch.zeros(3, n_slots, device=self.device),
+                           torch.zeros(3, n_slots, dtype=torch.int64, device=self.device))
+        pin = self.device.type == "cuda"
+        self.row_params_host = [(torch.zeros(3, n_slots, pin_memory=pin),
+                                 torch.zeros(3, n_slots, dtype=torch.int64, pin_memory=pin)) for _ in range(2)]
         self.rows: list[RowHandle | None] = [None] * n_slots
         self.queue: list[RowHandle] = []
         self.cond = threading.Condition()
@@ -467,28 +500,48 @@ class ContinuousScheduler:
             row.event.set()
 
     def _row_tensors(self):
-        dev = self.device
-        t, k, p, mp = sampling_tensors(self.sampling, dev)
-        as_long = lambda xs: torch.tensor(xs, dtype=torch.int64, device=dev)  # noqa: E731
-        return t, k, p, mp, as_long(self.eos), as_long(self.budget)
+        """(temperature, top_k, top_p, min_p, eos, budget) [N] on the device, the host
+        mirrors copied in from this chunk's pinned buffers (double-buffered: the copy
+        queued two chunks ago has run, since its chunk was collected)."""
+        t, k, p, mp = zip(*self.sampling)
+        f32, i64 = self.row_params_host[self.dispatches % 2]
+        f32.copy_(torch.tensor([t, p, mp], dtype=torch.float32))
+        i64.copy_(torch.tensor([k, self.eos, self.budget], dtype=torch.int64))
+        dev_f32, dev_i64 = self.row_params
+        dev_f32.copy_(f32, non_blocking=True)
+        dev_i64.copy_(i64, non_blocking=True)
+        return dev_f32[0], dev_i64[0], dev_f32[1], dev_f32[2], dev_i64[1], dev_i64[2]
 
     def _dispatch_chunk(self):
         """One decode chunk over every slot -> (tokens [N, W], emitted [N], done [N]) on
-        the device, not yet synced (the caller collects them one chunk later). A subclass
-        substitutes its own chunk (speculative rounds) under the same delivery contract:
-        each row's new tokens are the [:emitted delta] prefix of its tokens row."""
+        the device, not yet synced, which the next chunk overwrites (``_stage`` copies them
+        out). A subclass substitutes its own chunk (speculative rounds) under the same
+        delivery contract: each row's new tokens are the [:emitted delta] prefix of its
+        tokens row."""
         toks, self.state = decode_rows(self.model, self.state, self.chunk_size, self.generator, *self._row_tensors(),
-                                       pad_id=self.pad_id)
+                                       pad_id=self.pad_id, eager=self.eager)
         self.dispatches += 1
-        # copies: admissions write the state's rows in place before this chunk is collected
-        return toks, self.state[4].clone(), self.state[3].clone()
+        return toks, self.state[4], self.state[3]
+
+    def _stage(self, chunk) -> tuple:
+        """Copies of a dispatched chunk's tensors, queued behind it before anything else can
+        write them (the next dispatch, an admission), and the event that marks them done: on
+        the card into pinned host memory, so that collecting waits for this chunk alone."""
+        if self.device.type != "cuda":
+            return (*(t.clone() for t in chunk), None)
+        host = tuple(t.to("cpu", non_blocking=True) for t in chunk)
+        done = torch.cuda.Event()
+        done.record()
+        return (*host, done)
 
     def _collect(self, chunk):
-        """Sync one dispatched chunk and deliver it. ``chunk`` carries the row list AT
-        DISPATCH TIME: a slot whose occupant changed since (its lane was dead in this
-        chunk) is skipped."""
-        toks_d, emitted_d, done_d, snap = chunk
-        toks, emitted, done = toks_d.tolist(), emitted_d.tolist(), done_d.tolist()
+        """Wait for one dispatched chunk's copies and deliver it. ``chunk`` carries the row
+        list AT DISPATCH TIME: a slot whose occupant changed since (its lane was dead in
+        this chunk) is skipped."""
+        toks_h, emitted_h, done_h, copied, snap = chunk
+        if copied is not None:
+            copied.synchronize()
+        toks, emitted, done = toks_h.tolist(), emitted_h.tolist(), done_h.tolist()
         for slot, row in enumerate(snap):
             if row is None or row is not self.rows[slot]:
                 continue
@@ -503,7 +556,7 @@ class ContinuousScheduler:
     def _run(self):
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)  # this thread's launches go to the model's card
-        inflight = None  # (toks, emitted, done, rows snapshot) of the chunk not yet collected
+        inflight = None  # (toks, emitted, done, copy event, rows snapshot) of the chunk not yet collected
         try:
             with torch.inference_mode():
                 while True:
@@ -531,7 +584,7 @@ class ContinuousScheduler:
                         self._advance_prefill(slot)
                     nxt = None
                     if any(r is not None for r in self.rows):
-                        nxt = (*self._dispatch_chunk(), list(self.rows))
+                        nxt = (*self._stage(self._dispatch_chunk()), list(self.rows))
                     if inflight is not None:
                         self._collect(inflight)
                     inflight = nxt

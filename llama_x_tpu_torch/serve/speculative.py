@@ -208,4 +208,4 @@ class SpeculativeScheduler(ContinuousScheduler):
                                       live_rounds=self.live_row_rounds)
         self.dispatches += 1
         self.rounds_run += self.chunk_size
-        return toks, self.state[6].clone(), self.state[5].clone()
+        return toks, self.state[6], self.state[5]

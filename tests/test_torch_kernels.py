@@ -1137,3 +1137,125 @@ def test_learned_task_entry_points_run_on_the_card(cuda, tmp_path, tool):
         need = ("K2", "K5", "K3")
     assert art["model"]["head_dim"] == 64 and art["device"] == torch.cuda.get_device_name(0)
     assert all(counters[k].launches > before[k] for k in need), {k: counters[k].launches - before[k] for k in need}
+
+
+# ---------------------------------------------------------------------------
+# the decode step as one captured CUDA graph (models/decode_graph.py), at 8B width cut to 2 layers
+# ---------------------------------------------------------------------------
+
+
+def _graph_model(dev, quant: bool):
+    """Llama-3.1-8B width, 2 layers, random weights from seed 0 as ``generate_cli`` builds
+    them: bf16, or int8 weights with dynamic int8 activations."""
+    from llama_x_tpu_torch.generate_cli import GEOMETRIES, build_model
+
+    cfg = llama.LlamaConfig(**dict(GEOMETRIES["8b"], num_layers=2), max_seq_len=1024, dynamic_int8_act=quant)
+    return build_model(cfg, quant, seed=0, device=dev)
+
+
+def _graph_prompt(dev):
+    g = torch.Generator(device=dev).manual_seed(5)
+    return torch.randint(0, 256, (4, 96), device=dev, generator=g), torch.tensor([96, 70, 33, 5], device=dev)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_decode_graph_matches_the_eager_loop(cuda, kind):
+    """``generate`` through the captured step against the eager loop (bf16 weights and
+    cache; int8 weights, dynamic int8 act and the int8 cache): greedy tokens equal and
+    launches equal, on the capturing call and on the next (replays only); each replay
+    credits one K3 a layer (and seven K1 with int8), the kernels a device trace of three
+    replays shows; a replay allocates nothing (the kernels' partials live in the graph's
+    pool)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from llama_x_tpu_torch.models import decode_graph as dg
+    from llama_x_tpu_torch.models.generate import generate
+    from llama_x_tpu_torch.ops import launches
+
+    quant = kind == "int8"
+    model = _graph_model(cuda, quant)
+    prompt, lens = _graph_prompt(cuda)
+    cache_dtype = torch.int8 if quant else torch.bfloat16
+    k3 = da.decode_attention_int8 if quant else da.decode_attention
+    counters = (mm.int8_mm_dequant_nt, fa.flash_fwd_with_lse, k3)
+
+    def run(eager):
+        before = [c.launches for c in counters]
+        out = generate(model, prompt, max_new_tokens=24, prompt_lens=lens, cache_dtype=cache_dtype, eager=eager)
+        torch.cuda.synchronize()
+        return out, [c.launches - b for c, b in zip(counters, before)]
+
+    want, eager_launches = run(True)
+    for _ in range(2):  # capture, then replays only
+        got, graph_launches = run(False)
+        assert torch.equal(got, want)
+        assert graph_launches == eager_launches
+    s = dg.stats(model)
+    assert s["captures"] == 1 and s["replays"] == 22 + 23 and s["pool_bytes"][0] > 0
+    (entry,) = dg.runner_of(model).graphs.values()
+    credits = {fn.__name__: k for fn, k in entry.captured.credits.items()}
+    assert credits == ({"decode_attention_int8": 2, "int8_mm_dequant_nt": 14} if quant else {"decode_attention": 2})
+    allocated = torch.cuda.memory_stats()["allocation.all.allocated"]
+    entry.captured.replay(3)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == allocated
+    # the credits are what the device ran: the replays' kernels in a trace. A trace can lose a
+    # run of records but never shows a kernel that did not run: a short one is taken again.
+    for _ in range(3):
+        before = {name: fn.launches for name, fn in launches.COUNTED.items()}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            entry.captured.replay(3)
+            torch.cuda.synchronize()
+        counts = {name: fn.launches - before[name] for name, fn in launches.COUNTED.items()}
+        kernels = [e.name() for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA]
+        traced = launches.traced_counts(kernels)
+        assert all(traced[g] <= sum(counts[n] for n in g.split(" + ")) for g in traced)
+        if all(traced[g] == sum(counts[n] for n in g.split(" + ")) for g in traced):
+            break
+    launches.check_trace(kernels, counts, "3 replays")
+    assert traced["decode_attention_int8" if quant else "decode_attention"] == 3 * 2
+    assert traced["int8_mm_dequant_nt"] == (3 * 14 if quant else 0)
+
+
+def test_decode_graph_sampled_tokens_equal_the_eager_loop(cuda):
+    """Sampled decoding (temperature, top-k, top-p) on one generator seed: the graph's
+    replays draw the eager loop's bits, and leave the caller's generator where the eager
+    loop leaves it."""
+    from llama_x_tpu_torch.models.generate import generate
+
+    model = _graph_model(cuda, False)
+    prompt, lens = _graph_prompt(cuda)
+    kw = dict(max_new_tokens=20, prompt_lens=lens, temperature=0.8, top_k=50, top_p=0.9)
+    gens, outs = [], []
+    for eager in (True, False, False):
+        gens.append(torch.Generator(device=cuda).manual_seed(11))
+        outs.append(generate(model, prompt, generator=gens[-1], eager=eager, **kw))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[1], outs[0]) and torch.equal(outs[2], outs[0])
+    assert all(torch.equal(g.get_state(), gens[0].get_state()) for g in gens[1:])
+
+
+def test_continuous_scheduler_with_graphs_matches_eager(cuda):
+    """The int8 model with the int8 cache through ``ContinuousScheduler`` (4 slots, 8-step
+    chunks, chunked prefill of 64): six rows that join and leave; each row's greedy tokens
+    through the captured step equal the eager loop's."""
+    from llama_x_tpu_torch.models import decode_graph as dg
+    from llama_x_tpu_torch.serve.continuous import ContinuousScheduler
+
+    model = _graph_model(cuda, True)
+    g = torch.Generator().manual_seed(9)
+    prompts = [torch.randint(0, 256, (n,), generator=g).tolist() for n in (20, 150, 64, 7, 90, 200)]
+    rows = {}
+    for eager in (True, False):
+        sched = ContinuousScheduler(model, n_slots=4, chunk_size=8, cache_dtype=torch.int8, prefill_chunk=64,
+                                    eager=eager)
+        try:
+            handles = [sched.submit(p, max_tokens=12 + 5 * i) for i, p in enumerate(prompts)]
+            for h in handles:
+                assert h.event.wait(600) and h.error is None, h.error
+        finally:
+            sched.close()
+        rows[eager] = [h.tokens for h in handles]
+    assert rows[False] == rows[True]
+    assert dg.stats(model)["captures"] == 1

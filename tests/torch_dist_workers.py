@@ -361,7 +361,8 @@ def serve_job(job: dict, mesh) -> dict:
 
     model = shard_params(_port_model(job, job), mesh)
     prompt = torch.from_numpy(job["prompt"]).long()
-    out = {"generate": generate(model, prompt, max_new_tokens=8, cache_dtype=torch.int8).numpy()}
+    # a model on a mesh decodes eagerly: its collectives cannot be captured in a CUDA graph
+    out = {"generate": generate(model, prompt, max_new_tokens=8, cache_dtype=torch.int8, eager=True).numpy()}
     draft = shard_params(_port_model(job, dict(job, params=job["draft_params"], config=job["draft_config"])), mesh)
     out["speculative"] = generate_speculative(model, draft, prompt, max_new_tokens=8, gamma=3,
                                               cache_dtype=torch.float32)[0].numpy()
@@ -375,7 +376,7 @@ def serve_job(job: dict, mesh) -> dict:
     state = cont.install_row(state, 1, rc, f1, 16, -1)
     zs = torch.zeros(n_slots)
     toks, _ = cont.decode_rows(model, state, 7, None, zs, torch.zeros(n_slots, dtype=torch.int64), torch.ones(n_slots),
-                               zs, torch.full((n_slots,), -1), torch.full((n_slots,), 8))
+                               zs, torch.full((n_slots,), -1), torch.full((n_slots,), 8), eager=True)
     out["continuous"] = torch.cat([torch.stack([f0, f1])[:, None], toks[:2]], dim=1).numpy()
     return out
 
