@@ -61,10 +61,16 @@ no result line):
    base, LoRA r 8 on every projection, frozen bf16 head on the int8 kernels, dynamic
    int8 activations and input gradients, fused CE in 8 chunks, per-block activation
    checkpointing) on packed byte-token rows with segment ids at S 4096, microbatch 1,
-   accumulation 2, AdamW, 4 steps on one repeated step batch: all four training
-   kernels must launch, losses and grad norms be finite, the loss fall, the adapters
-   move and the int8 base stay as it was; then one step under the profiler, with the
-   rowwise quantizer's calls bracketed so that its device time is read apart;
+   accumulation 2, AdamW, 4 steps on one repeated step batch, each a replay of the captured
+   CUDA graphs (train/step_graph.py; the first step runs eagerly and captures: its seconds,
+   the capture + instantiate seconds and the pool are printed): the launches of every step
+   held to ``expected_launches``, losses and grad norms finite, the loss falling, the adapters
+   moving and the int8 base as it was; then two replays under the profiler, their launches
+   held to the device trace, and one eager step (``eager=True``) under the profiler with the
+   rowwise quantizer's calls bracketed so that its device time is read apart: wall against
+   busy, capture, pool and peak memory of graph and eager on one line (``GRAPH vs EAGER``);
+5a. the train graph against the eager step: on a 2-layer cut of the same width, 4 steps through
+   the graphs against 4 eager steps from the same weights and batches, bit for bit;
 6. training kernel path against plain path: loss and adapter gradients of one
    microbatch on a 2-layer cut of the trained weights, through the kernels and through
    their plain versions;
@@ -75,18 +81,20 @@ no result line):
    r 8, int8 act / dgrad / head, fused CE x8, stem and embeddings frozen) on 40 s of audio
    (2000 audio tokens prepended to 2096 text tokens), prefix-LM attention,
    ``remat_policy="flash_q8s"``, microbatch 1, AdamW 1e-4, 4 steps on one repeated batch,
-   the launch counts held to what the policy must give, one profiled step, then the same
-   step under ``full``, ``flash_proj``, without checkpointing, and under the int8-residual
-   attention ``attn_q8`` / ``attn_q8s`` (3 steps each, launches held: no K1 in the attention
-   backward; best step, positions/s and peak beside flash_q8s's; one profiled attn_q8s step
-   with the rowwise quantizer's device time);
+   the launch counts held to what the policy must give, graph replays against a profiled
+   eager step as in phase 5, then the same step under ``full``, ``flash_proj``, without
+   checkpointing, and under the int8-residual attention ``attn_q8`` / ``attn_q8s`` (each a key
+   of the graphs: an eager step and the capture, a replay and a traced replay, launches held:
+   no K1 in the attention backward; best step, positions/s and peak beside flash_q8s's; one
+   profiled eager attn_q8s step with the rowwise quantizer's device time);
 9. audio kernel path against plain path on a 2-layer cut with ``attn_dropout=0.1`` and
    fixed seeds, and on a 2-layer cut under ``attn_q8s``;
 10. the vision main path: one 8B QLoRA trunk with both stems is built for phases 10 to
    12; the vision step through ``train_vision``'s functions (8 canvases of 224, patch
    14: 272 image tokens before 32 caption bytes, S 304, prefix-LM, remat ``full``, fused
-   CE x4), 4 steps with the launch counts held every step, a profiled step, and a 2-layer
-   kernel-vs-plain comparison of loss and adapter gradients;
+   CE x4), 4 steps through the graphs with the launch counts held every step, a replay held
+   to its device trace, a profiled eager step, and a 2-layer kernel-vs-plain comparison of
+   loss and adapter gradients;
 11. the omni main path (BASELINE config 5 at tools/bench_omni.py's geometry) through
    ``train_omni``'s functions: 30 s of audio (1500 tokens) + one 224 image (272) + 2324
    text = S 4096, prefix-LM 1772, remat ``flash_proj``, fused CE in 4 chunks of 581 rows;
@@ -103,7 +111,8 @@ no result line):
 14a. the learned-task entry points (``wer_synthetic``, ``vision_synthetic``, ``omni_synthetic``,
    ``int8_bwd_quality``, ``int8_head_quality``) through their own ``main``, 30 steps each with
    heads of 64 in bf16, the checkpoint round trip and 4 held-out samples: the loss falls, the
-   kernels of each run launch (K2 / K5 / K3; K1 / K4 / K2 / K5), the artifacts go to a temporary
+   kernels of each run launch (K2 / K5 / K3; K1 / K4 / K2 / K5), every train step replays its
+   graphs, each run's launches equal its device trace, the artifacts go to a temporary
    directory (the full runs are calls of their own);
 14b. the trainer pieces: ``train_metamathqa`` from a MetaMathQA token cache written to a
    temporary directory (real-data path), 7 QLoRA steps at 8B width cut to 2 layers through
@@ -1761,19 +1770,190 @@ def base_checksums(model) -> list[int]:
     return [int(b.view(torch.int64).sum()) for n, b in model.named_buffers() if n.endswith("int_data")]
 
 
+@contextlib.contextmanager
+def graph_census():
+    """{"graph": steps taken through the runner's captured graphs (a capture's eager first
+    step counted here too), "eager": steps that asked for the eager step} over every
+    ``make_train_step`` inside the block: the entry points' loops show which they ran."""
+    from llama_x_tpu_torch.train import step_graph
+
+    counts = {"graph": 0, "eager": 0}
+    inner = step_graph.run
+
+    def run(*args, eager, **kwargs):
+        counts["eager" if eager else "graph"] += 1
+        return inner(*args, eager=eager, **kwargs)
+
+    step_graph.run = run
+    try:
+        yield counts
+    finally:
+        step_graph.run = inner
+
+
+def need_graph_steps(census: dict, what: str) -> None:
+    if census["eager"] or not census["graph"]:
+        raise AssertionError(f"{what}: every train step must replay captured graphs, got {census}")
+
+
+def graph_note(state, before: dict) -> dict:
+    """What the step just taken added to ``state``'s graph runner: a capture's eager first
+    step and capture + instantiate seconds and the pool it added, or {} (a replay)."""
+    from llama_x_tpu_torch.train import step_graph
+
+    s = step_graph.stats(state)
+    if s["captures"] == before["captures"]:
+        return {}
+    return dict(warmup_s=s["warmup_s"][-1], capture_s=s["capture_s"][-1], pool_mb=s["pool_bytes"][-1] / 2**20)
+
+
+def traced_steps(train_step, state, batch, n: int, expect: dict, what: str) -> dict:
+    """``n`` replays of the captured step under the profiler (CPU and CUDA activity): their
+    launches, the replays' credits, held to ``expect`` a step and to the device trace of the
+    window (``traced``); wall and device busy a step."""
+    win = traced(what, lambda: [train_step(state, batch) for _ in range(n)], cpu=True)
+    res = summarize_profile(win["prof"], win["wall_ms"], n, what, "step")
+    wrong = {k: (win["launches"][k], v * n) for k, v in expect.items() if win["launches"][k] != v * n}
+    if wrong:
+        raise AssertionError(f"{what}: launches of {n} replays (got, expected): {wrong}")
+    res["launches_per_step"] = {k: v // n for k, v in win["launches"].items() if v}
+    res["traced_per_step"] = {k: v // n for k, v in win["traced"].items() if v}
+    log(f"      launches a step {res['launches_per_step']}, equal to the device trace {res['traced_per_step']}")
+    return res
+
+
+def eager_profile(loss_fn, state, batch, what: str) -> dict:
+    """One step launched op by op (``eager=True``, the reference) on the same state and
+    buffers under the profiler, the rowwise quantizer's calls bracketed: wall, device busy, the
+    quantizer's device time, and the step's peak allocated and reserved memory."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from llama_x_tpu_torch.train.trainer import make_train_step
+
+    step = make_train_step(loss_fn, eager=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with labelled_quantizers(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rec = summarize_profile(prof, wall_ms, 1, what, "step")
+    q_ms, q_calls = label_device_ms(prof, QUANTIZE_LABEL)
+    rec["quantize_int8_rowwise_ms_per_step"], rec["quantize_int8_rowwise_calls_per_step"] = q_ms, q_calls
+    rec["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["peak_reserved_gb"] = torch.cuda.max_memory_reserved() / 1e9
+    log(f"      rowwise quantizer: {q_calls} calls/step, device "
+        + ("not measured (the trace ties no device time to its ranges)" if q_ms is None else
+           f"{q_ms:.3f} ms/step, {q_ms / rec['device_busy_ms_per_step']:.3f} of busy")
+        + f"; eager peak {rec['peak_allocated_gb']:.2f} GB allocated, {rec['peak_reserved_gb']:.2f} GB reserved")
+    return rec
+
+
+def graph_memory() -> tuple[float, float]:
+    """(GB allocated at most since the last reset of the peak, GB reserved once the allocator's
+    cache is emptied): taken after replays, what a replayed step holds, its pool included (the
+    pool's blocks count as allocated)."""
+    import torch
+
+    torch.cuda.empty_cache()
+    return torch.cuda.max_memory_allocated() / 1e9, torch.cuda.memory_reserved() / 1e9
+
+
+def graph_against_eager(tag: str, state, steps: list, graph_prof: dict, eager_prof: dict, graph_mem: tuple) -> dict:
+    """One line a cell: a step through the graph (replays unprofiled; profiled wall and busy)
+    against the eager step (the capture's eager first step unprofiled; one eager step
+    profiled), the capture, the pool and memory (``graph_memory`` after the replays; the eager
+    step's peaks, taken beside the graphs' pool)."""
+    import torch
+
+    from llama_x_tpu_torch.train import step_graph
+
+    s = step_graph.stats(state)
+    replays = [r["seconds"] * 1e3 for r in steps if "warmup_s" not in r]
+    first = next(r for r in steps if "warmup_s" in r)
+    g_busy = graph_prof["device_busy_ms_per_step"]
+    rec = dict(graph_wall_ms=replays, graph_busy_ms=g_busy, graph_share=g_busy / min(replays),
+               graph_profiled_wall_ms=graph_prof["wall_ms_per_step"], eager_wall_ms=first["warmup_s"] * 1e3,
+               eager_profiled_wall_ms=eager_prof["wall_ms_per_step"],
+               eager_busy_ms=eager_prof["device_busy_ms_per_step"],
+               eager_share=eager_prof["device_busy_ms_per_step"] / (first["warmup_s"] * 1e3),
+               capture_s=first["capture_s"], pool_mb=sum(s["pool_bytes"]) / 2**20, graph_allocated_gb=graph_mem[0],
+               graph_reserved_gb=graph_mem[1], eager_peak_allocated_gb=eager_prof["peak_allocated_gb"],
+               eager_peak_reserved_gb=eager_prof["peak_reserved_gb"], buffer_mb=s["buffer_bytes"] / 2**20)
+    log(f"    GRAPH vs EAGER {tag}: graph {min(replays):.1f}-{max(replays):.1f} ms/step unprofiled at "
+        f"{g_busy:.2f} busy (share {rec['graph_share']:.3f}; profiled {rec['graph_profiled_wall_ms']:.1f}); eager "
+        f"{rec['eager_wall_ms']:.1f} ms (the capture's first step) at {rec['eager_busy_ms']:.2f} busy (share "
+        f"{rec['eager_share']:.3f}; profiled {rec['eager_profiled_wall_ms']:.1f}); capture + instantiate "
+        f"{rec['capture_s']:.3f} s, pool {rec['pool_mb']:.1f} MB, buffers {rec['buffer_mb']:.1f} MB; replays hold "
+        f"{graph_mem[0]:.2f} GB allocated, {graph_mem[1]:.2f} GB reserved; the eager step's peak "
+        f"{rec['eager_peak_allocated_gb']:.2f} GB allocated, {rec['eager_peak_reserved_gb']:.2f} GB reserved (beside "
+        "the pool)")
+    return rec
+
+
+def phase_train_graph() -> dict:
+    """The text step at Llama-3.1-8B width cut to 2 layers: 4 steps through the captured
+    graphs against 4 eager steps from the same weights on the same 4 step batches (S 4096,
+    accumulation 2): loss, grad norm, label count and every trainable tensor bit for bit, the
+    launches of each step equal (the graph steps' launches are this phase's)."""
+    import torch
+
+    from llama_x_tpu_torch import train_metamathqa as entry
+    from llama_x_tpu_torch.train import cli
+    from llama_x_tpu_torch.train.trainer import TrainState, make_train_step
+
+    log("[train graph against eager] the text step at 8B width cut to 2 layers, 4 steps through the graphs and 4 "
+        "eager from the same weights and batches")
+    args = entry.parse_args(TRAIN_FLAGS + ["--synthetic_config", '{"num_layers": 2}'])
+    states = []
+    for _ in range(2):
+        model = cli.build_model_params(args, max_seq_len=args.max_seq_len)
+        states.append(TrainState(model, cli.setup_optimizer(args, model)[0]))
+    data_iter, _ = entry.make_data(args, states[0].model.config.vocab_size)
+    accum = args.gradient_accumulation
+    batches = [cli.assemble_step_batch([next(data_iter) for _ in range(accum)], pad_values={"labels": -100})
+               for _ in range(4)]
+    steps = (make_train_step(entry.loss_fn), make_train_step(entry.loss_fn, eager=True))
+    losses, launches = [], {k: 0 for k in counted()}
+    for i, batch in enumerate(batches):
+        got = []
+        for state, step in zip(states, steps):
+            reset_counts()
+            m = step(state, batch)
+            torch.cuda.synchronize()
+            got.append((m, read_counts()))
+        (mg, lg), (me, le) = got
+        differ = [k for k in me if not torch.equal(mg[k], me[k])]
+        if differ or lg != le:
+            raise AssertionError(f"step {i}: graph {({k: float(v) for k, v in mg.items()})} against eager "
+                                 f"{({k: float(v) for k, v in me.items()})}, launches {lg} against {le}")
+        losses.append(float(mg["loss"]))
+        for k, v in lg.items():
+            launches[k] += v
+    moved = [n for (n, a), (_, b) in zip(*(s.trainable for s in states)) if not torch.equal(a, b)]
+    if moved:
+        raise AssertionError(f"the adapters parted between graph and eager: {moved[:4]}")
+    log(f"    4 steps bit for bit (losses {losses}), {len(states[0].trainable)} trainable tensors equal, launches "
+        f"equal every step")
+    return dict(losses=losses, trainable_tensors=len(states[0].trainable), launches=launches)
+
+
 def phase_train() -> dict:
     """The trainer's own pieces, put together as ``train_metamathqa.main`` puts them,
     from the command line a user would give; one step batch is repeated so that the loss
-    must fall."""
+    must fall. Each step replays the captured graphs (the first: the eager step, then the
+    capture), and an eager step on the same state is profiled beside them."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from llama_x_tpu_torch import train_metamathqa as entry
     from llama_x_tpu_torch.train import cli
     from llama_x_tpu_torch.train.trainer import TrainState, make_train_step
 
     log("[training main path] Llama-3.1-8B width, 32 layers, int8 base + LoRA r 8, int8 act / dgrad / head, "
-        "fused CE x8, checkpointing 'full', packed S 4096, microbatch 1 x accumulation 2, AdamW")
+        "fused CE x8, checkpointing 'full', packed S 4096, microbatch 1 x accumulation 2, AdamW; each step "
+        "replays captured CUDA graphs")
     args = entry.parse_args(TRAIN_FLAGS)
     t0 = time.perf_counter()
     model = cli.build_model_params(args, max_seq_len=args.max_seq_len)
@@ -1794,52 +1974,30 @@ def phase_train() -> dict:
     first = model.layers[0].feed_forward.w1
     base0, lora_a0, lora_b0 = first.int_data.clone(), first.lora_a.detach().clone(), first.lora_b.detach().clone()
 
+    L, C = model.config.num_layers, model.config.fused_ce_chunks
+    expect = {k: v * accum for k, v in expected_launches("full", L, C).items()}
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    steps = []
-    for i in range(args.n_steps):
-        t0 = time.perf_counter()
-        m = train_step(state, batch)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        rec = dict(step=i, loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), n_tokens=int(m["n_tokens"]),
-                   seconds=dt, positions_per_s=positions / dt, label_tokens_per_s=int(m["n_tokens"]) / dt)
-        steps.append(rec)
-        log(f"    step {i}: loss {rec['loss']:.4f}, grad norm {rec['grad_norm']:.4f}, {dt:.3f} s, "
-            f"{rec['positions_per_s']:.0f} positions/s ({rec['label_tokens_per_s']:.0f} label tokens/s)")
-        if i == 0:
-            missing = [k for k in TRAIN_KERNELS if read_counts()[k] == 0]
-            if missing:
-                raise AssertionError(f"a training step never launched {missing}: {read_counts()}")
-    counts = read_counts()
+    steps = timed_steps(train_step, state, batch, args.n_steps, positions, expect)
+    for r in steps:
+        r["label_tokens_per_s"] = r["n_tokens"] / r["seconds"]
+    counts = {k: sum(r["launches"][k] for r in steps) for k in steps[0]["launches"]}
     peak = torch.cuda.max_memory_allocated() / 1e9
-    log(f"    launches over {args.n_steps} steps {counts}; peak memory {peak:.2f} GB")
-    if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in steps):
-        raise AssertionError(f"non-finite loss or grad norm: {steps}")
+    log(f"    launches over {args.n_steps} steps {counts}; peak memory {peak:.2f} GB allocated (the eager first step's)")
     if not steps[-1]["loss"] < steps[0]["loss"]:
         raise AssertionError(f"the loss did not fall: {[r['loss'] for r in steps]}")
     if base_checksums(model) != sums or not torch.equal(first.int_data, base0):
         raise AssertionError("the int8 base changed during training")
     if torch.equal(first.lora_a, lora_a0) or torch.equal(first.lora_b, lora_b0):
         raise AssertionError("the adapter tensors did not move")
-    if any(counts[k] % args.n_steps for k in TRAIN_KERNELS):
-        raise AssertionError(f"launch counts are not the same every step: {counts}")
 
-    with labelled_quantizers(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        train_step(state, batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    prof_rec = summarize_profile(prof, wall_ms, 1, "training", "step")
-    q_ms, q_calls = label_device_ms(prof, QUANTIZE_LABEL)
-    prof_rec["quantize_int8_rowwise_ms_per_step"], prof_rec["quantize_int8_rowwise_calls_per_step"] = q_ms, q_calls
-    log(f"      rowwise quantizer: {q_calls} calls/step, device "
-        + ("not measured (the trace ties no device time to its ranges)" if q_ms is None else
-           f"{q_ms:.3f} ms/step, {q_ms / prof_rec['device_busy_ms_per_step']:.3f} of busy"))
-    del prof
+    torch.cuda.reset_peak_memory_stats()
+    graph_prof = traced_steps(train_step, state, batch, 2, expect, "training (graph replays)")
+    graph_mem = graph_memory()
+    prof_rec = eager_profile(entry.loss_fn, state, batch, "training (eager)")
+    vs = graph_against_eager("text", state, steps, graph_prof, prof_rec, graph_mem)
     two_path = compare_train_paths(model, batch)
     return dict(flags=TRAIN_FLAGS, steps=steps, launches=counts, launches_per_step={k: v // args.n_steps for k, v in counts.items()},
-                peak_mem_gb=peak, profile=prof_rec, two_path=two_path)
+                peak_mem_gb=peak, profile=prof_rec, graph_profile=graph_prof, graph_vs_eager=vs, two_path=two_path)
 
 
 def compare_train_paths(model, batch) -> dict:
@@ -1954,22 +2112,28 @@ def expected_launches(policy: str, layers: int, ce_chunks: int) -> dict:
 
 def timed_steps(train_step, state, batch, n: int, positions: int, expect: dict | None) -> list[dict]:
     """n optimizer steps, each timed on the host clock around a synchronize, the launch
-    counts of each held to ``expect``."""
+    counts of each held to ``expect``; a step that captured (the first of a key) gives its
+    eager step's and its capture's seconds and the pool it added."""
     import torch
+
+    from llama_x_tpu_torch.train import step_graph
 
     steps = []
     for i in range(n):
         reset_counts()
+        before = step_graph.stats(state)
         t0 = time.perf_counter()
         m = train_step(state, batch)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts = read_counts()
         rec = dict(step=i, loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), n_tokens=int(m["n_tokens"]),
-                   seconds=dt, positions_per_s=positions / dt, launches=counts)
+                   seconds=dt, positions_per_s=positions / dt, launches=counts, **graph_note(state, before))
         steps.append(rec)
+        how = (f"eager step {rec['warmup_s']:.3f} s, then capture + instantiate {rec['capture_s']:.3f} s, pool "
+               f"+{rec['pool_mb']:.1f} MB" if "warmup_s" in rec else "replay")
         log(f"    step {i}: loss {rec['loss']:.4f}, grad norm {rec['grad_norm']:.4f}, {dt:.3f} s, "
-            f"{rec['positions_per_s']:.0f} positions/s")
+            f"{rec['positions_per_s']:.0f} positions/s ({how})")
         if expect is not None:
             wrong = {k: (counts[k], v) for k, v in expect.items() if counts[k] != v}
             if wrong:
@@ -1981,14 +2145,14 @@ def timed_steps(train_step, state, batch, n: int, positions: int, expect: dict |
 
 def phase_audio() -> dict:
     """The repository's headline step, put together from ``train_librispeech``'s own
-    functions as its ``main`` puts them; one batch is repeated so that the loss must fall."""
+    functions as its ``main`` puts them; one batch is repeated so that the loss must fall.
+    Each step replays the captured graphs; an eager step is profiled beside them."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from llama_x_tpu_torch import train_librispeech as entry
     from llama_x_tpu_torch.models.audio import AudioConfig
-    from llama_x_tpu_torch.train import cli
+    from llama_x_tpu_torch.train import cli, step_graph
     from llama_x_tpu_torch.train.trainer import TrainState, make_train_step
 
     log("[audio main path] Llama-3.1-8B width, 32 layers, int8 base + LoRA r 8, int8 act / dgrad / head, fused CE x8, "
@@ -2001,7 +2165,8 @@ def phase_audio() -> dict:
     log(f"    weights built on the card from seed 0 in {time.perf_counter() - t0:.1f} s; config {model.config}")
     optimizer, _ = cli.setup_optimizer(args, model)
     state = TrainState(model, optimizer)
-    train_step = make_train_step(entry.make_loss_fn(args.prefix_lm))
+    loss_fn = entry.make_loss_fn(args.prefix_lm)
+    train_step = make_train_step(loss_fn)
     data_iter = entry.synthetic_audio_batches(np.random.default_rng(args.seed), audio_config, 1, args.audio_duration,
                                               args.seq_len_multiple, model.config.vocab_size)
     batch = cli.assemble_step_batch([next(data_iter)], pad_values={"labels": -100})
@@ -2031,34 +2196,40 @@ def phase_audio() -> dict:
     launches = {k: sum(r["launches"][k] for r in steps) for k in steps[0]["launches"]}
     runs["flash_q8s"] = dict(steps=steps, peak_mem_gb=peak)
 
-    with labelled_quantizers(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        train_step(state, batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    prof_rec = summarize_profile(prof, wall_ms, 1, "audio training (flash_q8s)", "step")
-    q_ms, q_calls = label_device_ms(prof, QUANTIZE_LABEL)
-    prof_rec["quantize_int8_rowwise_ms_per_step"], prof_rec["quantize_int8_rowwise_calls_per_step"] = q_ms, q_calls
-    log(f"      rowwise quantizer: {q_calls} calls/step, device "
-        + ("not measured (the trace ties no device time to its ranges)" if q_ms is None else f"{q_ms:.3f} ms/step"))
-    del prof
+    torch.cuda.reset_peak_memory_stats()
+    graph_prof = traced_steps(train_step, state, batch, 2, expected_launches("flash_q8s", L, C),
+                              "audio training (flash_q8s, graph replays)")
+    graph_mem = graph_memory()
+    prof_rec = eager_profile(loss_fn, state, batch, "audio training (flash_q8s, eager)")
+    vs = graph_against_eager("audio", state, steps, graph_prof, prof_rec, graph_mem)
 
     # the same step under the policy the text slice used, under the named-save policy that
     # keeps every D-wide projection output, without checkpointing at all, and under the
     # int8-residual attention: one line each (the schedule has run out, so the weights stand
-    # still and every step does the same work)
+    # still and every step does the same work). A policy is a key of the state's graphs: its
+    # first step is the eager step and the capture, the next a replay, and one more replay is
+    # held to a device trace. The graphs of the other policies keep their pool meanwhile;
+    # "none" (no checkpointing: an eager step of 54 GB) runs with the pool freed before and
+    # after it (step_graph.release), as a run without checkpointing would hold only its own
     for policy in ("full", "flash_proj", "none", "flash_q8s", "attn_q8", "attn_q8s"):
         model.config = model.config.replace(activation_checkpointing=policy != "none",
                                             remat_policy="full" if policy == "none" else policy)
+        if policy == "none":
+            step_graph.release(state)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         log(f"    remat_policy={policy}:")
-        psteps = timed_steps(train_step, state, batch, 3, positions, expected_launches(policy, L, C))
+        psteps = timed_steps(train_step, state, batch, 2, positions, expected_launches(policy, L, C))
         ppeak = torch.cuda.max_memory_allocated() / 1e9
+        ptrace = traced_steps(train_step, state, batch, 1, expected_launches(policy, L, C), f"audio ({policy}, replay)")
+        if policy == "none":
+            step_graph.release(state)
         best = min(r["seconds"] for r in psteps[1:])
-        runs[f"{policy} (second pass)" if policy == "flash_q8s" else policy] = dict(steps=psteps, peak_mem_gb=ppeak)
-        log(f"    POLICY {policy}: step {best:.3f} s (best of 2 after one), {positions / best:.0f} positions/s, "
-            f"peak memory {ppeak:.2f} GB, launches per step {psteps[-1]['launches']}")
+        runs[f"{policy} (second pass)" if policy == "flash_q8s" else policy] = dict(
+            steps=psteps, peak_mem_gb=ppeak, graph_busy_ms=ptrace["device_busy_ms_per_step"])
+        log(f"    POLICY {policy}: step {best:.3f} s (the replay after the eager first step), "
+            f"{positions / best:.0f} positions/s, peak memory {ppeak:.2f} GB (the eager first step's), reserved "
+            f"{torch.cuda.memory_reserved() / 1e9:.2f} GB, launches per step {psteps[-1]['launches']}")
         if policy.startswith("attn_q8"):
             for r in psteps:
                 for k, v in r["launches"].items():
@@ -2066,21 +2237,15 @@ def phase_audio() -> dict:
     q8 = {p: min(r["seconds"] for r in runs[p]["steps"][1:]) for p in ("flash_q8s (second pass)", "attn_q8", "attn_q8s")}
     log("    int8-residual attention against flash_q8s (best step, positions/s, peak): " + "; ".join(
         f"{p.split()[0]} {t:.3f} s, {positions / t:.0f}/s, {runs[p]['peak_mem_gb']:.2f} GB" for p, t in q8.items()))
-    with labelled_quantizers(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        train_step(state, batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    q8_prof = summarize_profile(prof, wall_ms, 1, "audio training (attn_q8s)", "step")
-    q_ms, q_calls = label_device_ms(prof, QUANTIZE_LABEL)
-    q8_prof["quantize_int8_rowwise_ms_per_step"], q8_prof["quantize_int8_rowwise_calls_per_step"] = q_ms, q_calls
-    log(f"      rowwise quantizer under attn_q8s: {q_calls} calls/step, device "
-        + ("not measured (the trace ties no device time to its ranges)" if q_ms is None else f"{q_ms:.3f} ms/step"))
-    del prof
+    q8_prof = eager_profile(loss_fn, state, batch, "audio training (attn_q8s, eager)")
+    graph_stats = step_graph.stats(state)
+    log(f"    the state's graphs: {graph_stats}")
+    step_graph.release(state)
     two_path = compare_audio_paths(model, batch)
     q8_two_path = compare_q8_audio_paths(model, batch)
-    return dict(flags=AUDIO_FLAGS, launches=launches, runs=runs, profile=prof_rec, attn_q8s_profile=q8_prof,
-                two_path=two_path, attn_q8s_two_path=q8_two_path)
+    return dict(flags=AUDIO_FLAGS, launches=launches, runs=runs, profile=prof_rec, graph_profile=graph_prof,
+                graph_vs_eager=vs, attn_q8s_profile=q8_prof, graph_stats=graph_stats, two_path=two_path,
+                attn_q8s_two_path=q8_two_path)
 
 
 def compare_audio_paths(model, batch) -> dict:
@@ -2172,11 +2337,11 @@ def build_trunk():
 def step_phase(tag: str, model, args, loss_fn, batch, positions: int, policy: str) -> dict:
     """4 optimizer steps on one repeated step batch with the launch counts held to
     ``expected_launches`` every step, the loss falling, the int8 base and the frozen stems
-    unchanged and the adapters moving; then one profiled step."""
+    unchanged and the adapters moving; the first step is the eager step and the capture, the
+    others replays; then a replay held to a device trace, and one profiled eager step."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    from llama_x_tpu_torch.train import cli
+    from llama_x_tpu_torch.train import cli, step_graph
     from llama_x_tpu_torch.train.trainer import TrainState, make_train_step
 
     optimizer, _ = cli.setup_optimizer(args, model)
@@ -2199,14 +2364,16 @@ def step_phase(tag: str, model, args, loss_fn, batch, positions: int, policy: st
     if torch.equal(first.lora_b, lora_b0):
         raise AssertionError("the adapter tensors did not move")
     launches = {k: sum(r["launches"][k] for r in steps) for k in steps[0]["launches"]}
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        train_step(state, batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    prof_rec = summarize_profile(prof, wall_ms, 1, f"{tag} ({policy})", "step")
-    del prof, state, optimizer
-    return dict(steps=steps, launches=launches, peak_mem_gb=peak, profile=prof_rec)
+    torch.cuda.reset_peak_memory_stats()
+    graph_prof = traced_steps(train_step, state, batch, 1, expected_launches(policy, L, C),
+                              f"{tag} ({policy}, graph replay)")
+    graph_mem = graph_memory()
+    prof_rec = eager_profile(loss_fn, state, batch, f"{tag} ({policy}, eager)")
+    vs = graph_against_eager(tag, state, steps, graph_prof, prof_rec, graph_mem)
+    step_graph.release(state)
+    del state, optimizer
+    return dict(steps=steps, launches=launches, peak_mem_gb=peak, profile=prof_rec, graph_profile=graph_prof,
+                graph_vs_eager=vs)
 
 
 def phase_vision(trunk) -> dict:
@@ -2481,9 +2648,11 @@ def phase_real_data() -> dict:
                  "--log_interval", "1", "--ckpt_interval", "0"]
         reset_counts()
         t0 = time.perf_counter()
-        entry.main(flags)
+        with graph_census() as census:
+            entry.main(flags)
         seconds = time.perf_counter() - t0
         counts = read_counts()
+        need_graph_steps(census, "train_librispeech --dataset_dir")
         (run,) = (Path(tmp) / "runs" / "librispeech").iterdir()
         recs = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
     missing = [k for k in TRAIN_KERNELS if counts[k] == 0]
@@ -2512,7 +2681,7 @@ def phase_entry_points() -> dict:
              "--log_interval", "1", "--ckpt_interval", "0", *SMALL_CARD_MODEL]
     reset_counts()
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp), graph_census() as census:
         train_vision.main(["--synthetic", "16", "--image_size", "32", "--patch_size", "8", "--batch_size", "4", *small])
         train_omni.main(["--synthetic", "8", "--audio_duration", "1", "--image_size", "32", "--patch_size", "8",
                          "--seq_len_multiple", "64", "--batch_size", "2", *small])
@@ -2523,7 +2692,8 @@ def phase_entry_points() -> dict:
     missing = [k for k in [*TRAIN_KERNELS, "decode_attention"] if counts[k] == 0]
     if missing:
         raise AssertionError(f"the entry points never launched {missing}: {counts}")
-    log(f"    {time.perf_counter() - t0:.1f} s; launches {counts}")
+    need_graph_steps(census, "train_vision / train_omni")
+    log(f"    {time.perf_counter() - t0:.1f} s; {census['graph']} graph steps; launches {counts}")
     return dict(launches=counts, eval_vision=vis, eval_librispeech=ls)
 
 
@@ -2540,39 +2710,43 @@ LEARNED_TASK_STEPS = 30
 def phase_learned_tasks() -> dict:
     """The five learned-task entry points through their own ``main`` at a short cut: 30 steps
     (heads of 64 in bf16), the checkpoint round trip and 4 held-out samples for the three
-    learned tasks; the loss must fall, the kernels of each run launch, and every artifact is
-    written under a temporary directory."""
+    learned tasks; the loss must fall, the kernels of each run launch, every train step replays
+    captured graphs, the launches of each run (replay credits included) equal the kernels of
+    its device trace, and every artifact is written under a temporary directory."""
     import importlib
     import tempfile
 
     log(f"[learned tasks] wer / vision / omni_synthetic and int8_bwd / head_quality, {LEARNED_TASK_STEPS} steps each "
-        "(the full runs are calls of their own: README)")
+        "(the full runs are calls of their own: README), each run traced")
     out, total = {}, {k: 0 for k in counted()}
     with tempfile.TemporaryDirectory() as tmp:
         for name, need in LEARNED_TASKS:
             entry = importlib.import_module(f"llama_x_tpu_torch.{name}")
-            reset_counts()
-            t0 = time.perf_counter()
             if name.startswith("int8"):
-                art = entry.main(["--steps", str(LEARNED_TASK_STEPS), "--out", f"{tmp}/{name}/quality.json"])
+                argv = ["--steps", str(LEARNED_TASK_STEPS), "--out", f"{tmp}/{name}/quality.json"]
+            else:
+                flag = "--eval_utts" if name == "wer_synthetic" else "--eval_samples"
+                argv = ["--steps", str(LEARNED_TASK_STEPS), flag, "4", "--out_dir", f"{tmp}/{name}"]
+            with graph_census() as census:
+                win = traced(name, lambda: entry.main(argv))
+            need_graph_steps(census, name)
+            art, counts, seconds = win["result"], win["launches"], win["wall_ms"] / 1e3
+            if name.startswith("int8"):
                 curve = art[next(k for k in art if k.startswith("curve_"))]
                 first, last, written = curve[0], curve[-1], Path(tmp, name, "quality.json")
             else:
-                flag = "--eval_utts" if name == "wer_synthetic" else "--eval_samples"
-                art = entry.main(["--steps", str(LEARNED_TASK_STEPS), flag, "4", "--out_dir", f"{tmp}/{name}"])
                 first, last = art["losses_every_50"][0], art["final_loss"]
                 written = next(Path(tmp, name).glob("*.json"))
-            counts = read_counts()
-            seconds = time.perf_counter() - t0
             missing = [k for k in need if counts[k] == 0]
             if missing or not last < first or not written.exists() or art["model"]["head_dim"] != 64:
                 raise AssertionError(f"{name}: missing launches {missing}, loss {first} -> {last}, {written}")
             for k in total:
                 total[k] += counts[k]
-            log(f"    {name}: loss {first:.4f} -> {last:.4f} in {seconds:.1f} s; launches "
-                f"{ {k: v for k, v in counts.items() if v} }")
+            log(f"    {name}: loss {first:.4f} -> {last:.4f} in {seconds:.1f} s (profiled); {census['graph']} graph "
+                f"steps; launches { {k: v for k, v in counts.items() if v} }, equal to the device trace "
+                f"{ {k: v for k, v in win['traced'].items() if v} }")
             out[name] = dict({k: v for k, v in art.items() if not k.startswith(("curve", "losses", "task", "launches"))},
-                             seconds=seconds, loss_first=first, loss_last=last, launches=counts)
+                             seconds=seconds, loss_first=first, loss_last=last, launches=counts, graph_steps=census["graph"])
     return dict(tasks=out, launches=total)
 
 
@@ -2608,9 +2782,11 @@ def phase_trainer_pieces() -> dict:
         tokenize_metamathqa(get_tokenizer("byte"), "byte", 1024, tmp, records=records)
         reset_counts()
         t0 = time.perf_counter()
-        train_metamathqa.main(PIECES_FLAGS)
+        with graph_census() as census:
+            train_metamathqa.main(PIECES_FLAGS)
         seconds = time.perf_counter() - t0
         counts = read_counts()
+        need_graph_steps(census, "train_metamathqa from a token cache")
         (run,) = (Path(tmp) / "runs" / "metamathqa").iterdir()
         recs = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
         traces = list((run / "profile").glob("*.json"))
@@ -2871,7 +3047,7 @@ def cp_rank(rank: int, world: int, store: str, out_dir: str) -> None:
             rec["first"][impl] = (loss, grads if rank == 0 else None)
         optimizer, _ = cli.setup_optimizer(args, model)
         state = TrainState(model, optimizer)
-        train_step = make_train_step(entry.loss_fn, mesh=mesh)
+        train_step = make_train_step(entry.loss_fn, mesh=mesh, eager=True)
         for impl, n in CP_STEPS:
             model.config = model.config.replace(attn_impl=impl)
             expect = cp_expected_launches(impl, CP_LAYERS, world)
@@ -3119,7 +3295,7 @@ def p5b_rank(rank: int, world: int, store: str, out_dir: str) -> None:
             optimizer, _ = cli.setup_optimizer(args, model)
             recorder = GradRecorder(optimizer)
             state = TrainState(model, recorder)
-            train_step = make_train_step(entry.make_loss_fn(args, mesh), mesh=mesh)
+            train_step = make_train_step(entry.make_loss_fn(args, mesh), mesh=mesh, eager=True)
             expect = p5b_expected_launches(name, shape, mesh.index("pp"))
             steps = []
             torch.cuda.reset_peak_memory_stats()
@@ -3444,6 +3620,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     runs["train"] = timer("train", phase_train())
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["train_graph"] = timer("train graph", phase_train_graph())
     gc.collect()
     torch.cuda.empty_cache()
     runs["probe"] = timer("probe", phase_probe())

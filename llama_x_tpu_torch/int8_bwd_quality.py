@@ -32,6 +32,7 @@ from llama_x_tpu_torch.adapters.lora import apply_linear_adapter, set_trainable
 from llama_x_tpu_torch.adapters.quantize import quantize_linear
 from llama_x_tpu_torch.models import llama
 from llama_x_tpu_torch.train import learned_task
+from llama_x_tpu_torch.train.cli import device_batches
 from llama_x_tpu_torch.train.optim import get_optimizer, trapezoid_schedule
 from llama_x_tpu_torch.train.trainer import TrainState, make_train_step, trainable_parameters
 from llama_x_tpu_torch.utils.device import resolve_device
@@ -83,7 +84,7 @@ def run(model: llama.Llama, steps: int, n_next: int) -> list[float]:
                               clip_grad_norm=1.0)
     state = TrainState(model, optimizer)
     step_fn = make_train_step(loss_fn)
-    data = copy_task_batches(n_next)
+    data = device_batches(copy_task_batches(n_next), model.device)
     losses = [step_fn(state, next(data))["loss"] for _ in range(steps)]
     return [float(x) for x in torch.stack(losses).cpu()]
 

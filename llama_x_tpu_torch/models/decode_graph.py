@@ -114,11 +114,12 @@ def refuse_mesh(model: llama.Llama, name: str) -> None:
 
 
 class Captured:
-    """One step recorded by ``capture()`` (which returns an object with ``replay()``), with
-    the launches each replay runs (``credits``: {wrapper: launches}, the capture's tally)."""
+    """One step recorded by ``capture()`` (which returns an object with ``replay()``) on
+    ``stream`` (default: the current stream), with the launches each replay runs
+    (``credits``: {wrapper: launches}, the capture's tally on that stream)."""
 
-    def __init__(self, capture):
-        with launches.tally() as tally:
+    def __init__(self, capture, stream=None):
+        with launches.tally(stream) as tally:
             self.graph = capture()
         self.credits = dict(tally)
 
@@ -241,7 +242,7 @@ class Runner:
 
         t0 = time.perf_counter()
         try:
-            captured = Captured(capture)
+            captured = Captured(capture, stream)
         except RuntimeError as e:
             raise RuntimeError(f"{name}: CUDA graph capture failed: {e}") from e
         capture_s = time.perf_counter() - t0

@@ -6,10 +6,13 @@ a regular expression), so that a profiler trace can confirm a count. It calls ``
 where it launches its kernel, on the current stream:
 
 - outside a CUDA graph's capture ``add`` adds one to ``fn.launches``;
-- while the current stream is being captured nothing launches: inside ``tally()`` (which
-  models/decode_graph.py opens around a capture) the launch goes to the capture's tally,
-  and every replay of the graph credits each wrapper with its tally (a capture outside
-  ``tally()`` counts once, at capture).
+- while the current stream is being captured nothing launches: the launch goes to the tally
+  that ``tally(stream)`` opened for that stream (models/decode_graph.py and
+  train/step_graph.py open one around each capture), whichever thread issues it. The
+  autograd engine runs the backward of CUDA nodes on a device thread of its own, and the
+  serving scheduler captures on its worker thread: a tally keyed by the capturing stream
+  gets both. Every replay of the graph credits each wrapper with its tally (a capture with
+  no tally open on its stream counts once, at capture).
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ from collections import Counter
 import torch
 
 COUNTED: dict = {}  # name -> wrapper, in the order the modules define them
-_local = threading.local()
+_tallies: dict[int, dict] = {}  # the handle of a capturing stream -> its capture's tally
+_lock = threading.Lock()
 
 
 def counted(name: str, fn, device_kernel: str):
@@ -38,23 +42,44 @@ def capturing() -> bool:
     return torch.cuda.is_current_stream_capturing()
 
 
+def _stream_handle(stream=None) -> int:
+    """The handle of ``stream`` (default: the current stream of the current device); 0 where
+    there is no card."""
+    if stream is None:
+        if not torch.cuda.is_available():
+            return 0
+        stream = torch.cuda.current_stream()
+    return stream.cuda_stream
+
+
 def add(fn) -> None:
     """One launch of ``fn``'s kernel on the current stream."""
-    tally = getattr(_local, "tally", None)
-    if tally is not None and capturing():
-        tally[fn] = tally.get(fn, 0) + 1
-    else:
+    if _tallies and capturing():
+        key = _stream_handle()
+        with _lock:
+            tally = _tallies.get(key)
+            if tally is not None:
+                tally[fn] = tally.get(fn, 0) + 1
+                return
+    with _lock:
         fn.launches += 1
 
 
 @contextlib.contextmanager
-def tally():
-    """The launches this thread captures inside the block: {wrapper: launches}."""
-    _local.tally = t = {}
+def tally(stream=None):
+    """The launches captured on ``stream`` (default: the current stream) inside the block,
+    from any thread: {wrapper: launches}."""
+    key = _stream_handle(stream)
+    t: dict = {}
+    with _lock:
+        if key in _tallies:
+            raise RuntimeError("a tally is already open on this stream")
+        _tallies[key] = t
     try:
         yield t
     finally:
-        _local.tally = None
+        with _lock:
+            del _tallies[key]
 
 
 def traced_counts(kernel_names) -> dict[str, int]:

@@ -328,7 +328,10 @@ def device_batches(batches, device, depth: int = 2):
     prefetched ``depth`` ahead on a background thread (``prefetch``). On the card each array is
     pinned and copied with ``non_blocking`` on a side stream; the consumer's stream waits on the
     copy's event and ``record_stream`` keeps the buffers alive for it, so the copy of the next
-    batch overlaps the current step instead of queueing behind it on the default stream."""
+    batch overlaps the current step instead of queueing behind it on the default stream. The
+    train step then copies each microbatch device to device into its graph's input buffers
+    (train/step_graph.py): a step reads them while the next batches are being copied, so the
+    prefetch cannot write there itself."""
     device = torch.device(device)
     if device.type != "cuda":
         yield from prefetch(({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in b.items()} for b in batches),
@@ -361,11 +364,15 @@ def run_training(args, model, data_iter, loss_fn, task: str, audio_config=None, 
     ``data_iter`` yields microbatches; the label-token count is summed on the device
     between log points, so no step reads back. The step batches (accumulation microbatches
     assembled, this rank's rows, on the device) are prefetched two ahead (``device_batches``).
+    Each step is a replay of captured CUDA graphs (train/step_graph.py), or eager where
+    ``step_graph.eager_reason`` names why it cannot be captured (a mesh of several ranks: the
+    mesh and pipeline trainers), which rank 0 prints.
     Over a ``mesh`` of several ranks every rank draws the same step batch and trains on its dp
     block of rows inside ``use_mesh``; rank 0 alone writes the run directory, its metrics, the
     profile and checkpoints."""
     from llama_x_tpu_torch.parallel.mesh import use_mesh
     from llama_x_tpu_torch.train.checkpoint import latest_checkpoint, restore_checkpoint, save_checkpoint
+    from llama_x_tpu_torch.train import step_graph
     from llama_x_tpu_torch.train.metrics import Profiler, RunLogger, Throughput, device_memory_stats
     from llama_x_tpu_torch.train.trainer import TrainState, make_train_step
 
@@ -375,7 +382,10 @@ def run_training(args, model, data_iter, loss_fn, task: str, audio_config=None, 
         args.n_steps = min(args.n_steps, 10)
     optimizer, schedule = setup_optimizer(args, model)
     state = TrainState(model, optimizer)
-    train_step = make_train_step(loss_fn, skip_nonfinite=args.skip_nonfinite, mesh=mesh)
+    eager = step_graph.eager_reason(model, mesh)
+    if lead:
+        print("train step: " + ("one replay of captured CUDA graphs a step" if eager is None else f"eager, since {eager}"))
+    train_step = make_train_step(loss_fn, skip_nonfinite=args.skip_nonfinite, mesh=mesh, eager=eager is not None)
     if args.resume:
         path = latest_checkpoint(args.resume) or args.resume
         restore_checkpoint(path, state)

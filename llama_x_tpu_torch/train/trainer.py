@@ -1,9 +1,10 @@
 """The train step: forward + backward over microbatches, accumulate, clip, update
 (port of llama_x_tpu/train/trainer.py).
 
-The JAX package jits one pure function over a state pytree and scans the
-microbatches; here the step is eager PyTorch and works in place: the model's
-parameters and the optimizer's moments are updated where they lie.
+The JAX package jits one pure function over a state pytree, scans the microbatches and
+donates the state; here the step works in place (the model's parameters and the optimizer's
+state are updated where they lie) over static buffers, and on the card each step is a replay
+of captured CUDA graphs (train/step_graph.py: one graph a microbatch, one for the update).
 
 Freezing is ``requires_grad``: only parameters that require grad are differentiated,
 accumulated and handed to the optimizer; frozen ones (the int8 base above all) are
@@ -11,7 +12,8 @@ never touched.
 
 Gradients of the microbatches are summed into fp32 buffers and divided by their
 number: ``.grad`` of a bf16 parameter would accumulate in bf16 and drift from the
-JAX trainer.
+JAX trainer. The buffers persist between steps (the graphs read their addresses) and are
+zeroed by each update.
 
 Over a mesh (parallel/mesh.py) each rank holds its block of the microbatch's rows over
 the batch axes dp x fsdp (parallel/sharding.py: ``shard_batch``), and the model its cp slice
@@ -36,7 +38,9 @@ from torch import nn
 
 from llama_x_tpu_torch.parallel.mesh import Mesh, all_reduce
 from llama_x_tpu_torch.parallel.tensor import sharded_axes, stage_local
+from llama_x_tpu_torch.train import step_graph
 from llama_x_tpu_torch.train.optim import AdamW, global_norm
+from llama_x_tpu_torch.train.step_graph import StepBuffers
 
 
 class TrainState:
@@ -83,60 +87,76 @@ def reduce_gradients(mesh: Mesh, params: list[torch.Tensor], grads: list[torch.T
     return out
 
 
-def make_train_step(loss_fn: Callable, skip_nonfinite: bool = False, mesh: Mesh | None = None):
+def make_train_step(loss_fn: Callable, skip_nonfinite: bool = False, mesh: Mesh | None = None, eager: bool = False):
     """loss_fn(model, microbatch) -> (scalar loss, n_label_tokens).
 
     Returns train_step(state, batch) -> metrics, which updates ``state`` in place;
     every entry of ``batch`` has a leading [accum] microbatch axis (accum = 1 for no
-    accumulation). Metrics, as 0-d tensors on the model's device: loss (mean over
-    microbatches), grad_norm (after accumulation, before clipping), n_tokens (sum of
-    label tokens that are not padding), skipped (1.0 when skip_nonfinite suppressed
-    the update).
+    accumulation). Metrics, as 0-d tensors on the model's device, copied out of the step's
+    buffers (a later step leaves them as they are): loss (mean over microbatches),
+    grad_norm (after accumulation, before clipping), n_tokens (sum of label tokens that are
+    not padding), skipped (1.0 when skip_nonfinite suppressed the update).
+
+    On the card each step is a replay of captured CUDA graphs (train/step_graph.py), the
+    JAX trainers' jitted and donated step; ``eager=True`` launches the same step op by op (the
+    reference, and the mesh trainers' step: ``step_graph.eager_reason``).
 
     skip_nonfinite: when the global grad norm is NaN or Inf (a bad batch, an
-    overflow) the whole update, parameters AND optimizer state, is suppressed for
-    that step instead of poisoning the run; the step count still advances.
+    overflow) the whole update, parameters AND optimizer state (its count too), is
+    suppressed for that step instead of poisoning the run, by a select on the device; the
+    state's step still advances.
 
     mesh: a mesh of more than one rank (see the module docstring); ``batch`` is then this
     rank's block of rows over dp x fsdp, and ``loss_fn``'s count the label tokens of those
-    rows."""
+    rows. Its collectives cannot be captured: it needs ``eager=True``."""
     distributed = mesh is not None and mesh.size > 1
+    if distributed and not eager:
+        raise ValueError(f"train_step: a mesh of {mesh.size} ranks cannot be captured in a CUDA graph (its collectives "
+                         "go through host memory): pass eager=True")
 
-    def train_step(state: TrainState, batch: dict) -> dict:
+    def micro(state: TrainState, bufs: StepBuffers, mb: dict) -> None:
+        """One microbatch: forward, backward, fp32 gradients and the loss and count added up."""
         params = [p for _, p in state.trainable]
-        dev = params[0].device
-        accum = len(next(iter(batch.values())))
-        grads = None
-        loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
-        ntok = torch.zeros((), dtype=torch.int64, device=dev)
-        for i in range(accum):
-            mb = {k: torch.as_tensor(v[i]).to(dev) for k, v in batch.items()}
-            loss, n = loss_fn(state.model, mb)
-            if distributed:  # this batch rank's share of the microbatch's mean
-                n_all = all_reduce(mesh, n, "dp+fsdp")
-                loss = loss * (n.float() / n_all.clamp(min=1).float())
-                n = n_all
-            micro = torch.autograd.grad(loss, params, allow_unused=True)
-            micro = [torch.zeros_like(p) if g is None else g for g, p in zip(micro, params)]
-            if grads is None:
-                grads = [g.float() for g in micro]
-            else:
-                for acc, g in zip(grads, micro):
-                    acc += g
-            loss_sum = loss_sum + loss.detach().float()
-            ntok = ntok + n
-        grads = [g / accum for g in grads]
+        loss, n = loss_fn(state.model, mb)
+        if distributed:  # this batch rank's share of the microbatch's mean
+            n_all = all_reduce(mesh, n, "dp+fsdp")
+            loss = loss * (n.float() / n_all.clamp(min=1).float())
+            n = n_all
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        live = [i for i, g in enumerate(grads) if g is not None]
+        if live:
+            torch._foreach_add_([bufs.grads[i] for i in live], [grads[i] for i in live])
+        bufs.loss_sum.add_(loss.detach().float())
+        bufs.n_tokens.add_(n)
+
+    @torch.no_grad()
+    def update(state: TrainState, bufs: StepBuffers, accum: int) -> None:
+        """The mean gradients, their norm, the optimizer step (or, where skipped, the old
+        state kept), the metrics; the accumulators zeroed for the next step."""
+        params = [p for _, p in state.trainable]
+        grads = bufs.grads if accum == 1 else torch._foreach_div(bufs.grads, accum)
+        loss_sum = bufs.loss_sum
         if distributed:
             grads = reduce_gradients(mesh, params, grads)
             loss_sum = all_reduce(mesh, loss_sum, "dp+fsdp+cp")
         grad_norm = global_norm(grads, mesh, params)
-
-        skipped = torch.zeros((), dtype=torch.float32, device=dev)
-        if skip_nonfinite and not bool(torch.isfinite(grad_norm)):
-            skipped = torch.ones((), dtype=torch.float32, device=dev)
+        m = bufs.metrics
+        if skip_nonfinite:
+            ok = torch.isfinite(grad_norm)
+            state.optimizer.step(grads, norm=grad_norm, apply=ok)
+            m["skipped"].copy_(torch.logical_not(ok))
         else:
             state.optimizer.step(grads, norm=grad_norm)
+            m["skipped"].zero_()
+        m["loss"].copy_(loss_sum / accum)
+        m["grad_norm"].copy_(grad_norm)
+        m["n_tokens"].copy_(bufs.n_tokens)
+        bufs.zero()
+
+    def train_step(state: TrainState, batch: dict) -> dict:
+        metrics = step_graph.run(state, "train_step", (loss_fn, skip_nonfinite), batch, micro, update,
+                                 eager=eager)
         state.step += 1
-        return {"loss": loss_sum / accum, "grad_norm": grad_norm, "n_tokens": ntok, "skipped": skipped}
+        return metrics
 
     return train_step

@@ -1,6 +1,7 @@
 """LibriSpeech-style ASR fine-tuning trainer (port of train_librispeech.py): audio
 windows -> early-fusion ``LlamaAudio`` (audio tokens prepended to the text, optional
-prefix-LM attention) -> the eager train step.
+prefix-LM attention) -> the train step (on the card
+replays of its captured CUDA graphs: train/step_graph.py).
 
     # offline smoke on the CPU (synthetic noise 'utterances', small random model):
     python -m llama_x_tpu_torch.train_librispeech --synthetic 64 --n_steps 10 --audio_duration 4 --device cpu

@@ -1,6 +1,7 @@
 """Image-captioning SFT trainer for the Fuyu-style image model (port of train_vision.py,
 BASELINE config 3): images on a static canvas -> patch-embed stem -> image tokens
-prepended to the caption (optional prefix-LM attention) -> the eager train step.
+prepended to the caption (optional prefix-LM attention) -> the train step (on the card
+replays of its captured CUDA graphs: train/step_graph.py).
 
     # offline smoke on the CPU (synthetic coloured-shapes task, byte tokenizer, small model):
     python -m llama_x_tpu_torch.train_vision --synthetic 64 --n_steps 10 --image_size 32 --patch_size 8 --device cpu

@@ -1259,3 +1259,62 @@ def test_continuous_scheduler_with_graphs_matches_eager(cuda):
         rows[eager] = [h.tokens for h in handles]
     assert rows[False] == rows[True]
     assert dg.stats(model)["captures"] == 1
+
+
+TRAIN_CUT_FLAGS = [
+    "--synthetic", "64", "--synthetic_task", "count", "--geometry", "8b", "--synthetic_config", '{"num_layers": 2}',
+    "--quantize", "int8", "--quantize_kwargs", '{"dynamic_int8_act": true, "dynamic_int8_bwd": true, "int8_head": true}',
+    "--adapter", "lora", "--adapter_kwargs", '{"rank": 8}', "--freeze_prefixes", "tok_embeddings", "output", "norm",
+    "--activation_checkpointing", "--fused_ce_chunks", "8", "--document_mask", "--max_seq_len", "2048",
+    "--batch_size", "2", "--gradient_accumulation", "2", "--lr", "1e-3", "--warmup", "0.25", "--n_steps", "4",
+    "--clip_grad_norm", "1.0", "--seed", "0",
+]
+
+
+def test_train_step_graph_matches_the_eager_step(cuda):
+    """The text QLoRA step at Llama-3.1-8B width cut to 2 layers (int8 base, LoRA r 8, int8
+    act / dgrad / head, fused CE x8, remat full, accumulation 2, warmup and clipping): 4 steps
+    through the captured graphs against 4 eager steps from the same weights on the same
+    batches, bit for bit in loss, grad norm, label count and every adapter; the launches of
+    each step equal; each replay of the microbatch graph credits the backward's K4 and K5,
+    which the autograd engine's thread launched onto the capturing stream; a replay allocates
+    nothing."""
+    from llama_x_tpu_torch import train_metamathqa as entry
+    from llama_x_tpu_torch.train import cli, step_graph
+    from llama_x_tpu_torch.train.trainer import TrainState, make_train_step
+
+    args = entry.parse_args(TRAIN_CUT_FLAGS)
+    states = []
+    for _ in range(2):
+        model = cli.build_model_params(args, max_seq_len=args.max_seq_len)
+        states.append(TrainState(model, cli.setup_optimizer(args, model)[0]))
+    data_iter, _ = entry.make_data(args, states[0].model.config.vocab_size)
+    batches = [cli.assemble_step_batch([next(data_iter) for _ in range(2)], pad_values={"labels": -100})
+               for _ in range(4)]
+    counters = (mm.int8_mm_dequant_nt, mm.int8_mm_dequant, fa.flash_fwd_with_lse, fa.flash_bwd_from_res)
+    steps = (make_train_step(entry.loss_fn), make_train_step(entry.loss_fn, eager=True))
+    for i, batch in enumerate(batches):
+        got = []
+        for state, step in zip(states, steps):
+            before = [c.launches for c in counters]
+            m = step(state, batch)
+            torch.cuda.synchronize()
+            got.append((m, [c.launches - b for c, b in zip(counters, before)]))
+        (mg, lg), (me, le) = got
+        for k in me:
+            assert torch.equal(mg[k], me[k]), (i, k, float(mg[k]), float(me[k]))
+        assert lg == le and all(lg), (i, lg, le)
+    for (n, a), (_, b) in zip(states[0].trainable, states[1].trainable):
+        assert torch.equal(a, b), n
+    s = step_graph.stats(states[0])
+    assert (s["captures"], s["replays"], s["graphs"]) == (1, 3, 2) and s["pool_bytes"][0] > 0
+    (entry_,) = step_graph.runner_of(states[0]).entries.values()
+    credits = {fn.__name__: k for fn, k in entry_.micro.credits.items()}
+    L, C = 2, 8  # a microbatch under remat full: K1 7 L + 7 L + 2 C, K4 7 L + C, K2 2 L, K5 L
+    assert credits == {"int8_mm_dequant_nt": 14 * L + 2 * C, "int8_mm_dequant": 7 * L + C,
+                       "flash_fwd_with_lse": 2 * L, "flash_bwd_from_res": L}, credits
+    allocated = torch.cuda.memory_stats()["allocation.all.allocated"]
+    entry_.micro.replay(1)
+    entry_.update.replay(1)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == allocated

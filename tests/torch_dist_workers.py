@@ -136,7 +136,7 @@ def step_job(job: dict, mesh) -> dict:
         loss = llama.forward(m, mb["inputs"].long(), segment_ids=mb["segment_ids"], labels=mb["labels"])
         return loss, (mb["labels"] != -100).sum()
 
-    step = make_train_step(loss_fn, mesh=mesh)
+    step = make_train_step(loss_fn, mesh=mesh, eager=True)
     with use_mesh(mesh):
         metrics = step(state, shard_batch(job["batch"], mesh))
     return {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
@@ -176,7 +176,7 @@ def sharded_step_job(job: dict, mesh) -> list:
             loss = llama.forward(m, mb["inputs"].long(), segment_ids=mb.get("segment_ids"), labels=mb["labels"])
             return loss, (mb["labels"] != -100).sum()
 
-        step = make_train_step(loss_fn, mesh=mesh)
+        step = make_train_step(loss_fn, mesh=mesh, eager=True)
         metrics = [step(state, shard_batch(case["batch"], mesh)) for _ in range(case.get("steps", 1))]
         full = full_state_dict(model)
         twin.load_state_dict(full)
@@ -298,7 +298,7 @@ def checkpoint_job(job: dict, mesh) -> float:
     def loss_fn(m, mb):
         return llama.forward(m, mb["inputs"].long(), labels=mb["labels"]), (mb["labels"] != -100).sum()
 
-    loss = float(make_train_step(loss_fn, mesh=mesh)(state, shard_batch(job["batch"], mesh))["loss"])
+    loss = float(make_train_step(loss_fn, mesh=mesh, eager=True)(state, shard_batch(job["batch"], mesh))["loss"])
     save_checkpoint(job["save"] if mesh.rank == 0 else None, state, state.step)
     return loss
 
@@ -340,7 +340,7 @@ def pp_step_job(job: dict, mesh) -> list:
                                  prefix_lm=case.get("prefix_lm", False), reduce_batch=False)
             return loss, (mb["labels"] != -100).sum()
 
-        step = make_train_step(loss_fn, mesh=mesh)
+        step = make_train_step(loss_fn, mesh=mesh, eager=True)
         batch = shard_batch(case["batch"], mesh)
         metrics = [step(state, batch) for _ in range(case["steps"])]
         twin = _port_model(job, case)
