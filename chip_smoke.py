@@ -37,7 +37,10 @@ no result line):
    each run's kernel launch counts are reset before it and must be non-zero after it;
    three timed requests (the spread of decode tok/s), then the eager loop on the same batch
    as the reference: tokens equal (else the near-tie rule, counted), launches equal, and
-   wall against device-busy per step of both (profiler);
+   wall against device-busy per step of both (profiler); then ``generate_speculative`` on
+   the same int8 model (int8 cache) with an untrained 4-layer draft of width 1024, B 4,
+   32 new tokens, gamma 4: every round one replay of the captured round, its launches held
+   to the device trace, tokens and launches equal to ``eager=True``'s;
 4. kernel path against plain path: on a 2-layer cut of the same weights, prefill and
    first-decode logits of the kernels and of their plain versions agree;
 3a. continuous serving on the first 8 of the 32 layers of phase 3's int8 model (a depth cut,
@@ -51,8 +54,12 @@ no result line):
    the captured step, then the same traffic through the eager loop beside it (TTFT, ITL,
    tokens/s, the busy share of a wave; its rows against the graph's);
 3b. speculative serving: the same 8-layer int8 target (bf16 cache) and an untrained 4-layer draft
-   of width 1024, gamma 4 (verify on K3) and gamma 8 (verify on K2's offsets form), the
-   acceptance rate, every row against plain greedy under the near-tie rule;
+   of width 1024, gamma 4 (verify on K3) and gamma 8 (verify on K2's offsets form), each
+   round a replay of ``spec_chunk``'s captured round and then the eager rounds beside it
+   (tok/s, the tokens equal bit for bit), the acceptance rate, every row against plain
+   greedy under the near-tie rule; a round's wall against its device busy time (graph and
+   eager), its launches held to the device trace; then ``generate_speculative`` at gamma 8
+   over the int8 cache (K2's offsets form over the static kv bound), graph against eager;
 3c. the HF round trip of a 2-layer cut at 8B width (bf16, about 3 GB, bit for bit) and
    ``generate_cli --model`` on it; 3d. ``serve_http`` in-process on 127.0.0.1:0 over the
    8-layer int8 model (continuous, chunked prefill): 4 concurrent completions and a streamed chat,
@@ -119,7 +126,7 @@ no result line):
    the prefetched step batches, ``--profile`` (its trace of steps 5 and 6 must name K1's and
    K2's kernels), then ``generate_cli --resume`` on that run with ``--template alpaca``;
 15. context parallelism: the text QLoRA step of phase 5 at Llama-3.1-8B width with its
-   depth cut to 4 layers, S 8192 of packed documents crossing the shard boundary, at cp 2:
+   depth cut to 2 layers, S 8192 of packed documents crossing the shard boundary, at cp 2:
    two spawned processes share the one card over gloo (asked for by name: NCCL refuses two
    ranks on one device), each holding 4096 positions, through ``train_metamathqa``'s own
    functions (``parse_args`` with ``--mesh '{"cp": 2}'``, the mesh, ``validate_launch`` /
@@ -130,7 +137,7 @@ no result line):
    the same step at cp 1 in this process over the whole 8192; per rank the step time, the
    peak memory and the exchange's share of the step (gloo through host memory). A rank that
    fails or outlives its timeout fails the phase;
-16. slice 5b: the same text QLoRA step at Llama-3.1-8B width (4 layers, S 4096 packed
+16. slice 5b: the same text QLoRA step at Llama-3.1-8B width (2 layers, S 4096 packed
    documents, remat full, CE x8) through ``train_metamathqa``'s own functions in two spawned
    processes sharing the card over gloo, at ``--mesh '{"tp": 2}'`` (1 row), ``'{"fsdp": 2}'``
    (2 rows) and ``'{"pp": 2}' --pp_microbatches 2`` (2 rows), 2 steps each: the first step's
@@ -1309,7 +1316,74 @@ def phase_main_path():
         if not quant:
             del model
             torch.cuda.empty_cache()
+    log(f"[main path] generate_speculative at 32 layers: int8 target + int8 KV, untrained 4-layer draft of width "
+        f"1024, B {prompt.shape[0]} ragged, +{SPEC_NEW_TOKENS} tokens, gamma 4; the captured round, then eager=True")
+    draft = build_model(llama.LlamaConfig(**{**GEOMETRIES["8b"], **SPEC_DRAFT}, max_seq_len=4096), False, 7, "cuda")
+    runs["speculative_32"] = drive_speculative(model, draft, prompt, lens, gamma=4)
+    del draft
+    torch.cuda.empty_cache()
     return runs, model
+
+
+SPEC_NEW_TOKENS = 32
+
+
+def drive_speculative(model, draft, prompt, lens, gamma: int) -> dict:
+    """``generate_speculative`` of the int8 target (int8 cache) with an untrained draft, B 4
+    ragged, SPEC_NEW_TOKENS new tokens, greedy; each round a replay of the captured round (a
+    2-token request captures it first), counts reset just before and held to the device
+    trace; then a timed request through the graph and the same request with ``eager=True``:
+    the tokens equal bit for bit, and the same launches. From gamma 8 the verify reads the
+    int8 cache through K2's offsets form over the static kv bound."""
+    import torch
+
+    from llama_x_tpu_torch.models import decode_graph as dg
+    from llama_x_tpu_torch.models.speculative import generate_speculative
+
+    kw = dict(gamma=gamma, prompt_lens=lens, cache_dtype=torch.int8)
+    generate_speculative(model, draft, prompt, max_new_tokens=2, **kw)  # warm-up and capture
+    capture_s = dg.stats(model)["capture_s"][-1]
+
+    def request(eager):
+        """-> (tokens, stats, host seconds, the captures and replays it made)."""
+        g0 = dg.stats(model)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, stats = generate_speculative(model, draft, prompt, max_new_tokens=SPEC_NEW_TOKENS, eager=eager, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        g1 = dg.stats(model)
+        return out, stats, wall, (g1["captures"] - g0["captures"], g1["replays"] - g0["replays"])
+
+    main = traced("generate_speculative through the captured round", lambda: request(False))
+    out, stats, _, (captures, replays) = main["result"]
+    _, _, wall, _ = request(False)
+    reset_counts()
+    eager_out, eager_stats, eager_wall, _ = request(True)
+    eager_counts = read_counts()
+    B, V = prompt.shape[0], model.config.vocab_size
+    if tuple(out.shape) != (B, SPEC_NEW_TOKENS) or int(out.min()) < 0 or int(out.max()) >= V:
+        raise AssertionError(f"generate_speculative returned {tuple(out.shape)} in [{int(out.min())}, {int(out.max())}]")
+    rounds = stats["target_passes"] - 1
+    if captures or replays != rounds:
+        raise AssertionError(f"{rounds} rounds, {replays} replays and {captures} captures: a round ran outside the "
+                             "captured graph")
+    if not torch.equal(out, eager_out) or stats["target_passes"] != eager_stats["target_passes"]:
+        raise AssertionError("the captured rounds' tokens differ from the eager rounds'")
+    if eager_counts != main["launches"]:
+        raise AssertionError(f"launches differ: {main['launches']} through the graph, {eager_counts} eager")
+    need_launches(main["launches"], ["flash_attention", "decode_attention_int8", "int8_mm_dequant_nt"]
+                  + (["flash_attention_offsets"] if gamma >= 8 else []), f"generate_speculative gamma {gamma}")
+    emitted = int(stats["tokens_emitted"].sum())
+    res = dict(B=B, new_tokens=SPEC_NEW_TOKENS, gamma=gamma, wall_s=wall, tokens_per_s=emitted / wall,
+               target_passes=stats["target_passes"], replays=replays, launches=main["launches"],
+               traced=main["traced"], capture_s=capture_s,
+               eager=dict(wall_s=eager_wall, tokens_per_s=emitted / eager_wall))
+    log(f"    graph: {emitted} tokens in {wall:.2f} s ({emitted / wall:.1f} tok/s, both prefills included), "
+        f"{rounds} rounds = {replays} replays, capture + instantiate {capture_s:.3f} s; launches {main['launches']}, "
+        f"equal to the device trace {main['traced']}")
+    log(f"    eager: {eager_wall:.2f} s ({emitted / eager_wall:.1f} tok/s); tokens and launches equal to the graph's")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1564,61 +1638,168 @@ SERVING_LAYERS = 8
 SPEC_DRAFT = dict(num_layers=4, embed_dim=1024, num_heads=8, num_kv_heads=8, intermediate_dim=2816)
 
 
+SPEC_ROUNDS = 4  # rounds of a profiled window of speculative rounds (each window costs seconds of tracing)
+
+
+def profile_spec_rounds(model, draft, prompts: list, gamma: int, eager: bool) -> dict:
+    """A speculative round's wall against its device busy time: the 4 prompts admitted into a
+    state of their own (``spec_admit_row``, greedy), one chunk of SPEC_ROUNDS rounds to
+    capture the graph (the eager rounds need none), one timed without the profiler, then one
+    under it (``traced``: the launches held to the device trace); a round is one replay of the
+    captured round, or (``eager``) the round launched op by op."""
+    import torch
+
+    from llama_x_tpu_torch.serve.speculative import init_spec_state, spec_admit_row, spec_chunk
+
+    n = len(prompts)
+    state = init_spec_state(model.config, draft.config, n, torch.bfloat16, "cuda", width=SPEC_ROUNDS * (gamma + 1))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for slot, p in enumerate(prompts):
+        spec_admit_row(model, draft, state, slot, p, (0.0, 0, 1.0, 0.0), -1, gen)
+    zeros = torch.zeros(n, device="cuda")
+    row = (zeros, zeros.long(), zeros + 1, zeros, zeros.long() - 1, zeros.long() + 3 * SPEC_ROUNDS * (gamma + 1))
+    live = torch.zeros((), dtype=torch.int64, device="cuda")
+
+    def chunk():
+        return spec_chunk(model, draft, state, SPEC_ROUNDS, gen, *row, gamma=gamma, live_rounds=live, eager=eager)
+
+    if not eager:
+        chunk()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunk()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3 / SPEC_ROUNDS
+    what = f"{'eager' if eager else 'graph'} speculative rounds, gamma {gamma}"
+    win = traced(what, chunk)
+    res = summarize_profile(win["prof"], win["wall_ms"], SPEC_ROUNDS, what, "round")
+    res["launches_per_round"] = {k: v / SPEC_ROUNDS for k, v in win["launches"].items() if v}
+    res["traced_per_round"] = {k: v / SPEC_ROUNDS for k, v in win["traced"].items() if v}
+    res["wall_ms_per_round_unprofiled"] = plain_ms
+    res["device_busy_share_unprofiled"] = res["device_busy_ms_per_step"] / plain_ms
+    log(f"      without the profiler: {plain_ms:.2f} ms/round wall, busy share "
+        f"{res['device_busy_share_unprofiled']:.3f} (the profiled busy time over it)")
+    log(f"      launches a round {res['launches_per_round']}, equal to the device trace {res['traced_per_round']}")
+    return res
+
+
+def serve_spec(model, draft, prompts: list, gamma: int, eager: bool) -> dict:
+    """The 4 prompts through ``SpeculativeScheduler`` (4 slots, 4 rounds a chunk, bf16
+    cache, greedy, 32 new tokens) after a warm-up row (the round's capture, whose seconds are
+    kept); counts reset just before, timed on the host clock."""
+    import torch
+
+    from llama_x_tpu_torch.data.tokenizers import ByteTokenizer
+    from llama_x_tpu_torch.models import decode_graph as dg
+    from llama_x_tpu_torch.serve.speculative import SpeculativeScheduler
+
+    sched = SpeculativeScheduler(model, draft, gamma=gamma, n_slots=4, chunk_size=4, cache_dtype=torch.bfloat16,
+                                 seed=0, eager=eager)
+    captures0 = dg.stats(model)["captures"]
+    try:
+        warm = sched.submit(byte_prompt(ByteTokenizer(), 98, 40), max_tokens=4)
+        if not warm.event.wait(600) or warm.error is not None:
+            raise AssertionError(f"warm-up failed: {warm.error}")
+        torch.cuda.synchronize()
+        live0, rounds0, g0 = int(sched.live_row_rounds), sched.rounds_run, dg.stats(model)
+        reset_counts()
+        t0 = time.perf_counter()
+        handles = [sched.submit(p, max_tokens=32) for p in prompts]
+        for h in handles:
+            if not h.event.wait(900) or h.error is not None:
+                raise AssertionError(f"a request failed: {h.error}")
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        live = int(sched.live_row_rounds) - live0
+        g1 = dg.stats(model)
+    finally:
+        sched.close()
+    rounds = sched.rounds_run - rounds0
+    total = sum(len(h.tokens) for h in handles)
+    per_pass = (total - len(handles)) / max(live, 1)
+    replays = g1["replays"] - g0["replays"]
+    if not eager and replays + g1["captures"] - g0["captures"] < rounds:
+        raise AssertionError(f"{rounds} rounds but {replays} replays: a round ran outside the graph")
+    return dict(gamma=gamma, eager=eager, tokens=[h.tokens for h in handles], new_tokens=total, wall_s=wall,
+                tokens_per_s=total / wall, rounds=rounds, replays=replays, live_row_rounds=live,
+                tokens_per_verify=per_pass, acceptance_rate=(per_pass - 1) / gamma, launches=counts,
+                captures=g1["captures"], capture_s=g1["capture_s"][captures0:])
+
+
 def phase_speculative(model) -> dict:
     """Speculative continuous batching at 8B width: the int8 target with a bf16 cache and
     the cheap draft of tools/bench_spec_continuous_8b.py (4 layers, width 1024, heads of
     128, the target's vocabulary; untrained, so acceptance is near its floor); 4 requests
     of 200 to 900 tokens, 32 new tokens, greedy, at gamma 4 (verify of 5 rows: K3) and
-    gamma 8 (9 rows: K2's offsets form)."""
+    gamma 8 (9 rows: K2's offsets form). Each gamma through ``spec_chunk``'s captured round
+    (every round a replay), then through ``eager=True``: tok/s of each, the tokens equal bit
+    for bit, the graph's rows against plain greedy under the near-tie rule; then a round's
+    wall and device busy time, graph and eager (``profile_spec_rounds``). Last,
+    ``generate_speculative`` at gamma 8 over the int8 cache on the 4 prompts
+    (``drive_speculative``)."""
     import torch
 
     from llama_x_tpu_torch.data.tokenizers import ByteTokenizer
     from llama_x_tpu_torch.generate_cli import GEOMETRIES, build_model
     from llama_x_tpu_torch.models import llama
-    from llama_x_tpu_torch.serve.speculative import SpeculativeScheduler
 
     tok = ByteTokenizer()
     draft = build_model(llama.LlamaConfig(**{**GEOMETRIES["8b"], **SPEC_DRAFT}, max_seq_len=4096), False, 7, "cuda")
     prompts = [byte_prompt(tok, 200 + i, n) for i, n in enumerate((200, 400, 600, 900))]
     plain = [unbatched_generate(model, p, 32, torch.bfloat16) for p in prompts]  # plain greedy, for both gammas
     runs = {}
+    last = [time.perf_counter()]
+
+    def lap() -> str:
+        """The seconds since the last lap, for the log: where the phase's time goes."""
+        now = time.perf_counter()
+        took, last[0] = now - last[0], now
+        return f"[{took:.1f} s]"
+
     for gamma in (4, 8):
-        log(f"[speculative serving] 8B int8 target ({model.config.num_layers} layers), bf16 cache, 4-layer draft of width 1024; gamma {gamma}, 4 slots, "
-            f"4 rounds a chunk")
-        sched = SpeculativeScheduler(model, draft, gamma=gamma, n_slots=4, chunk_size=4, cache_dtype=torch.bfloat16,
-                                     seed=0)
-        try:
-            warm = sched.submit(byte_prompt(tok, 98, 40), max_tokens=4)
-            if not warm.event.wait(600) or warm.error is not None:
-                raise AssertionError(f"warm-up failed: {warm.error}")
-            torch.cuda.synchronize()
-            live0, rounds0 = int(sched.live_row_rounds), sched.rounds_run
-            reset_counts()
-            t0 = time.perf_counter()
-            handles = [sched.submit(p, max_tokens=32) for p in prompts]
-            for h in handles:
-                if not h.event.wait(900) or h.error is not None:
-                    raise AssertionError(f"a request failed: {h.error}")
-            wall = time.perf_counter() - t0
-            counts = read_counts()
-            live = int(sched.live_row_rounds) - live0
-        finally:
-            sched.close()
+        log(f"[speculative serving] 8B int8 target ({model.config.num_layers} layers), bf16 cache, 4-layer draft of "
+            f"width 1024; gamma {gamma}, 4 slots, 4 rounds a chunk; the captured round, then eager=True")
+        res = serve_spec(model, draft, prompts, gamma, eager=False)
+        res["seconds"] = lap()
+        eager = serve_spec(model, draft, prompts, gamma, eager=True)
+        eager["seconds"] = lap()
         need = ["int8_mm_dequant_nt", "flash_attention", "decode_attention"]
-        need_launches(counts, need + (["flash_attention_offsets"] if gamma >= 8 else []), f"speculative gamma {gamma}")
-        total = sum(len(h.tokens) for h in handles)
-        per_pass = (total - len(handles)) / max(live, 1)
-        checks = [check_served_row(model, p, h.tokens, torch.bfloat16, ref) for p, h, ref in zip(prompts, handles, plain)]
-        res = dict(gamma=gamma, new_tokens=total, wall_s=wall, tokens_per_s=total / wall, rounds=sched.rounds_run - rounds0,
-                   live_row_rounds=live, tokens_per_verify=per_pass, acceptance_rate=(per_pass - 1) / gamma,
-                   launches=counts, rows=checks)
+        for r in (res, eager):
+            need_launches(r["launches"], need + (["flash_attention_offsets"] if gamma >= 8 else []),
+                          f"speculative gamma {gamma}{' (eager)' if r['eager'] else ''}")
+        if res["tokens"] != eager["tokens"]:
+            raise AssertionError(f"gamma {gamma}: the captured rounds' tokens differ from the eager rounds'")
+        checks = [check_served_row(model, p, t, torch.bfloat16, ref) for p, t, ref in zip(prompts, res["tokens"], plain)]
+        res["rows"] = checks
         res["near_tie_divergences"] = sum(c["diverged_at"] is not None for c in checks)
-        log(f"    {total} tokens in {wall:.2f} s ({total / wall:.1f} tok/s); {per_pass:.3f} tokens a verify pass, "
-            f"acceptance rate {(per_pass - 1) / gamma:.4f}; against plain greedy (an unbatched generate of each "
-            f"prompt): {4 - res['near_tie_divergences']} rows equal, {res['near_tie_divergences']} part at a near-tie; "
-            f"every row greedy step by step (tokens off the argmax within the tolerance: "
-            f"{sum(c['off_argmax'] for c in checks)}); launches {counts}")
+        log(f"    graph: {res['new_tokens']} tokens in {res['wall_s']:.2f} s ({res['tokens_per_s']:.1f} tok/s), "
+            f"{res['rounds']} rounds, {res['replays']} replays; capture + instantiate "
+            f"{', '.join(f'{t:.3f}' for t in res['capture_s'])} s; "
+            f"{res['tokens_per_verify']:.3f} tokens a verify pass, acceptance rate {res['acceptance_rate']:.4f}; "
+            f"launches {res['launches']} {res['seconds']}")
+        log(f"    eager: {eager['new_tokens']} tokens in {eager['wall_s']:.2f} s ({eager['tokens_per_s']:.1f} tok/s), "
+            f"{eager['rounds']} rounds; tokens equal to the graph's bit for bit; launches {eager['launches']} "
+            f"{eager['seconds']}")
+        log(f"    against plain greedy (an unbatched generate of each prompt): {4 - res['near_tie_divergences']} rows "
+            f"equal, {res['near_tie_divergences']} part at a near-tie; every row greedy step by step (tokens off the "
+            f"argmax within the tolerance: {sum(c['off_argmax'] for c in checks)}) {lap()}")
+        res["round_profile"] = profile_spec_rounds(model, draft, prompts, gamma, eager=False)
+        log(f"      {lap()}")
+        res["eager_round_profile"] = profile_spec_rounds(model, draft, prompts, gamma, eager=True)
+        log(f"      {lap()}")
+        res["eager"] = {k: v for k, v in eager.items() if k != "tokens"}
+        del res["tokens"]
         runs[f"speculative_g{gamma}"] = res
+    P = max(map(len, prompts))
+    ids = torch.zeros(len(prompts), P, dtype=torch.long)
+    for i, p in enumerate(prompts):
+        ids[i, : len(p)] = torch.tensor(p)
+    log(f"[speculative decoding] generate_speculative on the same target ({model.config.num_layers} layers) and draft, "
+        f"int8 cache, the 4 prompts ragged (P {P}), +{SPEC_NEW_TOKENS} tokens, gamma 8: the verify on K2's offsets "
+        "form over the int8 cache's static kv bound; the captured round, then eager=True")
+    runs["speculative_gen_g8"] = drive_speculative(model, draft, ids.cuda(), torch.tensor(list(map(len, prompts)),
+                                                                                          device="cuda"), gamma=8)
+    log(f"      {lap()}")
     del draft
     torch.cuda.empty_cache()
     return runs
@@ -2965,7 +3146,7 @@ def phase_ring_kernels() -> dict:
 
 
 CP = 2
-CP_LAYERS = 4  # the depth cut of the cp phase: 4 of Llama-3.1-8B's 32 layers, at full width
+CP_LAYERS = 2  # the depth cut of the cp phase: 2 of Llama-3.1-8B's 32 layers, at full width
 CP_FLAGS = [
     "--synthetic", "16", "--geometry", "8b", "--synthetic_config", json.dumps({"num_layers": CP_LAYERS}),
     "--quantize", "int8", "--quantize_kwargs", '{"dynamic_int8_act": true, "dynamic_int8_bwd": true, "int8_head": true}',
@@ -3111,7 +3292,7 @@ def run_cp_ranks(world: int) -> list[dict]:
 
 
 def phase_cp() -> dict:
-    """The text QLoRA step at Llama-3.1-8B width (depth cut to 4 layers), S 8192 of packed
+    """The text QLoRA step at Llama-3.1-8B width (depth cut to 2 layers), S 8192 of packed
     documents crossing the shard boundary, at cp 2 over two processes on the one card
     (gloo, asked for by name: NCCL refuses two ranks on one device), ring for 4 steps then
     Ulysses for 2, against the same step at cp 1 in this process over the whole 8192."""
@@ -3195,7 +3376,7 @@ def phase_cp() -> dict:
 # gloo, each against the same work in this one process
 # ---------------------------------------------------------------------------
 
-P5B_LAYERS = 4  # the depth cut of the 5b phase's training: 4 of Llama-3.1-8B's 32 layers, at full width
+P5B_LAYERS = 2  # the depth cut of the 5b phase's training: 2 of Llama-3.1-8B's 32 layers, at full width
 P5B_FLAGS = [
     "--synthetic", "16", "--geometry", "8b", "--synthetic_config", json.dumps({"num_layers": P5B_LAYERS}),
     "--quantize", "int8", "--quantize_kwargs", '{"dynamic_int8_act": true, "dynamic_int8_bwd": true, "int8_head": true}',
@@ -3447,7 +3628,7 @@ def p5b_reference(entry, rows: int) -> dict:
 
 
 def phase_5b() -> dict:
-    """Slice 5b on the card: the text QLoRA step at Llama-3.1-8B width (depth cut to 4 layers,
+    """Slice 5b on the card: the text QLoRA step at Llama-3.1-8B width (depth cut to 2 layers,
     S 4096 packed byte-token documents) at tp 2, fsdp 2 and pp 2 (2 GPipe microbatches of one
     row) in two processes on the one card over gloo, each rank's first-step loss and gathered
     LoRA gradients against the same step in this process at the mesh's batch, the launches

@@ -1,7 +1,9 @@
 """Decode steps as captured CUDA graphs: the port's counterpart of the JAX package's
 jitted ``lax.scan`` over single-token steps (llama_x_tpu/models/generate.py: the whole
 generation is one compiled program; ``decode_chunk``; llama_x_tpu/serve/continuous.py:
-``decode_rows``, jitted with its state donated).
+``decode_rows``, jitted with its state donated), and of its jitted speculative rounds
+(llama_x_tpu/serve/speculative.py: ``spec_chunk``'s ``lax.scan``;
+llama_x_tpu/models/speculative.py: ``generate_speculative``'s ``while_loop``).
 
 A step body reads and writes only static buffers: the KV cache, the last token, the
 position, the done mask (for the scheduler's rows also the tokens emitted, the per-row
@@ -18,14 +20,17 @@ card one step is one ``CUDAGraph.replay()``: no Python, no per-kernel dispatch.
 - Buffers for ``generate``: a prefill writes a cache the graph then reads at its captured
   address, so the runner keeps ``MAX_SLOTS`` buffer sets per model, one per (B, uniform or
   ragged, cache type), and a prefill writes into its set in place; the memory stays held
-  between requests (at 8B width, B 4 and 4096 positions a bf16 cache is 2.15 GB). A new
+  between requests (at 8B width, B 4 and 4096 positions a bf16 cache is 2.15 GB);
+  ``generate_speculative`` leases its own sets (both caches and its round's buffers). A new
   prefill on a set supersedes the state an earlier one handed out (``DecodeState.lease``),
   as JAX's donation does: decoding the old one raises.
 - Weights: a graph reads them at their captured addresses. Each call fingerprints the model
   (its config and the address of every parameter and buffer) once; when that changes (a
   ``load_state_dict(assign=True)``, a LoRA merge, an HF import, ``set_max_seq_len``) the
   model's graphs and buffer sets are dropped and the next call captures again. Updates in
-  place (an optimizer step) keep the addresses, and a replay reads the new values.
+  place (an optimizer step) keep the addresses, and a replay reads the new values. A
+  speculative round also reads a draft model (``others``): the draft's fingerprint joins
+  the round's key, and when it changes the graphs that read the draft are dropped.
 - Capture: the first call of a key runs its first step eagerly on a side stream (every lazy
   allocation, cuBLAS workspace and ``cudaFuncSetAttribute`` happens there, and the step is
   a real one), then captures the body on that stream with ``capture_error_mode=
@@ -135,15 +140,18 @@ def _key_of(buffers) -> tuple:
 
 
 def _fingerprint(model: llama.Llama) -> tuple:
+    """A model's config and the address of every parameter and buffer: what a graph that
+    reads its weights depends on."""
     return (model.config, tuple(t.data_ptr() for t in model.parameters()),
             tuple(t.data_ptr() for t in model.buffers()))
 
 
 class _Entry:
-    """A captured step and the addresses of the buffers it reads and writes."""
+    """A captured step, the addresses of the buffers it reads and writes, and the other
+    models whose weights it reads (their ``id``s: a speculative round's draft)."""
 
     def __init__(self, captured: Captured, ptrs: set):
-        self.captured, self.ptrs = captured, ptrs
+        self.captured, self.ptrs, self.others = captured, ptrs, frozenset()
 
 
 class Runner:
@@ -152,8 +160,9 @@ class Runner:
     def __init__(self):
         self.lock = threading.Lock()
         self.fingerprint = None
+        self.others: dict = {}  # id of another model a graph reads -> its fingerprint at the last call
         self.graphs: OrderedDict[tuple, _Entry] = OrderedDict()
-        self.slots: OrderedDict[tuple, DecodeState] = OrderedDict()
+        self.slots: OrderedDict[tuple, DecodeState] = OrderedDict()  # or another set with buffers() and lease
         self.streams: dict = {}  # device -> the side stream of warm-up and capture
         self.generators: dict = {}  # device -> the generator the graphs draw from
         self.captures = 0  # steps captured (on the CPU: none)
@@ -161,23 +170,30 @@ class Runner:
         self.capture_s: list[float] = []  # capture + instantiate of each, seconds
         self.pool_bytes: list[int] = []  # device memory each capture's pool reserved
 
-    def check(self, model: llama.Llama) -> None:
-        """Drop every graph and buffer set when the weights moved (once per call)."""
+    def check(self, model: llama.Llama, others=()) -> None:
+        """Drop every graph and buffer set when the model's weights moved, and the graphs
+        that read one of ``others`` when its weights moved (once per call)."""
         fp_now = _fingerprint(model)
         with self.lock:
             if fp_now != self.fingerprint:
                 self.graphs.clear()
                 self.slots.clear()
                 self.fingerprint = fp_now
+            for other in others:
+                fp = _fingerprint(other)
+                if self.others.get(id(other), fp) != fp:
+                    for k in [k for k, e in self.graphs.items() if id(other) in e.others]:
+                        del self.graphs[k]
+                self.others[id(other)] = fp
 
-    def lease(self, model: llama.Llama, batch: int, ragged: bool, cache_dtype) -> DecodeState:
-        """``generate``'s buffer set for (B, ragged, cache dtype), made on first use, handed
-        out under a new lease number (which supersedes every earlier one)."""
-        key = (batch, ragged, cache_dtype)
+    def lease(self, key: tuple, make):
+        """The buffer set of ``key`` (``generate``'s: (B, ragged, cache dtype)), made by
+        ``make()`` on first use, handed out under a new lease number (which supersedes every
+        earlier one)."""
         with self.lock:
             slot = self.slots.pop(key, None)
             if slot is None:
-                slot = new_state(model, batch, ragged, cache_dtype)
+                slot = make()
             self.slots[key] = slot
             while len(self.slots) > MAX_SLOTS:
                 _, old = self.slots.popitem(last=False)
@@ -187,11 +203,13 @@ class Runner:
             slot.lease += 1
             return dataclasses.replace(slot, slot=slot, lease=slot.lease)
 
-    def replay(self, model, name: str, buffers, key: tuple, body, n: int, generator, draws: bool) -> None:
+    def replay(self, model, name: str, buffers, key: tuple, body, n: int, generator, draws: bool,
+               others=()) -> None:
         """``n`` steps on the card: the captured graph of ``key`` replayed, captured first
-        (after one eager step) where the runner has none."""
+        (after one eager step) where the runner has none. ``others``: the other models the
+        body reads, whose weights' addresses join the key."""
         dev = buffers[0].device
-        full_key = (name, key, _key_of(buffers))
+        full_key = (name, key, _key_of(buffers), tuple(_fingerprint(m) for m in others))
         src = own = generator
         if draws:  # the graphs draw from the runner's generator, set from the caller's
             src = generator if generator is not None else torch.cuda.default_generators[dev.index]
@@ -205,6 +223,7 @@ class Runner:
                 self.graphs.move_to_end(full_key)
         if entry is None:
             entry = self._capture(model, name, buffers, body, own, draws)
+            entry.others = frozenset(id(m) for m in others)
             n -= 1
             with self.lock:
                 self.graphs[full_key] = entry
@@ -265,27 +284,30 @@ def runner_of(model: llama.Llama) -> Runner:
     return runner
 
 
-def lease(model: llama.Llama, batch: int, ragged: bool, cache_dtype) -> DecodeState:
-    """``generate``'s static buffers for a request (the caller refuses a mesh first)."""
+def lease(model: llama.Llama, key: tuple, make):
+    """A request's static buffers, the set of ``key`` made by ``make()`` on first use (the
+    caller refuses a mesh first)."""
     runner = runner_of(model)
     runner.check(model)
-    return runner.lease(model, batch, ragged, cache_dtype)
+    return runner.lease(key, make)
 
 
 def run(model: llama.Llama, name: str, buffers, key: tuple, body, n: int, generator, *, eager: bool,
-        draws: bool) -> None:
+        draws: bool, others=()) -> None:
     """``n`` steps of ``body(model, generator)``, a step that reads and writes only
-    ``buffers`` (in place) and depends besides on ``key`` alone. ``eager``: the body launched
-    op by op. Otherwise on the card a replay of its captured graph each step; on CPU
-    tensors the body over the same buffers. ``draws``: the body samples from the generator."""
+    ``buffers`` (in place) and depends besides on ``key`` and the weights of ``model`` and
+    ``others`` alone. ``eager``: the body launched op by op. Otherwise on the card a replay
+    of its captured graph each step; on CPU tensors the body over the same buffers.
+    ``draws``: the body samples from the generator."""
     if n <= 0:
         return
     if not eager:
-        refuse_mesh(model, name)
+        for m in (model, *others):
+            refuse_mesh(m, name)
         runner = runner_of(model)
-        runner.check(model)
+        runner.check(model, others)
         if on_card(buffers[0]):
-            runner.replay(model, name, buffers, key, body, n, generator, draws)
+            runner.replay(model, name, buffers, key, body, n, generator, draws, others)
             return
     for _ in range(n):
         body(model, generator)

@@ -89,7 +89,7 @@ def _prefill(model: llama.Llama, prompt: torch.Tensor, *, generator, temperature
     if total_p + max_new_tokens > config.max_seq_len:
         raise ValueError(f"prefill {total_p} + {max_new_tokens} new tokens exceed max_seq_len {config.max_seq_len}")
     state = (dg.new_state(model, B, ragged, cache_dtype) if eager
-             else dg.lease(model, B, ragged, cache_dtype))
+             else dg.lease(model, (B, ragged, cache_dtype), lambda: dg.new_state(model, B, ragged, cache_dtype)))
 
     pos = torch.arange(total_p, dtype=torch.int32, device=model.device)
     prefix = (torch.full((B,), n_prefix, dtype=torch.int32, device=model.device)

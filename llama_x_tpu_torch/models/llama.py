@@ -332,18 +332,23 @@ def _offsets_fit(mi: MaskInfo) -> bool:
     )
 
 
-def cache_offsets(mi: MaskInfo, B: int, S: int):
+def cache_offsets(mi: MaskInfo, B: int, S: int, kv_bound: int | None = None):
     """(q_offset [B], kv_offset [B], kv_len [B], kv_max) int32 for the offsets form over the
     cache: q_offset = q_positions[:, 0], kv_offset 0 (cache entry j holds position j), and
-    the longest kv_len as a host int (the int8 cache's dequantized prefix). Reads one small
-    tensor back from the device, once per trunk call. Raises where a row's q_positions are
-    not contiguous (the kernel places row i at q_offset + i)."""
+    a bound on every kv_len as a host int (the int8 cache's dequantized prefix). Without
+    ``kv_bound`` it reads one small tensor back from the device, once per trunk call: the
+    longest kv_len, and a flag that raises where a row's q_positions are not contiguous
+    (the kernel places row i at q_offset + i). ``kv_bound``: the caller's word that the rows
+    are contiguous and every kv_len is at most ``kv_bound``; nothing is read back (a captured
+    step's)."""
     qp = mi.q_positions
     qp = (qp.reshape(1, -1) if qp.ndim == 1 else qp).expand(B, S)
     if mi.kv_len.ndim != 1:
         raise ValueError(f"the offsets form takes kv_len [B], got {tuple(mi.kv_len.shape)}")
     lens = mi.kv_len.to(torch.int32).expand(B).contiguous()
     q_off = qp[:, 0].to(torch.int32).contiguous()
+    if kv_bound is not None:
+        return q_off, torch.zeros_like(q_off), lens, int(kv_bound)
     steps = qp.long() == qp[:, :1].long() + torch.arange(S, device=qp.device)
     flag, kv_max = torch.stack([steps.all().long(), lens.max().long()]).tolist()
     if not flag:
@@ -689,7 +694,7 @@ def layer_seeds(dropout_seeds, num_layers: int) -> list:
 
 def trunk(model: Llama, x: torch.Tensor, mask_info: MaskInfo, kv_cache=None,
           input_pos: torch.Tensor | None = None, prefill: bool = False, dropout_seeds=None,
-          layers: range | None = None, stage: bool = False):
+          layers: range | None = None, stage: bool = False, kv_bound: int | None = None):
     """Run every layer (``layers``: these of them, a pipeline stage's). x [B, S, D]
     embeddings. Returns (x, kv_cache); the cache (a pair of [L, B, n_kv, S, hd] tensors,
     or of (int8, scale) pairs) is updated in place and returned. Without a cache and with
@@ -697,7 +702,10 @@ def trunk(model: Llama, x: torch.Tensor, mask_info: MaskInfo, kv_cache=None,
     its input and what ``remat_policy`` names, and the rest is recomputed in the backward;
     under attn_q8 / attn_q8s no block is checkpointed (``attention_q8`` and
     ``feed_forward_q8``). ``stage``: a pipeline stage's layers, each block checkpointed
-    whole under ``base_policy`` (the JAX ``pipeline._stage_trunk``)."""
+    whole under ``base_policy`` (the JAX ``pipeline._stage_trunk``). ``kv_bound``: a read of
+    the cache through the flash kernel's offsets form takes the caller's word that each row's
+    q_positions are contiguous and every kv_len is at most ``kv_bound``, and reads nothing
+    back (``cache_offsets``)."""
     config = model.config
     layers = range(config.num_layers) if layers is None else layers
     if any(not isinstance(model.layers[i], Block) for i in layers):
@@ -727,7 +735,7 @@ def trunk(model: Llama, x: torch.Tensor, mask_info: MaskInfo, kv_cache=None,
     offsets = None
     if (kv_cache is not None and not prefill and x.is_cuda and not _decode_kernel_fits(mask_info, S)
             and _offsets_fit(mask_info)):
-        offsets = cache_offsets(mask_info, B, S)  # once for every layer
+        offsets = cache_offsets(mask_info, B, S, kv_bound)  # once for every layer
 
     def region(h, blk, saves, seed):
         # the checkpointed function: the first pass records the named saves, the recompute takes them

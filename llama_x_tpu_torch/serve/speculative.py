@@ -15,16 +15,26 @@ verify writes land at held positions that their kv_len never exposes.
 
 The verify pass is gamma + 1 query rows over the target's slot cache: through the decode
 kernel up to gamma 7, through the flash kernel's offsets form (per-row offsets over the
-slots) from gamma 8.
+slots) from gamma 8, over a static bound on kv_len that the scheduler keeps on the host
+(``SpeculativeScheduler._kv_bound``), so that nothing is read back inside a round.
+
+A round reads and writes only static buffers, in place: the state (both caches, prev, cur,
+pos, done, emitted, the chunk's token ring and each row's cursor in it), the six per-row
+tensors and the live-round count. The JAX package jits ``spec_chunk`` as a ``lax.scan`` over
+rounds; here on the card a chunk is ``n_rounds`` replays of the round's captured CUDA graph
+(models/decode_graph.py), and ``eager=True`` launches the same round op by op. Admission (two
+prefills) stays eager.
 """
 
 from __future__ import annotations
 
 import torch
 
+from llama_x_tpu_torch.models import decode_graph as dg
 from llama_x_tpu_torch.models import llama
+from llama_x_tpu_torch.models.decode_graph import cache_tensors
 from llama_x_tpu_torch.models.generate import gumbel_argmax
-from llama_x_tpu_torch.models.speculative import speculative_accept
+from llama_x_tpu_torch.models.speculative import speculative_accept, verify_bound
 from llama_x_tpu_torch.ops.attention import MaskInfo
 from llama_x_tpu_torch.serve.continuous import (
     ContinuousScheduler,
@@ -35,19 +45,23 @@ from llama_x_tpu_torch.serve.continuous import (
 )
 from llama_x_tpu_torch.utils.device import resolve_device
 
-# state: (t_cache, d_cache, prev [N], cur [N], pos [N], done [N] bool, emitted [N]); prev and
-# cur are the last two tokens of each row (the draft's pair step re-feeds prev), pos the
-# depth that the target's and the draft's caches both hold
+# state: (t_cache, d_cache, prev [N], cur [N], pos [N], done [N] bool, emitted [N], ring [N, W],
+# cursor [N]); prev and cur are the last two tokens of each row (the draft's pair step
+# re-feeds prev), pos the depth that the target's and the draft's caches both hold; ring holds
+# a chunk's tokens, each row's at its own cursor. All int64 but done: the static buffers of
+# the captured round, written in place
 
 
 def init_spec_state(config: llama.LlamaConfig, draft_config: llama.LlamaConfig, n_slots: int,
-                    cache_dtype=torch.bfloat16, device=None, kv_heads=(None, None)):
-    """``kv_heads``: the target's and the draft's local kv heads under tensor parallelism."""
+                    cache_dtype=torch.bfloat16, device=None, kv_heads=(None, None), width: int | None = None):
+    """``kv_heads``: the target's and the draft's local kv heads under tensor parallelism.
+    ``width``: the ring's, at least a chunk's rounds times gamma + 1 (default max_seq_len)."""
     dev = resolve_device(device)
-    zeros = lambda: torch.zeros(n_slots, dtype=torch.int64, device=dev)  # noqa: E731
+    zeros = lambda *shape: torch.zeros(shape or (n_slots,), dtype=torch.int64, device=dev)  # noqa: E731
     return (llama.init_kv_cache(config, n_slots, dtype=cache_dtype, device=dev, kv_heads=kv_heads[0]),
             llama.init_kv_cache(draft_config, n_slots, dtype=cache_dtype, device=dev, kv_heads=kv_heads[1]),
-            zeros(), zeros(), zeros(), torch.ones(n_slots, dtype=torch.bool, device=dev), zeros())
+            zeros(), zeros(), zeros(), torch.ones(n_slots, dtype=torch.bool, device=dev), zeros(),
+            zeros(n_slots, width or config.max_seq_len), zeros())
 
 
 def _sample_rows(logits, temperature, top_k, top_p, min_p, generator):
@@ -59,79 +73,101 @@ def _sample_rows(logits, temperature, top_k, top_p, min_p, generator):
     return torch.where(temperature == 0.0, greedy, sampled), torch.softmax(f, dim=-1)
 
 
-@torch.inference_mode()
-def spec_chunk(model: llama.Llama, draft_model: llama.Llama, state, n_rounds: int, generator, temperature, top_k,
-               top_p, min_p, eos_ids, budget, gamma: int, pad_id: int = 0, live_rounds: torch.Tensor | None = None):
-    """``n_rounds`` speculative rounds over every slot -> (tokens [N, n_rounds * (gamma + 1)],
-    new state): each live row's new tokens are the prefix of its row of length
-    emitted_after - emitted_before (a row emits m in [0, gamma + 1] a round). Reads nothing
-    back from the device, but the verify pass at gamma >= 8 (one flag a round: the offsets
-    form's check of the positions). ``live_rounds`` (a 0-d tensor, optional) gains the
-    number of rows live at each round's start: tokens / live rounds is the acceptance."""
-    t_cache, d_cache, prev, cur, pos, done, emitted = state
+def _spec_round(model: llama.Llama, draft_model: llama.Llama, state, generator, params, gamma: int, pad_id: int,
+                kv_bound: int, live_rounds) -> None:
+    """One speculative round over every slot, in place (the body a graph captures)."""
+    t_cache, d_cache, prev, cur, pos, done, emitted, ring, cursor = state
+    temperature, top_k, top_p, min_p, eos_ids, budget = params
     N = temperature.shape[0]
     dev = pos.device
-    buf = torch.full((N, n_rounds * (gamma + 1)), pad_id, dtype=torch.long, device=dev)
-    cursor = torch.zeros(N, dtype=torch.long, device=dev)
     idx = torch.arange(gamma + 1, device=dev)[None, :]
-    for _ in range(n_rounds):
-        if live_rounds is not None:
-            live_rounds += (~done).sum()
-        # draft: the pair step, then gamma - 1 single steps at per-row positions
-        pair = torch.stack([prev, cur], dim=1)
-        x = llama.embed(draft_model, pair)
-        ppos = pos[:, None] + torch.arange(-1, 1, device=dev)[None, :]
-        h, _ = llama.trunk(draft_model, x, MaskInfo(causal=True, q_positions=ppos, kv_len=pos + 1), d_cache,
-                           input_pos=ppos)
-        tok, q = _sample_rows(llama.head(draft_model, h[:, -1:])[:, 0], temperature, top_k, top_p, min_p, generator)
-        drafts, qs, p = [tok], [q], pos + 1
-        for _ in range(gamma - 1):
-            x = llama.embed(draft_model, tok[:, None])
-            h, _ = llama.trunk(draft_model, x, MaskInfo(causal=True, q_positions=p[:, None], kv_len=p + 1), d_cache,
-                               input_pos=p[:, None])
-            tok, q = _sample_rows(llama.head(draft_model, h)[:, 0], temperature, top_k, top_p, min_p, generator)
-            drafts.append(tok)
-            qs.append(q)
-            p = p + 1
-        drafts, q_probs = torch.stack(drafts, dim=1), torch.stack(qs, dim=1)
+    if live_rounds is not None:
+        live_rounds += (~done).sum()
+    # draft: the pair step, then gamma - 1 single steps at per-row positions
+    pair = torch.stack([prev, cur], dim=1)
+    x = llama.embed(draft_model, pair)
+    ppos = pos[:, None] + torch.arange(-1, 1, device=dev)[None, :]
+    h, _ = llama.trunk(draft_model, x, MaskInfo(causal=True, q_positions=ppos, kv_len=pos + 1), d_cache,
+                       input_pos=ppos)
+    tok, q = _sample_rows(llama.head(draft_model, h[:, -1:])[:, 0], temperature, top_k, top_p, min_p, generator)
+    drafts, qs, p = [tok], [q], pos + 1
+    for _ in range(gamma - 1):
+        x = llama.embed(draft_model, tok[:, None])
+        h, _ = llama.trunk(draft_model, x, MaskInfo(causal=True, q_positions=p[:, None], kv_len=p + 1), d_cache,
+                           input_pos=p[:, None])
+        tok, q = _sample_rows(llama.head(draft_model, h)[:, 0], temperature, top_k, top_p, min_p, generator)
+        drafts.append(tok)
+        qs.append(q)
+        p = p + 1
+    drafts, q_probs = torch.stack(drafts, dim=1), torch.stack(qs, dim=1)
 
-        # target: one verify pass over [cur, d_1..d_gamma]
-        inputs = torch.cat([cur[:, None], drafts], dim=1)
-        x = llama.embed(model, inputs)
-        qpos = pos[:, None] + idx
-        h, _ = llama.trunk(model, x, MaskInfo(causal=True, q_positions=qpos, kv_len=pos + gamma + 1), t_cache,
-                           input_pos=qpos)
-        t_logits = llama.head(model, h)  # [N, gamma + 1, V]
+    # target: one verify pass over [cur, d_1..d_gamma], contiguous positions under kv_bound
+    inputs = torch.cat([cur[:, None], drafts], dim=1)
+    x = llama.embed(model, inputs)
+    qpos = pos[:, None] + idx
+    h, _ = llama.trunk(model, x, MaskInfo(causal=True, q_positions=qpos, kv_len=pos + gamma + 1), t_cache,
+                       input_pos=qpos, kv_bound=kv_bound)
+    t_logits = llama.head(model, h)  # [N, gamma + 1, V]
 
-        # acceptance: both laws, picked per row by its temperature
-        targets = t_logits.float().argmax(dim=-1)
-        match = torch.cat([drafts == targets[:, :gamma], torch.zeros_like(drafts[:, :1], dtype=torch.bool)], dim=1)
-        a_greedy = match.int().argmin(dim=1)
-        rep = lambda v: v.repeat_interleave(gamma + 1)  # noqa: E731
-        p_flat = filter_logits_rows(t_logits.reshape(N * (gamma + 1), -1), rep(temperature), rep(top_k), rep(top_p),
-                                    rep(min_p))
-        p_probs = torch.softmax(p_flat, dim=-1).reshape(t_logits.shape)
-        emitted_s, m_s = speculative_accept(drafts, q_probs, p_probs, generator)
-        is_greedy = temperature == 0.0
-        emit = torch.where(is_greedy[:, None], targets, emitted_s)
-        m = torch.where(is_greedy, a_greedy + 1, m_s)
+    # acceptance: both laws, picked per row by its temperature
+    targets = t_logits.float().argmax(dim=-1)
+    match = torch.cat([drafts == targets[:, :gamma], torch.zeros_like(drafts[:, :1], dtype=torch.bool)], dim=1)
+    a_greedy = match.int().argmin(dim=1)
+    rep = lambda v: v[:, None].expand(N, gamma + 1).reshape(-1)  # noqa: E731
+    p_flat = filter_logits_rows(t_logits.reshape(N * (gamma + 1), -1), rep(temperature), rep(top_k), rep(top_p),
+                                rep(min_p))
+    p_probs = torch.softmax(p_flat, dim=-1).reshape(t_logits.shape)
+    emitted_s, m_s = speculative_accept(drafts, q_probs, p_probs, generator)
+    is_greedy = temperature == 0.0
+    emit = torch.where(is_greedy[:, None], targets, emitted_s)
+    m = torch.where(is_greedy, a_greedy + 1, m_s)
 
-        # freeze, budget and stop token, per row and monotone
-        m = torch.where(done, torch.zeros_like(m), torch.minimum(m, budget - emitted))
-        emit = torch.where(idx < m[:, None], emit, torch.full_like(emit, pad_id))
-        live_eos = (emit == eos_ids[:, None]) & (idx < m[:, None])
-        hit_eos = live_eos.any(dim=1)
-        m = torch.where(hit_eos, torch.minimum(m, live_eos.int().argmax(dim=1) + 1), m)
-        emit = torch.where(idx < m[:, None], emit, torch.full_like(emit, pad_id))
+    # freeze, budget and stop token, per row and monotone
+    m = torch.where(done, torch.zeros_like(m), torch.minimum(m, budget - emitted))
+    emit = torch.where(idx < m[:, None], emit, torch.full_like(emit, pad_id))
+    live_eos = (emit == eos_ids[:, None]) & (idx < m[:, None])
+    hit_eos = live_eos.any(dim=1)
+    m = torch.where(hit_eos, torch.minimum(m, live_eos.int().argmax(dim=1) + 1), m)
+    emit = torch.where(idx < m[:, None], emit, torch.full_like(emit, pad_id))
 
-        buf.scatter_(1, cursor[:, None] + idx, emit)  # cursor + gamma < n_rounds (gamma + 1)
-        padded = torch.cat([cur[:, None], emit], dim=1)
-        prev = padded.gather(1, torch.clamp(m - 1, min=0)[:, None])[:, 0]
-        cur = padded.gather(1, m[:, None])[:, 0]
-        emitted = emitted + m
-        done = done | hit_eos | (emitted >= budget)
-        pos, cursor = pos + m, cursor + m
-    return buf, (t_cache, d_cache, prev, cur, pos, done, emitted)
+    ring.scatter_(1, cursor[:, None] + idx, emit)  # cursor + gamma < n_rounds (gamma + 1)
+    padded = torch.cat([cur[:, None], emit], dim=1)
+    prev.copy_(padded.gather(1, torch.clamp(m - 1, min=0)[:, None])[:, 0])
+    cur.copy_(padded.gather(1, m[:, None])[:, 0])
+    emitted += m
+    done |= hit_eos | (emitted >= budget)
+    pos += m
+    cursor += m
+
+
+@torch.inference_mode()
+def spec_chunk(model: llama.Llama, draft_model: llama.Llama, state, n_rounds: int, generator, temperature, top_k,
+               top_p, min_p, eos_ids, budget, gamma: int, pad_id: int = 0, live_rounds: torch.Tensor | None = None,
+               kv_bound: int | None = None, eager: bool = False):
+    """``n_rounds`` speculative rounds over every slot -> (tokens [N, n_rounds * (gamma + 1)],
+    state): each live row's new tokens are the prefix of its row of length emitted_after -
+    emitted_before (a row emits m in [0, gamma + 1] a round). Reads nothing back from the
+    device. On the card each round is one replay of the round's captured graph over the
+    state, the six per-row tensors and ``live_rounds`` (captured on the first call with these
+    buffers: pass the same tensors each chunk); ``eager``: launched op by op. The state is
+    updated in place and the tokens are a view of its ring, which the next call overwrites.
+    ``live_rounds`` (a 0-d tensor, optional) gains the number of rows live at each round's
+    start: tokens / live rounds is the acceptance. ``kv_bound``: at least every live row's
+    kv_len in the chunk's verify passes (``verify_bound``; default max_seq_len)."""
+    ring, cursor = state[7], state[8]
+    W = n_rounds * (gamma + 1)
+    if W > ring.shape[1]:
+        raise ValueError(f"{n_rounds} rounds of gamma {gamma} exceed the ring's {ring.shape[1]} tokens")
+    ring[:, :W].fill_(pad_id)
+    cursor.zero_()
+    params = (temperature, top_k, top_p, min_p, eos_ids, budget)
+    kv_bound = model.config.max_seq_len if kv_bound is None else kv_bound
+    buffers = (*cache_tensors(state[0]), *cache_tensors(state[1]), *state[2:], *params,
+               *(() if live_rounds is None else (live_rounds,)))
+    dg.run(model, "spec_chunk round", buffers, (gamma, pad_id, kv_bound),
+           lambda m, gen: _spec_round(m, draft_model, state, gen, params, gamma, pad_id, kv_bound, live_rounds),
+           n_rounds, generator, eager=eager, draws=True, others=(draft_model,))
+    return ring[:, :W], state
 
 
 @torch.inference_mode()
@@ -139,7 +175,7 @@ def spec_admit_row(model: llama.Llama, draft_model: llama.Llama, state, slot: in
                    eos_id: int, generator: torch.Generator | None = None):
     """Prefill BOTH caches' lanes for one prompt row and make it live -> (first token,
     state). The first token is sampled from the TARGET's last position."""
-    t_cache, d_cache, prev, cur, pos, done, emitted = state
+    t_cache, d_cache, prev, cur, pos, done, emitted = state[:7]
     P = len(prompt)
     ids = torch.tensor([prompt], dtype=torch.long, device=model.device)
     x_pos = torch.arange(P, device=model.device)
@@ -162,8 +198,10 @@ def spec_admit_row(model: llama.Llama, draft_model: llama.Llama, state, slot: in
 class SpeculativeScheduler(ContinuousScheduler):
     """Continuous batching whose chunk step is a scan of speculative rounds.
     ``chunk_size`` counts ROUNDS per dispatch (each emits 1..gamma + 1 tokens a live row).
-    Prefix caching and chunked prefill do not compose with the two-cache admission yet
-    (as in the JAX package) and raise."""
+    On the card each round is one replay of ``spec_chunk``'s captured graph; ``eager``: the
+    rounds launched op by op (a model or a draft on a mesh needs it). Prefix caching and
+    chunked prefill do not compose with the two-cache admission yet (as in the JAX package)
+    and raise."""
 
     def __init__(self, model: llama.Llama, draft_model: llama.Llama, *, gamma: int = 4, **kw):
         if kw.get("prefix_cache") or kw.get("prefill_chunk"):
@@ -181,7 +219,8 @@ class SpeculativeScheduler(ContinuousScheduler):
 
     def _init_state(self):
         return init_spec_state(self.config, self.draft_config, self.n_slots, self.cache_dtype, self.device,
-                               (llama.local_kv_heads(self.model), llama.local_kv_heads(self.draft_model)))
+                               (llama.local_kv_heads(self.model), llama.local_kv_heads(self.draft_model)),
+                               self.chunk_size * (self.gamma + 1))
 
     # a round writes target positions up to pos + gamma and draft positions up to
     # pos + gamma - 1; pos <= P + budget - 1 while live, so P + budget + gamma must fit both
@@ -202,10 +241,22 @@ class SpeculativeScheduler(ContinuousScheduler):
     def _budget_cap(self, row: RowHandle) -> int:
         return min(row.max_tokens, self._cap() - len(row.ids) - self.gamma)
 
+    def _kv_bound(self) -> int:
+        """The verify's static kv bound for the chunk about to go (``verify_bound``): each
+        live row's position at the last collect, plus gamma + 1 a round for this chunk and
+        the one that may still be in flight (the worker collects a chunk after it dispatches
+        the next), at most the position its budget lets it reach; then the verify's gamma + 1
+        positions. A dead slot's stale kv_len may pass it: the offsets form clamps it, and the
+        row emits nothing."""
+        ahead = 2 * self.chunk_size * (self.gamma + 1)
+        hi = max((min(len(row.ids) + self.emitted_seen[slot] - 1 + ahead, len(row.ids) + self.budget[slot] - 1)
+                  for slot, row in enumerate(self.rows) if row is not None), default=0)
+        return verify_bound(self.config, hi + self.gamma + 1, self.cache_dtype, self.gamma)
+
     def _dispatch_chunk(self):
         toks, self.state = spec_chunk(self.model, self.draft_model, self.state, self.chunk_size, self.generator,
                                       *self._row_tensors(), gamma=self.gamma, pad_id=self.pad_id,
-                                      live_rounds=self.live_row_rounds)
+                                      live_rounds=self.live_row_rounds, kv_bound=self._kv_bound(), eager=self.eager)
         self.dispatches += 1
         self.rounds_run += self.chunk_size
         return toks, self.state[6], self.state[5]

@@ -1318,3 +1318,85 @@ def test_train_step_graph_matches_the_eager_step(cuda):
     entry_.update.replay(1)
     torch.cuda.synchronize()
     assert torch.cuda.memory_stats()["allocation.all.allocated"] == allocated
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding's rounds as captured CUDA graphs, at 8B width cut to 2 layers
+# ---------------------------------------------------------------------------
+
+
+def _spec_draft(dev):
+    """A 2-layer draft of width 1024 with heads of 128 and the 8B vocabulary, bf16, seed 7."""
+    from llama_x_tpu_torch.generate_cli import GEOMETRIES, build_model
+
+    cfg = llama.LlamaConfig(**dict(GEOMETRIES["8b"], num_layers=2, embed_dim=1024, num_heads=8, num_kv_heads=8,
+                                   intermediate_dim=2816), max_seq_len=1024)
+    return build_model(cfg, False, seed=7, device=dev)
+
+
+SPEC_CASES = [(4, "bf16"), (8, "bf16"), (8, "int8")]
+
+
+@pytest.mark.parametrize("gamma,cache", SPEC_CASES)
+def test_generate_speculative_graph_matches_the_eager_rounds(cuda, gamma, cache):
+    """``generate_speculative`` on the int8 2-layer model (dynamic int8 act) with the bf16
+    draft: greedy over 4 ragged rows, through the captured round (two requests: the first
+    captures, the second replays only) against ``eager=True``: tokens, target passes and
+    launches equal; every round one replay; the verify on K3 at gamma 4 and on K2's offsets
+    form at gamma 8 (over the int8 cache through the static kv bound). At gamma 4 also a
+    sampled request on one generator seed, bit for bit."""
+    from llama_x_tpu_torch.models import decode_graph as dg
+    from llama_x_tpu_torch.models.speculative import generate_speculative
+
+    model, draft = _graph_model(cuda, True), _spec_draft(cuda)
+    prompt, lens = _graph_prompt(cuda)
+    counters = (mm.int8_mm_dequant_nt, fa.flash_fwd_offsets, da.decode_attention, da.decode_attention_int8)
+
+    def run(eager, **kw):
+        before = [c.launches for c in counters]
+        out, stats = generate_speculative(model, draft, prompt, max_new_tokens=40, gamma=gamma, prompt_lens=lens,
+                                          cache_dtype=torch.int8 if cache == "int8" else torch.bfloat16, eager=eager,
+                                          **kw)
+        torch.cuda.synchronize()
+        return out, stats, [c.launches - b for c, b in zip(counters, before)]
+
+    want, wstats, wl = run(True)
+    for i in range(2):
+        got, stats, gl = run(False)
+        assert torch.equal(got, want) and stats["target_passes"] == wstats["target_passes"] and gl == wl
+        s = dg.stats(model)
+        assert s["captures"] == 1 and s["replays"] == (i + 1) * (stats["target_passes"] - 1) - 1
+    assert wl[0] > 0 and (wl[1] > 0) == (gamma >= 8) and wl[3 if cache == "int8" else 2] > 0
+    if gamma == 4:
+        sample = dict(temperature=0.8, top_k=50, top_p=0.9)
+        outs = [run(eager, generator=torch.Generator(device=cuda).manual_seed(3), **sample)[0]
+                for eager in (True, False, False)]
+        assert torch.equal(outs[1], outs[0]) and torch.equal(outs[2], outs[0])
+
+
+@pytest.mark.parametrize("gamma,cache", SPEC_CASES)
+def test_speculative_scheduler_graph_matches_the_eager_rounds(cuda, gamma, cache):
+    """``SpeculativeScheduler`` (4 slots, 4-round chunks) on the same models: six greedy
+    rows that join and leave; each row's tokens through the captured round equal the eager
+    rounds'; every round a replay (the int8 cache's kv bound may add a capture a bucket)."""
+    from llama_x_tpu_torch.models import decode_graph as dg
+    from llama_x_tpu_torch.serve.speculative import SpeculativeScheduler
+
+    model, draft = _graph_model(cuda, True), _spec_draft(cuda)
+    g = torch.Generator().manual_seed(9)
+    prompts = [torch.randint(0, 256, (n,), generator=g).tolist() for n in (20, 150, 64, 7, 90, 600)]
+    rows, rounds = {}, 0
+    for eager in (True, False):
+        sched = SpeculativeScheduler(model, draft, gamma=gamma, n_slots=4, chunk_size=4,
+                                     cache_dtype=torch.int8 if cache == "int8" else torch.bfloat16, eager=eager)
+        try:
+            handles = [sched.submit(p, max_tokens=12 + 5 * i) for i, p in enumerate(prompts)]
+            for h in handles:
+                assert h.event.wait(600) and h.error is None, h.error
+        finally:
+            sched.close()
+        rows[eager] = [h.tokens for h in handles]
+        rounds = sched.rounds_run
+    assert rows[False] == rows[True]
+    s = dg.stats(model)
+    assert s["captures"] >= 1 and s["replays"] + s["captures"] == rounds

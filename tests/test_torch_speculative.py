@@ -8,7 +8,9 @@ the card reads through the flash kernel's offsets form), for one row and for rag
 with eos padding; a self-draft accepts every proposal (the number of target passes is
 the formula's); ``speculative_accept``'s first token follows the target row p, the first
 draft is accepted with probability sum(min(p, q)), and after a rejection the token
-follows norm(max(p - q, 0)) (40k draws, 4-sigma bounds); the scheduler's greedy rows equal
+follows norm(max(p - q, 0)) (40k draws, 4-sigma bounds); rows that accept at different
+rates (sampled, and greedy with a draft near the target in the tightest caches the entry
+check allows) each run to their count as in JAX, no row writing past it; the scheduler's greedy rows equal
 JAX's scheduler and ``generate`` with slot reuse at gamma 3 and 8, beside sampled rows,
 with per-row stop tokens, and over the int8 cache against the port's ``generate``."""
 
@@ -100,6 +102,55 @@ def test_self_draft_accepts_every_proposal(models, temperature):
     assert got.shape == (1, n) and int(got.max()) < 256
     if temperature == 0.0:
         assert torch.equal(got, _greedy(tm, prompt, n))
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+@pytest.mark.parametrize("eager", [False, True])
+def test_sampled_rows_that_accept_at_different_rates_run_to_their_count(models, seed, eager):
+    """Four sampled rows whose acceptance differs: a row that reaches its count freezes
+    while the others go on, and it never writes past its count. In caches of exactly the
+    length the entry check allows (target P + n + gamma + 1, draft P + n + gamma), on these
+    draws an uncapped row runs past the token buffer and the caches. Every row emits
+    max_new_tokens, as in JAX."""
+    (tp, _, _), (dp, _, _) = models
+    P, n, gamma = 8, 6, 4
+    tc, dc = jllama.tiny_config(max_seq_len=P + n + gamma + 1), jllama.tiny_config(max_seq_len=P + n + gamma, **DRAFT)
+    tm = params_from_jax(jax.tree.map(np.asarray, tp), tllama.tiny_config(max_seq_len=P + n + gamma + 1), device="cpu")
+    dm = params_from_jax(jax.tree.map(np.asarray, dp), tllama.tiny_config(max_seq_len=P + n + gamma, **DRAFT),
+                         device="cpu")
+    prompt = np.random.default_rng(0).integers(0, 256, (4, P)).astype(np.int32)
+    kw = dict(max_new_tokens=n, gamma=gamma, temperature=1.0)
+    got, stats = generate_speculative(tm, dm, torch.from_numpy(prompt).long(), generator=torch.Generator().manual_seed(seed),
+                                      cache_dtype=torch.float32, eager=eager, **kw)
+    _, jstats = jgenerate_speculative(tp, tc, dp, dc, jnp.asarray(prompt), key=jax.random.PRNGKey(seed),
+                                      cache_dtype=jnp.float32, **kw)
+    assert stats["tokens_emitted"].tolist() == np.asarray(jstats["tokens_emitted"]).tolist() == [6] * 4
+    assert got.shape == (4, 6) and int(got.max()) < 256
+
+
+def test_greedy_rows_with_mixed_acceptance_in_the_tightest_caches():
+    """A draft near the target (the target's weights plus seeded noise of half their
+    spread) accepts at a different rate in each row, in caches of exactly the length the
+    entry check allows (target P + n + gamma + 1, draft P + n + gamma): the tokens, the
+    target passes and the tokens emitted are JAX's."""
+    P, n, gamma = 8, 6, 4
+    jcfg, dcfg = jllama.tiny_config(max_seq_len=P + n + gamma + 1), jllama.tiny_config(max_seq_len=P + n + gamma)
+    params = jllama.init(jax.random.PRNGKey(0), jcfg, dtype=jnp.float32)
+    rng = np.random.default_rng(3)
+    dparams = jax.tree.map(lambda a: np.asarray(a) + 0.5 * np.asarray(a).std()
+                           * rng.standard_normal(a.shape).astype(np.float32), params)
+    tm = params_from_jax(jax.tree.map(np.asarray, params), tllama.tiny_config(max_seq_len=P + n + gamma + 1),
+                         device="cpu")
+    dm = params_from_jax(dparams, tllama.tiny_config(max_seq_len=P + n + gamma), device="cpu")
+    prompt = np.random.default_rng(0).integers(0, 256, (4, P)).astype(np.int32)
+    want, jstats = jgenerate_speculative(params, jcfg, jax.tree.map(jnp.asarray, dparams), dcfg, jnp.asarray(prompt),
+                                         max_new_tokens=n, gamma=gamma, cache_dtype=jnp.float32)
+    for eager in (False, True):
+        got, stats = generate_speculative(tm, dm, torch.from_numpy(prompt).long(), max_new_tokens=n, gamma=gamma,
+                                          cache_dtype=torch.float32, eager=eager)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        assert stats["target_passes"] == int(jstats["target_passes"]) == 6
+        assert stats["tokens_emitted"].tolist() == np.asarray(jstats["tokens_emitted"]).tolist()
 
 
 def test_speculative_accept_follows_its_formula():

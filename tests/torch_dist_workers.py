@@ -365,7 +365,7 @@ def serve_job(job: dict, mesh) -> dict:
     out = {"generate": generate(model, prompt, max_new_tokens=8, cache_dtype=torch.int8, eager=True).numpy()}
     draft = shard_params(_port_model(job, dict(job, params=job["draft_params"], config=job["draft_config"])), mesh)
     out["speculative"] = generate_speculative(model, draft, prompt, max_new_tokens=8, gamma=3,
-                                              cache_dtype=torch.float32)[0].numpy()
+                                              cache_dtype=torch.float32, eager=True)[0].numpy()
     cfg, heads = model.config, llama.local_kv_heads(model)
     n_slots, greedy = 4, (0.0, 0, 1.0, 0.0)
     state = cont.init_state(cfg, n_slots, torch.float32, "cpu", kv_heads=heads)
