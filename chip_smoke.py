@@ -43,6 +43,12 @@ no result line):
    to the device trace, tokens and launches equal to ``eager=True``'s;
 4. kernel path against plain path: on a 2-layer cut of the same weights, prefill and
    first-decode logits of the kernels and of their plain versions agree;
+4a. the schedulers' admission programs on a 2-layer cut of the int8 model with a 2-layer
+   draft, bf16 and int8 caches (``check_admissions``): ``admit_row`` at 3 buckets,
+   ``admit_row_prefix`` at 2 (P0, Sb) pairs, a chunked prefill with its install and
+   ``spec_admit_row``, each through its graph (captured per bucket) against ``eager=True``:
+   first tokens and every state tensor bit for bit, a pass of replays launching what the
+   eager pass launches, held to the device trace;
 3a. continuous serving on the first 8 of the 32 layers of phase 3's int8 model (a depth cut,
    int8 KV): ``ContinuousScheduler`` with
    8 slots, 16-step chunks, chunked prefill of 512 and a prefix cache of 4; 16 byte-token
@@ -50,15 +56,19 @@ no result line):
    extend them), TTFT / inter-token latency p50 and p99, tokens/s, prefix hits, the launches
    of K1, K2 (self and offsets) and K3, every row against an unbatched ``generate`` under
    the near-tie rule (a divergence only where the two tokens lie within K2's tolerance of
-   each other in the unbatched logits of that step, counted); each decode step a replay of
-   the captured step, then the same traffic through the eager loop beside it (TTFT, ITL,
-   tokens/s, the busy share of a wave; its rows against the graph's);
+   each other in the unbatched logits of that step, counted); each decode step, prefill chunk
+   and row install a replay of its captured graph (the admission programs captured in a
+   warm-up, those captured inside the timed waves counted), then the same traffic with
+   ``eager=True`` beside it (TTFT, ITL, tokens/s, the busy share of a profiled wave in both;
+   its rows against the graph's);
 3b. speculative serving: the same 8-layer int8 target (bf16 cache) and an untrained 4-layer draft
    of width 1024, gamma 4 (verify on K3) and gamma 8 (verify on K2's offsets form), each
    round a replay of ``spec_chunk``'s captured round and then the eager rounds beside it
    (tok/s, the tokens equal bit for bit), the acceptance rate, every row against plain
-   greedy under the near-tie rule; a round's wall against its device busy time (graph and
-   eager), its launches held to the device trace; then ``generate_speculative`` at gamma 8
+   greedy under the near-tie rule, TTFT beside the eager run's (each ``spec_admit_row`` a
+   replay of its bucket's graph, captured in a warm-up); a round's wall against its device
+   busy time (graph and eager), its launches held to the device trace; then
+   ``generate_speculative`` at gamma 8
    over the int8 cache (K2's offsets form over the static kv bound), graph against eager;
 3c. the HF round trip of a 2-layer cut at 8B width (bf16, about 3 GB, bit for bit) and
    ``generate_cli --model`` on it; 3d. ``serve_http`` in-process on 127.0.0.1:0 over the
@@ -89,15 +99,16 @@ no result line):
    (2000 audio tokens prepended to 2096 text tokens), prefix-LM attention,
    ``remat_policy="flash_q8s"``, microbatch 1, AdamW 1e-4, 4 steps on one repeated batch,
    the launch counts held to what the policy must give, graph replays against a profiled
-   eager step as in phase 5, then the same step under ``full``, ``flash_proj``, without
-   checkpointing, and under the int8-residual attention ``attn_q8`` / ``attn_q8s`` (each a key
+   eager step as in phase 5, then the same step on the first 8 layers (a depth cut) under
+   ``full``, ``flash_proj``, without checkpointing, and under the int8-residual attention
+   ``attn_q8`` / ``attn_q8s`` (each a key
    of the graphs: an eager step and the capture, a replay and a traced replay, launches held:
    no K1 in the attention backward; best step, positions/s and peak beside flash_q8s's; one
    profiled eager attn_q8s step with the rowwise quantizer's device time);
 9. audio kernel path against plain path on a 2-layer cut with ``attn_dropout=0.1`` and
    fixed seeds, and on a 2-layer cut under ``attn_q8s``;
-10. the vision main path: one 8B QLoRA trunk with both stems is built for phases 10 to
-   12; the vision step through ``train_vision``'s functions (8 canvases of 224, patch
+10. the vision main path: one 8B QLoRA trunk with both stems, cut to its first 16 layers, is
+   built for phases 10 to 12; the vision step through ``train_vision``'s functions (8 canvases of 224, patch
    14: 272 image tokens before 32 caption bytes, S 304, prefix-LM, remat ``full``, fused
    CE x4), 4 steps through the graphs with the launch counts held every step, a replay held
    to its device trace, a profiled eager step, and a 2-layer kernel-vs-plain comparison of
@@ -963,7 +974,9 @@ def device_kernels(prof) -> list[str]:
             if e.device_type() == torch.autograd.DeviceType.CUDA]
 
 
-TRACE_ATTEMPTS = 3
+# a trace of 10^5 device records or more loses a run of them, on an H100 up to 5 times in a row
+# for one window of 3 * 10^5; a retake costs seconds (diagnostics/trace_records.py counts losses)
+TRACE_ATTEMPTS = 16
 
 
 def traced(what: str, fn, cpu: bool = False) -> dict:
@@ -1508,17 +1521,23 @@ def need_launches(counts: dict, need: list[str], what: str):
 
 
 def serve_waves(sched, prompts: list, new_tokens: list) -> dict:
-    """The continuous phase's traffic through ``sched``: a warm-up row (the paths' first calls,
-    the decode step's capture), then ``prompts`` in four waves of four 0.25 s apart, counts
-    reset just before; -> the handles, the timelines, wall and counts."""
+    """The continuous phase's traffic through ``sched``: a warm-up (the paths' first calls: a
+    40-token row for the decode step's capture, then one of 2100 tokens whose chunks start at
+    every chunk position the traffic's admissions reach, 0 to 2048, so that each admission
+    program the traffic runs is captured there), then ``prompts`` in four waves of four 0.25 s
+    apart, counts reset just before; -> the handles, the timelines, wall and counts, and the
+    admission programs captured before and inside the waves."""
     import torch
 
     from llama_x_tpu_torch.data.tokenizers import ByteTokenizer
+    from llama_x_tpu_torch.models import decode_graph as dg
 
-    warm = sched.submit(byte_prompt(ByteTokenizer(), 99, 40), max_tokens=4)
-    if not warm.event.wait(600) or warm.error is not None:
-        raise AssertionError(f"warm-up failed: {warm.error}")
+    for n in (40, 2100):
+        warm = sched.submit(byte_prompt(ByteTokenizer(), 99, n), max_tokens=4)
+        if not warm.event.wait(600) or warm.error is not None:
+            raise AssertionError(f"warm-up failed: {warm.error}")
     hits0, disp0, chunks0 = sched.prefix_hits, sched.prefill_dispatches, sched.dispatches
+    adm0 = sched.inputs.runner.captures
     torch.cuda.synchronize()
     reset_counts()
     lines, handles = [], []
@@ -1534,9 +1553,11 @@ def serve_waves(sched, prompts: list, new_tokens: list) -> dict:
             raise AssertionError(f"a request failed: {h.error}")
     wall = time.perf_counter() - t0
     total = sum(len(h.tokens) for h in handles)
+    adm = sched.inputs.runner.stats()
     return dict(handles=handles, wall_s=wall, tokens_per_s=total / wall, new_tokens=total, launches=read_counts(),
                 prefix_hits=sched.prefix_hits - hits0, prefill_dispatches=sched.prefill_dispatches - disp0,
-                decode_dispatches=sched.dispatches - chunks0, **latency_stats(lines))
+                decode_dispatches=sched.dispatches - chunks0, admission_captures=adm["captures"],
+                admission_captures_in_waves=adm["captures"] - adm0, **latency_stats(lines))
 
 
 def phase_continuous(model) -> dict:
@@ -1544,11 +1565,14 @@ def phase_continuous(model) -> dict:
     16-step decode chunks, chunked prefill of 512, a prefix cache of 4. 16 byte-token
     requests in four waves of four 0.25 s apart: 8 prompts of 130 to 1500 tokens, then 8
     follow-ups that extend one of them by 64 to 200 tokens (prefix hits); 32 to 64 new
-    tokens each, greedy. Each decode step is a replay of the captured step. Every row is held
-    to an unbatched ``generate`` of its prompt and to its unbatched reference at every step,
-    under the near-tie rule (``check_served_row``). Then the same traffic with the eager loop
-    (``eager=True``) beside it: TTFT, ITL, tokens/s and the busy share of a wave, its rows
-    against the graph's (near-tie rule where they differ)."""
+    tokens each, greedy. Each decode step, admission program (a prefill chunk, a row's
+    install) is a replay of its captured graph, captured in a warm-up (``serve_waves``; those
+    captured inside the timed waves are counted). Every row is held to an unbatched
+    ``generate`` of its prompt and to its unbatched reference at every step, under the
+    near-tie rule (``check_served_row``). Then the same traffic with ``eager=True`` (decode
+    steps and admissions op by op) beside it: TTFT, ITL, tokens/s and the busy share of a
+    profiled wave of 8 arrivals in both, its rows against the graph's (near-tie rule where they
+    differ)."""
     import torch
 
     from llama_x_tpu_torch.data.tokenizers import ByteTokenizer
@@ -1568,13 +1592,17 @@ def phase_continuous(model) -> dict:
     wave = [byte_prompt(tok, 300 + i, 300 + 100 * i) for i in range(8)]
     served = {}
     for eager in (False, True):
+        dg.release(model)  # each run's graphs and counts its own
         sched = ContinuousScheduler(model, n_slots=8, chunk_size=16, prompt_multiple=64, cache_dtype=cache,
                                     prefill_chunk=512, prefix_cache=4, seed=0, eager=eager)
         try:
             run = serve_waves(sched, prompts, new_tokens)
-            if not eager:  # the graph's wave: the eager loop is timed, not traced
-                run["profile"] = profile_arrivals(sched, wave, 32)
+            run["profile"] = profile_arrivals(sched, wave, 32)
             run["prefix_tokens_reused"] = sched.prefix_tokens_reused
+            adm = sched.inputs.runner.stats()
+            run.update(decode_captures=dg.stats(model)["captures"], admission_graphs=adm["graphs"],
+                       admission_capture_s=adm["capture_s"], admission_pool_mb=sum(adm["pool_bytes"]) / 2**20,
+                       row_pool_mb=sched.inputs.nbytes() / 2**20, parked_rows=len(sched.inputs.pool))
         finally:
             sched.close()
         what = "eager loop" if eager else "graph"
@@ -1582,6 +1610,11 @@ def phase_continuous(model) -> dict:
             f"{run['ttft_ms_p50']:.1f} ms, p99 {run['ttft_ms_p99']:.1f} ms; ITL p50 {run['itl_ms_p50']:.2f} ms, p99 "
             f"{run['itl_ms_p99']:.2f} ms; prefix hits {run['prefix_hits']} ({run['prefix_tokens_reused']} tokens "
             f"reused), prefill chunks {run['prefill_dispatches']}, decode chunks {run['decode_dispatches']}")
+        log(f"    {what}: admission programs captured {run['admission_captures']} ({run['admission_captures_in_waves']} "
+            f"inside the timed waves, the rest in the warm-up), held {run['admission_graphs']}; capture + instantiate "
+            f"{', '.join(f'{t:.3f}' for t in run['admission_capture_s'])} s; the admission pool "
+            f"{run['admission_pool_mb']:.1f} MB; the working row and {run['parked_rows']} parked rows "
+            f"{run['row_pool_mb']:.1f} MB")
         log(f"    launches {run['launches']}")
         need_launches(run["launches"], ["int8_mm_dequant_nt", "flash_attention", "flash_attention_offsets",
                                         "decode_attention_int8"], f"continuous serving ({what})")
@@ -1589,9 +1622,10 @@ def phase_continuous(model) -> dict:
             raise AssertionError("no prefix-cache hit in the follow-up requests")
         served[what] = run
     graph, eager = served["graph"], served["eager loop"]
-    if dg.stats(model)["captures"] < 1:
-        raise AssertionError("the scheduler's decode chunks did not run through a captured graph")
-    res = dict(requests=16, prompt_tokens=sum(map(len, prompts)), captures=dg.stats(model)["captures"],
+    if graph["decode_captures"] < 1 or graph["admission_captures"] < 1 or eager["admission_captures"] != 0:
+        raise AssertionError("the decode chunks or the admissions did not run through captured graphs, or eager=True "
+                             "captured an admission")
+    res = dict(requests=16, prompt_tokens=sum(map(len, prompts)), captures=graph["decode_captures"],
                **{k: v for k, v in graph.items() if k != "handles"},
                eager={k: v for k, v in eager.items() if k != "handles"})
     # every row against its unbatched reference at every step and against an unbatched generate
@@ -1615,8 +1649,8 @@ def profile_arrivals(sched, prompts: list, new_tokens: int) -> dict:
     """Where the device time goes while a scheduler admits and decodes: one wave of
     ``prompts`` arriving together, under torch.profiler (CUDA activity, which sees the
     worker thread's launches), from the first submit to the last row's end; counts reset
-    just before, and the wave's launches (the decode replays' credits among them) held to
-    the device trace."""
+    just before, and the wave's launches (the decode and admission replays' credits among
+    them) held to the device trace."""
     def wave():
         handles = [sched.submit(p, max_tokens=new_tokens) for p in prompts]
         for h in handles:
@@ -1628,6 +1662,185 @@ def profile_arrivals(sched, prompts: list, new_tokens: int) -> dict:
     res = summarize_profile(win["prof"], win["wall_ms"], 1, what, "wave")
     res.update(launches=win["launches"], traced=win["traced"])
     log(f"      the wave's launches {win['launches']}, equal to the device trace {win['traced']}")
+    return res
+
+
+ADMIT_PROMPTS = ((0, 100), (1, 300), (2, 90), (3, 700))  # (slot, tokens): buckets 128, 320, 128, 704
+ADMIT_PROGRAMS = 11  # programs of one pass of ``admission_programs``
+
+
+def admission_programs(model, draft, cache_dtype, states=None, eager: bool = False) -> tuple:
+    """Every admission program of the schedulers once, over 4-slot states of the continuous
+    and of the speculative scheduler with their ``AdmitBuffers`` (made unless ``states`` are
+    given): ``admit_row`` at the buckets 128, 320 and 704 (four prompts, two sharing 128),
+    ``admit_row_prefix`` at (P0, Sb) = (64, 128) and (256, 64) over prefixes taken from the
+    lanes (the keys (Sb, extent) = (128, 512) and (64, 512)), a 600-token prompt prefilled in chunks of 256 (a first and two continuations) and
+    installed, and ``spec_admit_row`` at 192; through the graphs, or ``eager``; greedy, the
+    prompts from one seed. -> (states, first tokens, {wrapper: launches of the pass})"""
+    import torch
+
+    from llama_x_tpu_torch.serve import continuous as cont
+    from llama_x_tpu_torch.serve import speculative as spec
+
+    dev = model.device
+    if states is None:
+        st = cont.init_state(model.config, 4, cache_dtype, dev)
+        ss = spec.init_spec_state(model.config, draft.config, 4, cache_dtype, dev)
+        states = (st, cont.AdmitBuffers(model, st[0]), ss, cont.AdmitBuffers(model, ss[0], ss[1]))
+    st, inputs, ss, sinputs = states
+    g = torch.Generator().manual_seed(17)
+    ids = lambda n: torch.randint(0, 256, (n,), generator=g).tolist()  # noqa: E731
+    gen = torch.Generator(device=dev).manual_seed(0)
+    greedy = (0.0, 0, 1.0, 0.0)
+    torch.cuda.synchronize()
+    before = read_counts()
+    firsts = [int(cont.admit_row(model, st, inputs, slot, ids(n), greedy, -1, gen, eager=eager)[0])
+              for slot, n in ADMIT_PROMPTS]
+    for src, p0, dst, n in ((0, 64, 1, 100), (3, 256, 2, 30)):
+        prefix = cont.slice_prefix(st[0], src, p0)
+        firsts.append(int(cont.admit_row_prefix(model, st, inputs, dst, prefix, p0, ids(n), greedy, -1, gen,
+                                                eager=eager)[0]))
+    long = ids(600)
+    for start in range(0, 600, 256):
+        cont.prefill_chunk(model, inputs, long[start:start + 256], start, 256, eager=eager)
+    firsts.append(int(cont.install_row(model, st, 0, inputs, 600, greedy, -1, gen, eager=eager)[0]))
+    firsts.append(int(spec.spec_admit_row(model, draft, ss, sinputs, 1, ids(150), greedy, -1, gen, eager=eager)[0]))
+    torch.cuda.synchronize()
+    after = read_counts()
+    return states, firsts, {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def admission_stats(states) -> dict:
+    """The admission graphs' counts over both buffer sets of ``states`` (each its own runner
+    and pool)."""
+    a, b = (states[i].runner.stats() for i in (1, 3))
+    return {k: a[k] + b[k] for k in ("captures", "replays", "graphs", "capture_s", "pool_bytes")}
+
+
+def admission_state_tensors(states) -> list:
+    from llama_x_tpu_torch.models.decode_graph import cache_tensors
+
+    st, _, ss, _ = states
+    return [*cache_tensors(st[0]), *st[1:5], *cache_tensors(ss[0]), *cache_tensors(ss[1]), *ss[2:7]]
+
+
+def check_admissions(model, draft, cache_dtype) -> dict:
+    """``admission_programs`` eagerly on states of their own, then through the graphs twice on
+    another pair of states (the first pass captures a graph a key, the second replays only),
+    then a traced pass of replays: the first tokens equal, every state tensor (both schedulers'
+    lanes, tok / pos / done / emitted, prev / cur) equal bit for bit, the launches of a pass of
+    replays equal the eager pass's and the device trace's, one graph a key (9 with a bf16 cache;
+    10 with int8, whose continuation chunks split at the kv bounds 512 and 1024), no capture in
+    the second pass. Raises otherwise; -> the numbers (host seconds of a pass, eager and
+    replayed; each capture's seconds; the pool's growth)."""
+    import torch
+
+    from llama_x_tpu_torch.models import decode_graph as dg
+
+    form = "int8" if cache_dtype == torch.int8 else "bf16"
+    dg.release(model)  # the counts and graphs of this check alone
+    t0 = time.perf_counter()
+    eager_states, eager_first, eager_launches = admission_programs(model, draft, cache_dtype, eager=True)
+    eager_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    states, first, _ = admission_programs(model, draft, cache_dtype)
+    capture_pass_s = time.perf_counter() - t0
+    s1 = admission_stats(states)
+    t0 = time.perf_counter()
+    _, again, replay_launches = admission_programs(model, draft, cache_dtype, states=states)
+    replay_s = time.perf_counter() - t0
+    s2 = admission_stats(states)
+    if not eager_first == first == again:
+        raise AssertionError(f"admissions ({form}): first tokens eager {eager_first}, graph {first}, replayed {again}")
+    differ = [i for i, (a, b) in enumerate(zip(admission_state_tensors(eager_states), admission_state_tensors(states)))
+              if not torch.equal(a, b)]
+    if differ:
+        raise AssertionError(f"admissions ({form}): state tensors {differ} differ between the graphs and eager")
+    if replay_launches != eager_launches:
+        raise AssertionError(f"admissions ({form}): replays launched {replay_launches}, eager {eager_launches}")
+    want = 10 if form == "int8" else 9
+    if (s1["captures"], s1["graphs"], s2["captures"], s2["replays"] - s1["replays"]) != (want, want, want,
+                                                                                        ADMIT_PROGRAMS):
+        raise AssertionError(f"admissions ({form}): {s1} then {s2}: not one graph a key, replayed once a program")
+    win = traced(f"admission replays ({form})", lambda: admission_programs(model, draft, cache_dtype, states=states))
+    return dict(cache=form, programs=ADMIT_PROGRAMS, graphs=s2["graphs"], capture_s=s2["capture_s"],
+                pool_mb=sum(s2["pool_bytes"]) / 2**20, eager_pass_s=eager_s, capture_pass_s=capture_pass_s,
+                replay_pass_s=replay_s, launches_per_pass=eager_launches, launches=win["launches"],
+                traced=win["traced"])
+
+
+def scheduler_admissions(model, cache_dtype) -> dict:
+    """``ContinuousScheduler`` (4 slots, 8-step chunks, ``prefill_chunk=0``, ``prefix_cache=4``)
+    through the admission graphs and with ``eager=True``: prompts of 100, 300 and 700 tokens
+    (buckets 128, 320, 704), then follow-ups over the first two's harvested prefixes ((P0, Sb) =
+    (64, 128) and (256, 64)), 16 new tokens each, greedy: the tokens bit for bit, one graph a
+    bucket. Raises otherwise; -> the counts."""
+    import torch
+
+    from llama_x_tpu_torch.models import decode_graph as dg
+    from llama_x_tpu_torch.serve.continuous import ContinuousScheduler
+
+    g = torch.Generator().manual_seed(23)
+    bases = [torch.randint(0, 256, (n,), generator=g).tolist() for n in (100, 300, 700)]
+    follow = [bases[0][:64] + torch.randint(0, 256, (100,), generator=g).tolist(),
+              bases[1][:256] + torch.randint(0, 256, (30,), generator=g).tolist()]
+    rows = {}
+    for eager in (True, False):
+        dg.release(model)
+        sched = ContinuousScheduler(model, n_slots=4, chunk_size=8, prompt_multiple=64, cache_dtype=cache_dtype,
+                                    prefix_cache=4, eager=eager)
+        try:
+            out = []
+            for wave in (bases, follow):
+                handles = [sched.submit(ids, max_tokens=16) for ids in wave]
+                for h in handles:
+                    if not h.event.wait(600) or h.error is not None:
+                        raise AssertionError(f"a scheduler admission failed: {h.error}")
+                out += [h.tokens for h in handles]
+        finally:
+            sched.close()
+        rows[eager] = (out, sched.prefix_hits, sched.inputs.runner.stats())
+    (graph, hits, adm), (eager_rows, eager_hits, _) = rows[False], rows[True]
+    if graph != eager_rows or hits != eager_hits or hits != 2:
+        raise AssertionError(f"the scheduler's admissions through the graphs differ from eager=True ({hits} / "
+                             f"{eager_hits} prefix hits)")
+    if adm["graphs"] != 5 or adm["captures"] != 5:
+        raise AssertionError(f"the scheduler's admissions: {adm}, not one graph a bucket (3 + 2)")
+    return dict(rows=len(graph), prefix_hits=hits, admission_graphs=adm["graphs"])
+
+
+def phase_admissions(model) -> dict:
+    """The schedulers' admission programs on a 2-layer cut of the int8 serving model (8B width,
+    dynamic int8 act) with a 2-layer draft of width 1024, over a bf16 and an int8 cache: each
+    program through its graph against ``eager=True`` (``check_admissions``), then
+    ``ContinuousScheduler``'s own admissions (``scheduler_admissions``)."""
+    import torch
+
+    from llama_x_tpu_torch.generate_cli import GEOMETRIES, build_model
+    from llama_x_tpu_torch.models import llama
+
+    cut = cut_of(model, 2)
+    draft = build_model(llama.LlamaConfig(**{**GEOMETRIES["8b"], **SPEC_DRAFT, "num_layers": 2}, max_seq_len=4096),
+                        False, 7, "cuda")
+    res, launches = {}, {}
+    for cache in (torch.bfloat16, torch.int8):
+        r = check_admissions(cut, draft, cache)
+        r["scheduler"] = scheduler_admissions(cut, cache)
+        log(f"[admissions] 2 layers of 8B width (int8 weights), {r['cache']} cache: {r['programs']} programs "
+            f"(admit_row x4 at 3 buckets, admit_row_prefix x2, prefill_chunk x3 + install_row, spec_admit_row) "
+            f"through {r['graphs']} graphs, first tokens and every state tensor equal to eager=True bit for bit; "
+            f"a pass {r['eager_pass_s'] * 1e3:.1f} ms eager, {r['replay_pass_s'] * 1e3:.1f} ms replayed "
+            f"({r['capture_pass_s']:.2f} s capturing); capture + instantiate {', '.join(f'{t:.3f}' for t in r['capture_s'])} s, "
+            f"the admission pool {r['pool_mb']:.1f} MB; launches a pass {r['launches_per_pass']}, a traced pass "
+            f"{r['launches']} = the device trace {r['traced']}; ContinuousScheduler (prefill_chunk=0, prefix_cache=4): "
+            f"{r['scheduler']['rows']} rows, {r['scheduler']['prefix_hits']} prefix hits, through "
+            f"{r['scheduler']['admission_graphs']} graphs, tokens equal to eager=True bit for bit")
+        res[r["cache"]] = r
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    res["launches"] = launches
+    del cut, draft
+    torch.cuda.empty_cache()
     return res
 
 
@@ -1649,13 +1862,14 @@ def profile_spec_rounds(model, draft, prompts: list, gamma: int, eager: bool) ->
     captured round, or (``eager``) the round launched op by op."""
     import torch
 
-    from llama_x_tpu_torch.serve.speculative import init_spec_state, spec_admit_row, spec_chunk
+    from llama_x_tpu_torch.serve.speculative import AdmitBuffers, init_spec_state, spec_admit_row, spec_chunk
 
     n = len(prompts)
     state = init_spec_state(model.config, draft.config, n, torch.bfloat16, "cuda", width=SPEC_ROUNDS * (gamma + 1))
     gen = torch.Generator(device="cuda").manual_seed(0)
+    inputs = AdmitBuffers(model, state[0], state[1])
     for slot, p in enumerate(prompts):
-        spec_admit_row(model, draft, state, slot, p, (0.0, 0, 1.0, 0.0), -1, gen)
+        spec_admit_row(model, draft, state, inputs, slot, p, (0.0, 0, 1.0, 0.0), -1, gen)
     zeros = torch.zeros(n, device="cuda")
     row = (zeros, zeros.long(), zeros + 1, zeros, zeros.long() - 1, zeros.long() + 3 * SPEC_ROUNDS * (gamma + 1))
     live = torch.zeros((), dtype=torch.int64, device="cuda")
@@ -1685,8 +1899,10 @@ def profile_spec_rounds(model, draft, prompts: list, gamma: int, eager: bool) ->
 
 def serve_spec(model, draft, prompts: list, gamma: int, eager: bool) -> dict:
     """The 4 prompts through ``SpeculativeScheduler`` (4 slots, 4 rounds a chunk, bf16
-    cache, greedy, 32 new tokens) after a warm-up row (the round's capture, whose seconds are
-    kept); counts reset just before, timed on the host clock."""
+    cache, greedy, 32 new tokens) after a warm-up (a row for the round's capture, whose seconds
+    are kept, and one prompt of each timed prompt's length, whose admissions capture the
+    buckets' graphs); counts reset just before, timed on the host clock, TTFT from each row's
+    stream."""
     import torch
 
     from llama_x_tpu_torch.data.tokenizers import ByteTokenizer
@@ -1697,21 +1913,24 @@ def serve_spec(model, draft, prompts: list, gamma: int, eager: bool) -> dict:
                                  seed=0, eager=eager)
     captures0 = dg.stats(model)["captures"]
     try:
-        warm = sched.submit(byte_prompt(ByteTokenizer(), 98, 40), max_tokens=4)
-        if not warm.event.wait(600) or warm.error is not None:
-            raise AssertionError(f"warm-up failed: {warm.error}")
+        for n in [40] + [len(p) for p in prompts]:
+            warm = sched.submit(byte_prompt(ByteTokenizer(), 98, n), max_tokens=4)
+            if not warm.event.wait(600) or warm.error is not None:
+                raise AssertionError(f"warm-up failed: {warm.error}")
         torch.cuda.synchronize()
-        live0, rounds0, g0 = int(sched.live_row_rounds), sched.rounds_run, dg.stats(model)
+        live0, rounds0 = int(sched.live_row_rounds), sched.rounds_run
+        g0, a0 = dg.stats(model), sched.inputs.runner.stats()
         reset_counts()
+        lines = [_Timeline() for _ in prompts]
         t0 = time.perf_counter()
-        handles = [sched.submit(p, max_tokens=32) for p in prompts]
+        handles = [sched.submit(p, max_tokens=32, stream_q=tl) for p, tl in zip(prompts, lines)]
         for h in handles:
             if not h.event.wait(900) or h.error is not None:
                 raise AssertionError(f"a request failed: {h.error}")
         wall = time.perf_counter() - t0
         counts = read_counts()
         live = int(sched.live_row_rounds) - live0
-        g1 = dg.stats(model)
+        g1, a1 = dg.stats(model), sched.inputs.runner.stats()
     finally:
         sched.close()
     rounds = sched.rounds_run - rounds0
@@ -1723,7 +1942,9 @@ def serve_spec(model, draft, prompts: list, gamma: int, eager: bool) -> dict:
     return dict(gamma=gamma, eager=eager, tokens=[h.tokens for h in handles], new_tokens=total, wall_s=wall,
                 tokens_per_s=total / wall, rounds=rounds, replays=replays, live_row_rounds=live,
                 tokens_per_verify=per_pass, acceptance_rate=(per_pass - 1) / gamma, launches=counts,
-                captures=g1["captures"], capture_s=g1["capture_s"][captures0:])
+                captures=g1["captures"], capture_s=g1["capture_s"][captures0:],
+                admission_captures_in_timed=a1["captures"] - a0["captures"],
+                admission_replays=a1["replays"] - a0["replays"], **latency_stats(lines))
 
 
 def phase_speculative(model) -> dict:
@@ -1780,6 +2001,13 @@ def phase_speculative(model) -> dict:
         log(f"    eager: {eager['new_tokens']} tokens in {eager['wall_s']:.2f} s ({eager['tokens_per_s']:.1f} tok/s), "
             f"{eager['rounds']} rounds; tokens equal to the graph's bit for bit; launches {eager['launches']} "
             f"{eager['seconds']}")
+        if res["admission_replays"] != len(prompts) or res["admission_captures_in_timed"]:
+            raise AssertionError(f"gamma {gamma}: {res['admission_replays']} admission replays for {len(prompts)} "
+                                 f"rows, {res['admission_captures_in_timed']} captured in the timed window")
+        log(f"    TTFT p50 / p99 ms: graph {res['ttft_ms_p50']:.1f} / {res['ttft_ms_p99']:.1f} (spec_admit_row a "
+            f"replay of its bucket's graph: {res['admission_replays']} replays, "
+            f"{res['admission_captures_in_timed']} captured in the timed window), eager {eager['ttft_ms_p50']:.1f} / "
+            f"{eager['ttft_ms_p99']:.1f}")
         log(f"    against plain greedy (an unbatched generate of each prompt): {4 - res['near_tie_divergences']} rows "
             f"equal, {res['near_tie_divergences']} part at a near-tie; every row greedy step by step (tokens off the "
             f"argmax within the tolerance: {sum(c['off_argmax'] for c in checks)}) {lap()}")
@@ -2256,6 +2484,7 @@ def phase_probe() -> dict:
     return res
 
 
+SWEEP_LAYERS = 8  # the audio phase's policy sweep runs on the first 8 layers (a depth cut)
 AUDIO_FLAGS = [
     "--synthetic", "8", "--geometry", "8b", "--quantize", "int8",
     "--quantize_kwargs", '{"dynamic_int8_act": true, "dynamic_int8_bwd": true, "int8_head": true}',
@@ -2386,14 +2615,23 @@ def phase_audio() -> dict:
 
     # the same step under the policy the text slice used, under the named-save policy that
     # keeps every D-wide projection output, without checkpointing at all, and under the
-    # int8-residual attention: one line each (the schedule has run out, so the weights stand
-    # still and every step does the same work). A policy is a key of the state's graphs: its
-    # first step is the eager step and the capture, the next a replay, and one more replay is
-    # held to a device trace. The graphs of the other policies keep their pool meanwhile;
-    # "none" (no checkpointing: an eager step of 54 GB) runs with the pool freed before and
-    # after it (step_graph.release), as a run without checkpointing would hold only its own
+    # int8-residual attention: one line each, on the first SWEEP_LAYERS layers (a depth cut;
+    # the state of its own starts where the schedule has run out, so the weights stand still
+    # and every step does the same work). A policy is a key of the state's graphs: its first
+    # step is the eager step and the capture, the next a replay, and one more replay is held
+    # to a device trace. The graphs of the other policies keep their pool meanwhile; "none"
+    # (no checkpointing) runs with the pool freed before and after it (step_graph.release),
+    # as a run without checkpointing would hold only its own
+    step_graph.release(state)
+    sweep = cut_of(model, SWEEP_LAYERS)
+    optimizer, _ = cli.setup_optimizer(args, sweep)
+    optimizer.count.copy_(state.optimizer.count)  # the schedule's end: the learning rate 0
+    state = TrainState(sweep, optimizer)
+    train_step = make_train_step(loss_fn)
+    L = SWEEP_LAYERS
+    log(f"    the policies on the first {L} of the {model.config.num_layers} layers (a depth cut):")
     for policy in ("full", "flash_proj", "none", "flash_q8s", "attn_q8", "attn_q8s"):
-        model.config = model.config.replace(activation_checkpointing=policy != "none",
+        sweep.config = sweep.config.replace(activation_checkpointing=policy != "none",
                                             remat_policy="full" if policy == "none" else policy)
         if policy == "none":
             step_graph.release(state)
@@ -2402,7 +2640,8 @@ def phase_audio() -> dict:
         log(f"    remat_policy={policy}:")
         psteps = timed_steps(train_step, state, batch, 2, positions, expected_launches(policy, L, C))
         ppeak = torch.cuda.max_memory_allocated() / 1e9
-        ptrace = traced_steps(train_step, state, batch, 1, expected_launches(policy, L, C), f"audio ({policy}, replay)")
+        ptrace = traced_steps(train_step, state, batch, 1, expected_launches(policy, L, C),
+                              f"audio ({policy}, replay, {L} layers)")
         if policy == "none":
             step_graph.release(state)
         best = min(r["seconds"] for r in psteps[1:])
@@ -2418,10 +2657,11 @@ def phase_audio() -> dict:
     q8 = {p: min(r["seconds"] for r in runs[p]["steps"][1:]) for p in ("flash_q8s (second pass)", "attn_q8", "attn_q8s")}
     log("    int8-residual attention against flash_q8s (best step, positions/s, peak): " + "; ".join(
         f"{p.split()[0]} {t:.3f} s, {positions / t:.0f}/s, {runs[p]['peak_mem_gb']:.2f} GB" for p, t in q8.items()))
-    q8_prof = eager_profile(loss_fn, state, batch, "audio training (attn_q8s, eager)")
+    q8_prof = eager_profile(loss_fn, state, batch, f"audio training (attn_q8s, eager, {L} layers)")
     graph_stats = step_graph.stats(state)
-    log(f"    the state's graphs: {graph_stats}")
+    log(f"    the sweep state's graphs: {graph_stats}")
     step_graph.release(state)
+    del state, sweep
     two_path = compare_audio_paths(model, batch)
     q8_two_path = compare_q8_audio_paths(model, batch)
     return dict(flags=AUDIO_FLAGS, launches=launches, runs=runs, profile=prof_rec, graph_profile=graph_prof,
@@ -2494,17 +2734,20 @@ OMNI_FLAGS = [  # tools/bench_omni.py's geometry: 30 s + one 224 image + 2324 te
 ]
 
 
+TRUNK_LAYERS = 16  # the vision, omni and evaluation phases' depth (a cut of the 32 layers)
+
+
 def build_trunk():
     """The 8B QLoRA trunk with both stems (a ``LlamaOmni``), built once from train_omni's
-    flags; the vision step and the evaluations put their own model class around the same
-    tensors."""
+    flags and cut to its first TRUNK_LAYERS layers; the vision step and the evaluations put
+    their own model class around the same tensors."""
     import torch
 
     from llama_x_tpu_torch import train_omni as entry
     from llama_x_tpu_torch.train import cli
 
-    log("[8B trunk] Llama-3.1-8B width, 32 layers, int8 base + LoRA r 8, int8 act / dgrad / head, the audio stem "
-        "and the patch-embed stem (frozen), max_seq_len 4096")
+    log(f"[8B trunk] Llama-3.1-8B width, the first {TRUNK_LAYERS} of 32 layers (a depth cut), int8 base + LoRA r 8, "
+        "int8 act / dgrad / head, the audio stem and the patch-embed stem (frozen), max_seq_len 4096")
     args = entry.parse_args(OMNI_FLAGS)
     audio_config, vision_config, max_seq_len = entry.configs(args)
     t0 = time.perf_counter()
@@ -2512,7 +2755,7 @@ def build_trunk():
                                    vision_config=vision_config)
     torch.cuda.synchronize()
     log(f"    weights built on the card from seed 0 in {time.perf_counter() - t0:.1f} s; max_seq_len {max_seq_len}")
-    return model
+    return cut_of(model, TRUNK_LAYERS)
 
 
 def step_phase(tag: str, model, args, loss_fn, batch, positions: int, policy: str) -> dict:
@@ -3792,6 +4035,7 @@ def main() -> int:
     timer("build", phase_build())
     kern = timer("kernels", phase_kernels())
     runs, serving_model = timer("main path", phase_main_path())
+    runs["admissions"] = timer("admissions", phase_admissions(serving_model))
     # the serving phases run on the first SERVING_LAYERS layers of the int8 model (a depth cut)
     serving_cut = cut_of(serving_model, SERVING_LAYERS)
     runs["continuous"] = timer("continuous", phase_continuous(serving_cut))

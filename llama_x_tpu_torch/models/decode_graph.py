@@ -52,6 +52,14 @@ card one step is one ``CUDAGraph.replay()``: no Python, no per-kernel dispatch.
   same static buffers, so the CPU tests see the aliasing a replay has.
 - A model placed on a mesh (tensor-parallel serving over gloo) refuses the graph by name: its
   collectives go through host memory and cannot be captured. It decodes with ``eager=True``.
+- Admissions (serve/continuous.py, serve/speculative.py: a prompt's prefill into a row cache,
+  its first token and its lane; a prefill chunk): the JAX package jits each once per
+  prompt-length bucket and keeps every one. Here each is a graph of a runner that the
+  admission buffer set owns (``Runner(cap=None, shared_pool=True)``): every key is kept while
+  the set lives, and the bucket formulas bound the keys (a few hundred at 4096 positions);
+  the decode steps' runner is apart, so admissions never evict a step. The graphs share one
+  memory pool, since admissions run one at a time on the scheduler's worker thread and keep
+  nothing in the pool between replays.
 """
 
 from __future__ import annotations
@@ -155,9 +163,14 @@ class _Entry:
 
 
 class Runner:
-    """A model's captured steps and ``generate``'s buffer sets (``runner_of``)."""
+    """Captured graphs, at most ``cap`` of them (least recently used first; None: every key
+    kept), and ``generate``'s buffer sets. ``shared_pool``: every graph in one memory pool, made
+    at the first capture (for programs that run one at a time and keep nothing in it between
+    replays). A model's decode steps: ``runner_of``."""
 
-    def __init__(self):
+    def __init__(self, cap: int | None = MAX_GRAPHS, shared_pool: bool = False):
+        self.cap, self.shared_pool = cap, shared_pool
+        self.pool = None
         self.lock = threading.Lock()
         self.fingerprint = None
         self.others: dict = {}  # id of another model a graph reads -> its fingerprint at the last call
@@ -212,7 +225,8 @@ class Runner:
         full_key = (name, key, _key_of(buffers), tuple(_fingerprint(m) for m in others))
         src = own = generator
         if draws:  # the graphs draw from the runner's generator, set from the caller's
-            src = generator if generator is not None else torch.cuda.default_generators[dev.index]
+            src = generator if generator is not None else (
+                torch.cuda.default_generators[dev.index] if dev.type == "cuda" else torch.default_generator)
             if dev not in self.generators:
                 self.generators[dev] = torch.Generator(device=dev)
             own = self.generators[dev]
@@ -227,7 +241,7 @@ class Runner:
             n -= 1
             with self.lock:
                 self.graphs[full_key] = entry
-                while len(self.graphs) > MAX_GRAPHS:
+                while self.cap is not None and len(self.graphs) > self.cap:
                     self.graphs.popitem(last=False)
         try:
             entry.captured.replay(n)
@@ -236,6 +250,14 @@ class Runner:
         self.replays += n
         if draws:
             src.set_state(own.get_state())
+
+    def stats(self) -> dict:
+        """Captures, replays, graphs and buffer sets held, the bytes the sets hold between
+        requests, and each capture's seconds and pool bytes (with a shared pool: its growth
+        at each capture)."""
+        held = sum(t.nbytes for slot in self.slots.values() for t in slot.buffers())
+        return dict(captures=self.captures, replays=self.replays, graphs=len(self.graphs), slots=len(self.slots),
+                    slot_bytes=held, capture_s=list(self.capture_s), pool_bytes=list(self.pool_bytes))
 
     def _capture(self, model, name, buffers, body, own, draws) -> _Entry:
         """One eager step on the side stream, then the body captured there."""
@@ -250,12 +272,14 @@ class Runner:
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()  # so that the reserved memory's growth is the pool's
         reserved = torch.cuda.memory_reserved(dev)
+        if self.shared_pool and self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
 
         def capture():
             graph = torch.cuda.CUDAGraph()
             if draws:
                 graph.register_generator_state(own)
-            with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+            with torch.cuda.graph(graph, pool=self.pool, stream=stream, capture_error_mode="thread_local"):
                 body(model, own)
             return graph
 
@@ -293,18 +317,19 @@ def lease(model: llama.Llama, key: tuple, make):
 
 
 def run(model: llama.Llama, name: str, buffers, key: tuple, body, n: int, generator, *, eager: bool,
-        draws: bool, others=()) -> None:
+        draws: bool, others=(), runner: Runner | None = None) -> None:
     """``n`` steps of ``body(model, generator)``, a step that reads and writes only
     ``buffers`` (in place) and depends besides on ``key`` and the weights of ``model`` and
     ``others`` alone. ``eager``: the body launched op by op. Otherwise on the card a replay
     of its captured graph each step; on CPU tensors the body over the same buffers.
-    ``draws``: the body samples from the generator."""
+    ``draws``: the body samples from the generator. ``runner``: the runner that keeps the
+    graph (default: the model's, ``runner_of``)."""
     if n <= 0:
         return
     if not eager:
         for m in (model, *others):
             refuse_mesh(m, name)
-        runner = runner_of(model)
+        runner = runner or runner_of(model)
         runner.check(model, others)
         if on_card(buffers[0]):
             runner.replay(model, name, buffers, key, body, n, generator, draws, others)
@@ -320,10 +345,5 @@ def release(model: llama.Llama) -> None:
 
 
 def stats(model: llama.Llama) -> dict:
-    """Captures, replays, graphs and buffer sets held, the bytes the sets hold between
-    requests, and each capture's seconds and pool bytes."""
-    runner = runner_of(model)
-    held = sum(t.nbytes for slot in runner.slots.values() for t in slot.buffers())
-    return dict(captures=runner.captures, replays=runner.replays, graphs=len(runner.graphs),
-                slots=len(runner.slots), slot_bytes=held, capture_s=list(runner.capture_s),
-                pool_bytes=list(runner.pool_bytes))
+    """The model's runner's ``stats()``."""
+    return runner_of(model).stats()

@@ -4,16 +4,20 @@ boundaries (port of llama_x_tpu/serve/continuous.py).
 - ONE persistent decode state over a fixed number of slots. The KV cache is
   [L, n_slots, Hkv, S_max, hd] (bf16, or int8 with f32 scales), preallocated once and
   written in place.
-- Admission prefills one prompt row straight into its slot's lane of the shared cache
-  (the prefill attends over the fresh K/V only, so the lane's stale entries never show)
-  and samples the first token. With a prefix-cache hit the harvested prefix K/V is copied
-  into the lane and only the suffix runs, over the cache (the flash kernel's offsets form,
-  or the decode kernel for a suffix of at most ``MAX_SQ`` tokens).
-- Chunked prefill (``prefill_chunk`` > 0): an admission runs one chunk of its prompt per
-  scheduler iteration into a private row cache (the decode steps of the other slots write
-  every lane, so a lane cannot be filled in pieces while they run), then the row cache is
-  copied into the lane. The first chunk is a prefill (flash self-attention); each later one
-  attends over the row cache through the flash kernel's offsets form.
+- Admission prefills one prompt row, right-padded to its bucket, into a row cache of
+  S_max positions (the prefill attends over the fresh K/V only), samples the first token at
+  the prompt's last position and copies the row's first Pb positions into the slot's lane.
+  With a prefix-cache hit the harvested prefix K/V is copied into the row cache and only the
+  suffix runs, over it (the flash kernel's offsets form, or the decode kernel for a suffix
+  of at most ``MAX_SQ`` tokens).
+- Chunked prefill (``prefill_chunk`` > 0): an admission runs one chunk of C tokens (the last
+  padded) per scheduler iteration into the working row cache (the decode steps of the other
+  slots write every lane, so a lane cannot be filled in pieces while they run), then the
+  first token is sampled and the row copied into the lane. The first chunk is a prefill
+  (flash self-attention); each later one attends over the row through the flash kernel's
+  offsets form. Where several slots admit at once, a slot whose chunk comes after another's
+  takes the working row back from a pooled row of its own, where it was parked (plain
+  copies of the prefilled positions), so one graph a bucket serves every slot.
 - Decoding is a chunk of single-token steps over every slot with every per-request
   quantity held as an [n_slots] tensor: sampling parameters, stop token, token budget and
   the done mask. Nothing in a step reads back from the device; the host syncs once per
@@ -24,12 +28,22 @@ boundaries (port of llama_x_tpu/serve/continuous.py).
   row's new tokens are a prefix of its chunk row of length emitted_after -
   emitted_before), streams them, frees finished slots and admits queued rows.
 
-PyTorch runs eagerly, so nothing is padded to a shape bucket: prompts and chunks run at
-their own lengths, and ``prompt_multiple`` only aligns the harvested prefixes. Attention,
-RoPE and the cache writes are row-local, so a row's greedy output equals an unbatched
-``generate`` of its prompt whatever shares its batch (held by the tests against the JAX
-scheduler and against ``generate``). The JAX package's threefry draws are not
-reproduced: sampled rows follow the same law from a ``torch.Generator``.
+Admissions are padded to the JAX package's buckets (``prompt_multiple`` = pm): a prompt of P
+tokens to Pb = min(max(pm, ceil(P / pm) pm), S_max - 1), a suffix after a prefix of P0 to
+Sb = min(ceil(len / pm) pm, S_max - P0), a chunk to the fixed width C; pad positions are
+computed too and their K/V stay hidden behind kv_len until a decode step overwrites them.
+Each admission program reads and writes only static buffers (``AdmitBuffers``: the padded
+ids, the real length, the slot, the sampling values and the stop token on the device, filled
+from pinned host memory; the working row cache; the state), takes the slot as data and reads
+nothing back, so on the card each is one replay of a graph captured per bucket
+(models/decode_graph.py; the buffer set's own runner keeps every key while the set lives), as
+the JAX package compiles one per bucket; ``eager=True`` launches the same program op by op over
+the same buffers. The host
+reads the first token back once, after the program. Attention, RoPE and the cache writes are
+row-local, so a row's greedy output equals an unbatched ``generate`` of its prompt whatever
+shares its batch (held by the tests against the JAX scheduler and against ``generate``). The
+JAX package's threefry draws are not reproduced: sampled rows follow the same law from a
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -40,6 +54,7 @@ import torch
 
 from llama_x_tpu_torch.models import decode_graph as dg
 from llama_x_tpu_torch.models import llama
+from llama_x_tpu_torch.models import speculative as mspec
 from llama_x_tpu_torch.models.decode_graph import cache_tensors
 from llama_x_tpu_torch.models.generate import gumbel_argmax
 from llama_x_tpu_torch.ops.attention import MaskInfo
@@ -111,103 +126,267 @@ def init_state(config: llama.LlamaConfig, n_slots: int, cache_dtype=torch.bfloat
             zeros(n_slots, config.max_seq_len), zeros(1))
 
 
-def lane(kv_cache, slot: int):
-    """The cache restricted to one slot, as a [L, 1, ...] view (writes land in the cache)."""
-    def one(side):
-        return tuple(t[:, slot:slot + 1] for t in side) if isinstance(side, tuple) else side[:, slot:slot + 1]
-    return one(kv_cache[0]), one(kv_cache[1])
-
-
-def row_cache(config: llama.LlamaConfig, length: int, cache_dtype, device, kv_heads: int | None = None):
-    """A private single-row cache of ``length`` positions (a chunked prefill's)."""
-    return llama.init_kv_cache(config.replace(max_seq_len=length), 1, dtype=cache_dtype, device=device,
-                               kv_heads=kv_heads)
-
-
 def copy_positions(dst_cache, src_cache, n: int) -> None:
     """Positions [0, n) of every tensor of ``src_cache`` into ``dst_cache`` (both [L, 1, ...])."""
     for d, s in zip(cache_tensors(dst_cache), cache_tensors(src_cache)):
         d[:, :, :, :n].copy_(s[:, :, :, :n])
 
 
-def _activate_row(state, slot: int, first: torch.Tensor, total: int, eos_id: int) -> None:
-    tok, pos, done, emitted = state[1:5]
-    tok[slot] = first
-    pos[slot] = total
-    done[slot] = first == eos_id
-    emitted[slot] = 1
+# ---------------------------------------------------------------------------
+# admission: the JAX package's buckets, and programs over static buffers
+# ---------------------------------------------------------------------------
+
+
+def prompt_bucket(n: int, multiple: int, cap: int) -> int:
+    """A prompt's padded length Pb: n rounded up to ``multiple``, at least one multiple, at
+    most ``cap`` (S_max - 1; llama_x_tpu/serve/continuous.py:539-540)."""
+    return min(max(multiple, -(-n // multiple) * multiple), cap)
+
+
+def suffix_bucket(n: int, multiple: int, room: int) -> int:
+    """A suffix's padded length Sb after a prefix: n rounded up to ``multiple``, at most
+    ``room`` (S_max - P0; llama_x_tpu/serve/continuous.py:526-527)."""
+    return min(-(-n // multiple) * multiple, room)
+
+
+def cache_dtype_of(kv_cache):
+    return torch.int8 if isinstance(kv_cache[0], tuple) else kv_cache[0].dtype
+
+
+def admit_bound(config: llama.LlamaConfig, need: int, cache_dtype, rows: int) -> int:
+    """The static kv bound of ``rows`` queries over a row cache whose every kv_len is at most
+    ``need`` (``llama.trunk``'s ``kv_bound``): ``verify_bound``'s buckets, which split keys
+    only where the bound sizes the int8 cache's dequantized prefix."""
+    return mspec.verify_bound(config, need, cache_dtype, rows - 1)
+
+
+def row_extent(need: int, S: int) -> int:
+    """The positions of the working row a prefix admission copies into its lane: ``need``
+    (P0 + Sb) rounded up to the verify's kv bucket, at most S. So P0 is data and not a key:
+    the programs of a suffix bucket Sb are one an extent, not one a prefix length."""
+    return min(S, -(-need // mspec.KV_BUCKET) * mspec.KV_BUCKET)
+
+
+def _row_like(kv_cache):
+    """A zeroed single-row cache of the form of ``kv_cache``'s lanes ([L, 1, ...] tensors)."""
+    def one(t):
+        return torch.zeros((t.shape[0], 1, *t.shape[2:]), dtype=t.dtype, device=t.device)
+
+    def side(x):
+        return tuple(one(t) for t in x) if isinstance(x, tuple) else one(x)
+    return side(kv_cache[0]), side(kv_cache[1])
+
+
+class AdmitBuffers:
+    """The static buffers of the admission programs, on the model's device, which every
+    program reads and writes at fixed addresses (a graph's inputs and outputs):
+
+    - ``ids`` [1, S_max]: the padded prompt, suffix or chunk; ``ints`` [5]: the slot, the
+      real tokens in ``ids`` (``length``), the position of ids[0] (``start``), the stop token
+      and top_k; ``floats`` [3]: temperature, top_p, min_p; ``first`` [1]: the token sampled.
+      ``feed`` fills them from pinned host memory on the card (the caching host allocator
+      keeps a block until its copy has run).
+    - ``work``: the working row cache, S_max positions of the lanes' form (with ``draft``, the
+      draft's beside it), and ``h_last`` [1, 1, D], the hidden state at a prefill chunk's last
+      real position. A chunked prefill holds it between chunks; another slot's chunk first
+      parks it in a pooled row (``lease``, at most one an admitting slot, made on first use).
+    - ``runner``: the graphs of the programs over these buffers (``decode_graph.Runner``), one
+      a key, every key kept while the set lives, in one memory pool.
+    """
+
+    def __init__(self, model: llama.Llama, kv_cache, draft_cache=None):
+        dev = model.device
+        S = cache_tensors(kv_cache)[0].shape[3]
+        self.pin = dev.type == "cuda"
+        self.i64 = torch.zeros(5 + S, dtype=torch.int64, device=dev)
+        self.ints, self.ids = self.i64[:5], self.i64[5:].view(1, S)
+        self.slot, self.length, self.start, self.eos, self.top_k = (self.ints[i:i + 1] for i in range(5))
+        self.floats = torch.zeros(3, dtype=torch.float32, device=dev)
+        self.first = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.work = _row_like(kv_cache)
+        self.draft = None if draft_cache is None else _row_like(draft_cache)
+        self.h_last = torch.zeros(1, 1, model.config.embed_dim, dtype=model.tok_embeddings.dtype, device=dev)
+        self.owner = None  # the admitting slot whose chunked prefill the working row holds
+        self.pool: list = []  # parked rows
+        self.free: list[int] = []
+        self.runner = dg.Runner(cap=None, shared_pool=True)
+
+    def buffers(self) -> tuple[torch.Tensor, ...]:
+        return (self.i64, self.floats, self.first, *cache_tensors(self.work),
+                *(cache_tensors(self.draft) if self.draft is not None else ()), self.h_last)
+
+    def feed(self, tokens, width: int, pad_id: int, *, slot: int = 0, length: int = 0, start: int = 0,
+             eos_id: int = -1, sampling=(0.0, 0, 1.0, 0.0)) -> None:
+        """``tokens`` right-padded with ``pad_id`` to ``width`` into ``ids``, and the scalars."""
+        t, k, p, mp = sampling
+        ints = [slot, length, start, eos_id, k] + list(tokens) + [pad_id] * (width - len(tokens))
+        for dst, vals in ((self.i64[:5 + width], ints), (self.floats, [t, p, mp])):
+            src = torch.tensor(vals, dtype=dst.dtype)
+            dst.copy_(src.pin_memory() if self.pin else src, non_blocking=self.pin)
+
+    def lease(self) -> int:
+        """A pooled row (the lowest free one, made on first use)."""
+        if self.free:
+            self.free.sort()
+            return self.free.pop(0)
+        self.pool.append(_row_like(self.work))
+        return len(self.pool) - 1
+
+    def release(self, i: int) -> None:
+        self.free.append(i)
+
+    def nbytes(self) -> int:
+        """Device memory the buffers hold: the inputs, the working row(s) and the pooled rows."""
+        return sum(t.nbytes for t in self.buffers()) + sum(t.nbytes for c in self.pool for t in cache_tensors(c))
+
+
+def lane_copy(kv_cache, row, slot: torch.Tensor, n: int) -> None:
+    """Positions [0, n) of a [L, 1, ...] row cache into lane ``slot`` ([1] on the device) of
+    the shared cache (the JAX ``_scatter_row``)."""
+    for b, r in zip(cache_tensors(kv_cache), cache_tensors(row)):
+        b[:, :, :, :n].index_copy_(1, slot, r[:, :, :, :n])
+
+
+def activate(rows, inputs: AdmitBuffers, first: torch.Tensor, total: torch.Tensor) -> None:
+    """The slot's entries of ``rows`` = (tok, pos, done, emitted), indexed by the device slot."""
+    tok, pos, done, emitted = rows
+    tok.index_copy_(0, inputs.slot, first)
+    pos.index_copy_(0, inputs.slot, total)
+    done.index_copy_(0, inputs.slot, first == inputs.eos)
+    emitted.index_fill_(0, inputs.slot, 1)
+    inputs.first.copy_(first)
+
+
+def sample_at(model: llama.Llama, h: torch.Tensor, at: torch.Tensor, inputs: AdmitBuffers, generator) -> torch.Tensor:
+    """The first token [1] from the hidden state at position ``at`` ([1] on the device) of
+    ``h`` [1, S, D], under the sampling values of ``inputs``."""
+    logits = llama.head(model, h.index_select(1, at))[:, 0]
+    t, p, mp = inputs.floats[0:1], inputs.floats[1:2], inputs.floats[2:3]
+    return sample_logits_rows(logits, t, inputs.top_k, p, mp, generator)
+
+
+def prefill_rows(model: llama.Llama, ids: torch.Tensor, row) -> torch.Tensor:
+    """A prefill of ``ids`` [1, W] at positions [0, W) into a row cache (flash
+    self-attention over the fresh K/V) -> h [1, W, D]."""
+    W = ids.shape[1]
+    pos = torch.arange(W, device=ids.device).clamp(max=cache_tensors(row)[0].shape[3] - 1)
+    return llama.trunk(model, llama.embed(model, ids), MaskInfo(causal=True), row, input_pos=pos, prefill=True)[0]
+
+
+def _over_row(model: llama.Llama, ids: torch.Tensor, row, inputs: AdmitBuffers, kv_bound: int) -> torch.Tensor:
+    """``ids`` [1, W] at positions [start, start + W) (the device ``start``) over a row cache
+    that holds [0, start): causal q_positions and kv_len = start + length -> h [1, W, D]. Pad
+    positions past the cache are clamped to its last (their K/V is never read)."""
+    W = ids.shape[1]
+    qpos = (inputs.start + torch.arange(W, device=ids.device)).clamp(max=cache_tensors(row)[0].shape[3] - 1)
+    mask = MaskInfo(causal=True, q_positions=qpos[None], kv_len=inputs.start + inputs.length)
+    return llama.trunk(model, llama.embed(model, ids), mask, row, input_pos=qpos, kv_bound=kv_bound)[0]
+
+
+def _admit_body(model, generator, state, inputs: AdmitBuffers, Pb: int) -> None:
+    h = prefill_rows(model, inputs.ids[:, :Pb], inputs.work)
+    first = sample_at(model, h, inputs.length - 1, inputs, generator)
+    lane_copy(state[0], inputs.work, inputs.slot, Pb)
+    activate(state[1:5], inputs, first, inputs.length)
+
+
+def _prefix_body(model, generator, state, inputs: AdmitBuffers, Sb: int, extent: int, kv_bound: int) -> None:
+    h = _over_row(model, inputs.ids[:, :Sb], inputs.work, inputs, kv_bound)
+    first = sample_at(model, h, inputs.length - 1, inputs, generator)
+    lane_copy(state[0], inputs.work, inputs.slot, extent)
+    activate(state[1:5], inputs, first, inputs.start + inputs.length)
+
+
+def _chunk_body(model, inputs: AdmitBuffers, C: int, first: bool, kv_bound: int) -> None:
+    ids = inputs.ids[:, :C]
+    h = prefill_rows(model, ids, inputs.work) if first else _over_row(model, ids, inputs.work, inputs, kv_bound)
+    inputs.h_last.copy_(h.index_select(1, inputs.length - 1))
+
+
+def _install_body(model, generator, state, inputs: AdmitBuffers) -> None:
+    first = sample_at(model, inputs.h_last, torch.zeros_like(inputs.length), inputs, generator)
+    lane_copy(state[0], inputs.work, inputs.slot, cache_tensors(inputs.work)[0].shape[3])
+    activate(state[1:5], inputs, first, inputs.length)
+
+
+def run_admission(model, name: str, state_buffers, inputs: AdmitBuffers, key: tuple, body, generator, eager: bool,
+                  draws: bool = True, others=()) -> None:
+    """One admission program ``body(model, generator)`` over ``state_buffers`` and the
+    buffers of ``inputs``, keyed besides by ``key`` (the bucket)."""
+    dg.run(model, name, (*state_buffers, *inputs.buffers()), key, body, 1, generator, eager=eager, draws=draws,
+           others=others, runner=inputs.runner)
+
+
+def _state_buffers(state) -> tuple:
+    return (*cache_tensors(state[0]), *state[1:5])
 
 
 @torch.inference_mode()
-def sample_first(model: llama.Llama, h_last, sampling, generator: torch.Generator | None = None):
-    """A row's first token from the hidden state at its prompt's last position [1, 1, D]."""
-    t, k, p, mp = sampling_tensors([sampling], model.device)
-    return sample_logits_rows(llama.head(model, h_last)[:, 0], t, k, p, mp, generator)[0]
+def admit_row(model: llama.Llama, state, inputs: AdmitBuffers, slot: int, prompt: list[int], sampling, eos_id: int,
+              generator: torch.Generator | None = None, *, prompt_multiple: int = 64, pad_id: int = 0,
+              eager: bool = False):
+    """Prefill one prompt row, padded to its bucket Pb, and make it live in ``slot`` ->
+    (first token, state). The prefill attends over its fresh K/V only, the first token is
+    sampled at position P - 1, and the row's [0, Pb) go into the lane; the decode steps
+    overwrite each later position before they expose it. On the card one replay of the
+    graph of Pb (``eager``: launched op by op)."""
+    P, S = len(prompt), cache_tensors(state[0])[0].shape[3]
+    Pb = prompt_bucket(P, prompt_multiple, S - 1)
+    inputs.feed(prompt, Pb, pad_id, slot=slot, length=P, eos_id=eos_id, sampling=sampling)
+    run_admission(model, "admit_row", _state_buffers(state), inputs, (Pb,),
+                   lambda m, gen: _admit_body(m, gen, state, inputs, Pb), generator, eager)
+    return inputs.first[0].clone(), state
 
 
 @torch.inference_mode()
-def admit_row(model: llama.Llama, state, slot: int, prompt: list[int], sampling, eos_id: int,
-              generator: torch.Generator | None = None):
-    """Prefill one prompt row into ``slot``'s lane and make it live -> (first token, state).
-    The prefill attends over its fresh K/V only, so what the lane held before is never
-    read, and the decode steps overwrite each later position before they expose it."""
-    P = len(prompt)
-    ids = torch.tensor([prompt], dtype=torch.long, device=model.device)
-    x = llama.embed(model, ids)
-    h, _ = llama.trunk(model, x, MaskInfo(causal=True), lane(state[0], slot),
-                       input_pos=torch.arange(P, device=model.device), prefill=True)
-    first = sample_first(model, h[:, -1:], sampling, generator)
-    _activate_row(state, slot, first, P, eos_id)
-    return first, state
-
-
-def _suffix_over_cache(model, cache, suffix: list[int], start: int):
-    """Run ``suffix`` at positions [start, start + len) over a [L, 1, ...] cache that holds
-    positions [0, start): causal q_positions and kv_len, the read of the cache that the
-    flash kernel's offsets form takes (the decode kernel up to MAX_SQ rows)."""
-    n = len(suffix)
-    ids = torch.tensor([suffix], dtype=torch.long, device=model.device)
-    x = llama.embed(model, ids)
-    qpos = torch.arange(start, start + n, device=model.device)
-    mask = MaskInfo(causal=True, q_positions=qpos[None], kv_len=torch.tensor([start + n], device=model.device))
-    h, _ = llama.trunk(model, x, mask, cache, input_pos=qpos)
-    return h[:, -1:]
+def admit_row_prefix(model: llama.Llama, state, inputs: AdmitBuffers, slot: int, prefix_kv, prefix_len: int,
+                     suffix: list[int], sampling, eos_id: int, generator: torch.Generator | None = None, *,
+                     prompt_multiple: int = 64, pad_id: int = 0, eager: bool = False):
+    """Admit a row whose first ``prefix_len`` tokens have harvested K/V: the prefix is copied
+    into the working row, and ONLY the suffix, padded to its bucket Sb, runs over it ->
+    (first token, state). By causality the prefix's K/V are what a full prefill of the prompt
+    would write; the row's first ``row_extent(P0 + Sb)`` positions go into the lane (past P0 +
+    Sb they are hidden behind kv_len until a decode step overwrites them). On the card one
+    replay of the graph of (Sb, extent), P0 data (the JAX package compiles one per (P0, Sb))."""
+    P0, S = prefix_len, cache_tensors(state[0])[0].shape[3]
+    Sb = suffix_bucket(len(suffix), prompt_multiple, S - P0)
+    copy_positions(inputs.work, prefix_kv, P0)
+    inputs.feed(suffix, Sb, pad_id, slot=slot, length=len(suffix), start=P0, eos_id=eos_id, sampling=sampling)
+    extent = row_extent(P0 + Sb, S)
+    bound = admit_bound(model.config, extent, cache_dtype_of(state[0]), Sb)
+    run_admission(model, "admit_row_prefix", _state_buffers(state), inputs, (Sb, extent, bound),
+                   lambda m, gen: _prefix_body(m, gen, state, inputs, Sb, extent, bound), generator, eager)
+    return inputs.first[0].clone(), state
 
 
 @torch.inference_mode()
-def admit_row_prefix(model: llama.Llama, state, slot: int, prefix_kv, prefix_len: int, suffix: list[int], sampling,
-                     eos_id: int, generator: torch.Generator | None = None):
-    """Admit a row whose first ``prefix_len`` tokens have harvested K/V: copy the prefix
-    into the lane and run ONLY the suffix, over the cache -> (first token, state). By
-    causality the prefix's K/V are what a full prefill of the prompt would write."""
-    row = lane(state[0], slot)
-    copy_positions(row, prefix_kv, prefix_len)
-    h_last = _suffix_over_cache(model, row, suffix, prefix_len)
-    first = sample_first(model, h_last, sampling, generator)
-    _activate_row(state, slot, first, prefix_len + len(suffix), eos_id)
-    return first, state
+def prefill_chunk(model: llama.Llama, inputs: AdmitBuffers, chunk: list[int], start: int, width: int, *,
+                  pad_id: int = 0, eager: bool = False) -> None:
+    """One chunk of an incremental prefill into the working row of ``inputs``: ``chunk``
+    right-padded to ``width`` at positions [start, start + width). A chunk at position 0 is a
+    prefill (flash self-attention over its fresh K/V); a later one attends over the row
+    (kv_len start + len(chunk)) under a static bound. The hidden state at the chunk's last
+    real position goes to ``inputs.h_last``. On the card one replay of the graph of (width,
+    first, bound)."""
+    first = start == 0
+    S = cache_tensors(inputs.work)[0].shape[3]
+    bound = S if first else admit_bound(model.config, start + width, cache_dtype_of(inputs.work), width)
+    inputs.feed(chunk, width, pad_id, length=len(chunk), start=start)
+    run_admission(model, "prefill_chunk", (), inputs, (width, first, bound),
+                   lambda m, gen: _chunk_body(m, inputs, width, first, bound), None, eager, draws=False)
 
 
 @torch.inference_mode()
-def prefill_chunk(model: llama.Llama, cache, chunk: list[int], start: int):
-    """One chunk of an incremental prefill into a single-row cache -> h at the chunk's last
-    position [1, 1, D]. A chunk at position 0 is a prefill (flash self-attention over its
-    fresh K/V); a later one attends over the whole row cache (positions [0, start + len))."""
-    if start == 0:
-        ids = torch.tensor([chunk], dtype=torch.long, device=model.device)
-        x = llama.embed(model, ids)
-        h, _ = llama.trunk(model, x, MaskInfo(causal=True), cache,
-                           input_pos=torch.arange(len(chunk), device=model.device), prefill=True)
-        return h[:, -1:]
-    return _suffix_over_cache(model, cache, chunk, start)
-
-
-@torch.inference_mode()
-def install_row(state, slot: int, cache, first: torch.Tensor, total: int, eos_id: int):
-    """Copy a fully prefilled row cache (``total`` positions) into lane ``slot`` and make it live."""
-    copy_positions(lane(state[0], slot), cache, total)
-    _activate_row(state, slot, first, total, eos_id)
-    return state
+def install_row(model: llama.Llama, state, slot: int, inputs: AdmitBuffers, total: int, sampling, eos_id: int,
+                generator: torch.Generator | None = None, *, eager: bool = False):
+    """After a chunked prefill's last chunk: the first token sampled from ``inputs.h_last``,
+    the working row (every position, as the JAX ``install_row`` scatters it) copied into lane
+    ``slot``, the row live at ``total`` -> (first token, state). The JAX ``sample_first`` and
+    ``install_row`` in one program."""
+    inputs.feed([], 0, 0, slot=slot, length=total, eos_id=eos_id, sampling=sampling)
+    run_admission(model, "install_row", _state_buffers(state), inputs, (),
+                   lambda m, gen: _install_body(m, gen, state, inputs), generator, eager)
+    return inputs.first[0].clone(), state
 
 
 @torch.inference_mode()
@@ -292,11 +471,12 @@ class RowHandle:
 
 
 class _Admitting:
-    """A slot mid-way through a chunked prefill: its private row cache and the next
-    prompt position to run."""
+    """A slot mid-way through a chunked prefill: the next prompt position to run and, while
+    another slot's prefill holds the working row, the cache that holds its positions [0,
+    next) (a harvested prefix before its first chunk, then its parked row, ``parked``)."""
 
-    def __init__(self, row: RowHandle, cache, start: int):
-        self.row, self.cache, self.next = row, cache, start
+    def __init__(self, row: RowHandle, start: int, src=None):
+        self.row, self.next, self.src, self.parked = row, start, src, None
 
 
 class ContinuousScheduler:
@@ -309,9 +489,11 @@ class ContinuousScheduler:
     is dispatched, so the host queues work while the device computes). On the card each
     decode step is one replay of ``decode_rows``' captured graph over the state and the six
     per-row tensors (static buffers, filled from pinned host memory each chunk);
-    ``eager``: the steps launched op by op. A dispatched chunk's tokens, emitted counts and
-    done mask are copied out (to pinned host memory on the card) before the next dispatch
-    overwrites them, and its collection waits for that copy alone. Counters:
+    ``eager``: the steps launched op by op. Each admission, prefill chunk and row install is
+    likewise one replay of its program's graph, captured per bucket, over ``inputs``
+    (``AdmitBuffers``; ``eager`` launches them op by op too). A dispatched chunk's tokens,
+    emitted counts and done mask are copied out (to pinned host memory on the card) before
+    the next dispatch overwrites them, and its collection waits for that copy alone. Counters:
     ``dispatches`` (decode chunks), ``admissions``, ``prefill_dispatches`` (prefill
     chunks), ``prefix_hits`` and ``prefix_tokens_reused``."""
 
@@ -337,6 +519,7 @@ class ContinuousScheduler:
         self.prefix_hits = 0
         self.prefix_tokens_reused = 0
         self.state = self._init_state()
+        self.inputs = self._init_inputs()
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         # host mirrors of the per-slot row parameters fed to each decode chunk
         self.sampling = [(0.0, 0, 1.0, 0.0)] * n_slots
@@ -363,6 +546,9 @@ class ContinuousScheduler:
 
     def _init_state(self):
         return init_state(self.config, self.n_slots, self.cache_dtype, self.device, llama.local_kv_heads(self.model))
+
+    def _init_inputs(self) -> AdmitBuffers:
+        return AdmitBuffers(self.model, self.state[0])
 
     # -- client side ---------------------------------------------------------
 
@@ -429,38 +615,57 @@ class ContinuousScheduler:
 
     def _admit(self, slot: int, row: RowHandle):
         hit = self._take_prefix(row.ids)
+        kw = dict(prompt_multiple=self.prompt_multiple, pad_id=self.pad_id, eager=self.eager)
         if hit is not None:
             cache, p0 = hit
-            first, self.state = admit_row_prefix(self.model, self.state, slot, cache, p0, row.ids[p0:], row.sampling,
-                                                 row.eos_id, self.generator)
+            first, self.state = admit_row_prefix(self.model, self.state, self.inputs, slot, cache, p0, row.ids[p0:],
+                                                 row.sampling, row.eos_id, self.generator, **kw)
         else:
-            first, self.state = admit_row(self.model, self.state, slot, row.ids, row.sampling, row.eos_id,
-                                          self.generator)
+            first, self.state = admit_row(self.model, self.state, self.inputs, slot, row.ids, row.sampling,
+                                          row.eos_id, self.generator, **kw)
         self._activate(slot, row, int(first))
 
     def _start_prefill(self, slot: int, row: RowHandle):
-        """Chunked-prefill admission: a private row cache (seeded from a prefix hit when
-        one matches), queued for chunks."""
-        cache = row_cache(self.config, len(row.ids), self.cache_dtype, self.device, llama.local_kv_heads(self.model))
-        start = 0
+        """Chunked-prefill admission: queued for chunks from position 0, or from P0 over a
+        prefix hit's K/V."""
         hit = self._take_prefix(row.ids)
-        if hit is not None:
-            copy_positions(cache, hit[0], hit[1])
-            start = hit[1]
-        self.admitting[slot] = _Admitting(row, cache, start)
+        self.admitting[slot] = _Admitting(row, 0) if hit is None else _Admitting(row, hit[1], hit[0])
+
+    def _hold_working_row(self, slot: int):
+        """Make the working row hold ``slot``'s positions [0, next): the slot that held it
+        parks its own in a pooled row first. Plain copies of host-known extents, outside the
+        programs."""
+        inputs = self.inputs
+        if inputs.owner == slot:
+            return
+        other = self.admitting.get(inputs.owner)
+        if other is not None:
+            if other.parked is None:
+                other.parked = inputs.lease()
+            other.src = inputs.pool[other.parked]
+            copy_positions(other.src, inputs.work, other.next)
+        st = self.admitting[slot]
+        if st.src is not None:
+            copy_positions(inputs.work, st.src, st.next)
+        inputs.owner = slot
 
     def _advance_prefill(self, slot: int):
-        """ONE prefill chunk of an admitting slot; after the last, sample the first token,
-        install the row cache into the lane and go live."""
+        """ONE prefill chunk of an admitting slot (C tokens, the last chunk padded); after the
+        last, sample the first token, install the row into the lane and go live."""
         st = self.admitting[slot]
         ids = st.row.ids
         start, end = st.next, min(st.next + self.prefill_chunk, len(ids))
-        h_last = prefill_chunk(self.model, st.cache, ids[start:end], start)
+        self._hold_working_row(slot)
+        prefill_chunk(self.model, self.inputs, ids[start:end], start, self.prefill_chunk, pad_id=self.pad_id,
+                      eager=self.eager)
         self.prefill_dispatches += 1
         st.next = end
         if end == len(ids):
-            first = sample_first(self.model, h_last, st.row.sampling, self.generator)
-            self.state = install_row(self.state, slot, st.cache, first, len(ids), st.row.eos_id)
+            first, self.state = install_row(self.model, self.state, slot, self.inputs, len(ids), st.row.sampling,
+                                            st.row.eos_id, self.generator, eager=self.eager)
+            if st.parked is not None:
+                self.inputs.release(st.parked)
+            self.inputs.owner = None
             del self.admitting[slot]
             self._activate(slot, st.row, int(first))
 
@@ -557,6 +762,7 @@ class ContinuousScheduler:
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)  # this thread's launches go to the model's card
         inflight = None  # (toks, emitted, done, copy event, rows snapshot) of the chunk not yet collected
+        pending: list[RowHandle] = []  # taken from the queue, not yet admitting (a failed admission's row among them)
         try:
             with torch.inference_mode():
                 while True:
@@ -572,13 +778,12 @@ class ContinuousScheduler:
                     # the chunk in flight are reused on the next iteration)
                     for slot in range(self.n_slots):
                         if pending and self.rows[slot] is None and slot not in self.admitting:
-                            if self.prefill_chunk:
-                                self._start_prefill(slot, pending.pop(0))
-                            else:
-                                self._admit(slot, pending.pop(0))
+                            (self._start_prefill if self.prefill_chunk else self._admit)(slot, pending[0])
+                            pending.pop(0)
                     if pending:
                         with self.cond:
                             self.queue = pending + self.queue
+                        pending = []
                     # one prefill chunk per admitting slot: co-tenants decode in between
                     for slot in list(self.admitting):
                         self._advance_prefill(slot)
@@ -594,7 +799,7 @@ class ContinuousScheduler:
             with self.cond:
                 self.dead = e
                 broken = ([r for r in self.rows if r is not None]
-                          + [st.row for st in self.admitting.values()] + self.queue)
+                          + [st.row for st in self.admitting.values()] + pending + self.queue)
                 self.rows = [None] * self.n_slots
                 self.admitting = {}
                 self.queue = []

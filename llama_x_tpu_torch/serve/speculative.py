@@ -23,7 +23,8 @@ pos, done, emitted, the chunk's token ring and each row's cursor in it), the six
 tensors and the live-round count. The JAX package jits ``spec_chunk`` as a ``lax.scan`` over
 rounds; here on the card a chunk is ``n_rounds`` replays of the round's captured CUDA graph
 (models/decode_graph.py), and ``eager=True`` launches the same round op by op. Admission (two
-prefills) stays eager.
+prefills of the prompt padded to its bucket, into the working rows of ``AdmitBuffers``) is
+one replay of its graph per bucket as well (serve/continuous.py), ``eager=True`` op by op.
 """
 
 from __future__ import annotations
@@ -37,11 +38,16 @@ from llama_x_tpu_torch.models.generate import gumbel_argmax
 from llama_x_tpu_torch.models.speculative import speculative_accept, verify_bound
 from llama_x_tpu_torch.ops.attention import MaskInfo
 from llama_x_tpu_torch.serve.continuous import (
+    AdmitBuffers,
     ContinuousScheduler,
     RowHandle,
+    activate,
     filter_logits_rows,
-    lane,
-    sample_first,
+    lane_copy,
+    prefill_rows,
+    prompt_bucket,
+    run_admission,
+    sample_at,
 )
 from llama_x_tpu_torch.utils.device import resolve_device
 
@@ -170,29 +176,32 @@ def spec_chunk(model: llama.Llama, draft_model: llama.Llama, state, n_rounds: in
     return ring[:, :W], state
 
 
+def _spec_admit_body(model, draft_model, generator, state, inputs: AdmitBuffers, Pb: int) -> None:
+    ids = inputs.ids[:, :Pb]
+    h = prefill_rows(model, ids, inputs.work)
+    prefill_rows(draft_model, ids, inputs.draft)
+    first = sample_at(model, h, inputs.length - 1, inputs, generator)
+    lane_copy(state[0], inputs.work, inputs.slot, Pb)
+    lane_copy(state[1], inputs.draft, inputs.slot, Pb)
+    state[2].index_copy_(0, inputs.slot, ids[0].index_select(0, inputs.length - 1))  # prev: the prompt's last
+    activate(state[3:7], inputs, first, inputs.length)  # cur, pos, done, emitted
+
+
 @torch.inference_mode()
-def spec_admit_row(model: llama.Llama, draft_model: llama.Llama, state, slot: int, prompt: list[int], sampling,
-                   eos_id: int, generator: torch.Generator | None = None):
-    """Prefill BOTH caches' lanes for one prompt row and make it live -> (first token,
-    state). The first token is sampled from the TARGET's last position."""
-    t_cache, d_cache, prev, cur, pos, done, emitted = state[:7]
-    P = len(prompt)
-    ids = torch.tensor([prompt], dtype=torch.long, device=model.device)
-    x_pos = torch.arange(P, device=model.device)
-
-    def prefill(m, cache):
-        x = llama.embed(m, ids)
-        return llama.trunk(m, x, MaskInfo(causal=True), lane(cache, slot), input_pos=x_pos, prefill=True)[0]
-
-    h = prefill(model, t_cache)
-    prefill(draft_model, d_cache)
-    first = sample_first(model, h[:, -1:], sampling, generator)
-    prev[slot] = prompt[-1]
-    cur[slot] = first
-    pos[slot] = P
-    done[slot] = first == eos_id
-    emitted[slot] = 1
-    return first, state
+def spec_admit_row(model: llama.Llama, draft_model: llama.Llama, state, inputs: AdmitBuffers, slot: int,
+                   prompt: list[int], sampling, eos_id: int, generator: torch.Generator | None = None, *,
+                   prompt_multiple: int = 64, pad_id: int = 0, eager: bool = False):
+    """Prefill BOTH caches' rows for one prompt row, padded to its bucket Pb, and make it live
+    in ``slot`` -> (first token, state). The first token is sampled from the TARGET's
+    position P - 1. On the card one replay of the graph of Pb (keyed also by the draft's
+    weights; ``eager``: launched op by op)."""
+    cap = min(cache_tensors(c)[0].shape[3] for c in state[:2])
+    Pb = prompt_bucket(len(prompt), prompt_multiple, cap - 1)
+    inputs.feed(prompt, Pb, pad_id, slot=slot, length=len(prompt), eos_id=eos_id, sampling=sampling)
+    run_admission(model, "spec_admit_row", (*cache_tensors(state[0]), *cache_tensors(state[1]), *state[2:7]), inputs,
+                  (Pb,), lambda m, gen: _spec_admit_body(m, draft_model, gen, state, inputs, Pb), generator, eager,
+                  others=(draft_model,))
+    return inputs.first[0].clone(), state
 
 
 class SpeculativeScheduler(ContinuousScheduler):
@@ -233,9 +242,13 @@ class SpeculativeScheduler(ContinuousScheduler):
             raise ValueError(f"prompt ({len(ids)} tokens) + gamma {self.gamma} fills the {self._cap()} cache")
         return super().submit(ids, max_tokens, sampling, eos_id, stream_q)
 
+    def _init_inputs(self) -> AdmitBuffers:
+        return AdmitBuffers(self.model, self.state[0], self.state[1])
+
     def _admit(self, slot: int, row: RowHandle):
-        first, self.state = spec_admit_row(self.model, self.draft_model, self.state, slot, row.ids, row.sampling,
-                                           row.eos_id, self.generator)
+        first, self.state = spec_admit_row(self.model, self.draft_model, self.state, self.inputs, slot, row.ids,
+                                           row.sampling, row.eos_id, self.generator,
+                                           prompt_multiple=self.prompt_multiple, pad_id=self.pad_id, eager=self.eager)
         self._activate(slot, row, int(first))
 
     def _budget_cap(self, row: RowHandle) -> int:

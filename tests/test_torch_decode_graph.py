@@ -197,12 +197,13 @@ def test_decode_rows_matches_jax_decode_rows(pair, model):
     prompts = [_prompt(6, 1, 8)[0].tolist(), _prompt(7, 1, 5)[0].tolist()]
     jstate = jcont.init_state(jcfg, 3, jnp.float32)
     tstate = tcont.init_state(model.config, 3, torch.float32, "cpu")
+    inputs = tcont.AdmitBuffers(model, tstate[0])
     for slot, ids in enumerate(prompts):
         padded = jnp.asarray([ids + [0] * (16 - len(ids))], jnp.int32)
         _, jstate = jcont.admit_row(params, jcfg, jstate, jnp.int32(slot), padded, jnp.int32(len(ids)),
                                     jax.random.PRNGKey(slot), jnp.asarray(greedy, jnp.float32), jnp.int32(-1),
                                     cache_dtype=jnp.float32)
-        _, tstate = tcont.admit_row(model, tstate, slot, ids, greedy, -1)
+        _, tstate = tcont.admit_row(model, tstate, inputs, slot, ids, greedy, -1, prompt_multiple=16)  # JAX's bucket
     z = np.zeros(3, np.float32)
     budget = np.array([9, 4, 1], np.int32)
     args = (z, np.zeros(3, np.int32), np.ones(3, np.float32), z, np.full(3, -1, np.int32), budget)

@@ -1400,3 +1400,26 @@ def test_speculative_scheduler_graph_matches_the_eager_rounds(cuda, gamma, cache
     assert rows[False] == rows[True]
     s = dg.stats(model)
     assert s["captures"] >= 1 and s["replays"] + s["captures"] == rounds
+
+
+# ---------------------------------------------------------------------------
+# the schedulers' admission programs as captured CUDA graphs (serve/continuous.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+def test_admission_graphs_match_the_eager_admissions(cuda, cache):
+    """Every admission program on the int8 2-layer model of 8B width with the 2-layer draft
+    (``chip_smoke.check_admissions``): ``admit_row`` at 3 buckets, ``admit_row_prefix`` at 2
+    (Sb, extent) keys, a chunked prefill (first and continuation chunks) with its install, and
+    ``spec_admit_row``, through their graphs (a capture a key, then replays only) against
+    ``eager=True``: first tokens and every state tensor bit for bit, a pass of replays
+    launching what the eager pass launches (K1 and K2 in both forms), held to the device
+    trace."""
+    import chip_smoke
+
+    res = chip_smoke.check_admissions(_graph_model(cuda, True), _spec_draft(cuda),
+                                      torch.int8 if cache == "int8" else torch.bfloat16)
+    per_pass = res["launches_per_pass"]
+    assert per_pass["int8_mm_dequant_nt"] > 0 and per_pass["flash_attention"] > 0
+    assert per_pass["flash_attention_offsets"] > 0

@@ -126,8 +126,9 @@ def test_spec_chunk_over_static_buffers_matches_jax(pairs, models, gamma, cache)
     jstate = _jax_state(tp, tc, dp, dc, 4, j_dtype, rows)
     tstate = tspec.init_spec_state(tm.config, dm.config, 4, t_dtype, "cpu")
     gen = torch.Generator().manual_seed(0)
+    inputs = tspec.AdmitBuffers(tm, tstate[0], tstate[1])
     for slot, (ids, sampling) in rows.items():
-        _, tstate = tspec.spec_admit_row(tm, dm, tstate, slot, ids, sampling, -1, gen)
+        _, tstate = tspec.spec_admit_row(tm, dm, tstate, inputs, slot, ids, sampling, -1, gen)
     temperature = [0.0, 0.9, 0.0, 0.0]
     top_k, top_p, min_p, eos, budget = [0, 20, 0, 0], [1.0, 0.9, 1.0, 1.0], [0.0] * 4, [-1] * 4, [9, 12, 1, 30]
     jrow = (jnp.asarray(temperature, jnp.float32), jnp.asarray(top_k, jnp.int32), jnp.asarray(top_p, jnp.float32),
@@ -209,7 +210,8 @@ def test_greedy_and_sampled_are_two_keys_on_one_buffer_set(models, stub_card):
 def test_the_scheduler_through_the_graph_equals_its_eager_rounds(models, stub_card):
     """``SpeculativeScheduler`` at gamma 3 with a greedy and a sampled row beside each
     other, through the stubbed graph and with ``eager=True``: the same tokens (one seed),
-    one capture for every chunk (the bound does not split a float cache's key)."""
+    one capture for every chunk (the bound does not split a float cache's key), and one
+    for every admission (the three prompts share the bucket of 64)."""
     tm, dm = models
     prompts = [[int(t) for t in _prompt(30 + i, 1, n)[0]] for i, n in enumerate((7, 12, 5))]
     rows = {}
@@ -225,7 +227,8 @@ def test_the_scheduler_through_the_graph_equals_its_eager_rounds(models, stub_ca
             sched.close()
         rows[eager] = [h.tokens for h in handles]
     assert rows[False] == rows[True] and all(len(r) == 9 for r in rows[False])
-    assert stub_card == ["spec_chunk round"] and dg.stats(tm)["captures"] == 1
+    assert stub_card == ["spec_admit_row", "spec_chunk round"] and dg.stats(tm)["captures"] == 1
+    assert sched.inputs.runner.captures == 1
 
 
 def test_the_verify_bound_rounds_up_to_its_bucket_where_it_sizes_the_prefix(models, stub_card, monkeypatch):
@@ -344,7 +347,8 @@ def test_each_replay_credits_one_round_of_launches(models, monkeypatch):
     assert len(entries) == 1 and entries[0].captured.credits == {k3: 5}
 
     state = tspec.init_spec_state(tm.config, dm.config, 2, torch.float32, "cpu")
-    _, state = tspec.spec_admit_row(tm, dm, state, 0, prompt[0].tolist(), (0.0, 0, 1.0, 0.0), -1)
+    inputs = tspec.AdmitBuffers(tm, state[0], state[1])
+    _, state = tspec.spec_admit_row(tm, dm, state, inputs, 0, prompt[0].tolist(), (0.0, 0, 1.0, 0.0), -1)
     z = torch.zeros(2)
     row = (z, z.long(), z + 1, z, z.long() - 1, z.long() + 20)
     for n in (3, 4):  # a capture and 2 replays, then 4 replays

@@ -369,11 +369,12 @@ def serve_job(job: dict, mesh) -> dict:
     cfg, heads = model.config, llama.local_kv_heads(model)
     n_slots, greedy = 4, (0.0, 0, 1.0, 0.0)
     state = cont.init_state(cfg, n_slots, torch.float32, "cpu", kv_heads=heads)
-    f0, state = cont.admit_row(model, state, 0, prompt[0].tolist(), greedy, -1)
-    rc = cont.row_cache(cfg, 16, torch.float32, "cpu", kv_heads=heads)  # chunked prefill of row 1: 8 + 8
-    cont.prefill_chunk(model, rc, prompt[1, :8].tolist(), 0)
-    f1 = cont.sample_first(model, cont.prefill_chunk(model, rc, prompt[1, 8:].tolist(), 8), greedy)
-    state = cont.install_row(state, 1, rc, f1, 16, -1)
+    # a model on a mesh admits eagerly too
+    inputs = cont.AdmitBuffers(model, state[0])
+    f0, state = cont.admit_row(model, state, inputs, 0, prompt[0].tolist(), greedy, -1, eager=True)
+    for start in (0, 8):  # chunked prefill of row 1: 8 + 8
+        cont.prefill_chunk(model, inputs, prompt[1, start:start + 8].tolist(), start, 8, eager=True)
+    f1, state = cont.install_row(model, state, 1, inputs, 16, greedy, -1, eager=True)
     zs = torch.zeros(n_slots)
     toks, _ = cont.decode_rows(model, state, 7, None, zs, torch.zeros(n_slots, dtype=torch.int64), torch.ones(n_slots),
                                zs, torch.full((n_slots,), -1), torch.full((n_slots,), 8), eager=True)
