@@ -142,12 +142,15 @@ no result line):
    ranks on one device), each holding 4096 positions, through ``train_metamathqa``'s own
    functions (``parse_args`` with ``--mesh '{"cp": 2}'``, the mesh, ``validate_launch`` /
    ``validate_model``, the dp split, ``make_train_step`` over the mesh); ring attention for
-   4 steps then Ulysses for 2, the launches of K2's ring form and K5's offsets form (ring)
-   or K2 / K5 (Ulysses) held to ``cp_expected_launches`` every step on every rank; the loss
-   and LoRA gradients at the first step (ring and Ulysses) and every step's loss against
-   the same step at cp 1 in this process over the whole 8192; per rank the step time, the
-   peak memory and the exchange's share of the step (gloo through host memory). A rank that
-   fails or outlives its timeout fails the phase;
+   3 steps then Ulysses for 1 under remat "full", then one step of each under
+   ``--remat_policy attn_q8s`` (the int8-residual attention over the ring or Ulysses), the
+   launches of K2's ring form and K5's offsets form (ring) or K2 / K5 (Ulysses) held to
+   ``cp_expected_launches`` every step on every rank, and the K1 launches of an attn_q8s
+   rank-step to those of the attn_q8s step at cp 1 (no GEMM runs again in its backward); the
+   loss and LoRA gradients at the first step (ring and Ulysses, under both policies) and every
+   step's loss against the same step at cp 1 in this process over the whole 8192; per rank
+   the step time, the peak memory and the exchange's share of the step (gloo through host
+   memory). A rank that fails or outlives its timeout fails the phase;
 16. slice 5b: the same text QLoRA step at Llama-3.1-8B width (2 layers, S 4096 packed
    documents, remat full, CE x8) through ``train_metamathqa``'s own functions in two spawned
    processes sharing the card over gloo, at ``--mesh '{"tp": 2}'`` (1 row), ``'{"fsdp": 2}'``
@@ -3397,17 +3400,21 @@ CP_FLAGS = [
     "--activation_checkpointing", "--fused_ce_chunks", "8", "--document_mask", "--max_seq_len", str(CP * RING_S),
     "--batch_size", "1", "--gradient_accumulation", "1", "--optim", "AdamW", "--lr", "1e-3", "--seed", "0",
 ]
-CP_STEPS = (("ring", 4), ("ulysses", 2))
+CP_STEPS = (("ring", 3), ("ulysses", 1))  # timed steps under remat "full"
+CP_Q8 = "attn_q8s"  # the int8-residual attention under context parallelism
+CP_Q8_STEPS = (("ring", 1), ("ulysses", 1))  # timed steps under CP_Q8, after CP_STEPS
 CP_TIMEOUT_S = 420
 
 
-def cp_expected_launches(impl: str, layers: int, cp: int) -> dict:
-    """The attention launches of one step of one rank under remat "full": the ring runs
-    cp blocks of K2's ring form a layer, doubled by the recompute, and cp blocks of K5's
-    offsets form; Ulysses runs K2 and K5 in their normal form once a layer (K2 twice)."""
-    ring = impl == "ring"
-    return {"flash_attention_ring": 2 * cp * layers if ring else 0, "flash_attention_bwd_ring": cp * layers if ring else 0,
-            "flash_attention": 0 if ring else 2 * layers, "flash_attention_bwd": 0 if ring else layers}
+def cp_expected_launches(impl: str, layers: int, cp: int, policy: str = "full") -> dict:
+    """The attention launches of one step of one rank: the ring runs cp blocks of K2's ring
+    form a layer, doubled by remat "full"'s recompute, and cp blocks of K5's offsets form;
+    Ulysses runs K2 and K5 in their normal form once a layer (K2 twice under "full").
+    attn_q8s recomputes nothing, so K2 runs once."""
+    ring, fwd = impl == "ring", 1 if policy == CP_Q8 else 2
+    return {"flash_attention_ring": fwd * cp * layers if ring else 0,
+            "flash_attention_bwd_ring": cp * layers if ring else 0,
+            "flash_attention": 0 if ring else fwd * layers, "flash_attention_bwd": 0 if ring else layers}
 
 
 def cp_batch(entry, args, vocab: int) -> dict:
@@ -3458,46 +3465,64 @@ def cp_rank(rank: int, world: int, store: str, out_dir: str) -> None:
     dev = init_distributed("gloo", "cuda", init_method=f"file://{store}", rank=rank, world_size=world)
     try:
         mesh = make_mesh(cp=world)
-        args = entry.parse_args([*CP_FLAGS, "--mesh", json.dumps({"cp": world}), "--attn_impl", "ring",
-                                 "--dist_backend", "gloo", "--device", str(dev), "--n_steps", "6"])
-        validate_launch(args, mesh, max_seq_len=args.max_seq_len)
+
+        def flags(impl: str, policy: str = "full"):
+            args = entry.parse_args([*CP_FLAGS, "--mesh", json.dumps({"cp": world}), "--attn_impl", impl,
+                                     "--remat_policy", policy, "--dist_backend", "gloo", "--device", str(dev),
+                                     "--n_steps", "6"])
+            validate_launch(args, mesh, max_seq_len=args.max_seq_len)
+            return args
+
+        args = flags("ring")
         model = cli.build_model_params(args, max_seq_len=args.max_seq_len)
         validate_model(model.config, mesh, args)
+        base = model.config
         rows = shard_batch(cp_batch(entry, args, model.config.vocab_size), mesh)
         rec = {"rank": rank, "device": str(dev), "first": {}, "steps": []}
-        for impl, _ in CP_STEPS:
-            model.config = model.config.replace(attn_impl=impl)
-            loss, grads = cp_first_grads(model, entry, rows, mesh)
-            rec["first"][impl] = (loss, grads if rank == 0 else None)
+        for policy in ("full", CP_Q8):
+            for impl, _ in CP_STEPS:
+                # the trainer's flags for this policy and impl, validated as the trainer validates them
+                a = flags(impl, policy)
+                model.config = base.replace(attn_impl=a.attn_impl, remat_policy=a.remat_policy)
+                validate_model(model.config, mesh, a)
+                reset_counts()
+                loss, grads = cp_first_grads(model, entry, rows, mesh)
+                rec["first"][policy, impl] = (loss, grads if rank == 0 else None, read_counts())
         optimizer, _ = cli.setup_optimizer(args, model)
         state = TrainState(model, optimizer)
         train_step = make_train_step(entry.loss_fn, mesh=mesh, eager=True)
-        for impl, n in CP_STEPS:
-            model.config = model.config.replace(attn_impl=impl)
-            expect = cp_expected_launches(impl, CP_LAYERS, world)
-            for i in range(n):
-                reset_counts()
-                mesh.comm.reset()
-                torch.cuda.reset_peak_memory_stats()
-                t0 = time.perf_counter()
-                with use_mesh(mesh):
-                    m = train_step(state, rows)
-                torch.cuda.synchronize()
-                dt = time.perf_counter() - t0
-                counts = read_counts()
-                step = dict(impl=impl, step=i, loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), seconds=dt,
-                            exchange_s=mesh.comm.seconds, exchange_share=mesh.comm.seconds / dt,
-                            exchange_calls=mesh.comm.calls, exchange_bytes=mesh.comm.bytes,
-                            peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts)
-                log(f"    rank {rank} {impl} step {i}: loss {step['loss']:.4f}, grad norm {step['grad_norm']:.4f}, "
-                    f"{dt:.3f} s, exchange {mesh.comm.seconds:.3f} s ({step['exchange_share']:.3f} of the step, "
-                    f"{mesh.comm.calls} calls, {mesh.comm.bytes / 1e6:.1f} MB), peak {step['peak_gb']:.2f} GB")
-                wrong = {k: (counts[k], v) for k, v in expect.items() if counts[k] != v}
-                if wrong:
-                    raise AssertionError(f"rank {rank} {impl} step {i} launches (got, expected): {wrong}")
-                if min(counts["int8_mm_dequant_nt"], counts["int8_mm_dequant"]) == 0:
-                    raise AssertionError(f"rank {rank} {impl} step {i} skipped the int8 kernels: {counts}")
-                rec["steps"].append(step)
+        for policy, plan in (("full", CP_STEPS), (CP_Q8, CP_Q8_STEPS)):
+            for impl, n in plan:
+                model.config = base.replace(attn_impl=impl, remat_policy=policy)
+                expect = cp_expected_launches(impl, CP_LAYERS, world, policy)
+                for i in range(n):
+                    reset_counts()
+                    mesh.comm.reset()
+                    torch.cuda.reset_peak_memory_stats()
+                    t0 = time.perf_counter()
+                    with use_mesh(mesh):
+                        m = train_step(state, rows)
+                    torch.cuda.synchronize()
+                    dt = time.perf_counter() - t0
+                    counts = read_counts()
+                    step = dict(impl=impl, policy=policy, step=i, loss=float(m["loss"]),
+                                grad_norm=float(m["grad_norm"]), seconds=dt, exchange_s=mesh.comm.seconds,
+                                exchange_share=mesh.comm.seconds / dt, exchange_calls=mesh.comm.calls,
+                                exchange_bytes=mesh.comm.bytes, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                                launches=counts)
+                    log(f"    rank {rank} {impl} {policy} step {i}: loss {step['loss']:.4f}, grad norm "
+                        f"{step['grad_norm']:.4f}, {dt:.3f} s, exchange {mesh.comm.seconds:.3f} s "
+                        f"({step['exchange_share']:.3f} of the step, {mesh.comm.calls} calls, "
+                        f"{mesh.comm.bytes / 1e6:.1f} MB), peak {step['peak_gb']:.2f} GB; K1 "
+                        f"{counts['int8_mm_dequant_nt']}, K4 {counts['int8_mm_dequant']}, K2-ring "
+                        f"{counts['flash_attention_ring']}, K5-offsets {counts['flash_attention_bwd_ring']}, K2 "
+                        f"{counts['flash_attention']}, K5 {counts['flash_attention_bwd']}")
+                    wrong = {k: (counts[k], v) for k, v in expect.items() if counts[k] != v}
+                    if wrong:
+                        raise AssertionError(f"rank {rank} {impl} {policy} step {i} launches (got, expected): {wrong}")
+                    if min(counts["int8_mm_dequant_nt"], counts["int8_mm_dequant"]) == 0:
+                        raise AssertionError(f"rank {rank} {impl} {policy} step {i} skipped the int8 kernels: {counts}")
+                    rec["steps"].append(step)
         torch.save(rec, Path(out_dir) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -3537,44 +3562,57 @@ def run_cp_ranks(world: int) -> list[dict]:
 def phase_cp() -> dict:
     """The text QLoRA step at Llama-3.1-8B width (depth cut to 2 layers), S 8192 of packed
     documents crossing the shard boundary, at cp 2 over two processes on the one card
-    (gloo, asked for by name: NCCL refuses two ranks on one device), ring for 4 steps then
-    Ulysses for 2, against the same step at cp 1 in this process over the whole 8192."""
+    (gloo, asked for by name: NCCL refuses two ranks on one device), ring for 3 steps then
+    Ulysses for 1 under remat "full", then one step of each under attn_q8s, against the same
+    steps at cp 1 in this process over the whole 8192."""
     import torch
 
     from llama_x_tpu_torch import train_metamathqa as entry
     from llama_x_tpu_torch.train import cli
     from llama_x_tpu_torch.train.trainer import TrainState, make_train_step
 
+    card = nvidia_smi()
     log(f"[cp phase] text QLoRA at Llama-3.1-8B width, {CP_LAYERS} layers (depth cut), S {CP * RING_S} = {CP} x "
-        f"{RING_S}, packed documents across the boundary, remat full, fused CE x8; {CP} ranks on cuda:0 over gloo, "
-        f"ring x {CP_STEPS[0][1]} then ulysses x {CP_STEPS[1][1]}, against cp 1; tol: loss 1e-3 of |loss|, adapter "
-        "gradients relative L2 2^-6 per tensor")
+        f"{RING_S}, packed documents across the boundary, fused CE x8; {CP} ranks on cuda:0 over gloo, remat full: "
+        f"ring x {CP_STEPS[0][1]} then ulysses x {CP_STEPS[1][1]}, then {CP_Q8}: ring x {CP_Q8_STEPS[0][1]} and "
+        f"ulysses x {CP_Q8_STEPS[1][1]}, against cp 1; tol: loss 1e-3 of |loss|, adapter gradients relative L2 2^-6 "
+        "per tensor")
     t0 = time.perf_counter()
     ranks = run_cp_ranks(CP)
     cp_wall = time.perf_counter() - t0
     # cp 1: the same flags, one process, the whole sequence
     args = entry.parse_args([*CP_FLAGS, "--n_steps", "6"])
     model = cli.build_model_params(args, max_seq_len=args.max_seq_len)
+    base = model.config
     batch = cp_batch(entry, args, model.config.vocab_size)
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad and "lora_" in n]
     mb = {k: torch.as_tensor(v[0]).cuda() for k, v in batch.items()}
-    loss1, _ = entry.loss_fn(model, mb)
-    grads1 = dict(zip([n for n, _ in named], torch.autograd.grad(loss1, [p for _, p in named])))
-    loss1 = float(loss1.detach())
     out = {"first": {}, "ranks": [], "cp1_steps": []}
-    for impl, _ in CP_STEPS:
-        loss, grads = ranks[0]["first"][impl]
-        check(f"cp {CP} {impl} loss {loss:.5f} vs cp 1 {loss1:.5f}", abs(loss - loss1), 1e-3 * abs(loss1))
-        worst, worst_name = 0.0, ""
-        for name, g in grads.items():
-            ref = grads1[name].float().cpu()
-            rel = float((g - ref).norm() / ref.norm().clamp(min=1e-30))
-            if rel > worst:
-                worst, worst_name = rel, name
-        check(f"cp {CP} {impl} adapter gradients ({len(grads)} tensors), worst relative L2 ({worst_name})", worst,
-              2**-6)
-        out["first"][impl] = dict(loss=loss, loss_cp1=loss1, grad_rel_l2_worst=worst)
-    del grads1
+    for policy in ("full", CP_Q8):
+        model.config = base.replace(remat_policy=policy)
+        reset_counts()
+        loss1, _ = entry.loss_fn(model, mb)
+        grads1 = dict(zip([n for n, _ in named], torch.autograd.grad(loss1, [p for _, p in named])))
+        loss1, counts1 = float(loss1.detach()), read_counts()
+        for impl, _ in CP_STEPS:
+            loss, grads, counts = ranks[0]["first"][policy, impl]
+            check(f"cp {CP} {impl} {policy} loss {loss:.5f} vs cp 1 {loss1:.5f}", abs(loss - loss1),
+                  1e-3 * abs(loss1))
+            worst, worst_name = 0.0, ""
+            for name, g in grads.items():
+                ref = grads1[name].float().cpu()
+                rel = float((g - ref).norm() / ref.norm().clamp(min=1e-30))
+                if rel > worst:
+                    worst, worst_name = rel, name
+            check(f"cp {CP} {impl} {policy} adapter gradients ({len(grads)} tensors), worst relative L2 "
+                  f"({worst_name})", worst, 2**-6)
+            out["first"][f"{policy} {impl}"] = dict(loss=loss, loss_cp1=loss1, grad_rel_l2_worst=worst,
+                                                    k1_rank=counts["int8_mm_dequant_nt"],
+                                                    k1_cp1=counts1["int8_mm_dequant_nt"])
+            log(f"    first gradients, {impl} {policy}: K1 {counts['int8_mm_dequant_nt']} a rank, "
+                f"{counts1['int8_mm_dequant_nt']} at cp 1")
+        del grads1
+    model.config = base
     optimizer, _ = cli.setup_optimizer(args, model)
     state = TrainState(model, optimizer)
     train_step = make_train_step(entry.loss_fn)
@@ -3583,32 +3621,61 @@ def phase_cp() -> dict:
         t1 = time.perf_counter()
         m = train_step(state, batch)
         torch.cuda.synchronize()
-        out["cp1_steps"].append(dict(step=i, loss=float(m["loss"]), seconds=time.perf_counter() - t1))
+        out["cp1_steps"].append(dict(step=i, policy="full", loss=float(m["loss"]), seconds=time.perf_counter() - t1))
     peak1 = torch.cuda.max_memory_allocated() / 1e9
+    # the attn_q8s steps at cp 1, eager as the ranks' are, their launches counted
+    model.config = base.replace(remat_policy=CP_Q8)
+    eager_step = make_train_step(entry.loss_fn, eager=True)
+    for i in range(sum(n for _, n in CP_Q8_STEPS)):
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        m = eager_step(state, batch)
+        torch.cuda.synchronize()
+        out["cp1_steps"].append(dict(step=i, policy=CP_Q8, loss=float(m["loss"]), seconds=time.perf_counter() - t1,
+                                     peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=read_counts()))
+    model.config = base
     steps = [r["steps"] for r in ranks]
     for j, ref in enumerate(out["cp1_steps"]):
         got = steps[0][j]
         if any(abs(s[j]["loss"] - got["loss"]) > 1e-6 * abs(got["loss"]) for s in steps):
             raise AssertionError(f"the ranks logged different losses at step {j}")
-        check(f"step {j} ({got['impl']}) loss {got['loss']:.5f} vs cp 1 {ref['loss']:.5f}", abs(got["loss"] - ref["loss"]),
-              1e-3 * abs(ref["loss"]))
+        check(f"step {j} ({got['impl']} {got['policy']}) loss {got['loss']:.5f} vs cp 1 {ref['loss']:.5f}",
+              abs(got["loss"] - ref["loss"]), 1e-3 * abs(ref["loss"]))
+    q8_cp1 = [s for s in out["cp1_steps"] if s["policy"] == CP_Q8]
+    k1_cp1 = q8_cp1[0]["launches"]["int8_mm_dequant_nt"]
+    if any(s["launches"]["int8_mm_dequant_nt"] != k1_cp1 for s in q8_cp1):
+        raise AssertionError(f"the {CP_Q8} steps at cp 1 launched K1 {[s['launches'] for s in q8_cp1]} times")
     launches = {}
     for r in ranks:
         for s in r["steps"]:
             for k, v in s["launches"].items():
                 launches[k] = launches.get(k, 0) + v
     for r in ranks:
-        for impl, _ in CP_STEPS:
-            st = [s for s in r["steps"] if s["impl"] == impl][1:] or [s for s in r["steps"] if s["impl"] == impl]
-            ms = sum(s["seconds"] for s in st) / len(st) * 1e3
-            share = sum(s["exchange_share"] for s in st) / len(st)
-            log(f"    rank {r['rank']} {impl}: step {ms:.1f} ms (after the first), exchange share {share:.3f}, peak "
-                f"{max(s['peak_gb'] for s in st):.2f} GB")
+        for policy, plan in (("full", CP_STEPS), (CP_Q8, CP_Q8_STEPS)):
+            for impl, _ in plan:
+                own = [s for s in r["steps"] if s["impl"] == impl and s["policy"] == policy]
+                st = own[1:] or own
+                ms = sum(s["seconds"] for s in st) / len(st) * 1e3
+                share = sum(s["exchange_share"] for s in st) / len(st)
+                c = st[-1]["launches"]
+                log(f"    rank {r['rank']} {impl} {policy}: step {ms:.1f} ms{' (after the first)' if own[1:] else ''}, "
+                    f"exchange share {share:.3f}, peak {max(s['peak_gb'] for s in st):.2f} GB, K1 "
+                    f"{c['int8_mm_dequant_nt']}, K2-ring {c['flash_attention_ring']}, K5-offsets "
+                    f"{c['flash_attention_bwd_ring']}, K2 {c['flash_attention']}, K5 {c['flash_attention_bwd']} a "
+                    f"step; {card}")
+                if policy == CP_Q8 and any(s["launches"]["int8_mm_dequant_nt"] != k1_cp1 for s in own):
+                    raise AssertionError(f"rank {r['rank']} {impl} {CP_Q8} launched K1 "
+                                         f"{[s['launches']['int8_mm_dequant_nt'] for s in own]} times a step, the cp 1 "
+                                         f"{CP_Q8} step {k1_cp1}")
         out["ranks"].append(dict(rank=r["rank"], steps=r["steps"]))
-    cp1_ms = sum(s["seconds"] for s in out["cp1_steps"][1:]) / (len(out["cp1_steps"]) - 1) * 1e3
-    log(f"    cp 1: step {cp1_ms:.1f} ms (after the first), peak {peak1:.2f} GB; the cp {CP} ranks' processes took "
-        f"{cp_wall:.1f} s with their start and build")
-    out.update(launches=launches, cp1_step_ms=cp1_ms, cp1_peak_gb=peak1, cp_wall_s=cp_wall)
+    full1 = [s for s in out["cp1_steps"] if s["policy"] == "full"]
+    cp1_ms = sum(s["seconds"] for s in full1[1:]) / (len(full1) - 1) * 1e3
+    q8_ms = sum(s["seconds"] for s in q8_cp1) / len(q8_cp1) * 1e3
+    log(f"    cp 1: step {cp1_ms:.1f} ms (full, graph replays after the first), peak {peak1:.2f} GB; {CP_Q8} eager "
+        f"{q8_ms:.1f} ms, peak {max(s['peak_gb'] for s in q8_cp1):.2f} GB, K1 {k1_cp1} a step; the cp {CP} ranks' "
+        f"processes took {cp_wall:.1f} s with their start and build; {card}")
+    out.update(launches=launches, cp1_step_ms=cp1_ms, cp1_peak_gb=peak1, cp1_q8_step_ms=q8_ms, cp_wall_s=cp_wall)
     del model, state, optimizer
     return out
 

@@ -29,8 +29,9 @@ are the block's hidden state and h1 (and h3) as rowwise int8; ``attn_q8`` /
 ``autograd.Function`` whose residuals are the hidden state, the post-RoPE q / k / v and
 the flash output as rowwise int8 (plus lse), and whose backward runs no GEMM again, and the
 MLP half is ``feed_forward_q8`` (h1 and h3, or h1 alone). With attention dropout they fall
-back to ``flash_q8`` / ``flash_q8s``; with context parallelism they raise (``trunk``). A
-pipeline stage (``trunk(stage=True)``) checkpoints each block whole under the policy's base
+back to ``flash_q8`` / ``flash_q8s``; under context parallelism ``attention_q8`` runs the
+ring's or Ulysses' forward and backward on its own residuals. A pipeline stage
+(``trunk(stage=True)``) checkpoints each block whole under the policy's base
 (``base_policy``), as the JAX stage does.
 
 Context parallelism (``attn_impl`` "ring" / "ulysses", without a cache): the ambient mesh's
@@ -40,8 +41,10 @@ labels to this rank's slice (parallel/context.py: ``shard_sequence``), ``trunk``
 RoPE rows at the slice's global positions, attention runs over the ring
 (``context_parallel_attention``: K2's ring form and K5's offsets form) or through Ulysses'
 all-to-alls (K2 / K5 in their normal form), and the loss is this rank's share of the mean
-over the whole sequence (``loss_share``). Attention dropout raises there, as in the JAX
-package.
+over the whole sequence (``loss_share``). Under ``attn_q8`` / ``attn_q8s``, ``attention_q8``
+keeps this rank's rows as int8 and calls the same exchanges and kernels from its own
+forward and backward, so the step equals the same step at cp 1, as the JAX package's does.
+Attention dropout raises there, as in the JAX package.
 
 Parameter sharding (``parallel/sharding.py:shard_params``: fsdp, tp and pp over a mesh;
 ``parallel/tensor.py`` for the collectives): the embedding is vocabulary-parallel
@@ -61,6 +64,8 @@ the port does not reproduce. Without seeds no dropout applies, whatever the conf
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 
@@ -77,12 +82,13 @@ from llama_x_tpu_torch.ops.cross_entropy import (cross_entropy_loss, fused_linea
 from llama_x_tpu_torch.ops.int8 import quantize_int8_rowwise
 from llama_x_tpu_torch.ops.linear import Linear, apply_linear, apply_linear_grouped, linear_vjp
 from llama_x_tpu_torch.ops.norms import rms_norm
+from llama_x_tpu_torch.ops.ring_attention import ring_bwd_from_res, ring_fwd_with_lse
 from llama_x_tpu_torch.ops.rope import apply_rope, build_rope
 from llama_x_tpu_torch.parallel import context as cp
 from llama_x_tpu_torch.parallel.mesh import Mesh, all_gather, current_mesh
 from llama_x_tpu_torch.parallel.tensor import (copy_to_tp, gather, mesh_of, placement, tp_rows, tp_size,
                                                vocab_parallel_embedding)
-from llama_x_tpu_torch.parallel.ulysses import ulysses_attention
+from llama_x_tpu_torch.parallel.ulysses import ulysses_attention, ulysses_bwd_from_res, ulysses_fwd_with_lse
 from llama_x_tpu_torch.utils.device import resolve_device
 
 CP_IMPLS = ("ring", "ulysses")  # the context-parallel attention implementations
@@ -556,6 +562,13 @@ def feed_forward_q8(blk: Block, config: LlamaConfig, h: torch.Tensor) -> torch.T
 # vjps and rms_norm's vjp: no GEMM of the forward runs again. The JAX package measured it
 # slower than flash_q8s on its chip (llama_x_tpu/models/llama.py:447-454); it is a
 # supported variant, not a default.
+#
+# Under context parallelism (attn_impl ring / ulysses over the ambient mesh's "cp" axis) the
+# rank keeps its own rows as above, and the flash forward and backward become the ring's
+# (K2's ring form, K5's offsets form; ops/ring_attention.py) or Ulysses' (the all-to-alls
+# around K2 / K5; parallel/ulysses.py) forward and backward from residuals. The rows, and so
+# their int8 codes, are those of the cp 1 step; only the flash output's codes can differ, at
+# a rounding tie, since the ring merges its blocks in another order.
 # ---------------------------------------------------------------------------
 
 
@@ -569,7 +582,16 @@ def _trainable(owners) -> tuple[tuple, list]:
 class _AttentionQ8(torch.autograd.Function):
     """attention_norm + GQA attention of one block with int8 residuals (the JAX
     ``_make_attention_q8``). ``params`` are the trainable tensors of the norm and the four
-    linears, passed so that autograd routes their gradients; ``keys`` names them."""
+    linears, passed so that autograd routes their gradients; ``keys`` names them.
+
+    Under Ulysses the residuals are the local rows, kept before the heads -> sequence
+    exchange, not the head shard over the whole sequence after it. The memory is the same
+    (B S_local Hq D = B S Hq/n D; k / v before their g-fold repeat, g times less when g > 1),
+    and the rows are the cp 1 step's: a flash output row is a whole token, as wo reads it and
+    as tensor parallelism's rowwise quantizer spans it. The price is in the backward: it sends
+    q / k / v and the output through heads -> sequence again (the forward's bytes once more)
+    besides the incoming gradient, where residuals kept after the exchange would need the
+    output and the gradient only."""
 
     @staticmethod
     def forward(ctx, blk, config, keys, h, rope, mask_info, *params):
@@ -582,7 +604,13 @@ class _AttentionQ8(torch.autograd.Function):
         q = apply_rope(q.reshape(B, S, -1, D), rope)
         k = apply_rope(k.reshape(B, S, -1, D), rope)
         v = v.reshape(B, S, -1, D)
-        out, lse = fa.flash_fwd_with_lse(q, k, v, mask_info)
+        mesh, res_mi = context_mesh(config), mask_info
+        if mesh is None:
+            out, lse = fa.flash_fwd_with_lse(q, k, v, mask_info)
+        elif config.attn_impl == "ring":
+            out, lse = ring_fwd_with_lse(q, k, v, mask_info, 1.0 / math.sqrt(D), mesh, "cp")
+        else:
+            out, lse, res_mi = ulysses_fwd_with_lse(q, k, v, mask_info, 1.0 / math.sqrt(D), mesh, "cp")
         flat = out.reshape(B * S, -1)
         o = apply_linear(flat.reshape(B, S, -1), attn.wo, **kw)
         # q / k / v rows are one head's D (local under tp); the flash output's rows are
@@ -592,7 +620,8 @@ class _AttentionQ8(torch.autograd.Function):
             kept += quantize_int8_rowwise(t.reshape(-1, D))
         kept += quantize_int8_rowwise(flat, tp_rows(placement(attn.wo), "row"))
         ctx.save_for_backward(*kept)
-        ctx.blk, ctx.kw, ctx.keys, ctx.rope, ctx.mask_info = blk, kw, keys, rope, mask_info
+        ctx.blk, ctx.kw, ctx.keys, ctx.rope, ctx.mask_info = blk, kw, keys, rope, res_mi
+        ctx.mesh, ctx.impl = mesh, config.attn_impl
         ctx.shapes = (q.shape, k.shape, v.shape)
         return o
 
@@ -608,7 +637,12 @@ class _AttentionQ8(torch.autograd.Function):
                                                                  (vi, vs, v_shape)))
         out = _deq_rows(ai, as_, dt, q_shape)
         dattn, grads_o = linear_vjp(attn.wo, out.reshape(B, S, -1), g, **kw)
-        dq, dk, dv = fa.flash_bwd_from_res(q, k, v, out, lse, dattn.reshape(q_shape), ctx.mask_info)
+        do, mesh, scale = dattn.reshape(q_shape), ctx.mesh, 1.0 / math.sqrt(q_shape[-1])
+        if mesh is None:
+            dq, dk, dv = fa.flash_bwd_from_res(q, k, v, out, lse, do, ctx.mask_info)
+        else:
+            bwd = ring_bwd_from_res if ctx.impl == "ring" else ulysses_bwd_from_res
+            dq, dk, dv = bwd(q, k, v, out, lse, do, ctx.mask_info, scale, mesh, "cp")
         # RoPE is a rotation, linear in q / k: its vjp does not read the primal, so taking it
         # at the dequantized values is exact
         with torch.enable_grad():
@@ -633,8 +667,9 @@ def attention_q8(blk: Block, config: LlamaConfig, h: torch.Tensor, rope: torch.T
                  mask_info: MaskInfo) -> torch.Tensor:
     """attention_norm + GQA attention on the pre-norm hidden state ``h`` with rowwise-int8
     backward residuals (post-RoPE q / k / v and the flash output; no GEMM recompute in the
-    backward). Training only: no cache, no dropout, no context parallelism (``trunk`` falls
-    back or raises)."""
+    backward). Training only: no cache, no dropout (``trunk`` falls back). Under context
+    parallelism ``h`` is this rank's rows, ``rope`` their rows of the table, and the
+    attention runs over the whole sequence through the ring or Ulysses."""
     attn = blk.attention
     keys, params = _trainable([("attention_norm", blk.attention_norm)]
                               + [(n, getattr(attn, n)) for n in ("wq", "wk", "wv", "wo")])
@@ -678,12 +713,32 @@ def block(blk: Block, config: LlamaConfig, x: torch.Tensor, rope: torch.Tensor, 
     return x, cache
 
 
+# the name of the step being captured into a CUDA graph (train/step_graph.py:run), or None
+_CAPTURED_STEP: contextvars.ContextVar[str | None] = contextvars.ContextVar("captured_step", default=None)
+
+
+@contextlib.contextmanager
+def captured_step(name: str):
+    """Marks the forward passes inside as a captured step's, which ``layer_seeds`` refuses
+    dropout seeds in."""
+    token = _CAPTURED_STEP.set(name)
+    try:
+        yield
+    finally:
+        _CAPTURED_STEP.reset(token)
+
+
 def layer_seeds(dropout_seeds, num_layers: int) -> list:
     """One 32-bit dropout seed per layer from ``forward``'s ``dropout_seeds``: None (no
     dropout), a sequence or tensor of ``num_layers`` integers, or a CPU
-    ``torch.Generator`` from which they are drawn."""
+    ``torch.Generator`` from which they are drawn. Seeds handed inside a captured step
+    (``captured_step``) raise: K2 / K5 take them as host integers, which a graph would freeze."""
     if dropout_seeds is None:
         return [None] * num_layers
+    step = _CAPTURED_STEP.get()
+    if step is not None:
+        raise ValueError(f"{step}: dropout seeds are handed to the forward (models/llama.py:layer_seeds); K2 / K5 "
+                         "take them as host integers, which a captured CUDA graph would freeze: pass eager=True")
     if isinstance(dropout_seeds, torch.Generator):
         dropout_seeds = torch.randint(0, 2**31 - 1, (num_layers,), generator=dropout_seeds)
     seeds = [int(s) for s in dropout_seeds]
@@ -715,9 +770,6 @@ def trunk(model: Llama, x: torch.Tensor, mask_info: MaskInfo, kv_cache=None,
     policy = config.remat_policy
     if remat:
         check_remat_policy(policy)
-        if policy in _ATTN_Q8_POLICIES and config.attn_impl in CP_IMPLS:
-            raise ValueError(f"remat_policy={policy!r} does not combine with attn_impl={config.attn_impl!r}: "
-                             "attention_q8 runs the flash kernels on this rank's rows only")
     if input_pos is not None:
         rope = model.rope
     else:  # a context-parallel rank's rows sit at their global positions

@@ -16,7 +16,9 @@ Two paths, as in the JAX package:
   delta = rowsum(dO * out), so p = exp(s - lse) is each block's exact share. The kernels add
   f32 dq into a resident accumulator and f32 dk / dv into accumulators that travel the ring
   WITH their kv block, so after cp steps block and gradient are home together. On CPU
-  tensors the two block calls run their plain versions.
+  tensors the two block calls run their plain versions. The two loops are plain functions
+  (``ring_fwd_with_lse``, ``ring_bwd_from_res``), which the int8-residual attention
+  (models/llama.py:attention_q8) calls too, on its own residuals.
 - ``impl="xla"`` (the default on CPU tensors): the plain ring of ``_block_attention`` and
   ``_merge`` in f32, differentiable by autograd through ``_Rotate`` (the ring's send as an
   autograd function whose backward sends the gradient the other way).
@@ -122,28 +124,61 @@ def _block_mask(mi: MaskInfo, kv_seg) -> MaskInfo:
                     kv_segment_ids=kv_seg if mi.segment_ids is not None else None, prefix_len=mi.prefix_len)
 
 
+def ring_fwd_with_lse(q, k, v, mi: MaskInfo, scale: float, mesh: Mesh, axis: str):
+    """The ring's forward: cp steps of K2's ring form, each block's (out, lse) merged in f32
+    as it arrives. q [B, S_local, Hq, D], k / v [B, S_local, Hkv, D] -> (out in q's dtype,
+    the merged natural-log lse [B, Hq, S_local, 1] f32). No autograd: ``_RingFlash`` and the
+    int8-residual attention (models/llama.py:attention_q8) call it."""
+    n, my = mesh.axis_size(axis), mesh.index(axis)
+    B, S, Hq, D = q.shape
+    out = torch.zeros((B, S, Hq, D), dtype=torch.float32, device=q.device)
+    lse = torch.full((B, Hq, S, 1), _NEG_INF, dtype=torch.float32, device=q.device)
+    blk = [k, v] + ([mi.segment_ids] if mi.segment_ids is not None else [])
+    for step in range(n):
+        kv_idx = (my - step) % n
+        nxt = RingExchange(mesh, blk, axis) if step < n - 1 else None
+        o_b, l_b = fa.flash_fwd_ring(q, blk[0], blk[1], _block_mask(mi, blk[2] if len(blk) > 2 else None),
+                                     my * S, kv_idx * S, scale)
+        lse_new = torch.logaddexp(lse, l_b)
+        w_a, w_b = (torch.exp(x - lse_new).transpose(1, 2) for x in (lse, l_b))  # [B, S, Hq, 1]
+        out = out * w_a + o_b.float() * w_b
+        lse = lse_new
+        if nxt is not None:
+            blk = nxt.wait()
+    return out.to(q.dtype), lse
+
+
+def ring_bwd_from_res(q, k, v, out, lse, do, mi: MaskInfo, scale: float, mesh: Mesh, axis: str):
+    """The ring's backward from the forward's residuals: cp steps of K5's offsets form with
+    the final ``out`` and ``lse`` and one delta = rowsum(dO * out), computed here from the
+    ``out`` handed in. dq adds up in place; the f32 dk / dv accumulators travel the ring with
+    their kv block, so after cp steps both are home. Returns (dq, dk, dv) of this rank's
+    shard in q's / k's / v's dtypes."""
+    n, my = mesh.axis_size(axis), mesh.index(axis)
+    S = q.shape[1]
+    do = do.contiguous()
+    delta = (do.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()  # [B, Hq, S], once per ring
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dkv = [torch.zeros(k.shape, dtype=torch.float32, device=q.device) for _ in range(2)]
+    blk = [k, v] + ([mi.segment_ids] if mi.segment_ids is not None else [])
+    for step in range(n):
+        kv_idx = (my - step) % n
+        nxt = RingExchange(mesh, blk, axis) if step < n - 1 else None
+        fa.flash_bwd_ring(q, blk[0], blk[1], out, lse, do, delta, (dq, *dkv),
+                          _block_mask(mi, blk[2] if len(blk) > 2 else None), my * S, kv_idx * S, scale)
+        # the dk / dv accumulators travel with their block: after n steps both are home
+        dkv = RingExchange(mesh, dkv, axis, tag=1).wait()
+        if nxt is not None:
+            blk = nxt.wait()
+    return dq.to(q.dtype), dkv[0].to(k.dtype), dkv[1].to(v.dtype)
+
+
 class _RingFlash(torch.autograd.Function):
     """Ring attention on K2's ring form (forward) and K5's offsets form (backward)."""
 
     @staticmethod
     def forward(ctx, q, k, v, mi: MaskInfo, scale: float, mesh: Mesh, axis: str):
-        n, my = mesh.axis_size(axis), mesh.index(axis)
-        B, S, Hq, D = q.shape
-        out = torch.zeros((B, S, Hq, D), dtype=torch.float32, device=q.device)
-        lse = torch.full((B, Hq, S, 1), _NEG_INF, dtype=torch.float32, device=q.device)
-        blk = [k, v] + ([mi.segment_ids] if mi.segment_ids is not None else [])
-        for step in range(n):
-            kv_idx = (my - step) % n
-            nxt = RingExchange(mesh, blk, axis) if step < n - 1 else None
-            o_b, l_b = fa.flash_fwd_ring(q, blk[0], blk[1], _block_mask(mi, blk[2] if len(blk) > 2 else None),
-                                         my * S, kv_idx * S, scale)
-            lse_new = torch.logaddexp(lse, l_b)
-            w_a, w_b = (torch.exp(x - lse_new).transpose(1, 2) for x in (lse, l_b))  # [B, S, Hq, 1]
-            out = out * w_a + o_b.float() * w_b
-            lse = lse_new
-            if nxt is not None:
-                blk = nxt.wait()
-        out = out.to(q.dtype)
+        out, lse = ring_fwd_with_lse(q, k, v, mi, scale, mesh, axis)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.mi, ctx.scale, ctx.mesh, ctx.axis = mi, scale, mesh, axis
         return out
@@ -151,24 +186,8 @@ class _RingFlash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        mi, mesh, axis = ctx.mi, ctx.mesh, ctx.axis
-        n, my = mesh.axis_size(axis), mesh.index(axis)
-        S = q.shape[1]
-        do = do.contiguous()
-        delta = (do.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()  # [B, Hq, S], once per ring
-        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-        dkv = [torch.zeros(k.shape, dtype=torch.float32, device=q.device) for _ in range(2)]
-        blk = [k, v] + ([mi.segment_ids] if mi.segment_ids is not None else [])
-        for step in range(n):
-            kv_idx = (my - step) % n
-            nxt = RingExchange(mesh, blk, axis) if step < n - 1 else None
-            fa.flash_bwd_ring(q, blk[0], blk[1], out, lse, do, delta, (dq, *dkv),
-                              _block_mask(mi, blk[2] if len(blk) > 2 else None), my * S, kv_idx * S, ctx.scale)
-            # the dk / dv accumulators travel with their block: after n steps both are home
-            dkv = RingExchange(mesh, dkv, axis, tag=1).wait()
-            if nxt is not None:
-                blk = nxt.wait()
-        return dq.to(q.dtype), dkv[0].to(k.dtype), dkv[1].to(v.dtype), None, None, None, None
+        dq, dk, dv = ring_bwd_from_res(q, k, v, out, lse, do, ctx.mi, ctx.scale, ctx.mesh, ctx.axis)
+        return dq, dk, dv, None, None, None, None
 
 
 def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh: Mesh, mask_info: MaskInfo | None = None,

@@ -85,6 +85,22 @@ class _SeqToHeads(torch.autograd.Function):
         return _heads_to_seq(ctx.mesh, g.contiguous(), ctx.axis), None, None
 
 
+def _prepare(q, k, mi: MaskInfo, mesh: Mesh, axis: str) -> tuple[int, MaskInfo]:
+    """(g, the whole sequence's MaskInfo): the checks, the kv repeat ``g`` and the segment ids
+    gathered over the axis (every rank attends over the whole sequence after the scatter)."""
+    if mi.q_positions is not None or mi.kv_positions is not None or mi.kv_len is not None:
+        raise ValueError("decode metadata is not context-parallel")
+    n = mesh.axis_size(axis)
+    Hq, Hkv = q.shape[2], k.shape[2]
+    if Hq % n:
+        raise ValueError(f"Ulysses needs num_heads ({Hq}) divisible by the {axis} axis ({n})")
+    g = _kv_repeat(Hq, Hkv, n)
+    if g is None:
+        raise ValueError(f"no kv replication factor for Hq={Hq}, Hkv={Hkv}, n={n}")
+    seg = None if mi.segment_ids is None else all_gather(mesh, mi.segment_ids, axis, dim=1)
+    return g, MaskInfo(causal=mi.causal, segment_ids=seg, prefix_len=mi.prefix_len)
+
+
 def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh: Mesh, mask_info: MaskInfo | None = None,
                       scale: float | None = None, axis_name: str = "cp") -> torch.Tensor:
     """q [B, S_local, Hq, D], k / v [B, S_local, Hkv, D]: this rank's shard of a sequence
@@ -93,23 +109,51 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh: M
     forward / backward (the kernels on CUDA tensors, their plain versions on CPU tensors).
     Raises when the head geometry cannot be scattered: ``ulysses_supported`` routes such
     models to ring attention."""
-    mi = mask_info or MaskInfo(causal=False)
-    if mi.q_positions is not None or mi.kv_positions is not None or mi.kv_len is not None:
-        raise ValueError("decode metadata is not context-parallel")
-    n = mesh.axis_size(axis_name)
-    Hq, Hkv = q.shape[2], k.shape[2]
-    if Hq % n:
-        raise ValueError(f"Ulysses needs num_heads ({Hq}) divisible by the {axis_name} axis ({n})")
-    g = _kv_repeat(Hq, Hkv, n)
-    if g is None:
-        raise ValueError(f"no kv replication factor for Hq={Hq}, Hkv={Hkv}, n={n}")
+    g, full = _prepare(q, k, mask_info or MaskInfo(causal=False), mesh, axis_name)
     if g > 1:
         # the local GQA grouping (q head j -> kv head j // group') then reproduces the global
         # h -> h // (Hq / Hkv) exactly
         k = torch.repeat_interleave(k, g, dim=2)
         v = torch.repeat_interleave(v, g, dim=2)
     q, k, v = (_HeadsToSeq.apply(t, mesh, axis_name) for t in (q, k, v))
-    seg = None if mi.segment_ids is None else all_gather(mesh, mi.segment_ids, axis_name, dim=1)
-    full = MaskInfo(causal=mi.causal, segment_ids=seg, prefix_len=mi.prefix_len)
     out = fa.flash_attention(q, k, v, full, scale)
     return _SeqToHeads.apply(out, mesh, axis_name)
+
+
+# ---------------------------------------------------------------------------
+# forward and backward as plain functions, for a caller that keeps its own residuals (the
+# int8-residual attention, models/llama.py:attention_q8). The residuals stay in the local
+# rows [B, S_local, H, D], as the caller holds q / k / v and the output; only the lse is in
+# the head shard's layout [B, Hq / n, S, 1], as the flash forward gave it.
+# ---------------------------------------------------------------------------
+
+
+def ulysses_fwd_with_lse(q, k, v, mi: MaskInfo, scale: float, mesh: Mesh, axis: str):
+    """heads -> sequence for q / k / v (k / v repeated g times first), the flash forward
+    over the whole sequence, sequence -> heads for the output. Returns (out [B, S_local, Hq, D]
+    in q's dtype, lse [B, Hq / n, S, 1] f32, the whole sequence's MaskInfo), what
+    ``ulysses_bwd_from_res`` takes besides the local rows. No autograd."""
+    g, full = _prepare(q, k, mi, mesh, axis)
+    if g > 1:
+        k, v = (torch.repeat_interleave(t, g, dim=2) for t in (k, v))
+    q, k, v = (_heads_to_seq(mesh, t.contiguous(), axis) for t in (q, k, v))
+    out, lse = fa.flash_fwd_with_lse(q, k, v, full, scale)
+    return _seq_to_heads(mesh, out, axis), lse, full
+
+
+def ulysses_bwd_from_res(q, k, v, out, lse, do, full: MaskInfo, scale: float, mesh: Mesh, axis: str):
+    """(dq, dk, dv) of the local rows from the local q / k / v / out / do and the forward's
+    lse and MaskInfo (``ulysses_fwd_with_lse``): heads -> sequence for the five, the flash
+    backward from them, sequence -> heads for the three gradients, and dk / dv summed over
+    their g repeated copies (what autograd of the repeat does in ``ulysses_attention``)."""
+    Hkv = k.shape[2]
+    g = _kv_repeat(q.shape[2], Hkv, mesh.axis_size(axis))
+    if g > 1:
+        k, v = (torch.repeat_interleave(t, g, dim=2) for t in (k, v))
+    q, k, v, out, do = (_heads_to_seq(mesh, t.contiguous(), axis) for t in (q, k, v, out, do))
+    grads = fa.flash_bwd_from_res(q, k, v, out, lse, do, full, scale)
+    dq, dk, dv = (_seq_to_heads(mesh, t.contiguous(), axis) for t in grads)
+    if g > 1:
+        B, S, _, D = dk.shape
+        dk, dv = (t.reshape(B, S, Hkv, g, D).sum(dim=3) for t in (dk, dv))
+    return dq, dk, dv

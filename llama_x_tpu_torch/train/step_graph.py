@@ -39,9 +39,11 @@ buffers, and one replay of the update graph: no Python, no per-kernel dispatch.
   eager step (the same bodies over the same buffers, launched op by op) runs where the caller
   asks for it (``eager=True``) or on CPU tensors, where the bodies run over the same buffers.
 - Refused by name: a mesh of more than one rank (gloo goes through host memory, the tp
-  cross-entropy reads a count back) and attention dropout (``models/llama.py:layer_seeds``
-  hands K2 / K5 host-integer seeds, which a graph would freeze). Those trainers pass
-  ``eager=True`` by ``eager_reason``.
+  cross-entropy reads a count back), which the trainers meet with ``eager=True`` by
+  ``eager_reason``; and a loss that hands dropout seeds to the forward
+  (``models/llama.py:layer_seeds`` refuses them inside ``captured_step``: K2 / K5 take them as
+  host integers, which a graph would freeze). A config's ``attn_dropout`` alone is captured:
+  without seeds no dropout applies, and no trainer hands them.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from llama_x_tpu_torch.models import llama
 from llama_x_tpu_torch.models.decode_graph import Captured, on_card
 from llama_x_tpu_torch.parallel.tensor import mesh_of
 
@@ -66,9 +69,6 @@ def eager_reason(model, mesh=None) -> str | None:
     if mesh is not None and mesh.size > 1:
         return (f"the model is placed on a mesh of {mesh.size} ranks, whose collectives go through host memory "
                 "(gloo) and read counts back (the tp cross-entropy's nonzero)")
-    if model.config.attn_dropout > 0.0:
-        return ("attention dropout hands K2 / K5 host-integer seeds a step (models/llama.py:layer_seeds), "
-                "which a captured graph would freeze")
     return None
 
 
@@ -256,10 +256,14 @@ def run(state, name: str, static: tuple, batch: dict, micro, update, *, eager: b
     key = (name, static, state.model.config, accum,
            tuple((k, tuple(v.shape[1:]), v.dtype) for k, v in batch.items()))
     entry = runner.entry(key, batch)
-    if eager or not on_card(runner.buffers.loss_sum):
+    if eager:
         runner.eager(state, entry, batch, accum, micro, update)
     else:
-        runner.replay(state, name, entry, batch, accum, micro, update)
+        with llama.captured_step(name):  # a loss that hands dropout seeds raises here, on the CPU too
+            if on_card(runner.buffers.loss_sum):
+                runner.replay(state, name, entry, batch, accum, micro, update)
+            else:
+                runner.eager(state, entry, batch, accum, micro, update)
     return {k: v.clone() for k, v in runner.buffers.metrics.items()}
 
 

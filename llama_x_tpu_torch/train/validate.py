@@ -5,8 +5,7 @@ Every trainer calls ``validate_launch`` right after it has its mesh, and ``valid
 once the model config exists; each refusal names the flag to change. The checks and the
 messages are the JAX package's. Its refusal of ``--attn_impl flash`` off a TPU has no
 counterpart: the port's flash path is the kernels on the card and their plain versions on
-the CPU. One refusal is the port's own: ``--remat_policy attn_q8`` / ``attn_q8s`` with
-context parallelism (ROADMAP A). ``mesh`` is anything with a ``shape`` dict over the axes (parallel/mesh.py: Mesh).
+the CPU. ``mesh`` is anything with a ``shape`` dict over the axes (parallel/mesh.py: Mesh).
 """
 
 from __future__ import annotations
@@ -52,12 +51,6 @@ def validate_launch(args, mesh, *, modality: str = "text", max_seq_len: int | No
             _err(f"max_seq_len {max_seq_len} must divide by the cp axis ({cp}) for {args.attn_impl} attention")
         if pp > 1:
             _err(f"--attn_impl {args.attn_impl} cannot combine with a pp mesh axis (its shard_map cannot nest inside pipeline stages)")
-        if getattr(args, "remat_policy", "full") in ("attn_q8", "attn_q8s"):
-            _err(
-                f"--remat_policy {args.remat_policy} does not combine with --attn_impl {args.attn_impl}: the "
-                "int8-residual attention runs the flash kernels on this rank's rows only; use --remat_policy "
-                "flash_q8s (the JAX package's attention_q8 ignores attn_impl and attends over the whole sequence)"
-            )
     elif cp > 1:
         _err('a "cp" mesh axis requires --attn_impl ring or ulysses (other attention paths never shard the sequence)')
 

@@ -17,8 +17,8 @@ small wk gradient). Also here: the launches of one forward + backward
 tolerances, the dropout fallback to ``flash_q8`` / ``flash_q8s``, the step at tp 2 and fsdp
 2 against the JAX step on the 8-device simulation (at the sharding tests' int8 tolerances),
 and the context-parallel outcome: the JAX ``attention_q8`` ignores ``attn_impl`` and attends
-over the whole sequence, so cp 2 equals cp 1 there, while the port refuses the combination
-by name (ROADMAP A)."""
+over the whole sequence, so cp 2 equals cp 1 there, and the port accepts the combination and
+runs it (over gloo processes at cp 2 and cp 4: tests/test_torch_attn_q8_cp.py)."""
 
 import argparse
 import functools
@@ -355,10 +355,13 @@ def test_attn_q8_on_sharded_linears_matches_the_jax_step(tmp_path, mesh_kw, inte
 def test_context_parallelism_outcome():
     """The JAX package at cp 2 (ring) under attn_q8s computes what it computes at cp 1:
     its attention_q8 never looks at attn_impl, so the loss and gradients agree to fp32
-    summation order. The port does not reproduce a whole-sequence attention inside a
-    context-parallel step: validate_launch and trunk refuse the combination by name."""
+    summation order. The port takes the combination too: validate_launch accepts attn_q8 /
+    attn_q8s with ring and Ulysses at cp 2, and trunk runs them over a mesh of one rank, where
+    the ring's one block and Ulysses' exchanges within one rank give the cp 1 loss and
+    gradients bit for bit. (cp 2 and cp 4 over gloo processes:
+    tests/test_torch_attn_q8_cp.py.)"""
     params, jcfg, mask, model, _ = _pair("qlora", max_seq_len=64)
-    tokens, labels, _, _ = _batch(3, B=2, S=64)
+    tokens, labels, seg, _ = _batch(3, B=2, S=64)
     trainable, frozen = partition(params, mask)
     cfg = jcfg.replace(activation_checkpointing=True, remat_policy="attn_q8s")
 
@@ -372,17 +375,20 @@ def test_context_parallelism_outcome():
     assert float(two_loss) == pytest.approx(float(one_loss), rel=1e-5)
     _held(dict((n, np.asarray(g)) for n, g in named_leaves(two)), dict(named_leaves(one)), 1e-4, "cp 2 vs cp 1")
 
+    batch = (tokens, labels, seg, None)
     for policy in POLICIES:
-        args = argparse.Namespace(batch_size=2, gradient_accumulation=1, attn_impl="ring", remat_policy=policy)
-        with pytest.raises(tvalidate.LaunchConfigError, match=f"--remat_policy {policy} does not combine"):
+        model.config = model.config.replace(attn_impl="auto")
+        want_loss, want = _port(model, policy, "packed", batch)
+        for impl in ("ring", "ulysses"):
+            args = argparse.Namespace(batch_size=2, gradient_accumulation=1, attn_impl=impl, remat_policy=policy)
             tvalidate.validate_launch(args, tmesh.Mesh(tmesh.mesh_shape(2, cp=2), 0, None), max_seq_len=64)
-        model.config = model.config.replace(activation_checkpointing=True, remat_policy=policy, attn_impl="ring")
-        x = tllama.embed(model, torch.from_numpy(tokens).long())
-        with pytest.raises(ValueError, match=f"remat_policy='{policy}' does not combine"):
-            tllama.trunk(model, x, MaskInfo(causal=True))
-    tvalidate.validate_launch(argparse.Namespace(batch_size=2, gradient_accumulation=1, attn_impl="ring",
-                                                 remat_policy="flash_q8s"),
-                              tmesh.Mesh(tmesh.mesh_shape(2, cp=2), 0, None), max_seq_len=64)
+            model.config = model.config.replace(attn_impl=impl)
+            with tmesh.use_mesh(tmesh.make_mesh()):
+                got_loss, got = _port(model, policy, "packed", batch)
+            assert got_loss == want_loss, (policy, impl)
+            assert set(got) == set(want) and got
+            for name, w in want.items():
+                np.testing.assert_array_equal(got[name], w, err_msg=f"{name} {policy} {impl}")
 
 
 TRAINERS = {  # each trainer's small run on the CPU: (task directory, its own flags)

@@ -151,20 +151,16 @@ def test_activation_checkpointing_gives_the_same_gradients(mode):
 
 
 @pytest.mark.parametrize("policy,exc,match", [
-    ("attn_q8", ValueError, "does not combine with attn_impl='ring'"),
-    ("attn_q8s", ValueError, "does not combine with attn_impl='ring'"),
     ("flash_q9", ValueError, "unknown remat_policy"), ("dots_proj", ValueError, "unknown remat_policy"),
 ])
 def test_other_remat_policies_are_refused_by_name(policy, exc, match):
     """Every policy of ``REMAT_POLICIES`` is ported (tests/test_torch_remat.py,
-    tests/test_torch_attn_q8.py); the int8-residual attention raises by name where it cannot
-    apply (context-parallel attention, here over a mesh of one rank), and an unknown name
-    raises too."""
+    tests/test_torch_attn_q8.py, under context parallelism tests/test_torch_attn_q8_cp.py); an
+    unknown name raises by name, here over a mesh of one rank."""
     from llama_x_tpu_torch.parallel.mesh import make_mesh, use_mesh
 
     _, _, _, model = _pair("full")
-    model.config = model.config.replace(activation_checkpointing=True, remat_policy=policy,
-                                        attn_impl="ring" if policy.startswith("attn_q8") else model.config.attn_impl)
+    model.config = model.config.replace(activation_checkpointing=True, remat_policy=policy)
     tokens, labels, seg = _batch(2)
     with use_mesh(make_mesh()), pytest.raises(exc, match=match):
         tllama.forward(model, torch.from_numpy(tokens).long(), labels=torch.from_numpy(labels))

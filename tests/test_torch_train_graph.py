@@ -16,7 +16,8 @@ a step's metrics stay as they were after the next step.
 
 The bookkeeping, with the card's capture replaced by a stub that replays the bodies: one key
 per padding bucket, the replays equal to the eager step bit for bit, eviction bounded, a new
-parameter storage captured again; the mesh and attention-dropout refusals; the launch tally
+parameter storage captured again; the mesh refusal and the dropout seeds' (a config's
+``attn_dropout`` without seeds is captured, equal to the eager step); the launch tally
 crediting a launch that another thread (the autograd engine's, on the card) issues onto the
 capturing stream."""
 
@@ -325,18 +326,49 @@ def test_a_mesh_refuses_the_graph_by_name():
         del model.mesh
 
 
+def _seeded_loss(model, mb):
+    """``_tloss`` with a dropout seed handed to each layer."""
+    loss = tllama.forward(model, mb["inputs"].long(), segment_ids=mb["segment_ids"], labels=mb["labels"],
+                          dropout_seeds=[11, 12])
+    return loss * mb["scale"], (mb["labels"] != -100).sum()
+
+
 def test_attention_dropout_refuses_the_graph_by_name():
-    """Attention dropout hands K2 / K5 host-integer seeds, which a graph would freeze: the
-    step refuses it by name, and ``eager=True`` takes it."""
+    """Dropout seeds handed to the forward reach K2 / K5 as host integers, which a graph would
+    freeze: a step whose loss hands them raises by name before it changes the state (on CPU
+    tensors too), and ``eager=True`` takes it."""
     _, _, _, model = _pair(seed=7)
     model.config = model.config.replace(attn_dropout=0.1)
     _, make_opt = _optimizers("AdamW")
     state = ttrainer.TrainState(model, make_opt(ttrainer.trainable_parameters(model)))
-    with pytest.raises(ValueError, match="train_step: attention dropout"):
-        ttrainer.make_train_step(_tloss)(state, _step_batch(81))
+    with pytest.raises(ValueError, match="train_step: dropout seeds are handed to the forward"):
+        ttrainer.make_train_step(_seeded_loss)(state, _step_batch(81))
     assert state.step == 0 and int(state.optimizer.count) == 0
-    m = ttrainer.make_train_step(_tloss, eager=True)(state, _step_batch(81))
+    m = ttrainer.make_train_step(_seeded_loss, eager=True)(state, _step_batch(81))
     assert np.isfinite(float(m["loss"])) and state.step == 1
+
+
+def test_attention_dropout_without_seeds_is_captured_and_equals_the_eager_step(stub_card):
+    """A config's ``attn_dropout`` alone does not keep the step from its graph: no trainer's
+    loss hands seeds, so no dropout applies. The step is captured once, replayed after, and
+    equals ``eager=True`` from the same state bit for bit."""
+    _, _, _, model = _pair(seed=8)
+    _, _, _, twin = _pair(seed=8)
+    for m in (model, twin):
+        m.config = m.config.replace(attn_dropout=0.1)
+    assert step_graph.eager_reason(model) is None
+    _, make_opt = _optimizers("AdamW")
+    state = ttrainer.TrainState(model, make_opt(ttrainer.trainable_parameters(model)))
+    ref = ttrainer.TrainState(twin, make_opt(ttrainer.trainable_parameters(twin)))
+    step, eager = ttrainer.make_train_step(_tloss), ttrainer.make_train_step(_tloss, eager=True)
+    for i in range(3):
+        got, want = step(state, _step_batch(82 + i)), eager(ref, _step_batch(82 + i))
+        for k in want:
+            assert torch.equal(got[k], want[k]), (i, k)
+    s = step_graph.stats(state)
+    assert (s["captures"], s["replays"]) == (1, 2)
+    for a, b in zip(ttrainer.trainable_parameters(model), ttrainer.trainable_parameters(twin)):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------
