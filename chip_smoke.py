@@ -30,17 +30,22 @@ no result line):
    at the matching input gradients and the CE dH over K 64128 / 32064), bit for bit, with
    plan, bound and ``_int_mm``;
 3. serving main path: ``generate`` at Llama-3.1-8B width (32 layers) from seeded
-   on-device weights, B 4, ragged byte-tokenized prompts padded to 512, 64 new
+   on-device weights, B 4, ragged byte-tokenized prompts padded to 512, 32 new
    tokens: bf16 weights with a bf16 cache, then int8 weights with dynamic int8
-   activations and an int8 cache; each decode step one replay of the captured CUDA graph
+   activations and an int8 cache; the prefill one replay of the graph captured for its
+   prompt shape and each decode step one replay of the captured CUDA graph
    (models/decode_graph.py; capture + instantiate seconds and the pool's memory printed);
    each run's kernel launch counts are reset before it and must be non-zero after it;
    three timed requests (the spread of decode tok/s), then the eager loop on the same batch
    as the reference: tokens equal (else the near-tie rule, counted), launches equal, and
-   wall against device-busy per step of both (profiler); then ``generate_speculative`` on
+   wall against device-busy per step of both (profiler); the prefill's replay against
+   ``eager=True`` (``check_prefill``: the first token, state and every cache tensor over the
+   prompt bit for bit, each timed, their device busy share, the replay's launches held to the
+   device trace, capture seconds and the pool); then ``generate_speculative`` on
    the same int8 model (int8 cache) with an untrained 4-layer draft of width 1024, B 4,
    32 new tokens, gamma 4: every round one replay of the captured round, its launches held
-   to the device trace, tokens and launches equal to ``eager=True``'s;
+   to the device trace, tokens and launches equal to ``eager=True``'s; its two prefills, first
+   token and state fill one graph held to their eager body bit for bit (``check_spec_prefill``);
 4. kernel path against plain path: on a 2-layer cut of the same weights, prefill and
    first-decode logits of the kernels and of their plain versions agree;
 4a. the schedulers' admission programs on a 2-layer cut of the int8 model with a 2-layer
@@ -49,7 +54,7 @@ no result line):
    ``spec_admit_row``, each through its graph (captured per bucket) against ``eager=True``:
    first tokens and every state tensor bit for bit, a pass of replays launching what the
    eager pass launches, held to the device trace;
-3a. continuous serving on the first 8 of the 32 layers of phase 3's int8 model (a depth cut,
+3a. continuous serving on the first 4 of the 32 layers of phase 3's int8 model (a depth cut,
    int8 KV): ``ContinuousScheduler`` with
    8 slots, 16-step chunks, chunked prefill of 512 and a prefix cache of 4; 16 byte-token
    requests in four waves 0.25 s apart (8 prompts of 130 to 1500 tokens, 8 follow-ups that
@@ -61,7 +66,7 @@ no result line):
    warm-up, those captured inside the timed waves counted), then the same traffic with
    ``eager=True`` beside it (TTFT, ITL, tokens/s, the busy share of a profiled wave in both;
    its rows against the graph's);
-3b. speculative serving: the same 8-layer int8 target (bf16 cache) and an untrained 4-layer draft
+3b. speculative serving: the same 4-layer int8 target (bf16 cache) and an untrained 4-layer draft
    of width 1024, gamma 4 (verify on K3) and gamma 8 (verify on K2's offsets form), each
    round a replay of ``spec_chunk``'s captured round and then the eager rounds beside it
    (tok/s, the tokens equal bit for bit), the acceptance rate, every row against plain
@@ -70,9 +75,10 @@ no result line):
    busy time (graph and eager), its launches held to the device trace; then
    ``generate_speculative`` at gamma 8
    over the int8 cache (K2's offsets form over the static kv bound), graph against eager;
-3c. the HF round trip of a 2-layer cut at 8B width (bf16, about 3 GB, bit for bit) and
-   ``generate_cli --model`` on it; 3d. ``serve_http`` in-process on 127.0.0.1:0 over the
-   8-layer int8 model (continuous, chunked prefill): 4 concurrent completions and a streamed chat,
+3c. the HF round trip of a 2-layer cut at 8B width (bf16, about 3 GB, bit for bit) through a
+   training run and ``export_checkpoint`` with its default device (the card; greedy tokens of
+   the export equal to the cut's) and ``generate_cli --model`` on it; 3d. ``serve_http`` in-process on 127.0.0.1:0 over the
+   4-layer int8 model (continuous, chunked prefill): 4 concurrent completions and a streamed chat,
    each answer's finish_reason and its tokens against a second serving (near-tie rule);
 5. training main path: QLoRA optimizer steps at Llama-3.1-8B width (32 layers, int8
    base, LoRA r 8 on every projection, frozen bf16 head on the int8 kernels, dynamic
@@ -99,7 +105,7 @@ no result line):
    (2000 audio tokens prepended to 2096 text tokens), prefix-LM attention,
    ``remat_policy="flash_q8s"``, microbatch 1, AdamW 1e-4, 4 steps on one repeated batch,
    the launch counts held to what the policy must give, graph replays against a profiled
-   eager step as in phase 5, then the same step on the first 8 layers (a depth cut) under
+   eager step as in phase 5, then the same step on the first 4 layers (a depth cut) under
    ``full``, ``flash_proj``, without checkpointing, and under the int8-residual attention
    ``attn_q8`` / ``attn_q8s`` (each a key
    of the graphs: an eager step and the capture, a replay and a traced replay, launches held:
@@ -107,7 +113,7 @@ no result line):
    profiled eager attn_q8s step with the rowwise quantizer's device time);
 9. audio kernel path against plain path on a 2-layer cut with ``attn_dropout=0.1`` and
    fixed seeds, and on a 2-layer cut under ``attn_q8s``;
-10. the vision main path: one 8B QLoRA trunk with both stems, cut to its first 16 layers, is
+10. the vision main path: one 8B QLoRA trunk with both stems, cut to its first 8 layers, is
    built for phases 10 to 12; the vision step through ``train_vision``'s functions (8 canvases of 224, patch
    14: 272 image tokens before 32 caption bytes, S 304, prefix-LM, remat ``full``, fused
    CE x4), 4 steps through the graphs with the launch counts held every step, a replay held
@@ -119,8 +125,9 @@ no result line):
    the same checks;
 12. the evaluations at 8B width on the trained trunk: ``eval_vision``'s captions (8
    eval-split canvases) and ``eval_librispeech``'s transcripts (4 x 20 s: 1000 audio
-   tokens), 16 new tokens each through K1, K2 with the prefix and K3, with prefill ms,
-   decode tok/s and the score, and each first token's and first decode step's logits
+   tokens), 16 new tokens each through K1, K2 with the prefix and K3, with prefill ms (the
+   prefill's replay against ``eager=True``, ``check_prefill``), decode tok/s and the score,
+   and each first token's and first decode step's logits
    on a 2-layer cut against the plain path;
 13. real data, host path: ``train_librispeech.main`` over a LibriSpeech-layout directory
    of WAV files written here, 2 steps on a 2-layer cut of the 8B geometry;
@@ -159,7 +166,7 @@ no result line):
    batch (1e-3 of |loss|, relative L2 2^-6), the launches of K1 / K2 / K4 / K5 held every
    step to ``p5b_expected_launches``, per rank the step time, the exchange's share, the bytes
    moved and the peak memory (fsdp's below one process's at a rank's one row); then
-   ``generate`` at tp 2 on the first 8 layers of phase 3's int8 model (int8 KV on the local
+   ``generate`` at tp 2 on the first 4 layers of phase 3's int8 model (int8 KV on the local
    heads, B 4, prompts padded to 512, 32 new tokens), every rank's rows the same and each
    held against an unsharded ``generate`` under the near-tie rule, with decode tok/s and
    the exchange's share.
@@ -980,6 +987,39 @@ def device_kernels(prof) -> list[str]:
 # a trace of 10^5 device records or more loses a run of them, on an H100 up to 5 times in a row
 # for one window of 3 * 10^5; a retake costs seconds (diagnostics/trace_records.py counts losses)
 TRACE_ATTEMPTS = 16
+# late in a long run, a short trace of one graph replay (the whole prefill in one launch) lost its
+# edge records on every retake; a retake brackets the window with this many uncounted kernels,
+# ATen's spin kernel (torch.cuda._sleep), which no path of the port launches
+TRACE_PAD_KERNELS = 256
+TRACE_PAD_NAME = "spin_kernel"
+
+
+def trace_pad():
+    """Uncounted kernels, synchronized: what a lossy edge of a trace takes instead of the window's.
+    Their records (``TRACE_PAD_NAME``) are no part of the window: ``device_time`` and
+    ``summarize_profile`` leave them out of the busy time."""
+    import torch
+
+    for _ in range(TRACE_PAD_KERNELS):
+        torch.cuda._sleep(1)
+    torch.cuda.synchronize()
+
+
+def check_trace_pad() -> None:
+    """A trace of ``trace_pad`` alone: every device record of it carries ``TRACE_PAD_NAME``,
+    the name by which the busy sums leave the pad out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trace_pad()
+    names = device_kernels(prof)
+    if not names or any(TRACE_PAD_NAME not in n for n in names):
+        raise AssertionError(f"trace_pad's records are not all named {TRACE_PAD_NAME}: {sorted(set(names))[:4]}")
+    ms = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA) / 1e6
+    log(f"[trace pad] {len(names)} device records, all {TRACE_PAD_NAME}, {ms:.3f} ms (left out of busy sums)")
 
 
 def traced(what: str, fn, cpu: bool = False) -> dict:
@@ -989,8 +1029,9 @@ def traced(what: str, fn, cpu: bool = False) -> dict:
     (``launches.check_trace``; K3's merge kernels beside them). A trace of graph replays can
     lose a run of records of every kind of kernel (diagnostics/trace_records.py), but it never
     shows a kernel that did not run: where it shows fewer than counted, ``fn`` runs again, up
-    to TRACE_ATTEMPTS times; more than counted, or fewer every time, fails.
-    -> {"result", "launches", "traced", "prof", "wall_ms", "attempts"}"""
+    to TRACE_ATTEMPTS times, bracketed by ``trace_pad`` inside the trace (the wall is ``fn``'s
+    alone, and the busy time leaves the pad's records out); more than counted, or fewer
+    every time, fails. -> {"result", "launches", "traced", "prof", "wall_ms", "attempts"}"""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1001,10 +1042,14 @@ def traced(what: str, fn, cpu: bool = False) -> dict:
         torch.cuda.synchronize()
         reset_counts()
         with profile(activities=activities) as prof:
+            if attempt > 1:
+                trace_pad()
             t0 = time.perf_counter()
             result = fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+            if attempt > 1:
+                trace_pad()
         counts = read_counts()
         names = device_kernels(prof)
         seen = launches.traced_counts(names)
@@ -1012,6 +1057,9 @@ def traced(what: str, fn, cpu: bool = False) -> dict:
         if seen == want or attempt == TRACE_ATTEMPTS or any(seen[g] > want[g] for g in seen):
             traced_ = launches.check_trace(names, counts, what)
             traced_["K3 merge"] = sum("decode_merge_kernel" in n for n in names)
+            if attempt > 1:
+                log(f"    {what}: attempt {attempt} kept every record; {sum(TRACE_PAD_NAME in n for n in names)} "
+                    "pad records of the trace left out of its busy time")
             return dict(result=result, launches=counts, traced=traced_, prof=prof, wall_ms=wall_ms, attempts=attempt)
         lost = {g: want[g] - seen[g] for g in seen if seen[g] != want[g]}
         log(f"    {what}: the trace lost kernels {lost} of {len(names)} device records; again")
@@ -1058,7 +1106,7 @@ def ragged_prompts(B: int = 4, P: int = 512):
     return prompt.cuda(), torch.tensor(lens, device="cuda")
 
 
-NEW_TOKENS = 64
+NEW_TOKENS = 32
 
 
 GRAPH_RUNS = 3  # timed graph requests of each kind: the spread of decode tok/s
@@ -1090,6 +1138,118 @@ def timed_request(model, prompt, lens, cache_dtype, eager: bool) -> dict:
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
+PREFILL_RUNS = 3  # timed prefills through the graph and eager, each
+
+
+def device_time(prof) -> tuple[float, dict]:
+    """(device busy ms, ms by ``DEVICE_ITEM_GROUPS``) of a trace, summed over its raw device
+    records (kernels, copies, sets; not ``trace_pad``'s): quicker than ``key_averages`` for a
+    trace of thousands."""
+    import torch
+
+    groups: dict[str, float] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and TRACE_PAD_NAME not in e.name():
+            label = next((lab for key, lab in DEVICE_ITEM_GROUPS if key in e.name()), "other")
+            groups[label] = groups.get(label, 0.0) + e.duration_ns() / 1e6
+    return sum(groups.values()), dict(sorted(groups.items(), key=lambda kv: -kv[1]))
+
+
+def prefill_graph_against_eager(tag: str, model, graph_fn, eager_fn) -> dict:
+    """A prefill through its captured graph (``graph_fn``, its key captured already) against
+    the same prefill launched op by op (``eager_fn``): PREFILL_RUNS of each timed on the host
+    clock after a synchronize, the peak allocated memory from a reset beside them; one replay
+    and one eager prefill traced (the replay's launches, its capture's tally, held to the
+    device trace and to the eager prefill's), their device busy time against the unprofiled
+    median wall (the busy share) and the profiled one; the key's capture + instantiate seconds
+    and the pool its capture grew, and the prefill runner's shared pool."""
+    import torch
+
+    from llama_x_tpu_torch.models import decode_graph as dg
+
+    t_check = time.perf_counter()
+
+    def timed(fn) -> tuple[list[float], float]:
+        ms, peak = [], 0.0
+        for _ in range(PREFILL_RUNS):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            peak = max(peak, torch.cuda.max_memory_allocated() / 1e9)
+        return ms, peak
+
+    runner = dg.prefill_runner_of(model)
+    g_ms, g_peak = timed(graph_fn)
+    e_ms, e_peak = timed(eager_fn)
+    g = traced(f"{tag} prefill replay", graph_fn)
+    entry = next(reversed(runner.graphs.values()))  # the key just replayed
+    credits = {name: entry.captured.credits.get(fn, 0) for name, fn in counted().items()}
+    e = traced(f"{tag} eager prefill", eager_fn)
+    if g["launches"] != credits or e["launches"] != credits:
+        raise AssertionError(f"{tag}: a replay credited {credits}, counted {g['launches']}; eager {e['launches']}")
+    (g_busy, g_groups), (e_busy, e_groups) = device_time(g["prof"]), device_time(e["prof"])
+    g_med, e_med = sorted(g_ms)[len(g_ms) // 2], sorted(e_ms)[len(e_ms) // 2]
+    res = dict(graph_ms=g_ms, eager_ms=e_ms, graph_peak_gb=g_peak, eager_peak_gb=e_peak,
+               replay_peak_within_eager=g_peak <= e_peak, graph_busy_ms=g_busy, eager_busy_ms=e_busy,
+               graph_busy_share=g_busy / g_med, eager_busy_share=e_busy / e_med,
+               graph_busy_share_profiled=g_busy / g["wall_ms"], eager_busy_share_profiled=e_busy / e["wall_ms"],
+               graph_groups_ms=g_groups, eager_groups_ms=e_groups, trace_attempts=(g["attempts"], e["attempts"]),
+               capture_s=entry.capture_s, key_pool_mb=entry.pool_bytes / 1e6, pool_mb=sum(runner.pool_bytes) / 1e6,
+               keys=len(runner.graphs), launches={k: v for k, v in credits.items() if v},
+               traced={k: v for k, v in g["traced"].items() if v}, check_s=time.perf_counter() - t_check)
+    log(f"    {tag} prefill: graph {', '.join(f'{t:.2f}' for t in g_ms)} ms, eager {', '.join(f'{t:.2f}' for t in e_ms)} "
+        f"ms; device busy {g_busy:.2f} / {e_busy:.2f} ms, busy share of the median wall {res['graph_busy_share']:.3f} / "
+        f"{res['eager_busy_share']:.3f} (of the profiled wall {res['graph_busy_share_profiled']:.3f} / "
+        f"{res['eager_busy_share_profiled']:.3f}); peak {g_peak:.2f} / {e_peak:.2f} GB; capture + instantiate "
+        f"{entry.capture_s:.3f} s, the key's pool {res['key_pool_mb']:.1f} MB, the shared pool {res['pool_mb']:.1f} MB "
+        f"over {res['keys']} key(s); launches a replay {res['launches']}, equal to the device trace {res['traced']} "
+        f"and to the eager prefill's; {res['check_s']:.1f} s")
+    log("      device ms by group, graph: " + ", ".join(f"{k} {v:.3f}" for k, v in g_groups.items()))
+    log("      device ms by group, eager: " + ", ".join(f"{k} {v:.3f}" for k, v in e_groups.items()))
+    return res
+
+
+def check_prefill(tag: str, model, prompt, cache_dtype, lens=None, prefix=None, eos_id: int = -1) -> dict:
+    """``prefill_start`` through its graph (the key captured first where the model's prefill
+    runner has none) against ``eager=True`` on the same inputs: the first token, tok / pos /
+    done and every cache tensor over [0, P) of each row bit for bit; one capture at most;
+    then ``prefill_graph_against_eager``."""
+    import torch
+
+    from llama_x_tpu_torch.models import decode_graph as dg
+    from llama_x_tpu_torch.models.generate import prefill_start
+
+    kw = dict(prompt_lens=lens, prefix_embeds=prefix, prefix_lm=prefix is not None, cache_dtype=cache_dtype,
+              eos_id=eos_id)
+    runner = dg.prefill_runner_of(model)
+    captures = runner.captures
+    P = prompt.shape[1] + (0 if prefix is None else prefix.shape[1])
+
+    def call(eager):
+        return prefill_start(model, prompt, eager=eager, **kw)
+
+    def run(eager):
+        first, state = call(eager)
+        torch.cuda.synchronize()
+        return [first, state.tok, state.pos, state.done] + [t[:, :, :, :P].clone() for t in dg.cache_tensors(state.cache)]
+
+    run(False)
+    got, want = run(False), run(True)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{tag}: the prefill's replay differs from eager=True (first token, state or cache)")
+    del got, want
+    res = prefill_graph_against_eager(tag, model, lambda: call(False), lambda: call(True))
+    if runner.captures - captures > 1:
+        raise AssertionError(f"{tag}: the prefill was captured {runner.captures - captures} times")
+    res["bit_for_bit"] = True
+    log(f"    {tag} prefill: replay equal to eager=True bit for bit (first token, tok / pos / done, every cache "
+        f"tensor over [0, {P}))")
+    return res
+
+
 def drive_generate(model, prompt, lens, cache_dtype, need: list[str]) -> dict:
     """The main path: ``generate`` on the ragged batch, each decode step a replay of the
     captured step (the warm-up captures it), under torch.profiler: its launches are the
@@ -1102,6 +1262,7 @@ def drive_generate(model, prompt, lens, cache_dtype, need: list[str]) -> dict:
     from llama_x_tpu_torch.models import decode_graph as dg
     from llama_x_tpu_torch.models.generate import generate
 
+    prefill0 = dg.prefill_stats(model)
     generate(model, prompt, max_new_tokens=2, prompt_lens=lens, cache_dtype=cache_dtype)  # warm-up and capture
     generate(model, prompt, max_new_tokens=2, prompt_lens=lens, cache_dtype=cache_dtype, eager=True)
     main = traced("generate through the captured step",
@@ -1131,6 +1292,9 @@ def drive_generate(model, prompt, lens, cache_dtype, need: list[str]) -> dict:
     graph = dg.stats(model)
     if graph["captures"] != 1 or graph["replays"] < (GRAPH_RUNS + 1) * (NEW_TOKENS - 1):
         raise AssertionError(f"generate did not decode through one captured graph: {graph}")
+    prefill = dg.prefill_stats(model)
+    if prefill["captures"] - prefill0["captures"] != 1 or prefill["replays"] - prefill0["replays"] < GRAPH_RUNS + 1:
+        raise AssertionError(f"generate's prefill was not one captured graph over the requests: {prefill}")
     main_run = runs[0]
     res = dict(B=B, prompt=int(prompt.shape[1]), new_tokens=NEW_TOKENS, launches=counts, traced=main["traced"],
                total_s=main_run["total_s"], prefill_ms=main_run["prefill_ms"], decode_tok_s=tok_s[0],
@@ -1152,6 +1316,7 @@ def drive_generate(model, prompt, lens, cache_dtype, need: list[str]) -> dict:
         "; launches equal")
     res["decode_profile"] = profile_decode(model, prompt, lens, cache_dtype)
     res["eager_decode_profile"] = profile_decode(model, prompt, lens, cache_dtype, steps=3, eager=True)
+    res["prefill_graph"] = check_prefill(f"generate B={B} P={prompt.shape[1]}", model, prompt, cache_dtype, lens=lens)
     return res
 
 
@@ -1242,9 +1407,10 @@ def summarize_profile(prof, wall_ms: float, units: int, what: str, unit: str) ->
     steps (or microbatches) that took ``wall_ms`` on the host clock."""
     import torch
 
-    # a profiler range shows on the device side too, under its own name: not a device item
-    dev = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA and e.key != QUANTIZE_LABEL]
+    # a profiler range shows on the device side too, under its own name: not a device item;
+    # nor is a kernel of ``trace_pad``, outside the window
+    dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.key != QUANTIZE_LABEL and TRACE_PAD_NAME not in e.key]
     busy = {e.key: getattr(e, "self_device_time_total", 0) / 1e3 for e in dev}  # us -> ms
     busy_ms = sum(busy.values())
     top = sorted(busy.items(), key=lambda kv: -kv[1])[:8]
@@ -1315,6 +1481,7 @@ def phase_main_path():
 
     prompt, lens = ragged_prompts()
     runs = {}
+    check_trace_pad()
     for kind in ("bf16", "int8"):
         quant = kind == "int8"
         log(f"[main path] Llama-3.1-8B width, 32 layers, {'int8 weights + dynamic int8 act + int8 KV' if quant else 'bf16 weights + bf16 KV'}")
@@ -1359,6 +1526,7 @@ def drive_speculative(model, draft, prompt, lens, gamma: int) -> dict:
     kw = dict(gamma=gamma, prompt_lens=lens, cache_dtype=torch.int8)
     generate_speculative(model, draft, prompt, max_new_tokens=2, **kw)  # warm-up and capture
     capture_s = dg.stats(model)["capture_s"][-1]
+    prefill = check_spec_prefill(model, draft, prompt, lens, gamma)
 
     def request(eager):
         """-> (tokens, stats, host seconds, the captures and replays it made)."""
@@ -1394,11 +1562,54 @@ def drive_speculative(model, draft, prompt, lens, gamma: int) -> dict:
     res = dict(B=B, new_tokens=SPEC_NEW_TOKENS, gamma=gamma, wall_s=wall, tokens_per_s=emitted / wall,
                target_passes=stats["target_passes"], replays=replays, launches=main["launches"],
                traced=main["traced"], capture_s=capture_s,
-               eager=dict(wall_s=eager_wall, tokens_per_s=emitted / eager_wall))
+               eager=dict(wall_s=eager_wall, tokens_per_s=emitted / eager_wall), prefill_graph=prefill)
     log(f"    graph: {emitted} tokens in {wall:.2f} s ({emitted / wall:.1f} tok/s, both prefills included), "
         f"{rounds} rounds = {replays} replays, capture + instantiate {capture_s:.3f} s; launches {main['launches']}, "
         f"equal to the device trace {main['traced']}")
     log(f"    eager: {eager_wall:.2f} s ({emitted / eager_wall:.1f} tok/s); tokens and launches equal to the graph's")
+    return res
+
+
+def check_spec_prefill(model, draft, prompt, lens, gamma: int) -> dict:
+    """``generate_speculative``'s two prefills, its first token and the fill of its state as
+    one graph (a request of one token: no round) against the same body launched op by op on
+    fresh buffers (what ``eager=True`` runs): both caches over [0, P) of each row, the first
+    token, prev / cur / pos / n_out / done bit for bit; then ``prefill_graph_against_eager``
+    against ``eager=True`` requests of one token."""
+    import torch
+
+    from llama_x_tpu_torch.models import decode_graph as dg
+    from llama_x_tpu_torch.models import speculative as mspec
+
+    B, P = prompt.shape
+    kw = dict(gamma=gamma, prompt_lens=lens, cache_dtype=torch.int8)
+
+    def run(eager):
+        out, _ = mspec.generate_speculative(model, draft, prompt, max_new_tokens=1, eager=eager, **kw)
+        torch.cuda.synchronize()
+        return out
+
+    def tensors(s):
+        caches = dg.cache_tensors(s.t_cache) + dg.cache_tensors(s.d_cache)
+        return [t[:, :, :, :P].clone() for t in caches] + [s.buf[:, :1].clone(), s.prev, s.cur, s.pos, s.n_out, s.done]
+
+    run(False)
+    got = tensors(dg.runner_of(model).slots[("speculative", B, torch.int8, draft.config)])
+    ref = mspec.new_spec_state(model, draft, B, torch.int8)
+    with torch.inference_mode():
+        mspec._start(model, draft, ref, dg.PrefillInputs(prompt, None, lens.long()), None, temperature=0.0, top_k=0,
+                     top_p=1.0, min_p=0.0, eos_id=-1, pad_id=0)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, tensors(ref))):
+        raise AssertionError("generate_speculative's prefill replay differs from its eager body (caches or state)")
+    if not torch.equal(run(False), run(True)):
+        raise AssertionError("generate_speculative's first token differs between the graph and eager=True")
+    del got, ref
+    res = prefill_graph_against_eager(f"generate_speculative B={B} P={P}", model, lambda: run(False),
+                                      lambda: run(True))
+    res["bit_for_bit"] = True
+    log("    generate_speculative prefills: replay equal to the eager body bit for bit (both caches over "
+        f"[0, {P}), first token, prev / cur / pos / n_out / done)")
     return res
 
 
@@ -1850,7 +2061,7 @@ def phase_admissions(model) -> dict:
 # the serving phases' depth: the first 8 of the 8B model's 32 layers, at full width, which
 # keeps the whole script inside half its time limit (the unbatched references of the
 # continuous phase's 16 rows took most of its 196 s at 32 layers and 126 s at 16 on an H100)
-SERVING_LAYERS = 8
+SERVING_LAYERS = 4
 SPEC_DRAFT = dict(num_layers=4, embed_dim=1024, num_heads=8, num_kv_heads=8, intermediate_dim=2816)
 
 
@@ -2036,9 +2247,59 @@ def phase_speculative(model) -> dict:
     return runs
 
 
+def check_export(cut, tmp: str) -> dict:
+    """The HF round trip of ``cut`` through a training run: saved as a run under ``tmp``
+    (``save_model_config`` + ``save_checkpoint``), exported by ``export_checkpoint`` as a user
+    calls it (no ``--device``: ``restore_model`` and ``save_llama_hf`` on the card), its
+    ``model.safetensors`` read back through ``load_llama``: every tensor bit for bit, and greedy
+    tokens (2 rows of 32, 16 new) equal to the cut's own. -> timings, size and the HF directory"""
+    import torch
+
+    from llama_x_tpu_torch import export_checkpoint
+    from llama_x_tpu_torch.models import hf
+    from llama_x_tpu_torch.models.generate import generate
+    from llama_x_tpu_torch.train.checkpoint import save_checkpoint
+    from llama_x_tpu_torch.train.cli import save_model_config
+    from llama_x_tpu_torch.train.optim import AdamW
+    from llama_x_tpu_torch.train.trainer import TrainState
+
+    run = Path(tmp) / "run"
+    run.mkdir()
+    t0 = time.perf_counter()
+    save_model_config(run, cut.config)
+    save_checkpoint(run, TrainState(cut, AdamW([], 0.0)), 0)
+    run_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        out = Path(export_checkpoint.main([str(run), str(Path(tmp) / "hf")]))
+    export_s = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in out.iterdir())
+    t0 = time.perf_counter()
+    back = hf.load_llama(out, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    ours, theirs = cut.state_dict(), back.state_dict()
+    if set(ours) != set(theirs) or not all(torch.equal(ours[k], theirs[k]) for k in ours):
+        raise AssertionError("the HF round trip through export_checkpoint changed a tensor")
+    del ours, theirs
+    g = torch.Generator(device="cuda").manual_seed(2)
+    prompt = torch.randint(0, 256, (2, 32), device="cuda", generator=g)
+    want, got = (generate(m, prompt, max_new_tokens=16) for m in (cut, back))
+    if not torch.equal(got, want):
+        raise AssertionError("the exported model's greedy tokens differ from the run's model's")
+    files = sorted(f.name for f in out.iterdir())
+    del back
+    torch.cuda.empty_cache()
+    log(f"    {said.getvalue().strip().splitlines()[-1]}; run saved in {run_s:.1f} s, exported in {export_s:.1f} s "
+        f"({size / 1e9:.3f} GB: {files}), read back in {load_s:.1f} s; every tensor bit for bit, and 2 x 16 greedy "
+        "tokens equal to the run's model")
+    return dict(out=str(out), gb=size / 1e9, run_save_s=run_s, export_s=export_s, load_s=load_s, files=files)
+
+
 def phase_hf_and_http(model) -> dict:
-    """The HF round trip of a 2-layer cut at 8B width (bf16, about 3 GB: every tensor back
-    bit for bit), ``generate_cli --model`` on it, then ``serve_http`` in-process on
+    """The HF round trip of a 2-layer cut at 8B width (bf16, about 3 GB) through a training run
+    and ``export_checkpoint`` (``check_export``: every tensor back bit for bit, greedy tokens
+    equal), ``generate_cli --model`` on it, then ``serve_http`` in-process on
     127.0.0.1:0 over the int8 model (``Engine(_preloaded=...)``, continuous batching of 4
     slots, chunked prefill of 512, int8 KV): 4 concurrent /v1/completions and one streamed
     /v1/chat/completions with the byte tokenizer, each answer with a finish_reason and its
@@ -2052,31 +2313,20 @@ def phase_hf_and_http(model) -> dict:
 
     from llama_x_tpu_torch import generate_cli, serve_http
     from llama_x_tpu_torch.generate_cli import GEOMETRIES, build_model
-    from llama_x_tpu_torch.models import hf, llama
+    from llama_x_tpu_torch.models import llama
 
     runs = {}
-    log("[HF round trip] save_llama_hf of a 2-layer cut at 8B width (bf16), load_llama back, generate_cli --model")
+    log("[HF round trip] a 2-layer cut at 8B width (bf16) saved as a training run, exported by export_checkpoint with "
+        "its default device (the card), load_llama back; generate_cli --model on the export")
     cut = build_model(llama.LlamaConfig(**{**GEOMETRIES["8b"], "num_layers": 2}, max_seq_len=4096), False, 3, "cuda")
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        hf.save_llama_hf(cut, tmp)
-        save_s = time.perf_counter() - t0
-        size = sum(f.stat().st_size for f in Path(tmp).iterdir())
-        t0 = time.perf_counter()
-        back = hf.load_llama(tmp, device="cuda")
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
-        ours, theirs = cut.state_dict(), back.state_dict()
-        if set(ours) != set(theirs) or not all(torch.equal(ours[k], theirs[k]) for k in ours):
-            raise AssertionError("the HF round trip changed a tensor")
-        del back, ours, theirs
-        log(f"    {size / 1e9:.3f} GB written in {save_s:.1f} s, read back in {load_s:.1f} s; every tensor bit for bit")
+        exported = check_export(cut, tmp)
         tr = traced("generate_cli --model", lambda: generate_cli.main([
-            "--model", tmp, "--device", "cuda", "--prompt", "The capital of France is", "--prompt",
+            "--model", exported["out"], "--device", "cuda", "--prompt", "The capital of France is", "--prompt",
             "Speculative decoding drafts", "--max_new_tokens", "16", "--no_eos"]))
         counts = tr["launches"]
     need_launches(counts, ["flash_attention", "decode_attention"], "generate_cli --model")
-    runs["hf_cli"] = dict(gb=size / 1e9, save_s=save_s, load_s=load_s, launches=counts, traced=tr["traced"])
+    runs["hf_cli"] = dict(exported, launches=counts, traced=tr["traced"])
     del cut
     torch.cuda.empty_cache()
 
@@ -2487,7 +2737,7 @@ def phase_probe() -> dict:
     return res
 
 
-SWEEP_LAYERS = 8  # the audio phase's policy sweep runs on the first 8 layers (a depth cut)
+SWEEP_LAYERS = 4  # the audio phase's policy sweep runs on the first 4 layers (a depth cut)
 AUDIO_FLAGS = [
     "--synthetic", "8", "--geometry", "8b", "--quantize", "int8",
     "--quantize_kwargs", '{"dynamic_int8_act": true, "dynamic_int8_bwd": true, "int8_head": true}',
@@ -2737,7 +2987,7 @@ OMNI_FLAGS = [  # tools/bench_omni.py's geometry: 30 s + one 224 image + 2324 te
 ]
 
 
-TRUNK_LAYERS = 16  # the vision, omni and evaluation phases' depth (a cut of the 32 layers)
+TRUNK_LAYERS = 8  # the vision, omni and evaluation phases' depth (a cut of the 32 layers)
 
 
 def build_trunk():
@@ -2944,23 +3194,20 @@ def compare_prefix_decode_paths(model, prefix, bos, tag: str) -> dict:
 EVAL_NEW_TOKENS = 16
 
 
-def timed_eval(tag: str, model, prefix, decode_fn) -> tuple[dict, list]:
-    """One evaluation batch through its entry point's function: a warm-up, the prefill
-    timed apart through ``prefill_start``, then the whole call with the counts reset just
-    before it and read just after; K1, K2 and K3 must launch. The call again under the
-    profiler: the same texts, and the same counts, held to its device trace. -> (record, texts)"""
+def timed_eval(tag: str, model, prefix, decode_fn, eos_id: int) -> tuple[dict, list]:
+    """One evaluation batch through its entry point's function: a warm-up (which captures
+    the prefill's key and the decode step), the prefill of the same key through its graph
+    against ``eager=True`` (``check_prefill``: bit for bit, each timed), then the whole call
+    with the counts reset just before it and read just after; K1, K2 and K3 must launch. The
+    call again under the profiler: the same texts, and the same counts, held to its device
+    trace. -> (record, texts)"""
     import torch
-
-    from llama_x_tpu_torch.models.generate import prefill_start
 
     decode_fn(2)  # warm-up
     B = prefix.shape[0]
     bos = torch.full((B, 1), 256, dtype=torch.long, device="cuda")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    prefill_start(model, bos, prefix_embeds=prefix, prefix_lm=True, max_new_tokens=EVAL_NEW_TOKENS)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
+    prefill = check_prefill(f"the {tag} evaluation", model, bos, torch.bfloat16, prefix=prefix, eos_id=eos_id)
+    prefill_s = sorted(prefill["graph_ms"])[len(prefill["graph_ms"]) // 2] / 1e3
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
@@ -2973,7 +3220,7 @@ def timed_eval(tag: str, model, prefix, decode_fn) -> tuple[dict, list]:
         raise AssertionError(f"the {tag} evaluation never launched {missing} or returned {len(hyps)} texts: {counts}")
     res = dict(B=B, prefix=int(prefix.shape[1]), new_tokens=EVAL_NEW_TOKENS, launches=counts, total_s=total_s,
                prefill_ms=prefill_s * 1e3, decode_tok_s=B * (EVAL_NEW_TOKENS - 1) / (total_s - prefill_s),
-               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, prefill_graph=prefill)
     tr = traced(f"the {tag} evaluation", lambda: decode_fn(EVAL_NEW_TOKENS))  # again, its decode steps replays
     if tr["launches"] != counts or tr["result"] != hyps:
         raise AssertionError(f"the traced {tag} evaluation launched {tr['launches']} against {counts}, or other texts")
@@ -3013,7 +3260,8 @@ def phase_evals(trunk) -> dict:
     images = torch.from_numpy(np.stack([im for im, _ in samples]))
     with torch.inference_mode():
         prefix = vision_mod.patch_embed(model.patch_embed, model.vision_config, images.cuda())
-    res, hyps = timed_eval("captions", model, prefix, lambda n: eval_vis.caption_batch(model, images, tok, n, True))
+    res, hyps = timed_eval("captions", model, prefix, lambda n: eval_vis.caption_batch(model, images, tok, n, True),
+                           tok.eos_id)
     res["score"] = eval_vis._score([c for _, c in samples], hyps)
     log(f"    captions score {json.dumps(res['score'])}; first caption {hyps[0]!r}")
     res["two_path"] = compare_prefix_decode_paths(model, prefix, torch.full((8, 1), 256, device="cuda"), "captions")
@@ -3026,7 +3274,7 @@ def phase_evals(trunk) -> dict:
     if prefix.shape[1] != 1000:
         raise AssertionError(f"20 s of audio is 1000 audio tokens, got {prefix.shape[1]}")
     res, hyps = timed_eval("transcripts", model, prefix,
-                           lambda n: eval_ls.transcribe_batch(model, audio, tok, n, True))
+                           lambda n: eval_ls.transcribe_batch(model, audio, tok, n, True), tok.eos_id)
     res["score"] = {"wer": wer(["synthetic reference text"] * 4, hyps), "n_utts": 4}
     log(f"    transcripts score {json.dumps(res['score'])}")
     res["two_path"] = compare_prefix_decode_paths(model, prefix, torch.full((4, 1), 256, device="cuda"),
@@ -3756,7 +4004,7 @@ def p5b_lora_grads(state, grads, mesh) -> dict:
 def p5b_rank(rank: int, world: int, store: str, out_dir: str) -> None:
     """One rank of the 5b phase (a spawned process on the shared card, over gloo): the text
     trainer's own pieces at tp 2, fsdp 2 and pp 2 in turn, then ``generate`` at tp 2 on the
-    first 8 layers of the main path's int8 model; writes its record to ``out_dir``."""
+    first SERVING_LAYERS layers of the main path's int8 model; writes its record to ``out_dir``."""
     import torch
     import torch.distributed as dist
 
@@ -3943,7 +4191,7 @@ def phase_5b() -> dict:
     row) in two processes on the one card over gloo, each rank's first-step loss and gathered
     LoRA gradients against the same step in this process at the mesh's batch, the launches
     held every step, fsdp's peak memory below one process's at a rank's share of the batch;
-    then ``generate`` at tp 2 on the first 8 layers of the main path's int8 model (int8 KV,
+    then ``generate`` at tp 2 on the first SERVING_LAYERS layers of the main path's int8 model (int8 KV,
     B 4, prompts padded to 512, 32 new tokens), each rank's rows against an unsharded
     ``generate`` under the near-tie rule."""
     import torch

@@ -11,7 +11,7 @@ stems are left out with a notice (the run's own checkpoint keeps them).
     python -m llama_x_tpu_torch.export_checkpoint runs/metamathqa/<run> out_dir/
     python -m llama_x_tpu_torch.export_checkpoint runs/librispeech/<run>/step_00001000 out_dir/ --dtype float16
 
-Runs on the CPU unless ``--device cuda``.
+Runs on the card (``--device cuda``, the default; no card: it raises) unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ def main(argv: list[str] | None = None):
     parser.add_argument("run_or_ckpt", help="a run directory (its latest step) or a step_NNNNNNNN directory")
     parser.add_argument("out_dir")
     parser.add_argument("--dtype", default="bfloat16", choices=sorted(_DTYPES))
-    parser.add_argument("--device", default="cpu")
+    parser.add_argument("--device", default="cuda", help="where the run is restored and merged (cpu: on the host)")
     args = parser.parse_args(argv)
 
     model = restore_model(args.run_or_ckpt, args.device)

@@ -60,6 +60,22 @@ card one step is one ``CUDAGraph.replay()``: no Python, no per-kernel dispatch.
   the decode steps' runner is apart, so admissions never evict a step. The graphs share one
   memory pool, since admissions run one at a time on the scheduler's worker thread and keep
   nothing in the pool between replays.
+- Prefills (``generate``'s prefill and first token, llama_x_tpu/models/generate.py:
+  ``prefill_start``; ``generate_speculative``'s two prefills, its first token and the fill of
+  its state, inside the JAX package's one jitted call): a graph per prompt shape of a second
+  runner on the model (``prefill_runner_of``), apart from the decode steps', so a prefill key
+  never evicts a step. A prefill body reads key-owned input buffers (``PrefillInputs``: the
+  ids, the modality prefix, the prompt lengths), into which each request's tensors are
+  copied, and writes the cache, token, position and done mask of the buffer set the request
+  leased from the decode steps' runner. Every key is kept, as JAX keeps every shape it
+  compiled: a key's first use costs an eager prefill and a capture, so a cap would make a
+  caller that cycles through more shapes than it holds (``generate_cli``'s prompt lengths,
+  the HTTP server's buckets of P and B) pay that on every request. The graphs share one
+  pool, since prefills of one model run one at a time and keep nothing in it between
+  replays: it is as large as the largest prefill's transients, not their sum, and a key
+  adds its graph and its input buffers. A key holds the addresses of the buffer set it
+  writes, so a graph over a set the decode runner dropped is replayed only over a set made
+  at the same addresses, shapes and dtypes, which it then fills as it would its own.
 """
 
 from __future__ import annotations
@@ -115,6 +131,35 @@ def new_state(model: llama.Llama, batch: int, ragged: bool, cache_dtype) -> Deco
                        zeros(batch, model.config.max_seq_len), zeros(1))
 
 
+@dataclasses.dataclass(eq=False)
+class PrefillInputs:
+    """A prefill's inputs at fixed addresses: the prompt ``ids`` [B, P] (int64), the modality
+    ``prefix`` [B, T, D] in the embeddings' dtype and the prompt lengths ``lens`` [B] (int64) of
+    a ragged batch (None where the key has none)."""
+
+    ids: torch.Tensor
+    prefix: torch.Tensor | None = None
+    lens: torch.Tensor | None = None
+
+    @classmethod
+    def like(cls, model: llama.Llama, ids, prefix=None, lens=None) -> PrefillInputs:
+        """Empty buffers of the shapes of a request's tensors on the model's device."""
+        dev = model.device
+        return cls(torch.empty(ids.shape, dtype=torch.int64, device=dev),
+                   None if prefix is None else torch.empty(prefix.shape, dtype=model.tok_embeddings.dtype, device=dev),
+                   None if lens is None else torch.empty(lens.shape, dtype=torch.int64, device=dev))
+
+    def fill(self, ids, prefix=None, lens=None) -> PrefillInputs:
+        """A request's tensors copied in; returns the buffers."""
+        for dst, src in ((self.ids, ids), (self.prefix, prefix), (self.lens, lens)):
+            if dst is not None:
+                dst.copy_(src)
+        return self
+
+    def buffers(self) -> tuple[torch.Tensor, ...]:
+        return tuple(t for t in (self.ids, self.prefix, self.lens) if t is not None)
+
+
 def on_card(t: torch.Tensor) -> bool:
     """Where a step is captured and replayed: CUDA tensors."""
     return t.is_cuda
@@ -155,18 +200,21 @@ def _fingerprint(model: llama.Llama) -> tuple:
 
 
 class _Entry:
-    """A captured step, the addresses of the buffers it reads and writes, and the other
-    models whose weights it reads (their ``id``s: a speculative round's draft)."""
+    """A captured step, the addresses of the buffers it reads and writes, the other models
+    whose weights it reads (their ``id``s: a speculative round's draft), and its capture's
+    seconds and pool bytes (as ``stats()`` lists them)."""
 
     def __init__(self, captured: Captured, ptrs: set):
         self.captured, self.ptrs, self.others = captured, ptrs, frozenset()
+        self.capture_s = self.pool_bytes = None
 
 
 class Runner:
     """Captured graphs, at most ``cap`` of them (least recently used first; None: every key
-    kept), and ``generate``'s buffer sets. ``shared_pool``: every graph in one memory pool, made
-    at the first capture (for programs that run one at a time and keep nothing in it between
-    replays). A model's decode steps: ``runner_of``."""
+    kept), and ``generate``'s buffer sets (or, in a prefill runner, each key's input buffers).
+    ``shared_pool``: every graph in one memory pool, made at the first capture (for programs
+    that run one at a time and keep nothing in it between replays). A model's decode steps:
+    ``runner_of``; its prefills: ``prefill_runner_of``."""
 
     def __init__(self, cap: int | None = MAX_GRAPHS, shared_pool: bool = False):
         self.cap, self.shared_pool = cap, shared_pool
@@ -215,6 +263,14 @@ class Runner:
                     del self.graphs[k]
             slot.lease += 1
             return dataclasses.replace(slot, slot=slot, lease=slot.lease)
+
+    def inputs(self, key: tuple, make):
+        """The input buffers of ``key`` (a prefill's ``PrefillInputs``), made by ``make()`` on
+        first use and kept with the key's graph."""
+        with self.lock:
+            if key not in self.slots:
+                self.slots[key] = make()
+            return self.slots[key]
 
     def replay(self, model, name: str, buffers, key: tuple, body, n: int, generator, draws: bool,
                others=()) -> None:
@@ -290,22 +346,45 @@ class Runner:
             raise RuntimeError(f"{name}: CUDA graph capture failed: {e}") from e
         capture_s = time.perf_counter() - t0
         current.wait_stream(stream)
+        entry = _Entry(captured, {t.data_ptr() for t in buffers})
+        entry.capture_s, entry.pool_bytes = capture_s, torch.cuda.memory_reserved(dev) - reserved
         self.captures += 1
-        self.capture_s.append(capture_s)
-        self.pool_bytes.append(torch.cuda.memory_reserved(dev) - reserved)
-        return _Entry(captured, {t.data_ptr() for t in buffers})
+        self.capture_s.append(entry.capture_s)
+        self.pool_bytes.append(entry.pool_bytes)
+        return entry
 
 
 _runners_lock = threading.Lock()
 
 
-def runner_of(model: llama.Llama) -> Runner:
-    """The model's runner, made on first use and kept on the model."""
+def _runners(model: llama.Llama) -> tuple[Runner, Runner]:
+    """The model's decode-step and prefill runners, made together on first use and kept on
+    the model."""
     with _runners_lock:
-        runner = model.__dict__.get("_decode_runner")
-        if runner is None:
-            runner = model.__dict__["_decode_runner"] = Runner()
-    return runner
+        d = model.__dict__
+        if "_decode_runner" not in d:
+            d["_decode_runner"] = Runner()
+            d["_prefill_runner"] = Runner(cap=None, shared_pool=True)
+        return d["_decode_runner"], d["_prefill_runner"]
+
+
+def runner_of(model: llama.Llama) -> Runner:
+    """The model's decode-step runner, made on first use and kept on the model."""
+    return _runners(model)[0]
+
+
+def prefill_runner_of(model: llama.Llama) -> Runner:
+    """The model's prefill runner: every prefill key kept, in one pool."""
+    return _runners(model)[1]
+
+
+def prefill_inputs(model: llama.Llama, key: tuple, ids, prefix=None, lens=None, others=()) -> PrefillInputs:
+    """The input buffers of prefill ``key`` on the model's prefill runner (made like the
+    request's tensors on first use) with the request's tensors copied in. The runner is
+    checked first, so a weight change drops its graphs before the buffers are taken."""
+    runner = prefill_runner_of(model)
+    runner.check(model, others)
+    return runner.inputs(key, lambda: PrefillInputs.like(model, ids, prefix, lens)).fill(ids, prefix, lens)
 
 
 def lease(model: llama.Llama, key: tuple, make):
@@ -339,11 +418,17 @@ def run(model: llama.Llama, name: str, buffers, key: tuple, body, n: int, genera
 
 
 def release(model: llama.Llama) -> None:
-    """Drop the model's runner: its graphs (with their pools), buffer sets and counts."""
+    """Drop the model's runners: their graphs (with their pools), buffer sets and counts."""
     with _runners_lock:
         model.__dict__.pop("_decode_runner", None)
+        model.__dict__.pop("_prefill_runner", None)
 
 
 def stats(model: llama.Llama) -> dict:
-    """The model's runner's ``stats()``."""
+    """The model's decode-step runner's ``stats()``."""
     return runner_of(model).stats()
+
+
+def prefill_stats(model: llama.Llama) -> dict:
+    """The model's prefill runner's ``stats()`` (``slot_bytes``: the keys' input buffers)."""
+    return prefill_runner_of(model).stats()

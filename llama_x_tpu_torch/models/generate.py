@@ -3,10 +3,12 @@ llama_x_tpu/models/generate.py).
 
 - prefill: the prompt (optionally preceded by modality prefix embeddings, which
   attend bidirectionally with ``prefix_lm``) runs through the trunk once and writes
-  K/V into the full-length cache; attention is over the fresh k/v (flash kernel).
+  K/V into the full-length cache; attention is over the fresh k/v (flash kernel). On the
+  card the prefill and the first token are one replay of a graph captured per prompt shape
+  (models/decode_graph.py: the prefill runner), as the JAX package jits ``prefill_start``.
 - decode: single-token steps over the cache (decode kernel), each step on the card one
   replay of a captured CUDA graph (models/decode_graph.py), as the JAX package compiles
-  the loop as one ``lax.scan``; ``eager=True`` launches the same step op by op.
+  the loop as one ``lax.scan``. ``eager=True`` launches the prefill and the steps op by op.
 - sampling: greedy (temperature 0) or temperature + top-k + min-p + top-p via
   Gumbel-max on the filtered logits, the noise drawn from a ``torch.Generator``.
   Greedy output equals the JAX package's token for token; sampled output follows
@@ -67,46 +69,68 @@ def sample_logits(logits: torch.Tensor, temperature: float, top_k: int, top_p: f
     return gumbel_argmax(filter_logits(logits, temperature, top_k, top_p, min_p), generator)
 
 
+def _prefill_body(model: llama.Llama, generator, state: dg.DecodeState, inp: dg.PrefillInputs, *, n_prefix: int,
+                  prefix_lm: bool, temperature, top_k, top_p, min_p, eos_id) -> None:
+    """Prefill + first token over ``inp`` into ``state``, in place (the body a graph
+    captures): the prompt's K/V into the cache, the first token sampled at each row's last
+    valid position into ``tok``, and ``pos`` and ``done``."""
+    B = inp.ids.shape[0]
+    x = llama.embed(model, inp.ids)
+    if inp.prefix is not None:
+        x = torch.cat([inp.prefix, x], dim=1)
+    total_p = x.shape[1]
+    pos = torch.arange(total_p, dtype=torch.int32, device=x.device)
+    prefix = torch.full((B,), n_prefix, dtype=torch.int32, device=x.device) if (prefix_lm and n_prefix) else None
+    h, _ = llama.trunk(model, x, MaskInfo(causal=True, prefix_len=prefix), state.cache, input_pos=pos, prefill=True)
+    if inp.lens is None:
+        h_last = h[:, -1:, :]
+        state.pos.fill_(total_p)
+    else:
+        h_last = h.gather(1, (inp.lens - 1)[:, None, None].expand(B, 1, h.shape[-1]))
+        state.pos.copy_(inp.lens)
+    first = sample_logits(llama.head(model, h_last)[:, 0], temperature, top_k, top_p, min_p, generator)
+    state.tok.copy_(first)
+    state.done.copy_(first == eos_id)
+
+
 def _prefill(model: llama.Llama, prompt: torch.Tensor, *, generator, temperature, top_k, top_p, min_p, eos_id,
              cache_dtype, prefix_embeds, prefix_lm, prompt_lens, max_new_tokens: int, eager: bool):
     """Prefill + first token -> (first [B], decode state). The prompt's K/V go into the
     runner's buffer set for this batch shape (``eager``: into fresh buffers), written in
     place; every position a later step reads is written by this request first, so what
-    the set held before is never read."""
+    the set held before is never read. On the card the prefill is one replay of the graph
+    of its key (the prompt shape, the prefix length, ragged or not, the cache type,
+    ``prefix_lm`` and the static sampling arguments) over the key's input buffers, into
+    which the request's tensors are copied; ``eager``: launched op by op over them."""
     config = model.config
     B, P = prompt.shape
     ragged = prompt_lens is not None
     if not eager:
         dg.refuse_mesh(model, "generate step")
-    x = llama.embed(model, prompt)
     n_prefix = 0
     if prefix_embeds is not None:
-        if prompt_lens is not None:
+        if ragged:
             raise ValueError("ragged prompts and modality prefixes do not combine")
         n_prefix = prefix_embeds.shape[1]
-        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     total_p = n_prefix + P
     if total_p + max_new_tokens > config.max_seq_len:
         raise ValueError(f"prefill {total_p} + {max_new_tokens} new tokens exceed max_seq_len {config.max_seq_len}")
-    state = (dg.new_state(model, B, ragged, cache_dtype) if eager
-             else dg.lease(model, (B, ragged, cache_dtype), lambda: dg.new_state(model, B, ragged, cache_dtype)))
-
-    pos = torch.arange(total_p, dtype=torch.int32, device=model.device)
-    prefix = (torch.full((B,), n_prefix, dtype=torch.int32, device=model.device)
-              if (prefix_lm and n_prefix) else None)
-    h, _ = llama.trunk(model, x, MaskInfo(causal=True, prefix_len=prefix), state.cache, input_pos=pos, prefill=True)
-    if prompt_lens is None:
-        h_last = h[:, -1:, :]
-        state.pos.fill_(total_p)
+    lens = None if not ragged else prompt_lens.to(device=model.device, dtype=torch.long).reshape(-1).expand(B)
+    body = dict(n_prefix=n_prefix, prefix_lm=prefix_lm, eos_id=eos_id, temperature=temperature, top_k=top_k,
+                top_p=top_p, min_p=min_p)
+    name = "generate prefill"
+    if eager:
+        state = dg.new_state(model, B, ragged, cache_dtype)
+        prefix = None if prefix_embeds is None else prefix_embeds.to(device=model.device,
+                                                                     dtype=model.tok_embeddings.dtype)
+        inp = dg.PrefillInputs(prompt, prefix, lens)
     else:
-        lens = prompt_lens.to(device=model.device, dtype=torch.long).reshape(-1).expand(B)
-        h_last = h.gather(1, (lens - 1)[:, None, None].expand(B, 1, h.shape[-1]))
-        state.pos.copy_(lens)
-    logits = llama.head(model, h_last)
-    first = sample_logits(logits[:, 0], temperature, top_k, top_p, min_p, generator)
-    state.tok.copy_(first)
-    state.done.copy_(first == eos_id)
-    return first, state
+        state = dg.lease(model, (B, ragged, cache_dtype), lambda: dg.new_state(model, B, ragged, cache_dtype))
+        inp = dg.prefill_inputs(model, (name, B, P, n_prefix, ragged), prompt, prefix_embeds, lens)
+    dg.run(model, name, (*state.buffers(), *inp.buffers()), (P, ragged, cache_dtype, *body.values()),
+           lambda m, gen: _prefill_body(m, gen, state, inp, **body), 1, generator, eager=eager,
+           draws=temperature > 0.0, runner=dg.prefill_runner_of(model))
+    return state.tok.clone(), state
 
 
 def _step(model: llama.Llama, s: dg.DecodeState, generator, *, temperature, top_k, top_p, min_p, eos_id, pad_id):
@@ -142,8 +166,9 @@ def generate(model: llama.Llama, prompt: torch.Tensor, *, max_new_tokens: int,
     row's first token comes from its own last valid position, and decode proceeds at
     per-row positions, overwriting that row's pad-slot K/V (the per-row kv_len mask
     hides every pad slot not yet overwritten). ``prefix_embeds`` [B, T, D] are
-    early-fusion modality tokens put before the prompt. ``eager``: the decode steps
-    launched op by op over fresh buffers instead of replayed from a captured graph."""
+    early-fusion modality tokens put before the prompt. ``eager``: the prefill and the
+    decode steps launched op by op over fresh buffers instead of replayed from captured
+    graphs."""
     sample = dict(temperature=temperature, top_k=top_k, top_p=top_p, min_p=min_p)
     first, state = prefill_start(model, prompt, generator=generator, eos_id=eos_id, cache_dtype=cache_dtype,
                                  prefix_embeds=prefix_embeds, prefix_lm=prefix_lm, prompt_lens=prompt_lens,
@@ -162,7 +187,9 @@ def prefill_start(model: llama.Llama, prompt: torch.Tensor, *, generator: torch.
     """Prefill + the first token -> (first [B], ``DecodeState``) for ``decode_chunk``. The
     state lives in the runner's buffers for this batch shape and cache type, which the
     next ``prefill_start`` of the same shape on the model reuses (the older state then
-    refuses to decode); ``eager``: in buffers of its own."""
+    refuses to decode). On the card the prefill replays the graph of its prompt shape
+    (captured on the key's first call); ``eager``: launched op by op, in buffers of its
+    own."""
     return _prefill(model, prompt.to(model.device), generator=generator, temperature=temperature, top_k=top_k,
                     top_p=top_p, min_p=min_p, eos_id=eos_id, cache_dtype=cache_dtype, prefix_embeds=prefix_embeds,
                     prefix_lm=prefix_lm, prompt_lens=prompt_lens, max_new_tokens=max_new_tokens, eager=eager)

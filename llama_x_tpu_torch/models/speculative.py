@@ -24,9 +24,10 @@ kv_len (``verify_bound``), so that nothing is read back inside a round. Rows acc
 own rate, so positions are per row; a row's emission is capped at its count, and finished
 rows freeze (m = 0).
 
-The JAX package compiles the loop of rounds as one ``while_loop``. Here a round reads and
-writes only static buffers (``SpecState``), and on the card each round is one replay of its
-captured CUDA graph (models/decode_graph.py). The host reads the rows' counts back once per
+The JAX package compiles the prefills and the loop of rounds as one call (the rounds one
+``while_loop``). Here the prefills with the first token, and each round, read and write only
+static buffers (``SpecState``, the prompt's ``PrefillInputs``), and on the card each is one
+replay of its captured CUDA graph (models/decode_graph.py). The host reads the rows' counts back once per
 block of rounds: the fewest rounds that the live row nearest its count still needs.
 ``eager=True`` launches the same round op by op. Random draws come from a
 ``torch.Generator``: the law is the JAX package's, the bits are not.
@@ -114,6 +115,23 @@ def _prefill(model: llama.Llama, prompt: torch.Tensor, cache, prompt_lens=None):
         row_pos = prompt_lens.to(device=model.device, dtype=torch.long).reshape(-1).expand(B)
         h_last = h.gather(1, (row_pos - 1)[:, None, None].expand(B, 1, h.shape[-1]))
     return llama.head(model, h_last)[:, 0], row_pos
+
+
+def _start(model: llama.Llama, draft_model: llama.Llama, s: SpecState, inp: dg.PrefillInputs, generator, *,
+           temperature, top_k, top_p, min_p, eos_id: int, pad_id: int) -> None:
+    """Both prefills of ``inp``'s prompt, the first token and the fill of ``s`` for the first
+    round, in place (the body a graph captures): the output buffer holds the first token and
+    pad, (prev, cur) the last prompt token and the first token, pos each row's length."""
+    first_logits, pos = _prefill(model, inp.ids, s.t_cache, inp.lens)
+    _prefill(draft_model, inp.ids, s.d_cache, inp.lens)
+    first = sample_logits(first_logits, temperature, top_k, top_p, min_p, generator)
+    s.buf.fill_(pad_id)
+    s.buf[:, 0] = first
+    s.prev.copy_(inp.ids[:, -1] if inp.lens is None else inp.ids.gather(1, (pos - 1)[:, None])[:, 0])
+    s.cur.copy_(first)
+    s.pos.copy_(pos)
+    s.n_out.fill_(1)
+    s.done.copy_(first == eos_id)
 
 
 def _draft_sample(logits, temperature, top_k, top_p, min_p, generator):
@@ -259,9 +277,11 @@ def generate_speculative(model: llama.Llama, draft_model: llama.Llama, prompt: t
     target's ancestral sampling. The draft must share the target's vocabulary. stats:
     ``target_passes`` (prefill + verify passes) and ``tokens_emitted`` [B].
 
-    On the card each round is one replay of the round's captured graph over a buffer set
-    the runner keeps for (B, cache type, the draft's config); ``eager``: the round launched
-    op by op, in buffers of its own. A model on a mesh needs ``eager``."""
+    On the card both prefills and the first token are one replay of a graph captured per
+    prompt shape (the model's prefill runner), and each round one replay of the round's
+    captured graph, over a buffer set the runner keeps for (B, cache type, the draft's
+    config); ``eager``: the prefills and the rounds launched op by op, in buffers of their
+    own. A model on a mesh needs ``eager``."""
     config, dconfig = model.config, draft_model.config
     B, P = prompt.shape
     if config.vocab_size != draft_model.config.vocab_size:
@@ -276,18 +296,16 @@ def generate_speculative(model: llama.Llama, draft_model: llama.Llama, prompt: t
     prompt = prompt.to(dev)
     sample = dict(temperature=temperature, top_k=top_k, top_p=top_p, min_p=min_p)
     make = lambda: new_spec_state(model, draft_model, B, cache_dtype)  # noqa: E731
-    s = make() if eager else dg.lease(model, ("speculative", B, cache_dtype, dconfig), make)
-    first_logits, pos = _prefill(model, prompt, s.t_cache, prompt_lens)
-    _prefill(draft_model, prompt, s.d_cache, prompt_lens)
-    first = sample_logits(first_logits, generator=generator, **sample)
-
-    s.buf.fill_(pad_id)
-    s.buf[:, 0] = first
-    s.prev.copy_(prompt[:, -1] if prompt_lens is None else prompt.gather(1, (pos - 1)[:, None])[:, 0])
-    s.cur.copy_(first)
-    s.pos.copy_(pos)
-    s.n_out.fill_(1)
-    s.done.copy_(first == eos_id)
+    lens = None if prompt_lens is None else prompt_lens.to(device=dev, dtype=torch.long).reshape(-1).expand(B)
+    prefill = "generate_speculative prefill"
+    if eager:
+        s, inp = make(), dg.PrefillInputs(prompt, None, lens)
+    else:
+        s = dg.lease(model, ("speculative", B, cache_dtype, dconfig), make)
+        inp = dg.prefill_inputs(model, (prefill, B, P, lens is not None), prompt, None, lens, others=(draft_model,))
+    dg.run(model, prefill, (*s.buffers(), *inp.buffers()), (P, lens is not None, eos_id, pad_id, *sample.values()),
+           lambda m, gen: _start(m, draft_model, s, inp, gen, eos_id=eos_id, pad_id=pad_id, **sample), 1, generator,
+           eager=eager, draws=temperature > 0.0, others=(draft_model,), runner=dg.prefill_runner_of(model))
     s.limit.fill_(max_new_tokens)
     s.rounds.zero_()
     kv_bound = verify_bound(config, P + max_new_tokens + gamma, cache_dtype, gamma)

@@ -246,7 +246,7 @@ def test_export_checkpoint_of_a_port_run_serves_through_generate_cli(tmp_path, m
                            "--lr", "1e-2", "--synthetic_config", '{"num_layers": 2, "embed_dim": 64}',
                            "--log_interval", "1", "--ckpt_interval", "0"])
     run = next((tmp_path / "runs" / "metamathqa").iterdir())
-    out = export_checkpoint.main([str(run), str(tmp_path / "hf"), "--dtype", "float32"])
+    out = export_checkpoint.main([str(run), str(tmp_path / "hf"), "--dtype", "float32", "--device", "cpu"])
     model = restore_model(run, "cpu")
     exported = thf.load_llama(out, dtype=torch.float32, device="cpu")
     assert any(float(lin.lora_b.detach().abs().max()) > 0 for lin in model.modules()
@@ -259,3 +259,22 @@ def test_export_checkpoint_of_a_port_run_serves_through_generate_cli(tmp_path, m
                        "--max_new_tokens", "4", "--no_eos"])
     out = capsys.readouterr()
     assert out.out.startswith("2+2=") and "\nhi" in out.out and out.err.count("tok completion") == 2
+
+
+def test_export_checkpoint_restores_on_the_card_by_default(monkeypatch):
+    """With no ``--device`` the run is restored on the card (``restore_model(..., "cuda")``,
+    which raises where there is none); ``--device cpu`` restores it on the host."""
+    from llama_x_tpu_torch import export_checkpoint
+    from llama_x_tpu_torch.train import checkpoint
+
+    seen = []
+
+    def restore(path, device=None):
+        seen.append(device)
+        raise RuntimeError("restored")
+
+    monkeypatch.setattr(checkpoint, "restore_model", restore)
+    for extra in ([], ["--device", "cpu"]):
+        with pytest.raises(RuntimeError, match="restored"):
+            export_checkpoint.main(["runs/metamathqa/run", "out", *extra])
+    assert seen == ["cuda", "cpu"]

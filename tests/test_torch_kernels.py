@@ -1261,6 +1261,72 @@ def test_continuous_scheduler_with_graphs_matches_eager(cuda):
     assert dg.stats(model)["captures"] == 1
 
 
+@pytest.mark.parametrize("sampled", [False, True])
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_prefill_graph_matches_the_eager_prefill(cuda, kind, sampled):
+    """``prefill_start`` through the captured prefill (the first call captures the key, the
+    next two replay it) against ``eager=True`` on the 2-layer cut (bf16 weights and cache;
+    int8 weights, dynamic int8 act and the int8 cache), 4 ragged rows of 96: the first token
+    and every cache tensor over [0, P) of each row bit for bit, greedy and at temperature 0.8
+    with top-k 50 on one generator seed (the caller's generator left where the eager prefill
+    leaves it); the launches of each request equal; one capture; each replay credits one K2
+    a layer (and seven K1 with int8), the kernels a device trace of three replays shows; a
+    replay allocates nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from llama_x_tpu_torch.models import decode_graph as dg
+    from llama_x_tpu_torch.models.generate import prefill_start
+    from llama_x_tpu_torch.ops import launches
+
+    quant = kind == "int8"
+    model = _graph_model(cuda, quant)
+    prompt, lens = _graph_prompt(cuda)
+    P = prompt.shape[1]
+    cache_dtype = torch.int8 if quant else torch.bfloat16
+    counters = (mm.int8_mm_dequant_nt, fa.flash_fwd_with_lse)
+    sample = dict(temperature=0.8, top_k=50) if sampled else {}
+
+    def run(eager):
+        gen = torch.Generator(device=cuda).manual_seed(11)
+        before = [c.launches for c in counters]
+        first, state = prefill_start(model, prompt, prompt_lens=lens, cache_dtype=cache_dtype, max_new_tokens=16,
+                                     generator=gen, eager=eager, **sample)
+        torch.cuda.synchronize()
+        cache = [t[:, :, :, :P].clone() for t in dg.cache_tensors(state.cache)]
+        return first, cache, gen.get_state(), [c.launches - b for c, b in zip(counters, before)]
+
+    want = run(True)
+    for _ in range(3):
+        first, cache, gstate, counts = run(False)
+        assert torch.equal(first, want[0]) and torch.equal(gstate, want[2]) and counts == want[3]
+        assert all(torch.equal(a, b) for a, b in zip(cache, want[1]))
+    s = dg.prefill_stats(model)
+    assert (s["captures"], s["replays"], s["graphs"]) == (1, 2, 1) and s["pool_bytes"][0] > 0
+    assert dg.stats(model)["captures"] == 0  # the decode steps' runner is apart
+    (entry,) = dg.prefill_runner_of(model).graphs.values()
+    credits = {fn.__name__: k for fn, k in entry.captured.credits.items()}
+    assert credits == ({"flash_fwd_with_lse": 2, "int8_mm_dequant_nt": 14} if quant else {"flash_fwd_with_lse": 2})
+    allocated = torch.cuda.memory_stats()["allocation.all.allocated"]
+    entry.captured.replay(3)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == allocated
+    for _ in range(3):  # a trace that lost records is taken again (never one that shows too many)
+        before = {name: fn.launches for name, fn in launches.COUNTED.items()}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            entry.captured.replay(3)
+            torch.cuda.synchronize()
+        counts = {name: fn.launches - before[name] for name, fn in launches.COUNTED.items()}
+        kernels = [e.name() for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA]
+        traced = launches.traced_counts(kernels)
+        assert all(traced[g] <= sum(counts[n] for n in g.split(" + ")) for g in traced)
+        if all(traced[g] == sum(counts[n] for n in g.split(" + ")) for g in traced):
+            break
+    launches.check_trace(kernels, counts, "3 prefill replays")
+    assert traced["flash_attention + flash_attention_ring"] == 3 * 2
+    assert traced["int8_mm_dequant_nt"] == (3 * 14 if quant else 0)
+
+
 TRAIN_CUT_FLAGS = [
     "--synthetic", "64", "--synthetic_task", "count", "--geometry", "8b", "--synthetic_config", '{"num_layers": 2}',
     "--quantize", "int8", "--quantize_kwargs", '{"dynamic_int8_act": true, "dynamic_int8_bwd": true, "int8_head": true}',

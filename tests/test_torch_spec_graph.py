@@ -190,7 +190,7 @@ def _spec(tm, dm, prompt, gen_seed=None, **kw):
 def test_greedy_and_sampled_are_two_keys_on_one_buffer_set(models, stub_card):
     """Greedy twice (one capture, then replays only), sampled twice on one generator seed
     (a second key on the same buffer set): each equals its eager run, the sampled one bit
-    for bit from the same seed."""
+    for bit from the same seed. The prefills are a graph of the prefill runner, a key each."""
     tm, dm = models
     prompt = _t(_prompt(4, 2, 6)).long()
     want = _spec(tm, dm, prompt, eager=True)[0]
@@ -204,7 +204,8 @@ def test_greedy_and_sampled_are_two_keys_on_one_buffer_set(models, stub_card):
         assert torch.equal(_spec(tm, dm, prompt, 5, **sample)[0], want)
     s = dg.stats(tm)
     assert (s["captures"], s["graphs"], s["slots"]) == (2, 2, 1)
-    assert stub_card == ["generate_speculative round"] * 2
+    assert stub_card == ["generate_speculative prefill", "generate_speculative round"] * 2  # the prefills' own runner
+    assert dg.prefill_stats(tm)["captures"] == 2
 
 
 def test_the_scheduler_through_the_graph_equals_its_eager_rounds(models, stub_card):
