@@ -90,6 +90,7 @@ import torch
 from llama_x_tpu_torch.models import llama
 from llama_x_tpu_torch.ops import launches
 from llama_x_tpu_torch.parallel.tensor import mesh_of
+from llama_x_tpu_torch.utils import spans
 
 MAX_GRAPHS = 8  # captured steps kept per model
 MAX_SLOTS = 2  # generate's buffer sets kept per model
@@ -181,9 +182,12 @@ class Captured:
             self.graph = capture()
         self.credits = dict(tally)
 
-    def replay(self, n: int) -> None:
+    def replay(self, n: int, **attrs) -> None:
+        """``n`` replays; on a thread with a ``spans.DeviceClock`` (a scheduler's worker on the
+        card) each one a ``device.replay`` interval with ``attrs``."""
         for _ in range(n):
-            self.graph.replay()
+            with spans.on_device("device.replay", one_launch=True, **attrs):
+                self.graph.replay()
             for fn, k in self.credits.items():
                 fn.launches += k
 
@@ -300,7 +304,7 @@ class Runner:
                 while self.cap is not None and len(self.graphs) > self.cap:
                     self.graphs.popitem(last=False)
         try:
-            entry.captured.replay(n)
+            entry.captured.replay(n, graph=name)
         except RuntimeError as e:
             raise RuntimeError(f"{name}: CUDA graph replay failed: {e}") from e
         self.replays += n

@@ -48,6 +48,7 @@ JAX package's threefry draws are not reproduced: sampled rows follow the same la
 
 from __future__ import annotations
 
+import itertools
 import threading
 
 import torch
@@ -58,6 +59,7 @@ from llama_x_tpu_torch.models import speculative as mspec
 from llama_x_tpu_torch.models.decode_graph import cache_tensors
 from llama_x_tpu_torch.models.generate import gumbel_argmax
 from llama_x_tpu_torch.ops.attention import MaskInfo
+from llama_x_tpu_torch.utils import spans
 from llama_x_tpu_torch.utils.device import resolve_device
 
 # ---------------------------------------------------------------------------
@@ -128,8 +130,9 @@ def init_state(config: llama.LlamaConfig, n_slots: int, cache_dtype=torch.bfloat
 
 def copy_positions(dst_cache, src_cache, n: int) -> None:
     """Positions [0, n) of every tensor of ``src_cache`` into ``dst_cache`` (both [L, 1, ...])."""
-    for d, s in zip(cache_tensors(dst_cache), cache_tensors(src_cache)):
-        d[:, :, :, :n].copy_(s[:, :, :, :n])
+    with spans.on_device("device.copy"):
+        for d, s in zip(cache_tensors(dst_cache), cache_tensors(src_cache)):
+            d[:, :, :, :n].copy_(s[:, :, :, :n])
 
 
 # ---------------------------------------------------------------------------
@@ -220,9 +223,13 @@ class AdmitBuffers:
         """``tokens`` right-padded with ``pad_id`` to ``width`` into ``ids``, and the scalars."""
         t, k, p, mp = sampling
         ints = [slot, length, start, eos_id, k] + list(tokens) + [pad_id] * (width - len(tokens))
+        srcs = []
         for dst, vals in ((self.i64[:5 + width], ints), (self.floats, [t, p, mp])):
             src = torch.tensor(vals, dtype=dst.dtype)
-            dst.copy_(src.pin_memory() if self.pin else src, non_blocking=self.pin)
+            srcs.append((dst, src.pin_memory() if self.pin else src))
+        with spans.on_device("device.copy"):
+            for dst, src in srcs:
+                dst.copy_(src, non_blocking=self.pin)
 
     def lease(self) -> int:
         """A pooled row (the lowest free one, made on first use)."""
@@ -437,7 +444,8 @@ def decode_rows(model: llama.Llama, state, n_steps: int, generator: torch.Genera
     if n_steps > ring.shape[1]:
         raise ValueError(f"{n_steps} steps exceed the model's {ring.shape[1]} positions")
     params = (temperature, top_k, top_p, min_p, eos_ids, budget)
-    at.zero_()
+    with spans.on_device("device.copy"):
+        at.zero_()
     dg.run(model, "decode_rows step", (*cache_tensors(state[0]), *state[1:], *params), (pad_id,),
            lambda m, gen: _rows_step(m, state, gen, params, pad_id), n_steps, generator, eager=eager, draws=True)
     return ring[:, :n_steps], state
@@ -448,14 +456,28 @@ def decode_rows(model: llama.Llama, state, n_steps: int, generator: torch.Genera
 # ---------------------------------------------------------------------------
 
 
+_row_ids = itertools.count(1)
+_scheduler_ids = itertools.count(1)
+
+
 class RowHandle:
     """One prompt row moving through the scheduler. ``event`` fires when the row is
     finished; ``stream_q`` (optional, anything with ``put``) receives token-id lists per
-    chunk and a ``None`` sentinel at the end."""
+    chunk and a ``None`` sentinel at the end.
 
-    def __init__(self, ids: list[int], max_tokens: int, sampling, eos_id: int, stream_q=None):
+    Its lifecycle, on ``time.perf_counter_ns()``: ``t_submit`` (made), ``t_slot`` (taken
+    into a slot: an admission or the start of a chunked prefill), ``t_first`` (its first
+    token delivered), ``t_done`` (finished, failed or left at the scheduler's close); a time
+    not reached stays None. When it ends it becomes two spans under its ``id``
+    (``end_spans``)."""
+
+    def __init__(self, ids: list[int], max_tokens: int, sampling, eos_id: int, stream_q=None,
+                 scheduler: int | None = None):
         if max_tokens < 1:
             raise ValueError("max_tokens must be at least 1")
+        self.t_submit = spans.now()
+        self.t_slot = self.t_first = self.t_done = None
+        self.id, self.scheduler = next(_row_ids), scheduler
         self.ids = ids
         self.max_tokens = max_tokens
         self.sampling = sampling  # (temperature, top_k, top_p, min_p)
@@ -468,6 +490,19 @@ class RowHandle:
     @property
     def finish_reason(self) -> str:
         return "stop" if (self.tokens and self.tokens[-1] == self.eos_id) else "length"
+
+    def end_spans(self) -> None:
+        """Stamp ``t_done`` and record ``request.queue`` [submit, slot] and ``request.prefill``
+        [slot, first], each from a time the row reached to the next one, or to ``t_done`` with
+        ``reached`` False where it stopped short (failed, or left at the close)."""
+        self.t_done = spans.now()
+        marks = (self.t_submit, self.t_slot, self.t_first)
+        for i, name in enumerate(("request.queue", "request.prefill")):
+            if marks[i] is None:
+                break
+            end = marks[i + 1]
+            spans.record(name, marks[i], self.t_done if end is None else end, request=self.id,
+                         scheduler=self.scheduler, reached=end is not None)
 
 
 class _Admitting:
@@ -495,7 +530,16 @@ class ContinuousScheduler:
     emitted counts and done mask are copied out (to pinned host memory on the card) before
     the next dispatch overwrites them, and its collection waits for that copy alone. Counters:
     ``dispatches`` (decode chunks), ``admissions``, ``prefill_dispatches`` (prefill
-    chunks), ``prefix_hits`` and ``prefix_tokens_reused``."""
+    chunks), ``prefix_hits`` and ``prefix_tokens_reused``.
+
+    Spans (``utils/spans.py``), from the worker thread: ``serve.admit`` (a row taken into a
+    slot), ``serve.prefill_chunk``, ``serve.install`` and ``serve.dispatch`` (a decode chunk
+    with its row parameters and staging copies), under the row's id where they have one;
+    each row's ``request.*`` spans when it ends. On the card the worker's
+    ``spans.DeviceClock`` (``clock``) times each replay and each block of copies as a
+    ``device.*`` span whose ``stage`` is the worker span it ran under, read at ``_collect``,
+    after the wait it makes anyway, and anchored whenever the worker waits with nothing in
+    flight."""
 
     def __init__(self, model: llama.Llama, *, n_slots: int = 8, chunk_size: int = 16, prompt_multiple: int = 64,
                  cache_dtype=torch.bfloat16, pad_id: int = 0, seed: int = 0, prefix_cache: int = 0,
@@ -518,6 +562,8 @@ class ContinuousScheduler:
         self._lru = 0
         self.prefix_hits = 0
         self.prefix_tokens_reused = 0
+        self.id = next(_scheduler_ids)
+        self.clock: spans.DeviceClock | None = None
         self.state = self._init_state()
         self.inputs = self._init_inputs()
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -559,7 +605,7 @@ class ContinuousScheduler:
             raise ValueError(f"prompt ({len(ids)} tokens) fills the {cap} cache")
         if not ids:
             raise ValueError("empty prompt")
-        row = RowHandle(list(ids), max_tokens, tuple(sampling), eos_id, stream_q)
+        row = RowHandle(list(ids), max_tokens, tuple(sampling), eos_id, stream_q, scheduler=self.id)
         with self.cond:
             if self.dead is not None:
                 raise RuntimeError("scheduler worker died") from self.dead
@@ -608,7 +654,9 @@ class ContinuousScheduler:
         if key in self.prefixes:
             self.prefixes[key][2] = self._lru
             return
-        self.prefixes[key] = [slice_prefix(self.state[0], slot, p0), p0, self._lru]
+        with spans.on_device("device.copy"):
+            cache = slice_prefix(self.state[0], slot, p0)
+        self.prefixes[key] = [cache, p0, self._lru]
         while len(self.prefixes) > self.prefix_cap:
             oldest = min(self.prefixes, key=lambda k: self.prefixes[k][2])
             del self.prefixes[oldest]
@@ -655,19 +703,21 @@ class ContinuousScheduler:
         st = self.admitting[slot]
         ids = st.row.ids
         start, end = st.next, min(st.next + self.prefill_chunk, len(ids))
-        self._hold_working_row(slot)
-        prefill_chunk(self.model, self.inputs, ids[start:end], start, self.prefill_chunk, pad_id=self.pad_id,
-                      eager=self.eager)
+        with spans.span("serve.prefill_chunk", st.row.id):
+            self._hold_working_row(slot)
+            prefill_chunk(self.model, self.inputs, ids[start:end], start, self.prefill_chunk, pad_id=self.pad_id,
+                          eager=self.eager)
         self.prefill_dispatches += 1
         st.next = end
         if end == len(ids):
-            first, self.state = install_row(self.model, self.state, slot, self.inputs, len(ids), st.row.sampling,
-                                            st.row.eos_id, self.generator, eager=self.eager)
-            if st.parked is not None:
-                self.inputs.release(st.parked)
-            self.inputs.owner = None
-            del self.admitting[slot]
-            self._activate(slot, st.row, int(first))
+            with spans.span("serve.install", st.row.id):
+                first, self.state = install_row(self.model, self.state, slot, self.inputs, len(ids),
+                                                st.row.sampling, st.row.eos_id, self.generator, eager=self.eager)
+                if st.parked is not None:
+                    self.inputs.release(st.parked)
+                self.inputs.owner = None
+                del self.admitting[slot]
+                self._activate(slot, st.row, int(first))
 
     def _budget_cap(self, row: RowHandle) -> int:
         """Decode budget capped by the cache (the prompt took P positions, the first
@@ -683,6 +733,7 @@ class ContinuousScheduler:
         self.emitted_seen[slot] = 1
         self.admissions += 1
         row.tokens.append(first)
+        row.t_first = spans.now()
         self._deliver(row, [first])
         if self.prefix_cap:
             self._harvest_prefix(slot, row.ids)
@@ -700,6 +751,7 @@ class ContinuousScheduler:
         self.rows[slot] = None
         self.eos[slot] = -1
         if row is not None:
+            row.end_spans()
             if row.stream_q is not None:
                 row.stream_q.put(None)
             row.event.set()
@@ -713,8 +765,9 @@ class ContinuousScheduler:
         f32.copy_(torch.tensor([t, p, mp], dtype=torch.float32))
         i64.copy_(torch.tensor([k, self.eos, self.budget], dtype=torch.int64))
         dev_f32, dev_i64 = self.row_params
-        dev_f32.copy_(f32, non_blocking=True)
-        dev_i64.copy_(i64, non_blocking=True)
+        with spans.on_device("device.copy"):
+            dev_f32.copy_(f32, non_blocking=True)
+            dev_i64.copy_(i64, non_blocking=True)
         return dev_f32[0], dev_i64[0], dev_f32[1], dev_f32[2], dev_i64[1], dev_i64[2]
 
     def _dispatch_chunk(self):
@@ -734,7 +787,8 @@ class ContinuousScheduler:
         the card into pinned host memory, so that collecting waits for this chunk alone."""
         if self.device.type != "cuda":
             return (*(t.clone() for t in chunk), None)
-        host = tuple(t.to("cpu", non_blocking=True) for t in chunk)
+        with spans.on_device("device.copy"):
+            host = tuple(t.to("cpu", non_blocking=True) for t in chunk)
         done = torch.cuda.Event()
         done.record()
         return (*host, done)
@@ -746,6 +800,8 @@ class ContinuousScheduler:
         toks_h, emitted_h, done_h, copied, snap = chunk
         if copied is not None:
             copied.synchronize()
+        if self.clock is not None:
+            self.clock.collect()
         toks, emitted, done = toks_h.tolist(), emitted_h.tolist(), done_h.tolist()
         for slot, row in enumerate(snap):
             if row is None or row is not self.rows[slot]:
@@ -758,17 +814,26 @@ class ContinuousScheduler:
             if done[slot]:
                 self._finish(slot)
 
+    def _idle(self, inflight) -> bool:
+        return (not self._stop and not self.queue and not self.admitting and all(r is None for r in self.rows)
+                and inflight is None)
+
     def _run(self):
+        clock = None
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)  # this thread's launches go to the model's card
+            clock = self.clock = spans.DeviceClock(self.device)
+            clock.bind()
+            clock.settle()
         inflight = None  # (toks, emitted, done, copy event, rows snapshot) of the chunk not yet collected
         pending: list[RowHandle] = []  # taken from the queue, not yet admitting (a failed admission's row among them)
         try:
             with torch.inference_mode():
                 while True:
+                    if clock is not None and self._idle(inflight):
+                        clock.settle()  # nothing in flight: anchor the device's clock again
                     with self.cond:
-                        while (not self._stop and not self.queue and not self.admitting
-                               and all(r is None for r in self.rows) and inflight is None):
+                        while self._idle(inflight):
                             self.cond.wait()
                         if self._stop:
                             break
@@ -778,7 +843,10 @@ class ContinuousScheduler:
                     # the chunk in flight are reused on the next iteration)
                     for slot in range(self.n_slots):
                         if pending and self.rows[slot] is None and slot not in self.admitting:
-                            (self._start_prefill if self.prefill_chunk else self._admit)(slot, pending[0])
+                            row = pending[0]
+                            row.t_slot = spans.now()
+                            with spans.span("serve.admit", row.id):
+                                (self._start_prefill if self.prefill_chunk else self._admit)(slot, row)
                             pending.pop(0)
                     if pending:
                         with self.cond:
@@ -789,12 +857,20 @@ class ContinuousScheduler:
                         self._advance_prefill(slot)
                     nxt = None
                     if any(r is not None for r in self.rows):
-                        nxt = (*self._stage(self._dispatch_chunk()), list(self.rows))
+                        with spans.span("serve.dispatch"):
+                            nxt = (*self._stage(self._dispatch_chunk()), list(self.rows))
                     if inflight is not None:
                         self._collect(inflight)
                     inflight = nxt
                 if inflight is not None:  # stop requested: flush the chunk in flight
                     self._collect(inflight)
+                if clock is not None:
+                    clock.settle()
+                with self.cond:
+                    left = ([r for r in self.rows if r is not None] + [st.row for st in self.admitting.values()]
+                            + pending + self.queue)
+                for row in left:
+                    row.end_spans()
         except Exception as e:  # the worker must never die silently
             with self.cond:
                 self.dead = e
@@ -805,6 +881,10 @@ class ContinuousScheduler:
                 self.queue = []
             for row in broken:
                 row.error = e
+                row.end_spans()
                 if row.stream_q is not None:
                     row.stream_q.put(None)
                 row.event.set()
+        finally:
+            if clock is not None:
+                clock.unbind()

@@ -49,6 +49,7 @@ from llama_x_tpu_torch.serve.continuous import (
     run_admission,
     sample_at,
 )
+from llama_x_tpu_torch.utils import spans
 from llama_x_tpu_torch.utils.device import resolve_device
 
 # state: (t_cache, d_cache, prev [N], cur [N], pos [N], done [N] bool, emitted [N], ring [N, W],
@@ -164,8 +165,9 @@ def spec_chunk(model: llama.Llama, draft_model: llama.Llama, state, n_rounds: in
     W = n_rounds * (gamma + 1)
     if W > ring.shape[1]:
         raise ValueError(f"{n_rounds} rounds of gamma {gamma} exceed the ring's {ring.shape[1]} tokens")
-    ring[:, :W].fill_(pad_id)
-    cursor.zero_()
+    with spans.on_device("device.copy"):
+        ring[:, :W].fill_(pad_id)
+        cursor.zero_()
     params = (temperature, top_k, top_p, min_p, eos_ids, budget)
     kv_bound = model.config.max_seq_len if kv_bound is None else kv_bound
     buffers = (*cache_tensors(state[0]), *cache_tensors(state[1]), *state[2:], *params,

@@ -71,7 +71,16 @@ class _Request:
         self.stream_q = stream_q  # queue.Queue of per-row text deltas; None = one answer
         self.event = threading.Event()
         self.texts = self.counts = self.reasons = None
+        self.queue_ms = self.ttft_ms = None  # the slowest row's wait for a slot and first token (continuous)
         self.error = None
+
+    def usage(self, completion_tokens: int, t0: float) -> dict:
+        """A non-streaming answer's ``usage``: the tokens, the wall since ``t0`` and, from the
+        rows' times where the scheduler served them, ``queue_ms`` and ``ttft_ms``."""
+        out = {"completion_tokens": completion_tokens, "wall_seconds": round(time.perf_counter() - t0, 3)}
+        if self.queue_ms is not None:
+            out.update(queue_ms=round(self.queue_ms, 3), ttft_ms=round(self.ttft_ms, 3))
+        return out
 
 
 class _Tagged:
@@ -208,6 +217,8 @@ class Engine:
                     req.stream_q.put(finals)
             req.counts = [len(k) for k in kept]
             req.reasons = [h.finish_reason for h in handles]
+            req.queue_ms = max(h.t_slot - h.t_submit for h in handles) / 1e6
+            req.ttft_ms = max(h.t_first - h.t_submit for h in handles) / 1e6
         except Exception as e:  # delivered to the waiter
             req.error = e
         finally:
@@ -219,12 +230,17 @@ class Engine:
                  min_p: float = 0.0):
         """Tokenize, queue, wait -> (texts, counts, reasons) per row; a reason is "stop"
         (the model emitted eos) or "length"."""
-        rows = [self.tok(p, add_bos=True) for p in prompts]
-        req = self.submit(rows, max_tokens, temperature, top_k, top_p, min_p)
+        req = self.run([self.tok(p, add_bos=True) for p in prompts], max_tokens, temperature, top_k, top_p, min_p)
+        return req.texts, req.counts, req.reasons
+
+    def run(self, rows: list[list[int]], max_tokens: int, temperature: float, top_k: int, top_p: float,
+            min_p: float = 0.0, eos_id: int | None = None) -> _Request:
+        """Queue pre-tokenized rows and wait -> the finished request (its error raised)."""
+        req = self.submit(rows, max_tokens, temperature, top_k, top_p, min_p, eos_id)
         req.event.wait()
         if req.error is not None:
             raise req.error
-        return req.texts, req.counts, req.reasons
+        return req
 
     # ---- worker side -----------------------------------------------------------
 
@@ -428,14 +444,15 @@ def make_handler(engine: Engine):
                 self._stream([engine.tok(p, add_bos=True) for p in prompts * n], sampling, chat=False)
                 return
             t0 = time.perf_counter()
-            texts, counts, reasons = engine.complete(prompts * n, **sampling)
+            r = engine.run([engine.tok(p, add_bos=True) for p in prompts * n], **sampling)
+            texts, counts, reasons = r.texts, r.counts, r.reasons
             if stop:
                 texts, reasons = self._apply_stop(texts, reasons, stop)
             self._reply(200, {
                 "object": "text_completion",
                 "choices": [{"index": i, "text": t, "finish_reason": fr}
                             for i, (t, fr) in enumerate(zip(texts, reasons))],
-                "usage": {"completion_tokens": sum(counts), "wall_seconds": round(time.perf_counter() - t0, 3)},
+                "usage": r.usage(sum(counts), t0),
             })
 
         def _chat(self, req):
@@ -447,10 +464,7 @@ def make_handler(engine: Engine):
                 self._stream(rows, sampling, chat=True, eos_id=engine.chat_eos_id)
                 return
             t0 = time.perf_counter()
-            r = engine.submit(rows, eos_id=engine.chat_eos_id, **sampling)
-            r.event.wait()
-            if r.error is not None:
-                raise r.error
+            r = engine.run(rows, eos_id=engine.chat_eos_id, **sampling)
             texts, reasons = r.texts, r.reasons
             if stop:
                 texts, reasons = self._apply_stop(texts, reasons, stop)
@@ -458,7 +472,7 @@ def make_handler(engine: Engine):
                 "object": "chat.completion",
                 "choices": [{"index": 0, "message": {"role": "assistant", "content": texts[0]},
                              "finish_reason": reasons[0]}],
-                "usage": {"completion_tokens": r.counts[0], "wall_seconds": round(time.perf_counter() - t0, 3)},
+                "usage": r.usage(r.counts[0], t0),
             })
 
     return Handler
