@@ -163,8 +163,8 @@ no result line):
    processes sharing the card over gloo, at ``--mesh '{"tp": 2}'`` (1 row), ``'{"fsdp": 2}'``
    (2 rows) and ``'{"pp": 2}' --pp_microbatches 2`` (2 rows), 2 steps each: the first step's
    loss and gathered LoRA gradients against the same step in this process at the mesh's
-   batch (1e-3 of |loss|, relative L2 2^-6), the launches of K1 / K2 / K4 / K5 held every
-   step to ``p5b_expected_launches``, per rank the step time, the exchange's share, the bytes
+   batch (1e-3 of |loss|, relative L2 2^-6), the launches of K1 / K2 / K4 / K5 / K7 held every
+   step to ``p5b_expected_launches`` (at tp K7's two passes on the rows "tp" splits), per rank the step time, the exchange's share, the bytes
    moved and the peak memory (fsdp's below one process's at a rank's one row); then
    ``generate`` at tp 2 on the first 4 layers of phase 3's int8 model (int8 KV on the local
    heads, B 4, prompts padded to 512, 32 new tokens), every rank's rows the same and each
@@ -184,6 +184,7 @@ import gc
 import io
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -942,10 +943,63 @@ def phase_int8_tp_shards() -> dict:
     return {"int8_mm_dequant_nt_tp": k1, "int8_mm_dequant_tp": k4}
 
 
+def phase_k7() -> list[dict]:
+    """K7, the rowwise quantizer, against the plain chain it replaces (ops/int8.py:
+    quantize_rows_plain, PyTorch's own passes): codes and scales bit for bit, timed beside the
+    bytes' bound (each input byte read once, codes and scales written once) at the training
+    cell's shapes (Mistral-NeMo-12B, S 4096: the projections' inputs and input gradients with
+    their weight scale folded in, the int8 head and its f32 dlogits chunk) and the decode
+    step's (Mistral-7B, 32 rows; the int8 cache's new rows with f32 scales)."""
+    import torch
+
+    from llama_x_tpu_torch.ops import int8 as i8
+
+    log("[K7 quantize_rows] vs the plain chain; tol 0: codes and scales bit for bit")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (rows, width, dtype, column scale, f32 scale)
+    cases = [(4096, 5120, bf16, False, False), (4096, 4096, bf16, False, False), (4096, 14336, bf16, False, False),
+             (4096, 4096, bf16, True, False), (4096, 1024, bf16, True, False), (4096, 5120, bf16, True, False),
+             (4096, 14336, bf16, True, False), (131072, 5120, bf16, False, False), (512, 5120, bf16, False, False),
+             (512, 131072, f32, True, False), (32, 4096, bf16, False, False), (32, 14336, bf16, False, False),
+             (256, 128, bf16, False, True), (8192, 128, bf16, False, True)]
+    shapes = []
+    for R, C, dtype, col, kv in cases:
+        x = (torch.randn(R, C, device="cuda", generator=g)
+             * (4 * torch.rand(R, 1, device="cuda", generator=g) + 0.01)).to(dtype)
+        cs = (torch.rand(C, device="cuda", generator=g) * 0.02 + 1e-4).to(dtype) if col else None
+        sd = f32 if kv else None
+        got, want = i8.quantize_rows(x, cs, sd), i8.quantize_rows_plain(x, cs, sd)
+        torch.cuda.synchronize()
+        name = f"R={R} C={C} {str(dtype).split('.')[1]}{' x col scale' if col else ''}{' f32 scale' if kv else ''}"
+        err = max(max_err(got[0], want[0]), max_err(got[1], want[1]))
+        check(name, err, 0.0)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"{name}: not bit-identical to the plain chain")
+        del got, want
+        ms = time_ms(lambda: i8.quantize_rows(x, cs, sd))
+        plain_ms = time_ms(lambda: i8.quantize_rows_plain(x, cs, sd), reps=3, warmup=1)
+        n_bytes = R * C * (x.element_size() + 1) + R * (4 if kv else x.element_size()) + (C * x.element_size() if col else 0)
+        bms, by = bound_ms(n_bytes, 0.0, "bf16")
+        split = device_split_ms(lambda: i8.quantize_rows(x, cs, sd), ("quantize_rows_kernel",))
+        dev = split["quantize_rows_kernel"]
+        plain_dev = library_device_ms(lambda: i8.quantize_rows_plain(x, cs, sd))
+        plan = dict(zip(("vec", "spans"), i8.quantize_rows_plan(R, C, x.element_size(), True)))
+        log(f"      {ms:.4f} ms (plain chain {plain_ms:.4f}, bound {bms:.4f} by {by}); device {dev:.4f} ms "
+            f"({bms / dev if dev else 0:.3f} of bound; plain chain {plain_dev:.4f}), host {split['host_ms']:.4f} ms a call; "
+            f"{plan}")
+        shapes.append(dict(R=R, C=C, dtype=str(dtype).split(".")[1], col_scale=col, f32_scale=kv, max_abs_err=err,
+                           tol=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bms, bound_by=by, device_ms=dev,
+                           plain_device_ms=plain_dev, host_ms=split["host_ms"], **plan))
+        del x, cs
+    return shapes
+
+
 def phase_kernels():
     """Returns {kernel name: per-shape records}."""
-    return {"int8_mm_dequant_nt": phase_k1(), "int8_mm_plans": phase_k1_plans(), "int8_mm_dequant": phase_k4(),
-            "int8_mm_kn_plans": phase_k4_plans(), **phase_int8_tp_shards(), "flash_attention": phase_k2(),
+    return {"quantize_rows": phase_k7(), "int8_mm_dequant_nt": phase_k1(), "int8_mm_plans": phase_k1_plans(),
+            "int8_mm_dequant": phase_k4(), "int8_mm_kn_plans": phase_k4_plans(), **phase_int8_tp_shards(),
+            "flash_attention": phase_k2(),
             "flash_attention_offsets": phase_k2_offsets(),
             "flash_attention_bwd": phase_k5(), "flash_probe": phase_k6(), **phase_ring_kernels(), **{
         ("decode_attention" if kind == "bf16" else "decode_attention_int8"): recs
@@ -960,7 +1014,7 @@ def phase_kernels():
 
 def counted():
     """The counted wrappers by name (ops/launches.py), every module that defines one imported."""
-    from llama_x_tpu_torch.ops import decode_attention, flash_attention, flash_probe, int8_mm  # noqa: F401
+    from llama_x_tpu_torch.ops import decode_attention, flash_attention, flash_probe, int8, int8_mm  # noqa: F401
     from llama_x_tpu_torch.ops import launches
 
     return dict(launches.COUNTED)
@@ -1071,9 +1125,11 @@ def plain_path():
     swapping the module attributes the model calls; restored on exit."""
     from llama_x_tpu_torch.ops import decode_attention as da
     from llama_x_tpu_torch.ops import flash_attention as fa
+    from llama_x_tpu_torch.ops import int8 as i8
     from llama_x_tpu_torch.ops import int8_mm as mm
 
-    swaps = [(mm, "int8_mm_dequant_nt", mm.int8_mm_dequant_nt_plain),
+    swaps = [(i8, "quantize_rows", i8.quantize_rows_plain),
+             (mm, "int8_mm_dequant_nt", mm.int8_mm_dequant_nt_plain),
              (mm, "int8_mm_dequant", mm.int8_mm_dequant_plain),
              (fa, "_forward_impl", fa.flash_fwd_plain),
              (fa, "flash_fwd_offsets", fa.flash_fwd_offsets_plain),
@@ -1357,7 +1413,7 @@ def profile_decode(model, prompt, lens, cache_dtype, steps: int = 8, eager: bool
 DEVICE_ITEM_GROUPS = [
     ("int8_mm_nt_", "K1"), ("int8_mm_kn_kernel", "K4"), ("flash_fwd_kernel", "K2"),
     ("flash_bwd_dkv_kernel", "K5 dkv"), ("flash_bwd_dq_kernel", "K5 dq"), ("decode_kernel", "K3"),
-    ("decode_merge_kernel", "K3"),
+    ("decode_merge_kernel", "K3"), ("quantize_rows_kernel", "K7"),
     ("nvjet", "library GEMMs"), ("gemm", "library GEMMs"), ("cublas", "library GEMMs"), ("cutlass", "library GEMMs"),
     ("reduce_kernel", "reductions"), ("copy_kernel", "copies and casts"), ("elementwise", "elementwise"),
     ("Memcpy", "memcpy"), ("Memset", "memset"),
@@ -1365,6 +1421,22 @@ DEVICE_ITEM_GROUPS = [
 
 
 QUANTIZE_LABEL = "quantize_int8_rowwise"
+# the plain quantizer chain's abs and round kernels, one of each a call (torch.logsumexp's guard
+# on its maxima launches an abs too, one a fused CE chunk)
+CHAIN_KERNELS = re.compile(r"AbsFunctor|abs_kernel|round_kernel")
+
+
+@contextlib.contextmanager
+def plain_quantizer():
+    """The rowwise quantizer's plain chain in K7's place (the quantizer before K7)."""
+    from llama_x_tpu_torch.ops import int8 as i8
+
+    kernel = i8.quantize_rows
+    try:
+        i8.quantize_rows = i8.quantize_rows_plain
+        yield
+    finally:
+        i8.quantize_rows = kernel
 
 
 @contextlib.contextmanager
@@ -2502,7 +2574,10 @@ def eager_profile(loss_fn, state, batch, what: str) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rec = summarize_profile(prof, wall_ms, 1, what, "step")
+    rec["abs_round_kernels"] = sum(bool(CHAIN_KERNELS.search(n)) for n in device_kernels(prof))
     q_ms, q_calls = label_device_ms(prof, QUANTIZE_LABEL)
+    if "K7" in rec["groups_ms_per_step"]:  # K7's ctypes launches are not tied to the ranges: its kernels' time
+        q_ms = (q_ms or 0.0) + rec["groups_ms_per_step"]["K7"]
     rec["quantize_int8_rowwise_ms_per_step"], rec["quantize_int8_rowwise_calls_per_step"] = q_ms, q_calls
     rec["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     rec["peak_reserved_gb"] = torch.cuda.max_memory_reserved() / 1e9
@@ -2656,6 +2731,17 @@ def phase_train() -> dict:
     graph_prof = traced_steps(train_step, state, batch, 2, expect, "training (graph replays)")
     graph_mem = graph_memory()
     prof_rec = eager_profile(entry.loss_fn, state, batch, "training (eager)")
+    with plain_quantizer():
+        chain_rec = eager_profile(entry.loss_fn, state, batch, "training (eager, the plain quantizer chain)")
+    prof_rec["quantize_int8_rowwise_ms_per_step_plain_chain"] = chain_rec["quantize_int8_rowwise_ms_per_step"]
+    prof_rec["abs_round_kernels_plain_chain"] = chain_rec["abs_round_kernels"]
+    calls = chain_rec["quantize_int8_rowwise_calls_per_step"]
+    log(f"      rowwise quantizer a step ({calls} calls), plain chain against K7: "
+        f"{chain_rec['quantize_int8_rowwise_ms_per_step']} against {prof_rec['quantize_int8_rowwise_ms_per_step']} ms of "
+        f"device time; abs / round kernels {chain_rec['abs_round_kernels']} against {prof_rec['abs_round_kernels']} "
+        f"(logsumexp's abs a CE chunk)")
+    if chain_rec["abs_round_kernels"] - prof_rec["abs_round_kernels"] != 2 * calls:
+        raise AssertionError("the step through K7 still launched abs / round kernels of the quantizer's chain")
     vs = graph_against_eager("text", state, steps, graph_prof, prof_rec, graph_mem)
     two_path = compare_train_paths(model, batch)
     return dict(flags=TRAIN_FLAGS, steps=steps, launches=counts, launches_per_step={k: v // args.n_steps for k, v in counts.items()},
@@ -3953,11 +4039,23 @@ P5B_TIMEOUT_S = 480
 def p5b_expected_launches(name: str, mesh: dict, rank: int) -> dict:
     """One rank's launches in one step (remat "full", CE x8, one row a microbatch): tp and
     fsdp run every layer's 7 projections on their shards (``expected_launches``); a pp stage
-    runs its L / P layers for each of the 2 microbatches, and only the last stage the CE."""
+    runs its L / P layers for each of the 2 microbatches, and only the last stage the CE.
+    K7 (the rowwise quantizer): 21 a layer (7 inputs, again in the recompute, and 7 input
+    gradients), and with the CE the head and each chunk's rows in both passes and each chunk's
+    dlogits (3 C + 2); at tp each call whose rows "tp" splits is two launches, the absmax pass
+    and the codes pass: wo's and w2's inputs (twice a layer), the 5 column-parallel input
+    gradients a layer and each chunk's dlogits (9 L + C more)."""
+    def k7(layers: int, chunks: int) -> int:
+        return 21 * layers + (3 * chunks + 2 if chunks else 0)
+
     if name != "pp":
-        return expected_launches("full", P5B_LAYERS, 8)
+        out = expected_launches("full", P5B_LAYERS, 8)
+        out["quantize_rows"] = k7(P5B_LAYERS, 8) + (9 * P5B_LAYERS + 8 if name == "tp" else 0)
+        return out
     stages = mesh["pp"]
-    one = expected_launches("full", P5B_LAYERS // stages, 8 if rank == stages - 1 else 0)
+    chunks = 8 if rank == stages - 1 else 0
+    one = expected_launches("full", P5B_LAYERS // stages, chunks)
+    one["quantize_rows"] = k7(P5B_LAYERS // stages, chunks)
     return {k: 2 * v for k, v in one.items()}
 
 
@@ -4299,6 +4397,9 @@ KERNELS = {
     "decode_attention_int8": ("llama_x_tpu_torch/csrc/decode_attention.cu",
                               "llama_x_tpu/ops/decode_attention.py:44", 0),
     "flash_probe": ("llama_x_tpu_torch/csrc/flash_probe.cu", "tools/probe_flash.py:94", 0),
+    # no TPU kernel: the JAX package leaves its rowwise quantizer to XLA
+    "quantize_rows": ("llama_x_tpu_torch/csrc/quantize_rows.cu", "none (llama_x_tpu/ops/int8.py:quantize_int8_rowwise)",
+                      0),
 }
 
 

@@ -294,11 +294,10 @@ def init_kv_cache(config: LlamaConfig, batch_size: int, dtype=torch.bfloat16, de
 
 
 def quantize_kv_rows(x: torch.Tensor):
-    """[..., D] float -> (int8 [..., D], f32 scale [...]): symmetric absmax/127 per row."""
-    xf = x.float()
-    scale = xf.abs().amax(dim=-1) / 127.0
-    q = torch.round(xf / torch.clamp(scale, min=1e-12)[..., None]).to(torch.int8)
-    return q, scale
+    """[..., D] float -> (int8 [..., D], f32 scale [...]): symmetric absmax/127 per row
+    (``quantize_int8_rowwise``: K7 on the card)."""
+    q, scale = quantize_int8_rowwise(x.reshape(-1, x.shape[-1]), scale_dtype=torch.float32)
+    return q.reshape(x.shape), scale.reshape(x.shape[:-1])
 
 
 def dequant_kv(side) -> torch.Tensor:

@@ -148,7 +148,7 @@ class _FusedLinearCrossEntropy(torch.autograd.Function):
                 # dH = dlogits @ W with W = W_i8 * s_v: fold s_v into dlogits BEFORE the
                 # rowwise quantization (it multiplies the vocabulary contraction), then
                 # the KN kernel against W_i8 as stored
-                dl_i8, dl_scale = quantize_int8_rowwise(dlogits * w_scale_f32[None, :], mesh if tp else None)
+                dl_i8, dl_scale = quantize_int8_rowwise(dlogits, mesh if tp else None, col_scale=w_scale_f32)
                 dh[rows] = int8_mm.int8_mm_dequant(dl_i8, w_i8, dl_scale, ones, out_dtype=torch.float32)
                 continue
             dlogits = dlogits.to(hidden.dtype)

@@ -46,6 +46,7 @@ _SIGNATURES = {
     "lxt_wgmma_check_s8_rs": ([_P, _P, _P, _I, _I, _P], _I),
     "lxt_flash_probe": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "lxt_decode_attention": ([_P] * 9 + [_I] * 6 + [_F] + [_I] * 3 + [_P], _I),
+    "lxt_quantize_rows": ([_P] * 5 + [_I] * 7 + [_P], _I),
 }
 
 _lock = threading.Lock()

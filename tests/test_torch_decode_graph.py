@@ -364,6 +364,10 @@ TRACE_NAMES = {
     "flash_probe": ["void (anonymous namespace)::flash_probe_kernel<128>(CUtensorMap_st, CUtensorMap_st)"],
     "decode_attention": ["void (anonymous namespace)::decode_kernel<false, 128, 1>((anonymous namespace)::Params)"],
     "decode_attention_int8": ["void (anonymous namespace)::decode_kernel<true, 128, 4>((anonymous namespace)::Params)"],
+    "quantize_rows": ["void (anonymous namespace)::quantize_rows_kernel<__nv_bfloat16, __nv_bfloat16, 8, 128>("
+                      "__nv_bfloat16 const*, __nv_bfloat16 const*, signed char*, __nv_bfloat16*, int, int)",
+                      "void (anonymous namespace)::quantize_rows_kernel<float, float, 1, 32>(float const*, "
+                      "float const*, signed char*, float*, int, int)"],
 }
 TRACE_NAMES["flash_attention_ring"] = TRACE_NAMES["flash_attention"]  # the ring form is K2's self form
 
@@ -372,14 +376,15 @@ def test_every_counted_wrapper_is_registered_with_its_kernel_name():
     """Each function of the kernel modules that keeps a launch count is in the one registry,
     and its trace name matches its own kernel's names and no other wrapper's kernel (the
     ring form shares K2's self form, the backward's dq kernel and the merge match nothing)."""
-    from llama_x_tpu_torch.ops import flash_attention, flash_probe, int8_mm
+    from llama_x_tpu_torch.ops import flash_attention, flash_probe, int8, int8_mm
 
-    wrappers = {fn for mod in (int8_mm, da, flash_attention, flash_probe) for fn in vars(mod).values()
+    wrappers = {fn for mod in (int8_mm, int8, da, flash_attention, flash_probe) for fn in vars(mod).values()
                 if callable(fn) and hasattr(fn, "launches")}
-    assert wrappers == set(launches.COUNTED.values()) and len(launches.COUNTED) == len(TRACE_NAMES) == 10
+    assert wrappers == set(launches.COUNTED.values()) and len(launches.COUNTED) == len(TRACE_NAMES) == 11
     others = ["void (anonymous namespace)::decode_merge_kernel((anonymous namespace)::Params, int)",
               "void (anonymous namespace)::flash_bwd_dq_kernel<128, false, false>(CUtensorMap_st)",
-              "void at::native::vectorized_elementwise_kernel<4, at::native::CUDAFunctor_add<float>>(int, float)"]
+              "void at::native::vectorized_elementwise_kernel<4, at::native::CUDAFunctor_add<float>>(int, float)",
+              "void at::native::vectorized_elementwise_kernel<4, at::native::round_kernel_cuda(at::TensorIteratorBase&)"]
     for name, fn in launches.COUNTED.items():
         same = {n for n, f in launches.COUNTED.items() if f.device_kernel.pattern == fn.device_kernel.pattern}
         for other, kernels in TRACE_NAMES.items():

@@ -15,7 +15,8 @@ which a window one position off misses by 5x or more; K5 per element 2^-7 |ref| 
 chip smoke script uses too), with and without dropout (one flipped bit of the hash moves
 elements by the size of the output); K6 per element 2^-7 |ref| + 2^-8 rms(ref)
 (``probe_tolerance``). K2's ring form and K5's offsets form (ring attention's blocks) with
-K2's and K5's tolerances, out compared on the rows that see a key of the block."""
+K2's and K5's tolerances, out compared on the rows that see a key of the block. K7 (the
+rowwise quantizer) bit-exact: codes and scales equal the plain chain's on the card."""
 
 import math
 
@@ -25,6 +26,7 @@ import torch
 from llama_x_tpu_torch.models import llama
 from llama_x_tpu_torch.ops import decode_attention as da
 from llama_x_tpu_torch.ops import flash_attention as fa
+from llama_x_tpu_torch.ops import int8 as i8
 from llama_x_tpu_torch.ops import int8_mm as mm
 from llama_x_tpu_torch.ops.attention import MaskInfo
 
@@ -118,6 +120,148 @@ def test_int8_mm_split_k_gives_the_same_bits_twice(cuda, M, N, K, plan):
     assert torch.equal(first, second)
     assert torch.equal(first, mm.int8_mm_dequant_nt_plain(a, b, rs, cs, out_dtype=torch.float32))
     assert int(mm._counters[a.device].abs().sum()) == 0
+
+
+# K7's rows: decode (1, 32) and training (4096) at the widths of the projections' inputs
+# and gradients (128: the KV cache's rows), and the head's dlogits chunk
+QUANTIZE_SHAPES = [(R, C) for R in (1, 32, 4096) for C in (128, 1024, 4096, 5120, 14336)] + [(512, 131072)]
+
+
+def _quantize_input(device, R: int, C: int, dtype, seed: int) -> torch.Tensor:
+    """Rows of varied magnitude; where R >= 3 row 0 is zero, row 1 lands on exact halves
+    (max 127, so the scale is 1 and x / scale is k + 0.5: half to even decides), and row 2's
+    largest magnitude is a negative entry."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(R, C, device=device, generator=g) * (4 * torch.rand(R, 1, device=device, generator=g) + 0.01)
+    if R >= 3:
+        x[0] = 0.0
+        x[1] = torch.arange(C, device=device) % 254 - 126.5
+        x[1, 0] = 127.0
+        x[2, C // 2] = -2 * x[2].abs().max()
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("col", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("R,C", QUANTIZE_SHAPES)
+def test_quantize_rows_matches_plain(cuda, R, C, dtype, col):
+    """K7 against the plain chain on the card, codes and scales bit for bit, with and without
+    the column scale (the backward's weight scale, the head's vocabulary scale), one launch."""
+    x = _quantize_input(cuda, R, C, dtype, R + C)
+    cs = None
+    if col:
+        g = torch.Generator(device=cuda).manual_seed(C)
+        cs = (torch.rand(C, device=cuda, generator=g) * 0.02 + 1e-4).to(dtype)
+    before = i8.quantize_rows.launches
+    q, s = i8.quantize_int8_rowwise(x, col_scale=cs)
+    torch.cuda.synchronize()
+    assert i8.quantize_rows.launches == before + 1
+    q_p, s_p = i8.quantize_rows_plain(x, cs)
+    assert q.dtype == torch.int8 and s.dtype == dtype
+    assert torch.equal(s, s_p)
+    assert torch.equal(q, q_p)
+    if R >= 3 and not col:
+        assert not q[0].any() and s[0] == 0
+        assert float(s[1]) == 1.0 and torch.equal(q[1].float(), torch.round(x[1].float()))
+        assert int(q[2, C // 2]) == -127
+
+
+@pytest.mark.parametrize("shape", [(32, 1, 8, 128), (1, 512, 8, 128), (3, 5, 2, 64)])
+def test_quantize_kv_rows_matches_plain(cuda, shape):
+    """The int8 cache's new rows through K7: f32 scales, bit for bit with the plain chain."""
+    x = _quantize_input(cuda, math.prod(shape[:-1]), shape[-1], torch.bfloat16, 3).reshape(shape)
+    before = i8.quantize_rows.launches
+    q, s = llama.quantize_kv_rows(x)
+    torch.cuda.synchronize()
+    assert i8.quantize_rows.launches == before + 1
+    q_p, s_p = i8.quantize_rows_plain(x.reshape(-1, shape[-1]), scale_dtype=torch.float32)
+    assert s.dtype == torch.float32 and s.shape == shape[:-1]
+    assert torch.equal(q, q_p.reshape(shape)) and torch.equal(s, s_p.reshape(shape[:-1]))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quantize_rows_unaligned_rows_and_views(cuda, dtype):
+    """K7's single-element loads (rows that are no whole number of 16-byte loads, rows that
+    start one element in), a row wider than its group's registers hold at that width, and
+    views the router makes contiguous (a column slice, expanded rows); a view handed to K7's
+    wrapper itself raises."""
+    x = _quantize_input(cuda, 64, 3002, dtype, 9)
+    flat = x.reshape(-1)
+    cases = [x[:5, :37].contiguous(), x[:, :3001].contiguous(), flat[1:1 + 63 * 3000].view(63, 3000),
+             flat[1:1 + 40 * 1000].view(40, 1000)]
+    for v in cases:
+        cs = (torch.rand(v.shape[1], device=cuda) * 0.02 + 1e-4).to(dtype)
+        for col in (None, cs):
+            q, s = i8.quantize_rows(v, col)
+            q_p, s_p = i8.quantize_rows_plain(v, col)
+            assert torch.equal(q, q_p) and torch.equal(s, s_p), (tuple(v.shape), v.data_ptr() % 16)
+    for view in (x[:, 1:1001], x[:1, :2048].expand(6, 2048)):
+        q, s = i8.quantize_int8_rowwise(view)
+        q_p, s_p = i8.quantize_rows_plain(view)
+        assert torch.equal(q, q_p) and torch.equal(s, s_p)
+        with pytest.raises(ValueError):
+            i8.quantize_rows(view)
+
+
+def test_quantize_rows_counts_one_launch_a_call_under_a_graph_capture(cuda):
+    """Under a CUDA graph's capture each K7 call adds one launch to the capture's tally and
+    none to the counter; the replay writes what the plain chain gives."""
+    from llama_x_tpu_torch.ops import launches
+
+    x = _quantize_input(cuda, 64, 4096, torch.bfloat16, 5)
+    cs = (torch.rand(4096, device=cuda) * 0.02).to(torch.bfloat16)
+    stream = torch.cuda.Stream()
+    i8.quantize_int8_rowwise(x)  # the library is built outside the capture
+    torch.cuda.synchronize()
+    before = i8.quantize_rows.launches
+    graph = torch.cuda.CUDAGraph()
+    with launches.tally(stream) as tally, torch.cuda.graph(graph, stream=stream):
+        outs = [i8.quantize_int8_rowwise(x), i8.quantize_int8_rowwise(x, col_scale=cs),
+                llama.quantize_kv_rows(x.reshape(64, 32, 128))]
+    assert tally == {i8.quantize_rows: 3}
+    assert i8.quantize_rows.launches == before
+    graph.replay()
+    torch.cuda.synchronize()
+    want = [i8.quantize_rows_plain(x), i8.quantize_rows_plain(x, cs),
+            i8.quantize_rows_plain(x.reshape(-1, 128), scale_dtype=torch.float32)]
+    for (q, s), (q_p, s_p) in zip(outs, want):
+        assert torch.equal(q.reshape(q_p.shape), q_p) and torch.equal(s.reshape(s_p.shape), s_p)
+
+
+@pytest.mark.parametrize("col", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("R,C", [(32, 4096), (4096, 1024), (4096, 14336), (512, 131072)])
+def test_quantize_rows_codes_split_rows_from_their_whole_absmax(cuda, monkeypatch, R, C, dtype, col):
+    """Rows split over a mesh (tensor parallelism: a rank holds a slice of every row) take K7
+    in two launches, its absmax pass, the max all-reduce and its codes pass: a mesh of one rank
+    gives the plain chain's codes and scales, and so does each half of rows split in two, its
+    all-reduce folding in the other half's absmax as two ranks exchange it."""
+    from llama_x_tpu_torch.parallel import mesh as tmesh
+
+    x = _quantize_input(cuda, R, C, dtype, R + C + 1)
+    cs = (torch.rand(C, device=cuda) * 0.02 + 1e-4).to(dtype) if col else None
+    want_q, want_s = i8.quantize_rows_plain(x, cs)
+    mesh = tmesh.Mesh(tmesh.mesh_shape(1), 0, None)
+    before = i8.quantize_rows.launches
+    q, s = i8.quantize_int8_rowwise(x, mesh, col_scale=cs)
+    assert i8.quantize_rows.launches == before + 2
+    assert torch.equal(q, want_q) and torch.equal(s, want_s)
+    halves = [slice(0, C // 2), slice(C // 2, C)]
+    got = []
+    for mine, other in (halves, halves[::-1]):
+        rest = x[:, other] if cs is None else x[:, other] * cs[other]
+        rest_amax = rest.float().abs().amax(dim=1)
+        monkeypatch.setattr(i8, "all_reduce", lambda mesh, t, axis, op: torch.maximum(t, rest_amax))
+        q, s = i8.quantize_int8_rowwise(x[:, mine], mesh, col_scale=None if cs is None else cs[mine].contiguous())
+        assert torch.equal(s, want_s)
+        got.append(q)
+    assert torch.equal(torch.cat(got, dim=1), want_q)
+
+
+def test_quantize_int8_rowwise_refuses_half_rows_on_the_card(cuda):
+    """Every CUDA call reaches K7, whose wrapper raises on a dtype it does not take."""
+    with pytest.raises(TypeError):
+        i8.quantize_int8_rowwise(torch.ones(4, 64, dtype=torch.float16, device=cuda))
 
 
 @pytest.mark.parametrize("n", [128, 256])
@@ -1194,7 +1338,9 @@ def test_decode_graph_matches_the_eager_loop(cuda, kind):
     assert s["captures"] == 1 and s["replays"] == 22 + 23 and s["pool_bytes"][0] > 0
     (entry,) = dg.runner_of(model).graphs.values()
     credits = {fn.__name__: k for fn, k in entry.captured.credits.items()}
-    assert credits == ({"decode_attention_int8": 2, "int8_mm_dequant_nt": 14} if quant else {"decode_attention": 2})
+    # int8: K7 quantizes 7 projections' inputs and the 2 new KV rows a layer
+    assert credits == ({"decode_attention_int8": 2, "int8_mm_dequant_nt": 14, "quantize_rows": 18} if quant
+                       else {"decode_attention": 2})
     allocated = torch.cuda.memory_stats()["allocation.all.allocated"]
     entry.captured.replay(3)
     torch.cuda.synchronize()
@@ -1305,7 +1451,8 @@ def test_prefill_graph_matches_the_eager_prefill(cuda, kind, sampled):
     assert dg.stats(model)["captures"] == 0  # the decode steps' runner is apart
     (entry,) = dg.prefill_runner_of(model).graphs.values()
     credits = {fn.__name__: k for fn, k in entry.captured.credits.items()}
-    assert credits == ({"flash_fwd_with_lse": 2, "int8_mm_dequant_nt": 14} if quant else {"flash_fwd_with_lse": 2})
+    assert credits == ({"flash_fwd_with_lse": 2, "int8_mm_dequant_nt": 14, "quantize_rows": 18} if quant
+                       else {"flash_fwd_with_lse": 2})
     allocated = torch.cuda.memory_stats()["allocation.all.allocated"]
     entry.captured.replay(3)
     torch.cuda.synchronize()
@@ -1376,9 +1523,12 @@ def test_train_step_graph_matches_the_eager_step(cuda):
     assert (s["captures"], s["replays"], s["graphs"]) == (1, 3, 2) and s["pool_bytes"][0] > 0
     (entry_,) = step_graph.runner_of(states[0]).entries.values()
     credits = {fn.__name__: k for fn, k in entry_.micro.credits.items()}
-    L, C = 2, 8  # a microbatch under remat full: K1 7 L + 7 L + 2 C, K4 7 L + C, K2 2 L, K5 L
+    # a microbatch under remat full: K1 7 L + 7 L + 2 C, K4 7 L + C, K2 2 L, K5 L; K7 before
+    # every K1 and K4 (21 L + 3 C) and the frozen head's two quantizations
+    L, C = 2, 8
     assert credits == {"int8_mm_dequant_nt": 14 * L + 2 * C, "int8_mm_dequant": 7 * L + C,
-                       "flash_fwd_with_lse": 2 * L, "flash_bwd_from_res": L}, credits
+                       "flash_fwd_with_lse": 2 * L, "flash_bwd_from_res": L,
+                       "quantize_rows": 21 * L + 3 * C + 2}, credits
     allocated = torch.cuda.memory_stats()["allocation.all.allocated"]
     entry_.micro.replay(1)
     entry_.update.replay(1)
