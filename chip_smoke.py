@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (llama_x_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only hybrid]
 
 Phases, each of which raises on failure (the script then exits non-zero and prints
 no result line):
@@ -170,6 +170,18 @@ no result line):
    heads, B 4, prompts padded to 512, 32 new tokens), every rank's rows the same and each
    held against an unsharded ``generate`` under the near-tie rule, with decode tok/s and
    the exchange's share.
+17. the hybrid (Nemotron-H-47B's state-space layer, ``--only hybrid`` runs this phase after
+   the build alone): at the 47B's widths (256 heads of 64 over a state of 256 in 8 groups, the
+   conv over 20480 channels, the gated norm over 16384 in 8 groups), K8 ``ssd_scan`` over
+   512-token spans (fresh, from a lane, a snapshot at an interior offset, pads after the real
+   positions), K9 ``ssd_step`` over 16 slots (one in three done), the Triton passes
+   ``ssd_conv`` and ``gated_norm``, each against its plain version on the same inputs (K8 / K9
+   within 2e-4 of each output's largest value, the conv lanes and a done slot's lanes bit for
+   bit, the passes within one bf16 step), timed beside the plain version and the bound (f32
+   at 67 TFLOP/s); then a hybrid of the 47B's 98-block pattern at small widths through the
+   scheduler's programs: the launches of one prefill-chunk replay and of one decode-step
+   replay, the counts reset just before, held to the device trace and to one K8, conv and
+   gated norm a Mamba-2 block for the chunk and one K9 and gated norm for the step.
 
 Every shape's numbers are printed as the phases run. The second-to-last line of
 stdout is the kernels' JSON record (primary shape of each kernel, launches on the
@@ -191,7 +203,8 @@ import time
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-PEAK_OPS = {"int8": 1979e12, "bf16": 989e12}  # dense tensor-core rates, same source
+PEAK_OPS = {"int8": 1979e12, "bf16": 989e12,  # dense tensor-core rates, same source
+            "f32": 67e12}  # float32 outside the tensor cores (K8, K9)
 
 ROOT = Path(__file__).resolve().parent
 
@@ -1014,7 +1027,7 @@ def phase_kernels():
 
 def counted():
     """The counted wrappers by name (ops/launches.py), every module that defines one imported."""
-    from llama_x_tpu_torch.ops import decode_attention, flash_attention, flash_probe, int8, int8_mm  # noqa: F401
+    from llama_x_tpu_torch.ops import decode_attention, flash_attention, flash_probe, int8, int8_mm, ssd  # noqa: F401
     from llama_x_tpu_torch.ops import launches
 
     return dict(launches.COUNTED)
@@ -4379,6 +4392,178 @@ def phase_5b() -> dict:
 # the record
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 17: the hybrid's state-space layer
+# ---------------------------------------------------------------------------
+
+HYBRID_CONFIG = ROOT / "benchmark/configs/nemotron-h-47b.json"
+
+
+def ssd_kernel_cases(g) -> dict:
+    """K8, K9 and the two Triton passes at Nemotron-H-47B's widths against their plain
+    versions -> {kernel name: per-shape records}."""
+    import torch
+
+    from llama_x_tpu_torch.ops import ssd
+
+    cfg = json.loads(HYBRID_CONFIG.read_text())
+    H, G, N, P, K = cfg["mamba_num_heads"], cfg["n_groups"], cfg["ssm_state_size"], cfg["mamba_head_dim"], ssd.CONV_KERNEL
+    C, di, dev = H * P + 2 * G * N, H * P, "cuda"
+    dims = dict(heads=H, head_dim=P, groups=G, state_dim=N)
+    A = -(torch.rand(H, device=dev, generator=g) * 15 + 1)
+    D = torch.rand(H, device=dev, generator=g) + 0.5
+    dt_bias = torch.log(torch.expm1(torch.rand(H, device=dev, generator=g) * 0.099 + 0.001))
+    state_bytes = H * P * N * 4
+    out = {"ssd_scan": [], "ssd_step": [], "ssd_conv": [], "gated_norm": []}
+
+    def close(name, got, want, rel):
+        err, tol = max_err(got, want), rel * max(1e-3, float(want.float().abs().max()))
+        check(name, err, tol)
+        return err, tol
+
+    log(f"[K8 ssd_scan] H {H} x {P} over N {N}, {G} groups vs its plain version; tol 2e-4 of each output's largest")
+    for T, length, at, fresh in ((512, 512, 257, True), (512, 512, 100, False), (512, 300, 300, False),
+                                 (64, 64, -1, False)):
+        xbc = (torch.randn(T, C, device=dev, generator=g) * 0.5).to(torch.bfloat16)
+        dt = torch.randn(T, 3 * H, device=dev, generator=g).to(torch.bfloat16)[:, H:2 * H]
+        lanes = torch.randn(3, H, P, N, device=dev, generator=g) * 0.1
+        slot = torch.tensor([1], device=dev)
+        scalars = (torch.tensor([length], device=dev), torch.tensor([at], device=dev))
+        want_l, got_l = lanes.clone(), lanes.clone()
+        want_s, got_s = (torch.zeros(H, P, N, device=dev) for _ in range(2))
+        want = ssd.ssd_scan_plain(xbc, dt, A, D, dt_bias, want_l, slot, *scalars, want_s, fresh=fresh, **dims)
+        got = ssd.ssd_scan(xbc, dt, A, D, dt_bias, got_l, slot, *scalars, got_s, fresh=fresh, **dims)
+        torch.cuda.synchronize()
+        name = f"T={T} length={length} snap_at={at} {'fresh' if fresh else 'lane'}"
+        err, tol = close(f"{name} y", got[:length], want[:length], 2e-4)
+        errs = [close(f"{name} lane", got_l, want_l, 2e-4)[0]]
+        if at > 0:
+            errs.append(close(f"{name} snapshot", got_s, want_s, 2e-4)[0])
+        if not (torch.equal(got_l[0], lanes[0]) and torch.equal(got_l[2], lanes[2])):
+            raise AssertionError(f"{name}: K8 wrote a lane other than its slot's")
+        ms = time_ms(lambda: ssd.ssd_scan(xbc, dt, A, D, dt_bias, got_l, slot, *scalars, got_s, fresh=fresh, **dims))
+        plain_ms = time_ms(lambda: ssd.ssd_scan_plain(xbc, dt, A, D, dt_bias, want_l, slot, *scalars, want_s,
+                                                      fresh=fresh, **dims), reps=3, warmup=1)
+        # useful operations only (4 a state element a position), as benchmark/roofline_hybrid.py counts them
+        n_bytes = T * ((C + H) * 2 + di * 4) + state_bytes * (1 if fresh else 2) + (state_bytes if at > 0 else 0)
+        bms, by = bound_ms(n_bytes, 4.0 * T * H * P * N, "f32")
+        log(f"      {ms:.4f} ms (plain {plain_ms:.4f}, bound {bms:.4f} by {by}, {bms / ms:.3f} of bound)")
+        out["ssd_scan"].append(dict(T=T, length=length, snap_at=at, fresh=fresh, heads=H, state=N, max_abs_err=max(
+            [err, *errs]), tol=tol, rtol=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bms, bound_by=by))
+
+    log("[K9 ssd_step] 16 slots, one in three done, vs its plain version; tol 2e-4 of y's and the state's "
+        "largest, the conv lanes and a done slot's lanes bit for bit")
+    B = 16
+    proj = torch.randn(B, C + 2 * H, device=dev, generator=g).to(torch.bfloat16)
+    conv_w = (torch.rand(C, K, device=dev, generator=g) - 0.5).to(torch.bfloat16)
+    conv_b = (torch.rand(C, device=dev, generator=g) - 0.5).to(torch.bfloat16)
+    conv = torch.randn(B, K - 1, C, device=dev, generator=g).to(torch.bfloat16)
+    state = torch.randn(B, H, P, N, device=dev, generator=g) * 0.1
+    done = torch.arange(B, device=dev) % 3 == 1
+    args = (proj[:, :C], proj[:, C:C + H], conv_w, conv_b, A, D, dt_bias)
+    wc, ws, gc_, gs = conv.clone(), state.clone(), conv.clone(), state.clone()
+    want = ssd.ssd_step_plain(*args, wc, ws, done, **dims)
+    got = ssd.ssd_step(*args, gc_, gs, done, **dims)
+    torch.cuda.synchronize()
+    err, tol = close("B=16 y", got, want, 2e-4)
+    serr = close("B=16 state", gs, ws, 2e-4)[0]
+    if not (torch.equal(gc_, wc) and torch.equal(gs[done], state[done]) and torch.equal(gc_[done], conv[done])
+            and not got[done].any()):
+        raise AssertionError("K9: a conv lane differs from the plain version's, or a done slot's lanes moved")
+    ms = time_ms(lambda: ssd.ssd_step(*args, gc_, gs, done, **dims))
+    plain_ms = time_ms(lambda: ssd.ssd_step_plain(*args, wc, ws, done, **dims), reps=3, warmup=1)
+    live = int((~done).sum())
+    n_bytes = live * (2 * state_bytes + 2 * (K - 1) * C * 2 + (C + H) * 2 + di * 4) + (B - live) * di * 4
+    bms, by = bound_ms(n_bytes, 4.0 * live * H * P * N, "f32")
+    log(f"      {ms:.4f} ms (plain {plain_ms:.4f}, bound {bms:.4f} by {by}, {bms / ms:.3f} of bound; {live} live lanes)")
+    out["ssd_step"].append(dict(B=B, live=live, heads=H, state=N, max_abs_err=max(err, serr), tol=tol, rtol=0.0, ms=ms,
+                                plain_ms=plain_ms, library_ms=None, bound_ms=bms, bound_by=by))
+
+    log("[ssd_conv] the span's conv and SiLU (Triton) vs its plain version; within one bf16 step")
+    for W in (512, 1):
+        win = torch.randn(K - 1 + W, C, device=dev, generator=g).to(torch.bfloat16)
+        got, want = ssd.ssd_conv(win, conv_w, conv_b), ssd.ssd_conv_plain(win, conv_w, conv_b)
+        torch.cuda.synchronize()
+        err = check_close(f"W={W} C={C}", got, want, 1e-6, 2 ** -7)
+        ms = time_ms(lambda: ssd.ssd_conv(win, conv_w, conv_b))
+        plain_ms = time_ms(lambda: ssd.ssd_conv_plain(win, conv_w, conv_b), reps=3, warmup=1)
+        bms, by = bound_ms((K - 1 + 2 * W) * C * 2 + C * (K + 1) * 2, 2.0 * W * C * K, "f32")
+        log(f"      {ms:.4f} ms (plain {plain_ms:.4f}, bound {bms:.4f} by {by})")
+        out["ssd_conv"].append(dict(W=W, C=C, max_abs_err=err, tol=1e-6, rtol=2 ** -7, ms=ms, plain_ms=plain_ms,
+                                    library_ms=None, bound_ms=bms, bound_by=by))
+
+    log("[gated_norm] the gated RMSNorm (Triton) vs its plain version, z a view of the in_proj row; "
+        "within one bf16 step")
+    for rows in (512, 16):
+        y = torch.randn(rows, di, device=dev, generator=g)
+        zrow = torch.randn(rows, C + di + H, device=dev, generator=g).to(torch.bfloat16)
+        w = (torch.rand(di, device=dev, generator=g) + 0.5).to(torch.bfloat16)
+        got, want = ssd.gated_norm(y, zrow[:, :di], w, G, 1e-5), ssd.gated_norm_plain(y, zrow[:, :di], w, G, 1e-5)
+        torch.cuda.synchronize()
+        err = check_close(f"rows={rows} C={di} groups={G}", got, want, 1e-5, 2 ** -7)
+        ms = time_ms(lambda: ssd.gated_norm(y, zrow[:, :di], w, G, 1e-5))
+        plain_ms = time_ms(lambda: ssd.gated_norm_plain(y, zrow[:, :di], w, G, 1e-5), reps=3, warmup=1)
+        bms, by = bound_ms(rows * di * (4 + 2 + 2) + di * 2, 0.0, "f32")
+        log(f"      {ms:.4f} ms (plain {plain_ms:.4f}, bound {bms:.4f} by {by})")
+        out["gated_norm"].append(dict(rows=rows, C=di, groups=G, max_abs_err=err, tol=1e-5, rtol=2 ** -7, ms=ms,
+                                      plain_ms=plain_ms, library_ms=None, bound_ms=bms, bound_by=by))
+    return out
+
+
+def hybrid_replays() -> dict:
+    """The launches of one prefill-chunk replay and one decode-step replay of a hybrid of the
+    47B's block pattern (98 blocks, 45 Mamba-2) at small widths, int8 projections and cache,
+    each held to the device trace (``traced``) and to the blocks: one K8, conv and gated norm a
+    Mamba-2 block in the chunk, one K9 and gated norm in the step."""
+    import torch
+
+    from llama_x_tpu_torch.adapters.quantize import quantize_linear
+    from llama_x_tpu_torch.models import nemotron_h as nh
+    from llama_x_tpu_torch.serve import continuous as cs
+
+    pattern = json.loads(HYBRID_CONFIG.read_text())["hybrid_override_pattern"]
+    cfg = nh.HybridConfig(embed_dim=256, pattern=pattern, head_dim=64, num_heads=4, num_kv_heads=2,
+                          intermediate_dim=512, mamba_heads=8, mamba_head_dim=64, ssm_state=128, n_groups=2,
+                          max_seq_len=512, vocab_size=512)
+    model = nh.init(cfg, seed=1, device="cuda")
+    quantize_linear(model.layers, "int8")
+    model.config = cfg.replace(dynamic_int8_act=True)
+    n_m = pattern.count("M")
+    slots = 4
+    state = cs.init_state(model.config, slots, torch.int8, "cuda", None, model.tok_embeddings.dtype)
+    inputs = cs.AdmitBuffers(model, state[0])
+    chunk = torch.randint(0, cfg.vocab_size, (64,), generator=torch.Generator().manual_seed(3)).tolist()
+    params = (*cs.sampling_tensors([(0.0, 0, 1.0, 0.0)] * slots, "cuda"),
+              torch.full((slots,), -1, dtype=torch.int64, device="cuda"),
+              torch.full((slots,), 8, dtype=torch.int64, device="cuda"))
+    runs = {}
+    for what, fn, want in (
+            ("prefill chunk", lambda: cs.prefill_chunk(model, inputs, chunk, 0, 64, state=state, slot=1),
+             dict(ssd_scan=n_m, ssd_conv=n_m, gated_norm=n_m, ssd_step=0)),
+            ("decode step", lambda: cs.decode_rows(model, state, 1, None, *params),
+             dict(ssd_step=n_m, gated_norm=n_m, ssd_scan=0, ssd_conv=0))):
+        fn()  # the capture
+        t = traced(f"hybrid {what} replay", fn)
+        got = {k: t["launches"][k] for k in want}
+        log(f"    one {what} replay at {len(pattern)} blocks ({n_m} Mamba-2): {json.dumps(got)}; every counted "
+            f"launch {json.dumps({k: v for k, v in t['launches'].items() if v})}")
+        if got != want:
+            raise AssertionError(f"hybrid {what} replay: launches {got}, want {want}")
+        runs[f"hybrid {what}"] = dict(launches=t["launches"], traced=t["traced"])
+    return runs
+
+
+def phase_hybrid() -> tuple[dict, dict]:
+    """-> ({kernel name: per-shape records}, {run name: {"launches", "traced"}})."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    kern = ssd_kernel_cases(g)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return kern, hybrid_replays()
+
+
 KERNELS = {
     # name: (source, TPU kernel it replaces, index of the primary shape in the kernel phase)
     "int8_mm_dequant_nt": ("llama_x_tpu_torch/csrc/int8_mm.cu", "llama_x_tpu/ops/int8_mm.py:40", 6),
@@ -4400,12 +4585,19 @@ KERNELS = {
     # no TPU kernel: the JAX package leaves its rowwise quantizer to XLA
     "quantize_rows": ("llama_x_tpu_torch/csrc/quantize_rows.cu", "none (llama_x_tpu/ops/int8.py:quantize_int8_rowwise)",
                       0),
+    # no TPU kernel: the JAX package has no state-space layer
+    "ssd_scan": ("llama_x_tpu_torch/csrc/ssd_scan.cu", "none", 0),
+    "ssd_step": ("llama_x_tpu_torch/csrc/ssd_step.cu", "none", 0),
+    "ssd_conv": ("llama_x_tpu_torch/ops/ssd.py (Triton)", "none", 0),
+    "gated_norm": ("llama_x_tpu_torch/ops/ssd.py (Triton)", "none", 0),
 }
 
 
 def record(kern: dict, runs: dict) -> dict:
     out = []
     for name, (source, replaces, primary) in KERNELS.items():
+        if name not in kern:  # a phase left out (``--only``)
+            continue
         shapes = kern[name]
         p = shapes[primary]
         per_run = {kind: run["launches"].get(name, 0) for kind, run in runs.items()}
@@ -4449,6 +4641,14 @@ def main() -> int:
     t0 = time.perf_counter()
     timer = PhaseTimer(t0)
     timer("build", phase_build())
+    if sys.argv[1:] == ["--only", "hybrid"]:
+        kern, runs = timer("hybrid", phase_hybrid())
+        log(f"[phase seconds] {json.dumps(timer.seconds)}")
+        log(smi)
+        log(json.dumps(record(kern, runs)))
+        log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                               "count": torch.cuda.device_count()}}))
+        return 0
     kern = timer("kernels", phase_kernels())
     runs, serving_model = timer("main path", phase_main_path())
     runs["admissions"] = timer("admissions", phase_admissions(serving_model))
@@ -4487,6 +4687,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     runs["5b"] = timer("5b", phase_5b())
+    gc.collect()
+    torch.cuda.empty_cache()
+    hybrid_kern, hybrid_runs = timer("hybrid", phase_hybrid())
+    kern.update(hybrid_kern)
+    runs.update(hybrid_runs)
     log(f"[phase seconds] {json.dumps(timer.seconds)}")
     rec = record(kern, runs)
     log(f"[done] {time.perf_counter() - t0:.1f} s")

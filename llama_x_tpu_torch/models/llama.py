@@ -379,9 +379,10 @@ def _named(saves: rm.SaveStore | None, name: str):
 def attention(attn: Attention, config: LlamaConfig, x: torch.Tensor, rope: torch.Tensor, mask_info: MaskInfo,
               cache=None, input_pos: torch.Tensor | None = None, prefill: bool = False,
               saves: rm.SaveStore | None = None, dropout_seed=None, offsets=None):
-    """GQA attention. x [B, S, D]. With ``cache`` (this layer's (k, v) views), the
-    fresh k/v are written into the cache IN PLACE at ``input_pos`` ([S], or [B, S]
-    per row) and, unless ``prefill``, attention reads the cache (decode). ``prefill``
+    """GQA attention. x [B, S, D]; ``rope`` None: q and k are not rotated. With ``cache``
+    (this layer's (k, v) views), the fresh k/v are written into the cache IN PLACE at
+    ``input_pos`` ([S], or [B, S] per row) and, unless ``prefill``, attention reads the
+    cache (decode). ``prefill``
     attends over the fresh k/v (the cache starts empty at position 0: same result).
     A read of the cache takes the decode kernel up to ``MAX_SQ`` query rows, and on the
     card the flash forward's offsets form beyond (``offsets``: ``cache_offsets``, given by
@@ -394,9 +395,10 @@ def attention(attn: Attention, config: LlamaConfig, x: torch.Tensor, rope: torch
     int8_kw = dict(dynamic_int8_act=c.dynamic_int8_act, dynamic_int8_bwd=c.dynamic_int8_bwd)
     q, k, v = apply_linear_grouped(x, (attn.wq, attn.wk, attn.wv), save=_named(saves, rm.QKV), **int8_kw)
     # this rank's heads (all of them, or Hq / tp and Hkv / tp under tensor parallelism)
-    q = apply_rope(q.reshape(B, S, -1, c.head_dim), rope, positions=input_pos)
-    k = apply_rope(k.reshape(B, S, -1, c.head_dim), rope, positions=input_pos)
-    v = v.reshape(B, S, -1, c.head_dim)
+    q, k, v = (t.reshape(B, S, -1, c.head_dim) for t in (q, k, v))
+    if rope is not None:  # None: no position embedding (a hybrid decoder's attention blocks)
+        q = apply_rope(q, rope, positions=input_pos)
+        k = apply_rope(k, rope, positions=input_pos)
 
     decode_from_cache = False
     quantized = False

@@ -13,6 +13,9 @@ where it launches its kernel, on the current stream:
   serving scheduler captures on its worker thread: a tally keyed by the capturing stream
   gets both. Every replay of the graph credits each wrapper with its tally (a capture with
   no tally open on its stream counts once, at capture).
+
+A ``Work`` counter (say, the positions a scan covered) is credited the same way, by any amount
+an ``add``; it is no kernel, so it joins no trace check.
 """
 
 from __future__ import annotations
@@ -38,6 +41,13 @@ def counted(name: str, fn, device_kernel: str):
     return fn
 
 
+class Work:
+    """A count of work a wrapper's launches did, credited as launches are (``add(work, n)``)."""
+
+    def __init__(self):
+        self.launches = 0
+
+
 def capturing() -> bool:
     return torch.cuda.is_current_stream_capturing()
 
@@ -52,17 +62,17 @@ def _stream_handle(stream=None) -> int:
     return stream.cuda_stream
 
 
-def add(fn) -> None:
-    """One launch of ``fn``'s kernel on the current stream."""
+def add(fn, n: int = 1) -> None:
+    """One launch of ``fn``'s kernel on the current stream (or ``n`` units of a ``Work``)."""
     if _tallies and capturing():
         key = _stream_handle()
         with _lock:
             tally = _tallies.get(key)
             if tally is not None:
-                tally[fn] = tally.get(fn, 0) + 1
+                tally[fn] = tally.get(fn, 0) + n
                 return
     with _lock:
-        fn.launches += 1
+        fn.launches += n
 
 
 @contextlib.contextmanager

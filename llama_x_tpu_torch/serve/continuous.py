@@ -28,6 +28,16 @@ boundaries (port of llama_x_tpu/serve/continuous.py).
   row's new tokens are a prefix of its chunk row of length emitted_after -
   emitted_before), streams them, frees finished slots and admits queued rows.
 
+A hybrid decoder (``models/nemotron_h.HybridConfig``: Mamba-2 blocks beside attention) keeps
+two more state tensors a slot, its SSM state (f32) and its conv state, at the end of the state
+tuple. Its admissions and prefill chunks write them straight into the slot's lanes (K8 over
+the span): the decode steps leave a lane whose ``done`` is set as it is (K9), and a slot's lane
+stays done from its last row's end until its next row's install. A chunk whose span holds the
+prompt's harvest point P0 also writes the states at P0 into the admission buffers' snapshot
+(``AdmitBuffers.snap``), which the scheduler copies out at once (``serve.snapshot``) and keeps
+with the prefix's K/V; a hit copies them into the slot's lanes (``serve.restore``) before the
+suffix runs.
+
 Admissions are padded to the JAX package's buckets (``prompt_multiple`` = pm): a prompt of P
 tokens to Pb = min(max(pm, ceil(P / pm) pm), S_max - 1), a suffix after a prefix of P0 to
 Sb = min(ceil(len / pm) pm, S_max - P0), a chunk to the fixed width C; pad positions are
@@ -48,6 +58,7 @@ JAX package's threefry draws are not reproduced: sampled rows follow the same la
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import threading
 
@@ -55,6 +66,7 @@ import torch
 
 from llama_x_tpu_torch.models import decode_graph as dg
 from llama_x_tpu_torch.models import llama
+from llama_x_tpu_torch.models import nemotron_h
 from llama_x_tpu_torch.models import speculative as mspec
 from llama_x_tpu_torch.models.decode_graph import cache_tensors
 from llama_x_tpu_torch.models.generate import gumbel_argmax
@@ -112,20 +124,28 @@ def sampling_tensors(rows: list[tuple], device) -> tuple[torch.Tensor, ...]:
 # ---------------------------------------------------------------------------
 # device programs: admission, chunked prefill and the multi-row decode chunk
 # state: (kv_cache, tok [N], pos [N], done [N] bool, emitted [N], ring [N, S_max], at [1]),
-# all int64 but done: the static buffers of the captured decode step, written in place
+# all int64 but done, and a hybrid's (ssm, conv) lanes: the static buffers of the captured
+# decode step, written in place
 # ---------------------------------------------------------------------------
 
 
-def init_state(config: llama.LlamaConfig, n_slots: int, cache_dtype=torch.bfloat16, device=None,
-               kv_heads: int | None = None):
+def is_hybrid(config) -> bool:
+    return isinstance(config, nemotron_h.HybridConfig)
+
+
+def init_state(config, n_slots: int, cache_dtype=torch.bfloat16, device=None, kv_heads: int | None = None,
+               conv_dtype=torch.bfloat16):
     """The scheduler's state over ``n_slots`` lanes; ``kv_heads``: a tensor-parallel rank's
     local kv heads (``llama.local_kv_heads``). ``ring`` holds each decode chunk's tokens,
-    ``at`` its write index."""
+    ``at`` its write index. A hybrid's cache holds its attention blocks, and its SSM and conv
+    lanes (``nemotron_h.init_states``, the conv in ``conv_dtype``) follow."""
     dev = resolve_device(device)
     zeros = lambda *shape: torch.zeros(shape or (n_slots,), dtype=torch.int64, device=dev)  # noqa: E731
-    return (llama.init_kv_cache(config, n_slots, dtype=cache_dtype, device=dev, kv_heads=kv_heads), zeros(), zeros(),
-            torch.ones(n_slots, dtype=torch.bool, device=dev), zeros(),  # empty slots are "done"
-            zeros(n_slots, config.max_seq_len), zeros(1))
+    kv_config = config.attention_config() if is_hybrid(config) else config
+    state = (llama.init_kv_cache(kv_config, n_slots, dtype=cache_dtype, device=dev, kv_heads=kv_heads), zeros(),
+             zeros(), torch.ones(n_slots, dtype=torch.bool, device=dev), zeros(),  # empty slots are "done"
+             zeros(n_slots, config.max_seq_len), zeros(1))
+    return state + nemotron_h.init_states(config, n_slots, dev, conv_dtype) if is_hybrid(config) else state
 
 
 def copy_positions(dst_cache, src_cache, n: int) -> None:
@@ -184,15 +204,18 @@ class AdmitBuffers:
     """The static buffers of the admission programs, on the model's device, which every
     program reads and writes at fixed addresses (a graph's inputs and outputs):
 
-    - ``ids`` [1, S_max]: the padded prompt, suffix or chunk; ``ints`` [5]: the slot, the
-      real tokens in ``ids`` (``length``), the position of ids[0] (``start``), the stop token
-      and top_k; ``floats`` [3]: temperature, top_p, min_p; ``first`` [1]: the token sampled.
+    - ``ids`` [1, S_max]: the padded prompt, suffix or chunk; ``ints`` [6]: the slot, the
+      real tokens in ``ids`` (``length``), the position of ids[0] (``start``), the stop token,
+      top_k and the offset in ``ids`` of a hybrid's snapshot (``snap_at``, -1: none); ``floats``
+      [3]: temperature, top_p, min_p; ``first`` [1]: the token sampled.
       ``feed`` fills them from pinned host memory on the card (the caching host allocator
       keeps a block until its copy has run).
     - ``work``: the working row cache, S_max positions of the lanes' form (with ``draft``, the
       draft's beside it), and ``h_last`` [1, 1, D], the hidden state at a prefill chunk's last
       real position. A chunked prefill holds it between chunks; another slot's chunk first
       parks it in a pooled row (``lease``, at most one an admitting slot, made on first use).
+      A hybrid's SSM and conv states stay in the slot's lanes; ``snap``: their snapshot at the
+      harvest point (``nemotron_h.init_states`` of one lane).
     - ``runner``: the graphs of the programs over these buffers (``decode_graph.Runner``), one
       a key, every key kept while the set lives, in one memory pool.
     """
@@ -201,14 +224,16 @@ class AdmitBuffers:
         dev = model.device
         S = cache_tensors(kv_cache)[0].shape[3]
         self.pin = dev.type == "cuda"
-        self.i64 = torch.zeros(5 + S, dtype=torch.int64, device=dev)
-        self.ints, self.ids = self.i64[:5], self.i64[5:].view(1, S)
-        self.slot, self.length, self.start, self.eos, self.top_k = (self.ints[i:i + 1] for i in range(5))
+        self.i64 = torch.zeros(6 + S, dtype=torch.int64, device=dev)
+        self.ints, self.ids = self.i64[:6], self.i64[6:].view(1, S)
+        self.slot, self.length, self.start, self.eos, self.top_k, self.snap_at = (self.ints[i:i + 1] for i in range(6))
         self.floats = torch.zeros(3, dtype=torch.float32, device=dev)
         self.first = torch.zeros(1, dtype=torch.int64, device=dev)
         self.work = _row_like(kv_cache)
         self.draft = None if draft_cache is None else _row_like(draft_cache)
         self.h_last = torch.zeros(1, 1, model.config.embed_dim, dtype=model.tok_embeddings.dtype, device=dev)
+        self.snap = (tuple(t[:, 0] for t in nemotron_h.init_states(model.config, 1, dev, model.tok_embeddings.dtype))
+                     if is_hybrid(model.config) else ())
         self.owner = None  # the admitting slot whose chunked prefill the working row holds
         self.pool: list = []  # parked rows
         self.free: list[int] = []
@@ -216,15 +241,15 @@ class AdmitBuffers:
 
     def buffers(self) -> tuple[torch.Tensor, ...]:
         return (self.i64, self.floats, self.first, *cache_tensors(self.work),
-                *(cache_tensors(self.draft) if self.draft is not None else ()), self.h_last)
+                *(cache_tensors(self.draft) if self.draft is not None else ()), self.h_last, *self.snap)
 
     def feed(self, tokens, width: int, pad_id: int, *, slot: int = 0, length: int = 0, start: int = 0,
-             eos_id: int = -1, sampling=(0.0, 0, 1.0, 0.0)) -> None:
+             eos_id: int = -1, sampling=(0.0, 0, 1.0, 0.0), snap_at: int = -1) -> None:
         """``tokens`` right-padded with ``pad_id`` to ``width`` into ``ids``, and the scalars."""
         t, k, p, mp = sampling
-        ints = [slot, length, start, eos_id, k] + list(tokens) + [pad_id] * (width - len(tokens))
+        ints = [slot, length, start, eos_id, k, snap_at] + list(tokens) + [pad_id] * (width - len(tokens))
         srcs = []
-        for dst, vals in ((self.i64[:5 + width], ints), (self.floats, [t, p, mp])):
+        for dst, vals in ((self.i64[:6 + width], ints), (self.floats, [t, p, mp])):
             src = torch.tensor(vals, dtype=dst.dtype)
             srcs.append((dst, src.pin_memory() if self.pin else src))
         with spans.on_device("device.copy"):
@@ -272,41 +297,58 @@ def sample_at(model: llama.Llama, h: torch.Tensor, at: torch.Tensor, inputs: Adm
     return sample_logits_rows(logits, t, inputs.top_k, p, mp, generator)
 
 
-def prefill_rows(model: llama.Llama, ids: torch.Tensor, row) -> torch.Tensor:
+def _trunk(model, x, mask, cache, states=None, **kw):
+    """``llama.trunk``, or a hybrid's over its ``states`` too."""
+    if states is None:
+        return llama.trunk(model, x, mask, cache, **kw)
+    return nemotron_h.trunk(model, x, mask, cache, states=states, **kw)
+
+
+def _span(state, inputs: AdmitBuffers, fresh: bool):
+    """A span over the admitting slot's lanes (``state[7:]``: a hybrid's SSM and conv states),
+    or None where the state has no lanes."""
+    lanes = () if state is None else state[7:]
+    return nemotron_h.Span(*lanes, inputs.slot, inputs.length, fresh, inputs.snap_at, *inputs.snap) if lanes else None
+
+
+def prefill_rows(model: llama.Llama, ids: torch.Tensor, row, states=None) -> torch.Tensor:
     """A prefill of ``ids`` [1, W] at positions [0, W) into a row cache (flash
     self-attention over the fresh K/V) -> h [1, W, D]."""
     W = ids.shape[1]
     pos = torch.arange(W, device=ids.device).clamp(max=cache_tensors(row)[0].shape[3] - 1)
-    return llama.trunk(model, llama.embed(model, ids), MaskInfo(causal=True), row, input_pos=pos, prefill=True)[0]
+    return _trunk(model, llama.embed(model, ids), MaskInfo(causal=True), row, states, input_pos=pos, prefill=True)[0]
 
 
-def _over_row(model: llama.Llama, ids: torch.Tensor, row, inputs: AdmitBuffers, kv_bound: int) -> torch.Tensor:
+def _over_row(model: llama.Llama, ids: torch.Tensor, row, inputs: AdmitBuffers, kv_bound: int,
+              states=None) -> torch.Tensor:
     """``ids`` [1, W] at positions [start, start + W) (the device ``start``) over a row cache
     that holds [0, start): causal q_positions and kv_len = start + length -> h [1, W, D]. Pad
     positions past the cache are clamped to its last (their K/V is never read)."""
     W = ids.shape[1]
     qpos = (inputs.start + torch.arange(W, device=ids.device)).clamp(max=cache_tensors(row)[0].shape[3] - 1)
     mask = MaskInfo(causal=True, q_positions=qpos[None], kv_len=inputs.start + inputs.length)
-    return llama.trunk(model, llama.embed(model, ids), mask, row, input_pos=qpos, kv_bound=kv_bound)[0]
+    return _trunk(model, llama.embed(model, ids), mask, row, states, input_pos=qpos, kv_bound=kv_bound)[0]
 
 
 def _admit_body(model, generator, state, inputs: AdmitBuffers, Pb: int) -> None:
-    h = prefill_rows(model, inputs.ids[:, :Pb], inputs.work)
+    h = prefill_rows(model, inputs.ids[:, :Pb], inputs.work, _span(state, inputs, True))
     first = sample_at(model, h, inputs.length - 1, inputs, generator)
     lane_copy(state[0], inputs.work, inputs.slot, Pb)
     activate(state[1:5], inputs, first, inputs.length)
 
 
 def _prefix_body(model, generator, state, inputs: AdmitBuffers, Sb: int, extent: int, kv_bound: int) -> None:
-    h = _over_row(model, inputs.ids[:, :Sb], inputs.work, inputs, kv_bound)
+    h = _over_row(model, inputs.ids[:, :Sb], inputs.work, inputs, kv_bound, _span(state, inputs, False))
     first = sample_at(model, h, inputs.length - 1, inputs, generator)
     lane_copy(state[0], inputs.work, inputs.slot, extent)
     activate(state[1:5], inputs, first, inputs.start + inputs.length)
 
 
-def _chunk_body(model, inputs: AdmitBuffers, C: int, first: bool, kv_bound: int) -> None:
+def _chunk_body(model, inputs: AdmitBuffers, C: int, first: bool, kv_bound: int, state=None) -> None:
     ids = inputs.ids[:, :C]
-    h = prefill_rows(model, ids, inputs.work) if first else _over_row(model, ids, inputs.work, inputs, kv_bound)
+    span = _span(state, inputs, first)
+    h = (prefill_rows(model, ids, inputs.work, span) if first
+         else _over_row(model, ids, inputs.work, inputs, kv_bound, span))
     inputs.h_last.copy_(h.index_select(1, inputs.length - 1))
 
 
@@ -325,21 +367,22 @@ def run_admission(model, name: str, state_buffers, inputs: AdmitBuffers, key: tu
 
 
 def _state_buffers(state) -> tuple:
-    return (*cache_tensors(state[0]), *state[1:5])
+    return (*cache_tensors(state[0]), *state[1:5], *state[7:])
 
 
 @torch.inference_mode()
 def admit_row(model: llama.Llama, state, inputs: AdmitBuffers, slot: int, prompt: list[int], sampling, eos_id: int,
               generator: torch.Generator | None = None, *, prompt_multiple: int = 64, pad_id: int = 0,
-              eager: bool = False):
+              eager: bool = False, snap_at: int = -1):
     """Prefill one prompt row, padded to its bucket Pb, and make it live in ``slot`` ->
     (first token, state). The prefill attends over its fresh K/V only, the first token is
     sampled at position P - 1, and the row's [0, Pb) go into the lane; the decode steps
     overwrite each later position before they expose it. On the card one replay of the
-    graph of Pb (``eager``: launched op by op)."""
+    graph of Pb (``eager``: launched op by op). A hybrid's states go into the slot's lanes,
+    and where ``snap_at`` > 0 those after that many tokens into ``inputs.snap``."""
     P, S = len(prompt), cache_tensors(state[0])[0].shape[3]
     Pb = prompt_bucket(P, prompt_multiple, S - 1)
-    inputs.feed(prompt, Pb, pad_id, slot=slot, length=P, eos_id=eos_id, sampling=sampling)
+    inputs.feed(prompt, Pb, pad_id, slot=slot, length=P, eos_id=eos_id, sampling=sampling, snap_at=snap_at)
     run_admission(model, "admit_row", _state_buffers(state), inputs, (Pb,),
                    lambda m, gen: _admit_body(m, gen, state, inputs, Pb), generator, eager)
     return inputs.first[0].clone(), state
@@ -348,17 +391,20 @@ def admit_row(model: llama.Llama, state, inputs: AdmitBuffers, slot: int, prompt
 @torch.inference_mode()
 def admit_row_prefix(model: llama.Llama, state, inputs: AdmitBuffers, slot: int, prefix_kv, prefix_len: int,
                      suffix: list[int], sampling, eos_id: int, generator: torch.Generator | None = None, *,
-                     prompt_multiple: int = 64, pad_id: int = 0, eager: bool = False):
+                     prompt_multiple: int = 64, pad_id: int = 0, eager: bool = False, snap_at: int = -1):
     """Admit a row whose first ``prefix_len`` tokens have harvested K/V: the prefix is copied
     into the working row, and ONLY the suffix, padded to its bucket Sb, runs over it ->
     (first token, state). By causality the prefix's K/V are what a full prefill of the prompt
     would write; the row's first ``row_extent(P0 + Sb)`` positions go into the lane (past P0 +
     Sb they are hidden behind kv_len until a decode step overwrites them). On the card one
-    replay of the graph of (Sb, extent), P0 data (the JAX package compiles one per (P0, Sb))."""
+    replay of the graph of (Sb, extent), P0 data (the JAX package compiles one per (P0, Sb)).
+    A hybrid's suffix runs from the states in the slot's lanes (the caller restored the
+    prefix's there); ``snap_at``: as ``admit_row``'s, an offset into the suffix."""
     P0, S = prefix_len, cache_tensors(state[0])[0].shape[3]
     Sb = suffix_bucket(len(suffix), prompt_multiple, S - P0)
     copy_positions(inputs.work, prefix_kv, P0)
-    inputs.feed(suffix, Sb, pad_id, slot=slot, length=len(suffix), start=P0, eos_id=eos_id, sampling=sampling)
+    inputs.feed(suffix, Sb, pad_id, slot=slot, length=len(suffix), start=P0, eos_id=eos_id, sampling=sampling,
+                snap_at=snap_at)
     extent = row_extent(P0 + Sb, S)
     bound = admit_bound(model.config, extent, cache_dtype_of(state[0]), Sb)
     run_admission(model, "admit_row_prefix", _state_buffers(state), inputs, (Sb, extent, bound),
@@ -368,19 +414,21 @@ def admit_row_prefix(model: llama.Llama, state, inputs: AdmitBuffers, slot: int,
 
 @torch.inference_mode()
 def prefill_chunk(model: llama.Llama, inputs: AdmitBuffers, chunk: list[int], start: int, width: int, *,
-                  pad_id: int = 0, eager: bool = False) -> None:
+                  pad_id: int = 0, eager: bool = False, state=None, slot: int = 0, snap_at: int = -1) -> None:
     """One chunk of an incremental prefill into the working row of ``inputs``: ``chunk``
     right-padded to ``width`` at positions [start, start + width). A chunk at position 0 is a
     prefill (flash self-attention over its fresh K/V); a later one attends over the row
     (kv_len start + len(chunk)) under a static bound. The hidden state at the chunk's last
     real position goes to ``inputs.h_last``. On the card one replay of the graph of (width,
-    first, bound)."""
+    first, bound). A hybrid's chunk reads and writes lane ``slot`` of ``state``'s SSM and conv
+    states (``snap_at``: as ``admit_row``'s, an offset into the chunk)."""
     first = start == 0
     S = cache_tensors(inputs.work)[0].shape[3]
     bound = S if first else admit_bound(model.config, start + width, cache_dtype_of(inputs.work), width)
-    inputs.feed(chunk, width, pad_id, length=len(chunk), start=start)
-    run_admission(model, "prefill_chunk", (), inputs, (width, first, bound),
-                   lambda m, gen: _chunk_body(m, inputs, width, first, bound), None, eager, draws=False)
+    inputs.feed(chunk, width, pad_id, length=len(chunk), start=start, slot=slot, snap_at=snap_at)
+    lanes = () if state is None else tuple(state[7:])
+    run_admission(model, "prefill_chunk", lanes, inputs, (width, first, bound),
+                   lambda m, gen: _chunk_body(m, inputs, width, first, bound, state), None, eager, draws=False)
 
 
 @torch.inference_mode()
@@ -408,12 +456,13 @@ def slice_prefix(kv_cache, slot: int, p0: int):
 
 def _rows_step(model: llama.Llama, state, generator, params, pad_id: int) -> None:
     """One decode step over every slot, in place (the body a graph captures)."""
-    kv_cache, tok, pos, done, emitted, ring, at = state
+    kv_cache, tok, pos, done, emitted, ring, at = state[:7]
     temperature, top_k, top_p, min_p, eos_ids, budget = params
     S_max = model.config.max_seq_len
     x = llama.embed(model, tok[:, None])
     mask = MaskInfo(causal=True, q_positions=pos[:, None], kv_len=pos + 1)
-    h, _ = llama.trunk(model, x, mask, kv_cache, input_pos=pos[:, None])
+    lanes = nemotron_h.Lanes(*state[7:], done) if state[7:] else None
+    h, _ = _trunk(model, x, mask, kv_cache, lanes, input_pos=pos[:, None])
     nxt = sample_logits_rows(llama.head(model, h)[:, 0], temperature, top_k, top_p, min_p, generator)
     nxt = torch.where(done, pad_id, nxt)
     new_emitted = emitted + (~done).long()
@@ -479,6 +528,8 @@ class RowHandle:
         self.t_slot = self.t_first = self.t_done = None
         self.id, self.scheduler = next(_row_ids), scheduler
         self.ids = ids
+        self.reused = 0  # prompt tokens taken from the prefix cache
+        self.slot: int | None = None  # the slot the row was taken into
         self.max_tokens = max_tokens
         self.sampling = sampling  # (temperature, top_k, top_p, min_p)
         self.eos_id = eos_id
@@ -508,10 +559,12 @@ class RowHandle:
 class _Admitting:
     """A slot mid-way through a chunked prefill: the next prompt position to run and, while
     another slot's prefill holds the working row, the cache that holds its positions [0,
-    next) (a harvested prefix before its first chunk, then its parked row, ``parked``)."""
+    next) (a harvested prefix before its first chunk, then its parked row, ``parked``); a
+    hybrid's SSM and conv states stay in the slot's lanes."""
 
     def __init__(self, row: RowHandle, start: int, src=None):
         self.row, self.next, self.src, self.parked = row, start, src, None
+        self.snap = None  # a hybrid's states at the harvest point, once a chunk has passed it
 
 
 class ContinuousScheduler:
@@ -530,12 +583,15 @@ class ContinuousScheduler:
     emitted counts and done mask are copied out (to pinned host memory on the card) before
     the next dispatch overwrites them, and its collection waits for that copy alone. Counters:
     ``dispatches`` (decode chunks), ``admissions``, ``prefill_dispatches`` (prefill
-    chunks), ``prefix_hits`` and ``prefix_tokens_reused``.
+    chunks), ``prefix_hits`` and ``prefix_tokens_reused``; a hybrid's also ``state_snapshots``
+    (snapshots kept), ``prefix_state_hits`` (snapshots restored) and ``state_bytes_copied``
+    (the bytes of both).
 
     Spans (``utils/spans.py``), from the worker thread: ``serve.admit`` (a row taken into a
     slot), ``serve.prefill_chunk``, ``serve.install`` and ``serve.dispatch`` (a decode chunk
     with its row parameters and staging copies), under the row's id where they have one;
-    each row's ``request.*`` spans when it ends. On the card the worker's
+    each row's ``request.*`` spans when it ends. A hybrid's snapshot and restore copies are
+    device intervals ``serve.snapshot`` and ``serve.restore``. On the card the worker's
     ``spans.DeviceClock`` (``clock``) times each replay and each block of copies as a
     ``device.*`` span whose ``stage`` is the worker span it ran under, read at ``_collect``,
     after the wait it makes anyway, and anchored whenever the worker waits with nothing in
@@ -562,6 +618,7 @@ class ContinuousScheduler:
         self._lru = 0
         self.prefix_hits = 0
         self.prefix_tokens_reused = 0
+        self.state_snapshots = self.prefix_state_hits = self.state_bytes_copied = 0
         self.id = next(_scheduler_ids)
         self.clock: spans.DeviceClock | None = None
         self.state = self._init_state()
@@ -587,11 +644,13 @@ class ContinuousScheduler:
         self.admissions = 0
         self.dead: Exception | None = None
         self._stop = False
+        self._hold = self._held = False  # paused(): asked for, and the worker holding
         self.worker = threading.Thread(target=self._run, daemon=True)
         self.worker.start()
 
     def _init_state(self):
-        return init_state(self.config, self.n_slots, self.cache_dtype, self.device, llama.local_kv_heads(self.model))
+        return init_state(self.config, self.n_slots, self.cache_dtype, self.device, llama.local_kv_heads(self.model),
+                          self.model.tok_embeddings.dtype)
 
     def _init_inputs(self) -> AdmitBuffers:
         return AdmitBuffers(self.model, self.state[0])
@@ -613,6 +672,24 @@ class ContinuousScheduler:
             self.cond.notify()
         return row
 
+    @contextlib.contextmanager
+    def paused(self):
+        """Holds the worker at the top of its loop while the block runs: it has returned to
+        the top before the block starts, so no launch of its own starts or is in progress
+        meanwhile (what it queued before may still run on the card), and no row is taken into
+        a slot. A profiler started or stopped inside sees no launch in flight."""
+        with self.cond:
+            self._hold = True
+            self.cond.notify_all()
+            while not self._held and self.dead is None and self.worker.is_alive():
+                self.cond.wait(timeout=0.1)
+        try:
+            yield
+        finally:
+            with self.cond:
+                self._hold = False
+                self.cond.notify_all()
+
     def close(self):
         with self.cond:
             self._stop = True
@@ -631,9 +708,10 @@ class ContinuousScheduler:
                 best = key
         return best
 
-    def _take_prefix(self, ids: list[int]):
-        """(prefix cache, P0) of the longest match, counted as a hit, or None."""
-        hit = self._match_prefix(ids) if self.prefix_cap else None
+    def _take_prefix(self, row: RowHandle):
+        """(prefix cache, P0) of the longest match for the row's prompt, counted as a hit (and
+        as the row's ``reused``), or None."""
+        hit = self._match_prefix(row.ids) if self.prefix_cap else None
         if hit is None:
             return None
         entry = self.prefixes[hit]
@@ -641,11 +719,14 @@ class ContinuousScheduler:
         entry[2] = self._lru
         self.prefix_hits += 1
         self.prefix_tokens_reused += entry[1]
+        row.reused = entry[1]
         return entry[0], entry[1]
 
-    def _harvest_prefix(self, slot: int, ids: list[int]):
+    def _harvest_prefix(self, slot: int, ids: list[int], snap=None):
         """Register the prompt's longest aligned proper prefix from the freshly admitted
-        lane (admission wrote positions [0, P))."""
+        lane (admission wrote positions [0, P)) with ``snap``, the lanes' states at P0: an
+        entry is (K/V, snap), snap () for a decoder without lanes; a hybrid's prefix whose
+        states were not taken (None) is not registered."""
         p0 = (len(ids) - 1) // self.prompt_multiple * self.prompt_multiple
         if p0 < self.prompt_multiple:
             return
@@ -654,30 +735,75 @@ class ContinuousScheduler:
         if key in self.prefixes:
             self.prefixes[key][2] = self._lru
             return
+        if snap is None and self.inputs.snap:
+            return
         with spans.on_device("device.copy"):
             cache = slice_prefix(self.state[0], slot, p0)
-        self.prefixes[key] = [cache, p0, self._lru]
+        self.prefixes[key] = [(cache, snap or ()), p0, self._lru]
         while len(self.prefixes) > self.prefix_cap:
-            oldest = min(self.prefixes, key=lambda k: self.prefixes[k][2])
-            del self.prefixes[oldest]
+            self._evict()
+
+    def _evict(self):
+        """Drop the least recently used prefix."""
+        del self.prefixes[min(self.prefixes, key=lambda k: self.prefixes[k][2])]
+
+    def _snap_at(self, ids: list[int], start: int, end: int) -> int:
+        """A hybrid's snapshot offset in the span [start, end) of ``ids``: where the span ends
+        at or past the harvest point P0 (after start) and P0's prefix is not kept yet; else -1."""
+        pm = self.prompt_multiple
+        p0 = (len(ids) - 1) // pm * pm
+        if not (self.inputs.snap and self.prefix_cap and p0 >= pm and start < p0 <= end):
+            return -1
+        return -1 if tuple(ids[:p0]) in self.prefixes else p0 - start
+
+    def _stash(self):
+        """A copy of the snapshot the admission program just wrote (``inputs.snap``), or None.
+        The prefix cache's entries and the snapshots still waiting for their rows' installs keep
+        at most ``prefix_cap`` snapshots together: the least recently used entries make room,
+        and where the waiting ones fill it no copy is made (that prefix is not registered)."""
+        waiting = sum(st.snap is not None for st in self.admitting.values())
+        while self.prefixes and len(self.prefixes) + waiting >= self.prefix_cap:
+            self._evict()
+        if waiting >= self.prefix_cap:
+            return None
+        with spans.on_device("serve.snapshot"):
+            snap = tuple(t.clone() for t in self.inputs.snap)
+        self.state_snapshots += 1
+        self.state_bytes_copied += sum(t.nbytes for t in snap)
+        return snap
+
+    def _restore(self, slot: int, entry):
+        """A prefix hit's K/V; its states at P0 (a hybrid's) go into the slot's lanes first."""
+        kv, snap = entry
+        if snap:
+            with spans.on_device("serve.restore"):
+                for lanes, t in zip(self.state[7:], snap):
+                    lanes[:, slot].copy_(t)
+            self.prefix_state_hits += 1
+            self.state_bytes_copied += sum(t.nbytes for t in snap)
+        return kv
 
     def _admit(self, slot: int, row: RowHandle):
-        hit = self._take_prefix(row.ids)
+        hit = self._take_prefix(row)
         kw = dict(prompt_multiple=self.prompt_multiple, pad_id=self.pad_id, eager=self.eager)
         if hit is not None:
             cache, p0 = hit
-            first, self.state = admit_row_prefix(self.model, self.state, self.inputs, slot, cache, p0, row.ids[p0:],
-                                                 row.sampling, row.eos_id, self.generator, **kw)
+            at = self._snap_at(row.ids, p0, len(row.ids))
+            first, self.state = admit_row_prefix(self.model, self.state, self.inputs, slot, self._restore(slot, cache),
+                                                 p0, row.ids[p0:], row.sampling, row.eos_id, self.generator,
+                                                 snap_at=at, **kw)
         else:
+            at = self._snap_at(row.ids, 0, len(row.ids))
             first, self.state = admit_row(self.model, self.state, self.inputs, slot, row.ids, row.sampling,
-                                          row.eos_id, self.generator, **kw)
-        self._activate(slot, row, int(first))
+                                          row.eos_id, self.generator, snap_at=at, **kw)
+        self._activate(slot, row, int(first), self._stash() if at > 0 else None)
 
     def _start_prefill(self, slot: int, row: RowHandle):
         """Chunked-prefill admission: queued for chunks from position 0, or from P0 over a
-        prefix hit's K/V."""
-        hit = self._take_prefix(row.ids)
-        self.admitting[slot] = _Admitting(row, 0) if hit is None else _Admitting(row, hit[1], hit[0])
+        prefix hit's K/V (a hybrid's states restored into the slot's lanes)."""
+        hit = self._take_prefix(row)
+        self.admitting[slot] = (_Admitting(row, 0) if hit is None
+                                else _Admitting(row, hit[1], self._restore(slot, hit[0])))
 
     def _hold_working_row(self, slot: int):
         """Make the working row hold ``slot``'s positions [0, next): the slot that held it
@@ -703,10 +829,13 @@ class ContinuousScheduler:
         st = self.admitting[slot]
         ids = st.row.ids
         start, end = st.next, min(st.next + self.prefill_chunk, len(ids))
+        at = self._snap_at(ids, start, end)
         with spans.span("serve.prefill_chunk", st.row.id):
             self._hold_working_row(slot)
             prefill_chunk(self.model, self.inputs, ids[start:end], start, self.prefill_chunk, pad_id=self.pad_id,
-                          eager=self.eager)
+                          eager=self.eager, state=self.state, slot=slot, snap_at=at)
+            if at > 0:
+                st.snap = self._stash()
         self.prefill_dispatches += 1
         st.next = end
         if end == len(ids):
@@ -717,15 +846,16 @@ class ContinuousScheduler:
                     self.inputs.release(st.parked)
                 self.inputs.owner = None
                 del self.admitting[slot]
-                self._activate(slot, st.row, int(first))
+                self._activate(slot, st.row, int(first), st.snap)
 
     def _budget_cap(self, row: RowHandle) -> int:
         """Decode budget capped by the cache (the prompt took P positions, the first
         token sits at P)."""
         return min(row.max_tokens, self.config.max_seq_len - len(row.ids))
 
-    def _activate(self, slot: int, row: RowHandle, first: int):
-        """Go-live bookkeeping once a row's lane and first token exist."""
+    def _activate(self, slot: int, row: RowHandle, first: int, snap=None):
+        """Go-live bookkeeping once a row's lane and first token exist (``snap``: a hybrid's
+        states at the harvest point)."""
         self.rows[slot] = row
         self.sampling[slot] = row.sampling
         self.eos[slot] = row.eos_id
@@ -736,7 +866,7 @@ class ContinuousScheduler:
         row.t_first = spans.now()
         self._deliver(row, [first])
         if self.prefix_cap:
-            self._harvest_prefix(slot, row.ids)
+            self._harvest_prefix(slot, row.ids, snap)
         if row.tokens[-1] == row.eos_id or len(row.tokens) >= self.budget[slot]:
             # the lane freezes on its own within a step: free the slot now
             self._finish(slot)
@@ -833,8 +963,12 @@ class ContinuousScheduler:
                     if clock is not None and self._idle(inflight):
                         clock.settle()  # nothing in flight: anchor the device's clock again
                     with self.cond:
-                        while self._idle(inflight):
+                        while self._hold or self._idle(inflight):
+                            if self._hold and not self._held:
+                                self._held = True
+                                self.cond.notify_all()
                             self.cond.wait()
+                        self._held = False
                         if self._stop:
                             break
                         pending = self.queue
@@ -844,7 +978,7 @@ class ContinuousScheduler:
                     for slot in range(self.n_slots):
                         if pending and self.rows[slot] is None and slot not in self.admitting:
                             row = pending[0]
-                            row.t_slot = spans.now()
+                            row.t_slot, row.slot = spans.now(), slot
                             with spans.span("serve.admit", row.id):
                                 (self._start_prefill if self.prefill_chunk else self._admit)(slot, row)
                             pending.pop(0)

@@ -47,6 +47,8 @@ _SIGNATURES = {
     "lxt_flash_probe": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "lxt_decode_attention": ([_P] * 9 + [_I] * 6 + [_F] + [_I] * 3 + [_P], _I),
     "lxt_quantize_rows": ([_P] * 5 + [_I] * 7 + [_P], _I),
+    "lxt_ssd_scan": ([_P] * 11 + [_I] * 7 + [_P], _I),
+    "lxt_ssd_step": ([_P] * 13 + [_I] * 6 + [_P], _I),
 }
 
 _lock = threading.Lock()

@@ -368,6 +368,14 @@ TRACE_NAMES = {
                       "__nv_bfloat16 const*, __nv_bfloat16 const*, signed char*, __nv_bfloat16*, int, int)",
                       "void (anonymous namespace)::quantize_rows_kernel<float, float, 1, 32>(float const*, "
                       "float const*, signed char*, float*, int, int)"],
+    "ssd_scan": ["void (anonymous namespace)::ssd_scan_kernel<256>(__nv_bfloat16 const*, __nv_bfloat16 const*, "
+                 "float const*, float const*, float const*, float*, long const*, long const*, long const*, float*, "
+                 "float*, int, int, int, int, int)"],
+    "ssd_step": ["void (anonymous namespace)::ssd_step_kernel<256>(__nv_bfloat16 const*, __nv_bfloat16 const*, "
+                 "__nv_bfloat16 const*, __nv_bfloat16 const*, float const*, float const*, float const*, "
+                 "__nv_bfloat16*, float*, bool const*, int*, unsigned long long*, float*, int, int, int, int)"],
+    "ssd_conv": ["ssd_conv_kernel"],
+    "gated_norm": ["gated_norm_kernel"],
 }
 TRACE_NAMES["flash_attention_ring"] = TRACE_NAMES["flash_attention"]  # the ring form is K2's self form
 
@@ -376,11 +384,11 @@ def test_every_counted_wrapper_is_registered_with_its_kernel_name():
     """Each function of the kernel modules that keeps a launch count is in the one registry,
     and its trace name matches its own kernel's names and no other wrapper's kernel (the
     ring form shares K2's self form, the backward's dq kernel and the merge match nothing)."""
-    from llama_x_tpu_torch.ops import flash_attention, flash_probe, int8, int8_mm
+    from llama_x_tpu_torch.ops import flash_attention, flash_probe, int8, int8_mm, ssd
 
-    wrappers = {fn for mod in (int8_mm, int8, da, flash_attention, flash_probe) for fn in vars(mod).values()
+    wrappers = {fn for mod in (int8_mm, int8, da, flash_attention, flash_probe, ssd) for fn in vars(mod).values()
                 if callable(fn) and hasattr(fn, "launches")}
-    assert wrappers == set(launches.COUNTED.values()) and len(launches.COUNTED) == len(TRACE_NAMES) == 11
+    assert wrappers == set(launches.COUNTED.values()) and len(launches.COUNTED) == len(TRACE_NAMES) == 15
     others = ["void (anonymous namespace)::decode_merge_kernel((anonymous namespace)::Params, int)",
               "void (anonymous namespace)::flash_bwd_dq_kernel<128, false, false>(CUtensorMap_st)",
               "void at::native::vectorized_elementwise_kernel<4, at::native::CUDAFunctor_add<float>>(int, float)",

@@ -1639,3 +1639,166 @@ def test_admission_graphs_match_the_eager_admissions(cuda, cache):
     per_pass = res["launches_per_pass"]
     assert per_pass["int8_mm_dequant_nt"] > 0 and per_pass["flash_attention"] > 0
     assert per_pass["flash_attention_offsets"] > 0
+
+
+def _ssd_inputs(dev, T, H, G, N, seed):
+    """A span's x | B | C rows and dt (a view with the projection's row stride), the heads'
+    A, D and dt_bias, and three lanes of state."""
+    from llama_x_tpu_torch.ops import ssd
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    P = ssd.SSD_HEAD_DIM
+    xbc = (torch.randn(T, H * P + 2 * G * N, device=dev, generator=g) * 0.5).to(torch.bfloat16)
+    proj = (torch.randn(T, 3 * H, device=dev, generator=g)).to(torch.bfloat16)
+    A = -(torch.rand(H, device=dev, generator=g) * 15 + 1)
+    D = torch.rand(H, device=dev, generator=g) + 0.5
+    dt_bias = torch.log(torch.expm1(torch.rand(H, device=dev, generator=g) * 0.099 + 0.001))
+    lanes = torch.randn(3, H, P, N, device=dev, generator=g) * 0.1
+    return xbc, proj[:, H:2 * H], A, D, dt_bias, lanes
+
+
+@pytest.mark.parametrize("N", [128, 256])
+@pytest.mark.parametrize("T,length,snap,fresh", [(1, 1, 1, True), (37, 30, 17, False), (64, 64, 64, False),
+                                                 (200, 173, 100, True), (512, 512, -1, False)])
+def test_ssd_scan_kernel_matches_plain(cuda, N, T, length, snap, fresh):
+    """K8 against its plain version on the card: y, the lane it writes (the pads after
+    ``length`` leave it as at ``length``), the lanes it leaves alone, and the snapshot at an
+    interior offset. f32 sums in another order: within 2e-4 of each output's largest value."""
+    from llama_x_tpu_torch.ops import ssd
+
+    H, G = 8, 2
+    xbc, dt, A, D, dt_bias, lanes = _ssd_inputs(cuda, T, H, G, N, T + N)
+    dims = dict(heads=H, head_dim=ssd.SSD_HEAD_DIM, groups=G, state_dim=N, fresh=fresh)
+    slot = torch.tensor([1], device=cuda)
+    scalars = (torch.tensor([length], device=cuda), torch.tensor([snap], device=cuda))
+    want_lanes, got_lanes = lanes.clone(), lanes.clone()
+    want_snap, got_snap = (torch.zeros(H, ssd.SSD_HEAD_DIM, N, device=cuda) for _ in range(2))
+    want = ssd.ssd_scan_plain(xbc, dt, A, D, dt_bias, want_lanes, slot, *scalars, want_snap, **dims)
+    before, scanned = ssd.ssd_scan.launches, ssd.ssd_scan.scanned.launches
+    got = ssd.ssd_scan(xbc, dt, A, D, dt_bias, got_lanes, slot, *scalars, got_snap, **dims)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan.launches == before + 1 and ssd.ssd_scan.scanned.launches == scanned + T
+    for a, b in ((got[:length], want[:length]), (got_lanes, want_lanes), (got_snap, want_snap)):
+        assert _max_err(a, b) <= 2e-4 * max(1e-3, float(b.abs().max()))
+    assert torch.equal(got_lanes[0], lanes[0]) and torch.equal(got_lanes[2], lanes[2])
+
+
+@pytest.mark.parametrize("N", [128, 256])
+@pytest.mark.parametrize("B", [1, 5, 16])
+def test_ssd_step_kernel_matches_plain(cuda, N, B):
+    """K9 against its plain version on the card, one slot in three done: y and the state
+    within 2e-4 of their largest values (f32 sums in another order), the conv lanes bit for
+    bit (the shifted inputs), and a done slot's lanes untouched with y 0."""
+    from llama_x_tpu_torch.ops import ssd
+
+    H, G, K = 8, 2, ssd.CONV_KERNEL
+    xbc, _, A, D, dt_bias, _ = _ssd_inputs(cuda, B, H, G, N, B * N)
+    g = torch.Generator(device=cuda).manual_seed(B)
+    C = xbc.shape[1]
+    proj = torch.randn(B, C + 2 * H, device=cuda, generator=g).to(torch.bfloat16)
+    proj[:, :C] = xbc
+    conv_w = (torch.rand(C, K, device=cuda, generator=g) - 0.5).to(torch.bfloat16)
+    conv_b = (torch.rand(C, device=cuda, generator=g) - 0.5).to(torch.bfloat16)
+    conv = torch.randn(B, K - 1, C, device=cuda, generator=g).to(torch.bfloat16)
+    state = torch.randn(B, H, ssd.SSD_HEAD_DIM, N, device=cuda, generator=g) * 0.1
+    done = torch.arange(B, device=cuda) % 3 == 1
+    args = (proj[:, :C], proj[:, C:C + H], conv_w, conv_b, A, D, dt_bias)
+    dims = dict(heads=H, head_dim=ssd.SSD_HEAD_DIM, groups=G, state_dim=N)
+    wc, ws = conv.clone(), state.clone()
+    want = ssd.ssd_step_plain(*args, wc, ws, done, **dims)
+    gc, gs = conv.clone(), state.clone()
+    before = ssd.ssd_step.launches
+    for _ in range(2):  # the group counters are left at zero: a second launch steps again
+        got = ssd.ssd_step(*args, gc, gs, done, **dims)
+        if _ == 0:
+            torch.cuda.synchronize()
+            assert _max_err(got, want) <= 2e-4 * float(want.abs().max())
+            assert _max_err(gs, ws) <= 2e-4 * float(ws.abs().max())
+            assert torch.equal(gc, wc)
+            want = ssd.ssd_step_plain(*args, wc, ws, done, **dims)
+    torch.cuda.synchronize()
+    assert ssd.ssd_step.launches == before + 2
+    assert _max_err(gs, ws) <= 4e-4 * float(ws.abs().max()) and torch.equal(gc, wc)
+    assert torch.equal(gs[done], state[done]) and torch.equal(gc[done], conv[done]) and not got[done].any()
+
+
+def _hybrid_model(dev):
+    """A small Nemotron-H (every block kind, Mamba heads of 64 over a state of 128) with int8
+    projections and dynamic int8 activations."""
+    from llama_x_tpu_torch.adapters.quantize import quantize_linear
+    from llama_x_tpu_torch.models import nemotron_h as nh
+
+    cfg = nh.HybridConfig(embed_dim=256, pattern="M-*M-M*-", head_dim=64, num_heads=4, num_kv_heads=2,
+                          intermediate_dim=512, mamba_heads=8, mamba_head_dim=64, ssm_state=128, n_groups=2,
+                          max_seq_len=512, vocab_size=512)
+    model = nh.init(cfg, seed=1, device=dev)
+    quantize_linear(model.layers, "int8")
+    model.config = cfg.replace(dynamic_int8_act=True)
+    return model
+
+
+def test_hybrid_scheduler_with_graphs_matches_eager(cuda):
+    """The hybrid through ``ContinuousScheduler`` on the card (int8 cache, chunked prefill of
+    64, a prefix cache): rows that join and leave and a follow-up turn that restores a snapshot;
+    every row's greedy tokens through the captured graphs equal the eager loop's, and the
+    state counters agree."""
+    from llama_x_tpu_torch.serve.continuous import ContinuousScheduler
+
+    model = _hybrid_model(cuda)
+    g = torch.Generator().manual_seed(4)
+    prompts = [torch.randint(0, 512, (n,), generator=g).tolist() for n in (20, 150, 97, 7, 200)]
+    prompts.append(prompts[1] + torch.randint(0, 512, (60,), generator=g).tolist())
+    rows, counts = {}, {}
+    for eager in (True, False):
+        sched = ContinuousScheduler(model, n_slots=3, chunk_size=8, cache_dtype=torch.int8, prefill_chunk=64,
+                                    prefix_cache=4, eager=eager)
+        try:
+            handles = [sched.submit(p, max_tokens=10 + 3 * i) for i, p in enumerate(prompts[:5])]
+            for h in handles:
+                assert h.event.wait(600) and h.error is None, h.error
+            last = sched.submit(prompts[5], max_tokens=9)
+            assert last.event.wait(600) and last.error is None, last.error
+            handles.append(last)
+        finally:
+            sched.close()
+        rows[eager] = [h.tokens for h in handles]
+        counts[eager] = (sched.prefix_hits, sched.prefix_state_hits, sched.state_snapshots, sched.state_bytes_copied)
+    assert rows[False] == rows[True]
+    assert counts[False] == counts[True] and counts[True][1] >= 1
+
+
+@pytest.mark.parametrize("W", [1, 37, 512])
+def test_ssd_conv_pass_matches_plain(cuda, W):
+    """The span's conv pass (Triton) against its plain version: SiLU(conv) rounded to bf16,
+    within one bf16 step of the larger (f32 sums that may fuse into fmas)."""
+    from llama_x_tpu_torch.ops import ssd
+
+    g = torch.Generator(device=cuda).manual_seed(W)
+    C, K = 20480, ssd.CONV_KERNEL
+    win = torch.randn(K - 1 + W, C, device=cuda, generator=g).to(torch.bfloat16)
+    w = (torch.rand(C, K, device=cuda, generator=g) - 0.5).to(torch.bfloat16)
+    b = (torch.rand(C, device=cuda, generator=g) - 0.5).to(torch.bfloat16)
+    before = ssd.ssd_conv.launches
+    got, want = ssd.ssd_conv(win, w, b), ssd.ssd_conv_plain(win, w, b)
+    torch.cuda.synchronize()
+    assert ssd.ssd_conv.launches == before + 1
+    assert bool(((got.float() - want.float()).abs() <= 2 ** -7 * want.float().abs() + 1e-6).all())
+
+
+@pytest.mark.parametrize("rows,groups,C", [(1, 8, 16384), (16, 8, 16384), (512, 8, 16384), (3, 2, 96)])
+def test_gated_norm_pass_matches_plain(cuda, rows, groups, C):
+    """The gated RMSNorm pass (Triton) against its plain version, z a strided view of a wider
+    projection: within one bf16 step (f32 sums in another order, the bf16 rounding of the
+    output)."""
+    from llama_x_tpu_torch.ops import ssd
+
+    g = torch.Generator(device=cuda).manual_seed(rows + C)
+    y = torch.randn(rows, C, device=cuda, generator=g)
+    proj = torch.randn(rows, C + 40, device=cuda, generator=g).to(torch.bfloat16)
+    w = (torch.rand(C, device=cuda, generator=g) + 0.5).to(torch.bfloat16)
+    before = ssd.gated_norm.launches
+    got = ssd.gated_norm(y, proj[:, :C], w, groups, 1e-5)
+    want = ssd.gated_norm_plain(y, proj[:, :C], w, groups, 1e-5)
+    torch.cuda.synchronize()
+    assert ssd.gated_norm.launches == before + 1
+    assert bool(((got.float() - want.float()).abs() <= 2 ** -7 * want.float().abs() + 1e-5).all())
